@@ -1,0 +1,532 @@
+// K3 extract_decode: packet extraction + full decode, one warp per row.
+//
+// Replaces the extraction and decode of the Pallas kernel
+// ops/fused_rx.py::_fused_rx_kernel_premix: the phase select + barrel
+// shift of singlecarrier_tpu/ops/decode_pallas.py::_hunt_decode_core
+// (decode_pallas.py:884-911; a plain gather here) and _decode_core
+// (decode_pallas.py:398-597): energy gate, CFO DFT (128 x 512, f32),
+// derotation (cosf/sinf), LS train (sliding Gram, ridge, off-tap prior,
+// unrolled 5x5 complex Cholesky), one guarded refit over the first R data
+// symbols, decode, three guarded phase/frequency refines (Taylor
+// cos/sin, small-angle ratio) and the descramble XOR.  Output: the packed
+// [N, 256] f32 row of fused_rx.py:551-561.
+//
+// A warp owns a row: the 384-symbol packet planes sit in shared memory,
+// per-symbol decode arrays in registers (symbol t = lane + 32 j), and
+// every reduction is a butterfly whose result all lanes hold bit-equal,
+// so the small solves run redundantly on every lane with no broadcast.
+//
+// Bound on the card: the CFO DFT, 128 x 512 x 4 multiply-adds per row
+// with the 512 KB f32 table streamed from L2 (it does not fit L1); the
+// rest is ~50 warp reductions per row.  Sharing table tiles across the
+// warps of a block through shared memory is the next step.
+#include "common.cuh"
+
+using namespace sc;
+
+namespace {
+
+constexpr int DEC_WARPS = 4;               // rows per block
+constexpr int MAXJ = (D + 31) / 32;        // symbols per lane
+constexpr int BINS = NFFT / 32;            // DFT bins per lane
+constexpr unsigned FULL = 0xffffffffu;
+
+struct Params {
+  int refit_sym, refit_iters, refine_iters;
+  float peak_gate, ls_reg, ls_offtap, ls_offtap_refit, cfo_scale, derot_k;
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = v + __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+struct Coef {
+  float r[L], i[L];
+};
+
+// decode_pallas._solve_chol: A (lower triangle, Hermitian) x = b.
+__device__ void solve_chol(float (&Ar)[L][L], float (&Ai)[L][L],
+                           const float (&br)[L], const float (&bi)[L],
+                           Coef& x) {
+  float cr[L][L], ci[L][L];
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    float s = Ar[j][j];
+#pragma unroll
+    for (int k = 0; k < j; ++k)
+      s = s - (cr[j][k] * cr[j][k] + ci[j][k] * ci[j][k]);
+    const float d = sqrtf(fmaxf(s, 1e-30f));
+    cr[j][j] = d;
+    ci[j][j] = 0.f;
+    const float inv = 1.f / d;
+#pragma unroll
+    for (int i = j + 1; i < L; ++i) {
+      float tr = Ar[i][j], ti = Ai[i][j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) {
+        tr = tr - (cr[i][k] * cr[j][k] + ci[i][k] * ci[j][k]);
+        ti = ti - (ci[i][k] * cr[j][k] - cr[i][k] * ci[j][k]);
+      }
+      cr[i][j] = tr * inv;
+      ci[i][j] = ti * inv;
+    }
+  }
+  float yr[L], yi[L];
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    float tr = br[i], ti = bi[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) {
+      tr = tr - (cr[i][k] * yr[k] - ci[i][k] * yi[k]);
+      ti = ti - (cr[i][k] * yi[k] + ci[i][k] * yr[k]);
+    }
+    const float inv = 1.f / cr[i][i];
+    yr[i] = tr * inv;
+    yi[i] = ti * inv;
+  }
+#pragma unroll
+  for (int i = L - 1; i >= 0; --i) {
+    float tr = yr[i], ti = yi[i];
+#pragma unroll
+    for (int k = i + 1; k < L; ++k) {
+      tr = tr - (cr[k][i] * x.r[k] + ci[k][i] * x.i[k]);
+      ti = ti - (cr[k][i] * x.i[k] - ci[k][i] * x.r[k]);
+    }
+    const float inv = 1.f / cr[i][i];
+    x.r[i] = tr * inv;
+    x.i[i] = ti * inv;
+  }
+}
+
+// decode_pallas._fit (sliding Gram, reduce b-vector): LS fit of
+// sum_i coeff_i w[t+i] ~ target[t] over t < count, for the window planes
+// (wr, wi) of length count + L - 1 in shared memory.  REAL: the target is
+// pns[t] (the preamble); else (tr_, ti_)[j] for t = lane + 32 j.
+template <bool REAL>
+__device__ void fit(const float* wr, const float* wi, int count,
+                    const float* pns, const float (&tr_)[MAXJ],
+                    const float (&ti_)[MAXJ], float reg, float offtap,
+                    int lane, Coef& out) {
+  float gr[L], gi[L], br[L], bi[L];
+#pragma unroll
+  for (int d = 0; d < L; ++d) gr[d] = gi[d] = br[d] = bi[d] = 0.f;
+#pragma unroll
+  for (int j = 0; j < MAXJ; ++j) {
+    const int u = lane + 32 * j;
+    if (u < count) {
+      const float a_r = wr[u], a_i = wi[u];
+#pragma unroll
+      for (int d = 0; d < L; ++d) {
+        const float b_r = wr[u + d], b_i = wi[u + d];
+        gr[d] = gr[d] + (a_r * b_r + a_i * b_i);
+        gi[d] = gi[d] + (a_r * b_i - a_i * b_r);
+      }
+#pragma unroll
+      for (int i = 0; i < L; ++i) {
+        const float s_r = wr[u + i], s_i = wi[u + i];
+        if (REAL) {
+          const float t = pns[u];
+          br[i] = br[i] + s_r * t;
+          bi[i] = bi[i] + (-(s_i * t));
+        } else {
+          br[i] = br[i] + (s_r * tr_[j] + s_i * ti_[j]);
+          bi[i] = bi[i] + (s_r * ti_[j] - s_i * tr_[j]);
+        }
+      }
+    }
+  }
+  float Ar[L][L], Ai[L][L], b_r[L], b_i[L];
+#pragma unroll
+  for (int d = 0; d < L; ++d) {
+    float s_r = warp_sum(gr[d]);
+    float s_i = warp_sum(gi[d]);
+    b_r[d] = warp_sum(br[d]);
+    b_i[d] = warp_sum(bi[d]);
+    Ar[d][0] = s_r;
+    Ai[d][0] = -s_i;
+#pragma unroll
+    for (int j = 1; j < L - d; ++j) {
+      // g_d[u] = conj(w[u]) w[u+d] at u = j-1 (leaving) and count+j-1
+      const int u0 = j - 1, u1 = count + j - 1;
+      const float g0 = wr[u0] * wr[u0 + d] + wi[u0] * wi[u0 + d];
+      const float g1 = wr[u1] * wr[u1 + d] + wi[u1] * wi[u1 + d];
+      s_r = (s_r - g0) + g1;
+      Ar[d + j][j] = s_r;
+      const float h0 = wr[u0] * wi[u0 + d] - wi[u0] * wr[u0 + d];
+      const float h1 = wr[u1] * wi[u1 + d] - wi[u1] * wr[u1 + d];
+      s_i = (s_i - h0) + h1;
+      Ai[d + j][j] = -s_i;
+    }
+  }
+  float tr_mean = Ar[0][0];
+#pragma unroll
+  for (int i = 1; i < L; ++i) tr_mean = tr_mean + Ar[i][i];
+  const float ridge_c = (reg * tr_mean) / (float)L + 1e-12f;
+  const float ridge_o = (offtap * tr_mean) / (float)L + 1e-12f;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    Ar[i][i] = Ar[i][i] + (i == L / 2 ? ridge_c : ridge_o);
+    Ai[i][i] = 0.f;
+  }
+  solve_chol(Ar, Ai, b_r, b_i, out);
+}
+
+// Count of preamble sign matches of Re(apply(window, coef)) over P.
+__device__ float matches_of(const float* wr, const float* wi, const Coef& c,
+                            const float* pns, int lane) {
+  float m = 0.f;
+#pragma unroll
+  for (int j = 0; j < P / 32; ++j) {
+    const int t = lane + 32 * j;
+    float ar = 0.f;
+#pragma unroll
+    for (int i = 0; i < L; ++i)
+      ar = (ar + c.r[i] * wr[t + i]) - c.i[i] * wi[t + i];
+    m = m + (ar * pns[t] > 0.f ? 1.f : 0.f);
+  }
+  return warp_sum(m);
+}
+
+// apply: raw[t] = sum_i coef_i w[t+i] for t = lane + 32 j < count.
+__device__ __forceinline__ void apply(const float* wr, const float* wi,
+                                      const Coef& c, int count, int lane,
+                                      float (&ar)[MAXJ], float (&ai)[MAXJ]) {
+#pragma unroll
+  for (int j = 0; j < MAXJ; ++j) {
+    const int t = lane + 32 * j;
+    float r = 0.f, m = 0.f;
+    if (t < count) {
+#pragma unroll
+      for (int i = 0; i < L; ++i) {
+        const float w_r = wr[t + i], w_i = wi[t + i];
+        r = (r + c.r[i] * w_r) - c.i[i] * w_i;
+        m = (m + c.r[i] * w_i) + c.i[i] * w_r;
+      }
+    }
+    ar[j] = r;
+    ai[j] = m;
+  }
+}
+
+// decode_pallas._slice_hard: QPSK decisions in the raw domain.
+__device__ __forceinline__ void slice_hard(float ar, float ai, float& dib,
+                                           float& hr, float& hh) {
+  const bool ib = (ar - ai) < 0.f, qb = (ar + ai) < 0.f;
+  const float hi = ib ? -1.f : 1.f, hq = qb ? -1.f : 1.f;
+  hr = 0.5f * (hi + hq);
+  hh = 0.5f * (hq - hi);
+  dib = (ib ? 1.f : 0.f) * 2.f + (qb ? 1.f : 0.f);
+}
+
+// decode_pallas._cossin_small: Taylor cos/sin for |x| <= ~0.8 rad.
+__device__ __forceinline__ void cossin_small(float x, float& c, float& s) {
+  const float x2 = x * x;
+  c = 1.f + x2 * (-0.5f + x2 * (float)(1.0 / 24.0));
+  s = x * (1.f + x2 * ((float)(-1.0 / 6.0) + x2 * (float)(1.0 / 120.0)));
+}
+
+// The refine guard metric (_derr): D * mean decision distance of the
+// amplitude-normalized symbols, and their hard decisions.
+__device__ float derr(const float (&xr)[MAXJ], const float (&xi)[MAXJ],
+                      float (&dib)[MAXJ], float (&hr)[MAXJ],
+                      float (&hh)[MAXJ], int lane) {
+  float mg = 0.f;
+#pragma unroll
+  for (int j = 0; j < MAXJ; ++j) {
+    slice_hard(xr[j], xi[j], dib[j], hr[j], hh[j]);
+    if (lane + 32 * j < D) mg = mg + sqrtf(xr[j] * xr[j] + xi[j] * xi[j]);
+  }
+  mg = warp_sum(mg) / (float)D + 1e-9f;
+  float e = 0.f;
+#pragma unroll
+  for (int j = 0; j < MAXJ; ++j) {
+    if (lane + 32 * j < D) {
+      const float er = xr[j] / mg - hr[j];
+      const float ei = xi[j] / mg - hh[j];
+      e = e + sqrtf(er * er + ei * ei);
+    }
+  }
+  return warp_sum(e);
+}
+
+struct WarpSmem {
+  float pr[PKT];
+  float pi[PKT];
+  float pw[NFFT];
+};
+
+__global__ void __launch_bounds__(DEC_WARPS * 32) extract_decode_kernel(
+    const void* __restrict__ decim, const void* __restrict__ dprev0,
+    int in_bf16, const int* __restrict__ lag_in,
+    const int* __restrict__ ph_in, const float* __restrict__ peak_in,
+    const float* __restrict__ dft_r, const float* __restrict__ dft_i,
+    const float* __restrict__ pn, const float* __restrict__ mask,
+    float* __restrict__ out, long long N, int C, Params prm) {
+  __shared__ float pns[P];
+  __shared__ float msk[D];
+  __shared__ WarpSmem wsm[DEC_WARPS];
+  for (int i = threadIdx.x; i < P; i += blockDim.x) pns[i] = pn[i];
+  for (int i = threadIdx.x; i < D; i += blockDim.x) msk[i] = mask[i];
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long n = (long long)blockIdx.x * DEC_WARPS + warp;
+  if (n >= N) return;
+  float* pr = wsm[warp].pr;
+  float* pi = wsm[warp].pi;
+  float* pwf = wsm[warp].pw;
+  const int lag = lag_in[n], ph = ph_in[n];
+  const float peak = peak_in[n];
+
+  // ---- extract: packet[i] = window[ph][lag + i] ----
+  for (int i = lane; i < PKT; i += 32) {
+    pr[i] = window_at(decim, dprev0, in_bf16, N, C, n, ph, 0, lag + i);
+    pi[i] = window_at(decim, dprev0, in_bf16, N, C, n, ph, 1, lag + i);
+  }
+  __syncwarp();
+
+  // ---- energy gate ----
+  float e = 0.f;
+#pragma unroll
+  for (int j = 0; j < P / 32; ++j) {
+    const float a = pr[OFF + lane + 32 * j], b = pi[OFF + lane + 32 * j];
+    e = e + (a * a + b * b);
+  }
+  const float energy = warp_sum(e);
+  const bool gated = peak > energy * prm.peak_gate;
+
+  // ---- CFO: |(chips * pn) x DFT|^2, first-max argmax, parabolic peak --
+  float s1[BINS], s2[BINS], s3[BINS], s4[BINS];
+#pragma unroll
+  for (int q = 0; q < BINS; ++q) s1[q] = s2[q] = s3[q] = s4[q] = 0.f;
+  for (int k = 0; k < P; ++k) {
+    const float tr = pr[OFF + k] * pns[k], ti = pi[OFF + k] * pns[k];
+    const float* wrk = dft_r + k * NFFT + lane;
+    const float* wik = dft_i + k * NFFT + lane;
+#pragma unroll
+    for (int q = 0; q < BINS; ++q) {
+      const float r = __ldg(wrk + 32 * q), m = __ldg(wik + 32 * q);
+      s1[q] = s1[q] + tr * r;
+      s2[q] = s2[q] + ti * m;
+      s3[q] = s3[q] + tr * m;
+      s4[q] = s4[q] + ti * r;
+    }
+  }
+  float bv = -1.f;
+  int bi = 0;
+#pragma unroll
+  for (int q = 0; q < BINS; ++q) {
+    const float sr = s1[q] - s2[q], si = s3[q] + s4[q];
+    const float p = sr * sr + si * si;
+    pwf[lane + 32 * q] = p;
+    if (p > bv) {
+      bv = p;
+      bi = lane + 32 * q;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float v = __shfl_xor_sync(FULL, bv, o);
+    const int i = __shfl_xor_sync(FULL, bi, o);
+    if (v > bv || (v == bv && i < bi)) {
+      bv = v;
+      bi = i;
+    }
+  }
+  __syncwarp();
+  const float p0 = bv;
+  const float pm = pwf[(bi + NFFT - 1) % NFFT];
+  const float pp = pwf[(bi + 1) % NFFT];
+  const float denom = (pm - 2.f * p0) + pp;
+  const float delta = fabsf(denom) > 1e-20f ? (0.5f * (pm - pp)) / denom
+                                            : 0.f;
+  float kf = (float)bi + delta;
+  if (kf > NFFT / 2.f) kf = kf - (float)NFFT;
+  const float cfo = gated ? kf * prm.cfo_scale : 0.f;
+
+  // ---- de-rotate the packet (in place) ----
+  const float kc = prm.derot_k * cfo;
+  for (int i = lane; i < PKT; i += 32) {
+    const float ang = kc * ((float)i - (float)OFF);
+    const float rc = cosf(ang), rsn = sinf(ang);
+    const float a = pr[i], b = pi[i];
+    pr[i] = a * rc - b * rsn;
+    pi[i] = a * rsn + b * rc;
+  }
+  __syncwarp();
+
+  // ---- LS train on the preamble ----
+  const float zero[MAXJ] = {};
+  Coef cf;
+  fit<true>(pr, pi, P, pns, zero, zero, prm.ls_reg, prm.ls_offtap, lane,
+            cf);
+  const float matches = matches_of(pr, pi, cf, pns, lane);
+
+  // ---- guarded decision-directed refit on the first R data symbols ----
+  const int R = prm.refit_sym;
+  const float* dr = pr + (OFF + P - L / 2);
+  const float* di = pi + (OFF + P - L / 2);
+  float ar[MAXJ], ai[MAXJ], dib[MAXJ], hr[MAXJ], hh[MAXJ];
+  for (int it = 0; it < prm.refit_iters; ++it) {
+    apply(dr, di, cf, R, lane, ar, ai);
+    float mr = 0.f, mh = 0.f;
+#pragma unroll
+    for (int j = 0; j < MAXJ; ++j) {
+      slice_hard(ar[j], ai[j], dib[j], hr[j], hh[j]);
+      if (lane + 32 * j < R) {
+        mr = mr + sqrtf(ar[j] * ar[j] + ai[j] * ai[j]);
+        mh = mh + sqrtf(hr[j] * hr[j] + hh[j] * hh[j]);
+      }
+    }
+    const float mag_raw = warp_sum(mr) / (float)R;
+    const float mag_h = warp_sum(mh) / (float)R + 1e-12f;
+    const float scale = mag_raw / mag_h;
+#pragma unroll
+    for (int j = 0; j < MAXJ; ++j) {
+      hr[j] = hr[j] * scale;
+      hh[j] = hh[j] * scale;
+    }
+    Coef c2;
+    fit<false>(dr, di, R, pns, hr, hh, 1e-3f, prm.ls_offtap_refit, lane,
+               c2);
+    const float m2 = matches_of(pr, pi, c2, pns, lane);
+    const float keep = m2 >= matches ? 1.f : 0.f;
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      cf.r[i] = keep * c2.r[i] + (1.f - keep) * cf.r[i];
+      cf.i[i] = keep * c2.i[i] + (1.f - keep) * cf.i[i];
+    }
+  }
+
+  // ---- decode + clamped guarded phase/frequency refinement ----
+  apply(dr, di, cf, D, lane, ar, ai);
+  const float a_max = (float)(3.14159265358979323846 / 8.0);
+  const float b_max = (float)(3.14159265358979323846 / 8.0 / D);
+  float cur_err = 0.f;
+  if (prm.refine_iters) cur_err = derr(ar, ai, dib, hr, hh, lane);
+  for (int it = 0; it < prm.refine_iters; ++it) {
+    float zr[MAXJ], zi[MAXJ];
+#pragma unroll
+    for (int j = 0; j < MAXJ; ++j) {
+      zr[j] = ar[j] * hr[j] + ai[j] * hh[j];
+      zi[j] = ai[j] * hr[j] - ar[j] * hh[j];
+    }
+    float incr = 0.f, inci = 0.f;
+#pragma unroll
+    for (int j = 0; j < MAXJ; ++j) {
+      // symbol t - 1 of t = lane + 32 j: lane - 1, or lane 31 of j - 1
+      const float up_r = __shfl_up_sync(FULL, zr[j], 1);
+      const float up_i = __shfl_up_sync(FULL, zi[j], 1);
+      const float wr_ = __shfl_sync(FULL, zr[j > 0 ? j - 1 : 0], 31);
+      const float wi_ = __shfl_sync(FULL, zi[j > 0 ? j - 1 : 0], 31);
+      const float qr = lane ? up_r : wr_, qi = lane ? up_i : wi_;
+      const int t = lane + 32 * j;
+      if (t >= 1 && t < D) {
+        incr = incr + (zr[j] * qr + zi[j] * qi);
+        inci = inci + (zi[j] * qr - zr[j] * qi);
+      }
+    }
+    incr = warp_sum(incr);
+    inci = warp_sum(inci);
+    const float b = fminf(fmaxf(inci / (fabsf(incr) + 1e-20f), -b_max),
+                          b_max);
+    float z0r = 0.f, z0i = 0.f;
+#pragma unroll
+    for (int j = 0; j < MAXJ; ++j) {
+      const int t = lane + 32 * j;
+      float dc, dsn;
+      cossin_small(-b * (float)t, dc, dsn);
+      if (t < D) {
+        z0r = z0r + (zr[j] * dc - zi[j] * dsn);
+        z0i = z0i + (zr[j] * dsn + zi[j] * dc);
+      }
+    }
+    z0r = warp_sum(z0r);
+    z0i = warp_sum(z0i);
+    const float a = fminf(fmaxf(z0i / (fabsf(z0r) + 1e-20f), -a_max), a_max);
+    float ar2[MAXJ], ai2[MAXJ], dib2[MAXJ], hr2[MAXJ], hh2[MAXJ];
+#pragma unroll
+    for (int j = 0; j < MAXJ; ++j) {
+      float c2, s2;
+      cossin_small(-a - b * (float)(lane + 32 * j), c2, s2);
+      ar2[j] = ar[j] * c2 - ai[j] * s2;
+      ai2[j] = ar[j] * s2 + ai[j] * c2;
+    }
+    const float new_err = derr(ar2, ai2, dib2, hr2, hh2, lane);
+    const float keep = new_err <= cur_err ? 1.f : 0.f;
+    cur_err = keep * new_err + (1.f - keep) * cur_err;
+#pragma unroll
+    for (int j = 0; j < MAXJ; ++j) {
+      ar[j] = keep * ar2[j] + (1.f - keep) * ar[j];
+      ai[j] = keep * ai2[j] + (1.f - keep) * ai[j];
+      dib[j] = keep * dib2[j] + (1.f - keep) * dib[j];
+      hr[j] = keep * hr2[j] + (1.f - keep) * hr[j];
+      hh[j] = keep * hh2[j] + (1.f - keep) * hh[j];
+    }
+  }
+  float eq_err;
+  if (prm.refine_iters) {
+    eq_err = cur_err * (float)(1.0 / D);
+  } else {
+    float mg = 0.f;
+#pragma unroll
+    for (int j = 0; j < MAXJ; ++j) {
+      slice_hard(ar[j], ai[j], dib[j], hr[j], hh[j]);
+      if (lane + 32 * j < D) mg = mg + sqrtf(ar[j] * ar[j] + ai[j] * ai[j]);
+    }
+    mg = warp_sum(mg) / (float)D + 1e-9f;
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < MAXJ; ++j) {
+      if (lane + 32 * j < D) {
+        const float er = ar[j] / mg - hr[j], ei = ai[j] / mg - hh[j];
+        s = s + sqrtf(er * er + ei * ei);
+      }
+    }
+    eq_err = warp_sum(s) / (float)D;
+  }
+
+  // ---- descramble (XOR of {0..3} dibits) + packed output row ----
+  float* o = out + n * N_OUT;
+#pragma unroll
+  for (int j = 0; j < MAXJ; ++j) {
+    const int t = lane + 32 * j;
+    if (t < D) {
+      const int dd = (int)dib[j], mm = (int)msk[t];
+      o[t] = (float)(((dd / 2 + mm / 2) % 2) * 2 + (dd % 2 + mm % 2) % 2);
+    }
+  }
+  if (lane == 0) {
+    o[D] = matches;
+    o[D + 1] = eq_err;
+    o[D + 2] = cfo;
+    o[D + 3] = gated ? 1.f : 0.f;
+    o[D + 4] = energy;
+    o[D + 5] = (float)lag;
+    o[D + 6] = (float)ph;
+    o[D + 7] = peak;
+  }
+}
+
+}  // namespace
+
+extern "C" int sc_extract_decode(
+    const void* decim, const void* dprev0, const void* lag,
+    const void* phase, const void* peak, const void* dft_r,
+    const void* dft_i, const void* pn, const void* mask, void* out, int N,
+    int C, int in_bf16, int refit_sym, int refit_iters, int refine_iters,
+    float peak_gate, float ls_reg, float ls_offtap, float ls_offtap_refit,
+    float cfo_scale, float derot_k, void* stream) {
+  const Params prm{refit_sym, refit_iters, refine_iters, peak_gate,
+                   ls_reg, ls_offtap, ls_offtap_refit, cfo_scale, derot_k};
+  const unsigned blocks = (unsigned)((N + DEC_WARPS - 1) / DEC_WARPS);
+  extract_decode_kernel<<<blocks, DEC_WARPS * 32, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      decim, dprev0, in_bf16, static_cast<const int*>(lag),
+      static_cast<const int*>(phase), static_cast<const float*>(peak),
+      static_cast<const float*>(dft_r), static_cast<const float*>(dft_i),
+      static_cast<const float*>(pn), static_cast<const float*>(mask),
+      static_cast<float*>(out), (long long)N, C, prm);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,145 @@
+"""Build and bind the port's CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface under ``build/torch_kernels/`` of the
+checkout, at first use, and loaded with ``ctypes``.  Each C entry point
+launches on the stream it is given and returns ``cudaGetLastError()``;
+:func:`check` raises on anything but 0.
+
+``-fmad=false`` keeps nvcc from contracting ``a*b - c*d`` into fused
+multiply-adds: every product and sum is rounded where the plain PyTorch
+version (and the JAX package) rounds it.  That is what makes the
+front-end's bf16 downmix and the recomputed FIR halo bit-identical to
+theirs.
+
+Module state: the library handle and :data:`LAUNCHES`, the per-kernel
+launch counters (each wrapper adds one where it launches its kernel).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+SOURCES = ("frontend.cu", "hunt.cu", "decode.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+LAUNCHES = {"frontend_decim": 0, "hunt": 0, "extract_decode": 0}
+
+_lib = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # pcm, p0r, p0i, tail0_r, tail0_i, adv, tab, taps, out,
+    # B, C, out_bf16, inv_scale, stream
+    "sc_frontend_decim": [_P] * 9 + [_I] * 3 + [_F, _P],
+    # decim, dprev0, pn, lag, phase, peak, N, C, in_bf16, int8_hunt,
+    # hunt_scale, peak_scale, stream
+    "sc_hunt": [_P] * 6 + [_I] * 4 + [_F] * 2 + [_P],
+    # decim, dprev0, lag, phase, peak, dft_r, dft_i, pn, mask, out,
+    # N, C, in_bf16, refit_sym, refit_iters, refine_iters, peak_gate,
+    # ls_reg, ls_offtap, ls_offtap_refit, cfo_scale, derot_k, stream
+    "sc_extract_decode": [_P] * 10 + [_I] * 6 + [_F] * 6 + [_P],
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and Path(root, "bin", "nvcc").exists():
+            return str(Path(root, "bin", "nvcc"))
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(p.name for p in CSRC.iterdir()):
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> tuple[Path, str]:
+    """Compile the kernels if the library for these sources is missing.
+
+    Returns ``(library path, compiler output)``; ``verbose`` adds
+    ``-Xptxas -v`` (registers, shared memory and spills per kernel).
+    """
+    lib_path = BUILD_DIR / f"libsc_kernels_{_digest()}.so"
+    if lib_path.exists() and not verbose:
+        return lib_path, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{res.stdout}\n{res.stderr}")
+    os.replace(tmp, lib_path)
+    return lib_path, res.stdout + res.stderr
+
+
+def load():
+    """The bound kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        path, _ = build()
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a kernel launch reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
+
+
+# The shapes csrc/common.cuh compiles in (the reference numerology).
+KERNEL_GEOMETRY = {"frame_size": 1880, "cycles": 5, "ntaps": 49,
+                   "preamble_length": 128, "corr_segments": 8,
+                   "frame_symbols": 248, "eq_length": 5, "cfo_nfft": 512,
+                   "pkt_window": 384}
+
+
+def require_kernel_geometry(cfg) -> None:
+    """Raise unless ``cfg`` has the shapes the CUDA kernels compile in."""
+    got = {k: getattr(cfg, k) for k in KERNEL_GEOMETRY}
+    if got != KERNEL_GEOMETRY:
+        raise NotImplementedError(
+            f"the CUDA kernels are compiled for {KERNEL_GEOMETRY}, got "
+            f"{got} (ROADMAP: alternate numerologies on the card)")
+
+
+def cuda_args(*tensors, device):
+    """Check that every tensor is contiguous on ``device``; return
+    their data pointers."""
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"tensor on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError("kernel operands must be contiguous")
+    return [t.data_ptr() for t in tensors]

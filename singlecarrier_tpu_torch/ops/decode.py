@@ -1,0 +1,518 @@
+"""Hunt, packet extraction and decode of the one-kernel RX.
+
+Counterparts of ``singlecarrier_tpu/ops/decode_pallas.py``:
+
+  * :func:`hunt` -- the hunt of ``_hunt_decode_core`` (``:705-876``):
+    the segmented PN correlation of the [2 zeros | prev | cur] window
+    of every decimation phase, the "espan" energy normalizer and the
+    argmax over (phase, lag);
+  * :func:`extract_decode` -- the packet extraction at the winning
+    (phase, lag) (``:884-911``, a plain gather here) and
+    ``_decode_core`` (``:398-597``): energy gate, CFO DFT, derotation,
+    LS train, guarded refit, decode, guarded phase refine and
+    descramble, packed into the [N, 256] f32 layout of
+    ``fused_rx.py:551-561``.
+
+Each wrapper launches its CUDA kernel (``csrc/hunt.cu``,
+``csrc/decode.cu``) for tensors on the card; ``hunt_ref`` and
+``extract_decode_ref`` are the plain versions, used for CPU tensors and
+as the kernels' references.  The plain helpers keep the JAX names and
+operation order; complex values travel as real/imag planes of shape
+[N, width] (one row per block-channel).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..config import ModemConfig
+from ..constants import PREAMBLE_VALUES, scramble_dibit_mask
+from ..dsp.fftops import dft_matrix
+from . import _build
+
+_F32 = torch.float32
+
+
+def _geometry(cfg: ModemConfig):
+    """(off, wp, pkt_len): window pad, hunt-window width, packet width
+    (``fused_rx_block``'s constants)."""
+    P, n_sym = cfg.preamble_length, cfg.symbols_per_block
+    off = cfg.eq_length // 2
+    klen = -(-(off + n_sym + P - 1) // 128) * 128
+    need = (n_sym - 1) + cfg.pkt_window
+    wp = -(-max(need, off + 2 * n_sym, klen) // 128) * 128
+    return off, wp, cfg.pkt_window
+
+
+def _windows(cfg: ModemConfig, decim, dprev0):
+    """[cyc, 2, N, wp] f32 hunt windows [off zeros | prev | cur | pad];
+    row n's previous block is row n - C, or ``dprev0`` for n < C."""
+    off, wp, _ = _geometry(cfg)
+    cyc, _, N, n_sym = decim.shape
+    C = dprev0.shape[2]
+    prev = torch.cat([dprev0.to(decim.dtype), decim[:, :, :N - C]], 2)
+    z = decim.new_zeros
+    return torch.cat([z((cyc, 2, N, off)), prev, decim,
+                      z((cyc, 2, N, wp - off - 2 * n_sym))], -1).float()
+
+
+def _sum(x):
+    return torch.sum(x, dim=-1, keepdim=True)
+
+
+# ---------------------------------------------------------------- hunt
+
+def _hunt_core(cfg: ModemConfig, wins):
+    """Hunt of ``_hunt_decode_core``: (lag, phase, peak) per row.
+
+    ``wins``: [cyc, 2, N, wp] f32 windows.  The correlation of segment
+    s at lag l is sum_k x[off + l + 16s + k] * pn[16s + k] over the
+    hunt operand x (int8: clip(rint(16 w), +/-127); bf16: bf16(w)),
+    summed in ascending k -- exact for int8, and the kernel's order for
+    bf16.  power = sum_s (re^2 + im^2); the espan energy is the direct
+    128-term sum of the phase-summed squared planes.
+    """
+    cyc, _, N, _ = wins.shape
+    P, n_seg = cfg.preamble_length, cfg.corr_segments
+    seg = P // n_seg
+    n_lags = cfg.symbols_per_block
+    off, _, _ = _geometry(cfg)
+    int8_hunt = cfg.hunt_dtype == "int8"
+    if int8_hunt:
+        x = torch.clamp(torch.round(wins * cfg.hunt_int8_scale),
+                        -127.0, 127.0)
+    else:
+        x = wins.to(torch.bfloat16).float()
+    pn = torch.from_numpy(PREAMBLE_VALUES.astype(np.float32)).to(wins.device)
+    pw = None
+    for s in range(n_seg):
+        corr = torch.zeros((cyc, 2, N, n_lags), dtype=_F32,
+                           device=wins.device)
+        for k in range(seg):
+            st = off + s * seg + k
+            corr = corr + x[..., st:st + n_lags] * pn[s * seg + k]
+        p2 = corr * corr
+        blk = p2[:, 0] + p2[:, 1]                           # [cyc, N, lags]
+        pw = blk if pw is None else pw + blk
+
+    sq = wins[:, 0] * wins[:, 0] + wins[:, 1] * wins[:, 1]  # [cyc, N, wp]
+    ssum = sq[0]
+    for c in range(1, cyc):
+        ssum = ssum + sq[c]
+    en = torch.zeros((N, n_lags), dtype=_F32, device=wins.device)
+    for k in range(P):
+        en = en + ssum[:, off + k:off + k + n_lags]
+
+    # first max over lags; strict > across ascending phases
+    best_m = torch.full((N,), -1.0, dtype=_F32, device=wins.device)
+    best_pk = torch.full((N,), -1.0, dtype=_F32, device=wins.device)
+    best_lag = torch.zeros((N,), dtype=torch.int32, device=wins.device)
+    best_ph = torch.zeros((N,), dtype=torch.int32, device=wins.device)
+    for c in range(cyc):
+        stat = pw[c] / (en + 1e-12)
+        idx = torch.argmax(stat, dim=-1)
+        mx = torch.gather(stat, 1, idx[:, None])[:, 0]
+        pk = torch.gather(pw[c], 1, idx[:, None])[:, 0]
+        upd = mx > best_m
+        best_m = torch.where(upd, mx, best_m)
+        best_pk = torch.where(upd, pk, best_pk)
+        best_lag = torch.where(upd, idx.to(torch.int32), best_lag)
+        best_ph = torch.where(upd, torch.full_like(best_ph, c), best_ph)
+    peak = 2.0 * best_pk
+    if int8_hunt:
+        peak = peak * np.float32(1.0 / (cfg.hunt_int8_scale ** 2))
+    return best_lag, best_ph, peak
+
+
+def hunt_ref(cfg: ModemConfig, decim, dprev0):
+    """Plain PyTorch version of :func:`hunt`."""
+    return _hunt_core(cfg, _windows(cfg, decim, dprev0))
+
+
+def hunt(cfg: ModemConfig, decim, dprev0):
+    """Preamble hunt over every row's [prev | cur] window.
+
+    Args:
+      decim:  [cycles, 2, N, n_sym] decim planes (``cfg.decim_dtype``),
+              row n = b*C + ch.
+      dprev0: [cycles, 2, C, n_sym] the carried planes of the block
+              before row ch's first block.
+
+    Returns (lag i32 [N], phase i32 [N], peak f32 [N]).
+    """
+    if decim.device.type == "cpu":
+        return hunt_ref(cfg, decim, dprev0)
+    _build.require_kernel_geometry(cfg)
+    _check_planes(cfg, decim, dprev0)
+    N, C = decim.shape[2], dprev0.shape[2]
+    dev = decim.device
+    lag = torch.empty((N,), dtype=torch.int32, device=dev)
+    ph = torch.empty((N,), dtype=torch.int32, device=dev)
+    peak = torch.empty((N,), dtype=_F32, device=dev)
+    pn = torch.from_numpy(PREAMBLE_VALUES.astype(np.float32)).to(dev)
+    int8_hunt = cfg.hunt_dtype == "int8"
+    peak_scale = (float(np.float32(1.0 / cfg.hunt_int8_scale ** 2))
+                  if int8_hunt else 1.0)
+    ptrs = _build.cuda_args(decim, dprev0, pn, lag, ph, peak, device=dev)
+    err = _build.load().sc_hunt(
+        *ptrs, N, C, int(decim.dtype == torch.bfloat16),
+        int(int8_hunt), float(cfg.hunt_int8_scale), peak_scale,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "hunt")
+    _build.LAUNCHES["hunt"] += 1
+    return lag, ph, peak
+
+
+def _check_planes(cfg: ModemConfig, decim, dprev0):
+    cyc, two, N, n_sym = decim.shape
+    C = dprev0.shape[2]
+    if (cyc, two, n_sym) != (cfg.cycles, 2, cfg.symbols_per_block) or \
+            tuple(dprev0.shape) != (cyc, 2, C, n_sym) or N % C:
+        raise ValueError(f"bad plane shapes {tuple(decim.shape)}, "
+                         f"{tuple(dprev0.shape)}")
+    if decim.dtype not in (torch.float32, torch.bfloat16) or \
+            dprev0.dtype != decim.dtype:
+        raise TypeError(f"planes must share f32|bf16, got {decim.dtype}, "
+                        f"{dprev0.dtype}")
+
+
+# ------------------------------------------------------ decode helpers
+
+def _solve_chol(A_r, A_i, b_r, b_i, L):
+    """Unrolled complex Cholesky solve on [N, 1]-shaped scalars
+    (``decode_pallas._solve_chol``)."""
+    c_r = [[None] * L for _ in range(L)]
+    c_i = [[None] * L for _ in range(L)]
+    for j in range(L):
+        s = A_r[(j, j)]
+        for k in range(j):
+            s = s - (c_r[j][k] * c_r[j][k] + c_i[j][k] * c_i[j][k])
+        d = torch.sqrt(torch.clamp(s, min=1e-30))
+        c_r[j][j] = d
+        c_i[j][j] = torch.zeros_like(d)
+        inv = 1.0 / d
+        for i in range(j + 1, L):
+            tr, ti = A_r[(i, j)], A_i[(i, j)]
+            for k in range(j):
+                tr = tr - (c_r[i][k] * c_r[j][k] + c_i[i][k] * c_i[j][k])
+                ti = ti - (c_i[i][k] * c_r[j][k] - c_r[i][k] * c_i[j][k])
+            c_r[i][j] = tr * inv
+            c_i[i][j] = ti * inv
+
+    y_r, y_i = [None] * L, [None] * L
+    for i in range(L):
+        tr, ti = b_r[i], b_i[i]
+        for k in range(i):
+            tr = tr - (c_r[i][k] * y_r[k] - c_i[i][k] * y_i[k])
+            ti = ti - (c_r[i][k] * y_i[k] + c_i[i][k] * y_r[k])
+        inv = 1.0 / c_r[i][i]
+        y_r[i], y_i[i] = tr * inv, ti * inv
+
+    x_r, x_i = [None] * L, [None] * L
+    for i in reversed(range(L)):
+        tr, ti = y_r[i], y_i[i]
+        for k in range(i + 1, L):
+            tr = tr - (c_r[k][i] * x_r[k] + c_i[k][i] * x_i[k])
+            ti = ti - (c_r[k][i] * x_i[k] - c_i[k][i] * x_r[k])
+        inv = 1.0 / c_r[i][i]
+        x_r[i], x_i[i] = tr * inv, ti * inv
+    return x_r, x_i
+
+
+def _gram_sliding(pr, pi, L, count):
+    """Gram via lag products + prefix-corrected partial sums
+    (``decode_pallas._gram_sliding``): entries with lag d = i - j sum
+    g_d[u] = conj(w[u]) w[u+d] over the window [j, j+count)."""
+    W = pr.shape[-1]
+    A_r, A_i = {}, {}
+    for d in range(L):
+        a_r, a_i = pr[:, :W - d], pi[:, :W - d]
+        b_r, b_i = pr[:, d:], pi[:, d:]
+        g_r = a_r * b_r + a_i * b_i
+        g_i = (a_r * b_i - a_i * b_r) if d else None
+        s_r = _sum(g_r[:, :count])
+        s_i = _sum(g_i[:, :count]) if d else None
+        A_r[(d, 0)] = s_r
+        if d:
+            A_i[(d, 0)] = -s_i
+        for j in range(1, L - d):
+            s_r = (s_r - g_r[:, j - 1:j]
+                   + g_r[:, count + j - 1:count + j])
+            A_r[(d + j, j)] = s_r
+            if d:
+                s_i = (s_i - g_i[:, j - 1:j]
+                       + g_i[:, count + j - 1:count + j])
+                A_i[(d + j, j)] = -s_i
+    for i in range(L):
+        A_i[(i, i)] = torch.zeros_like(A_r[(i, i)])
+    return A_r, A_i
+
+
+def _fit(pr, pi, target_r, target_i, L, reg, count, offtap):
+    """LS fit of sum_i coeff_i * w[t+i] ~ target[t] over t < count
+    (``decode_pallas._fit`` with the sliding Gram and the reduce
+    b-vector); ``target_i`` None means a real target."""
+    sl_r = [pr[:, i:i + count] for i in range(L)]
+    sl_i = [pi[:, i:i + count] for i in range(L)]
+    A_r, A_i = _gram_sliding(pr, pi, L, count)
+    tr_mean = A_r[(0, 0)]
+    for i in range(1, L):
+        tr_mean = tr_mean + A_r[(i, i)]
+    ridge_c = reg * tr_mean / L + 1e-12
+    ridge_o = offtap * tr_mean / L + 1e-12
+    for i in range(L):
+        A_r[(i, i)] = A_r[(i, i)] + (ridge_c if i == L // 2 else ridge_o)
+    b_r, b_i = [], []
+    for i in range(L):
+        if target_i is None:
+            b_r.append(_sum(sl_r[i] * target_r))
+            b_i.append(_sum(-sl_i[i] * target_r))
+        else:
+            b_r.append(_sum(sl_r[i] * target_r + sl_i[i] * target_i))
+            b_i.append(_sum(sl_r[i] * target_i - sl_i[i] * target_r))
+    return _solve_chol(A_r, A_i, b_r, b_i, L)
+
+
+def _apply(pr, pi, cr, ci, L, count):
+    """raw[t] = sum_i coeff_i * w[t+i]; returns planes [N, count]."""
+    ar = torch.zeros_like(pr[:, :count])
+    ai = torch.zeros_like(ar)
+    for i in range(L):
+        wr = pr[:, i:i + count]
+        wi = pi[:, i:i + count]
+        ar = ar + cr[i] * wr - ci[i] * wi
+        ai = ai + cr[i] * wi + ci[i] * wr
+    return ar, ai
+
+
+def _apply_real(pr, pi, cr, ci, L, count):
+    """Real plane of ``_apply`` only (identical operation order)."""
+    ar = torch.zeros_like(pr[:, :count])
+    for i in range(L):
+        ar = ar + cr[i] * pr[:, i:i + count] - ci[i] * pi[:, i:i + count]
+    return ar
+
+
+def _cossin_small(x):
+    """cos/sin via Taylor polynomials, valid for |x| <= ~0.8 rad (the
+    refine corrections are clamped to pi/8)."""
+    x2 = x * x
+    c = 1.0 + x2 * (-0.5 + x2 * np.float32(1.0 / 24.0))
+    s = x * (1.0 + x2 * (np.float32(-1.0 / 6.0)
+                         + x2 * np.float32(1.0 / 120.0)))
+    return c, s
+
+
+def _slice_hard(ar, ai):
+    """QPSK decisions in the raw domain: sym = raw*(1+j)."""
+    i_bit = (ar - ai) < 0.0
+    q_bit = (ar + ai) < 0.0
+    hi = torch.where(i_bit, -1.0, 1.0)
+    hq = torch.where(q_bit, -1.0, 1.0)
+    hr = 0.5 * (hi + hq)
+    hh = 0.5 * (hq - hi)
+    dib = i_bit.to(_F32) * 2.0 + q_bit.to(_F32)
+    return dib, hr, hh
+
+
+def _decode_core(cfg: ModemConfig, pr0, pi0, peak, mask):
+    """``decode_pallas._decode_core`` on aligned packet planes.
+
+    pr0/pi0: [N, pkt_window] (first chip at eq_length//2); peak: [N, 1];
+    mask: [D] descramble dibit masks.  Returns the [N, D + 5] head of
+    the packed output (dibits, matches, eq_error, cfo, gated, energy).
+    """
+    P, D, L = cfg.preamble_length, cfg.frame_symbols, cfg.eq_length
+    off = L // 2
+    nfft, rs = cfg.cfo_nfft, cfg.rs
+    dev = pr0.device
+    if pr0.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("the plain decode needs true f32 matmuls: "
+                           "set torch.backends.cuda.matmul.allow_tf32 "
+                           "= False")
+    pn = torch.from_numpy(PREAMBLE_VALUES.astype(np.float32)).to(dev)[None]
+    chips_r = pr0[:, off:off + P]
+    chips_i = pi0[:, off:off + P]
+    energy = _sum(chips_r * chips_r + chips_i * chips_i)
+    gated = peak > energy * cfg.effective_peak_gate
+
+    # ---- CFO search: DFT matmul + parabolic peak ----
+    wm = dft_matrix(P, nfft)
+    wr = torch.from_numpy(wm.real.copy()).to(dev)
+    wi = torch.from_numpy(wm.imag.copy()).to(dev)
+    tr = chips_r * pn
+    ti = chips_i * pn
+    sr = tr @ wr - ti @ wi
+    si = tr @ wi + ti @ wr
+    pw = sr * sr + si * si                                  # [N, nfft]
+    kbin_i = torch.argmax(pw, dim=-1, keepdim=True)
+    p0 = torch.gather(pw, 1, kbin_i)
+    pm = torch.gather(pw, 1, (kbin_i - 1) % nfft)
+    pp = torch.gather(pw, 1, (kbin_i + 1) % nfft)
+    denom = pm - 2.0 * p0 + pp
+    delta = torch.where(torch.abs(denom) > 1e-20,
+                        0.5 * (pm - pp) / denom, 0.0)
+    kf = kbin_i.to(_F32) + delta
+    kf = torch.where(kf > nfft / 2.0, kf - nfft, kf)
+    cfo = kf * (rs / nfft)
+    cfo = torch.where(gated, cfo, 0.0)
+
+    # ---- de-rotate the packet ----
+    n_all = pr0.shape[-1]
+    t_idx = torch.arange(n_all, dtype=_F32, device=dev)[None] - off
+    ang = np.float32(-2.0 * np.pi / rs) * cfo * t_idx
+    rc = torch.cos(ang)
+    rsn = torch.sin(ang)
+    pr = pr0 * rc - pi0 * rsn
+    pi_ = pr0 * rsn + pi0 * rc
+
+    # ---- LS train on the preamble (real target pn) ----
+    win_r = pr[:, :P + L - 1]
+    win_i = pi_[:, :P + L - 1]
+    cr, ci = _fit(win_r, win_i, pn, None, L, cfg.ls_reg, P,
+                  cfg.ls_offtap_reg)
+    vr = _apply_real(win_r, win_i, cr, ci, L, P)
+    matches = _sum((vr * pn > 0.0).to(_F32))
+
+    # ---- guarded decision-directed refit on the first R data ----
+    R = cfg.ls_refit_symbols or D
+    dstart = off + P - (L // 2)
+    dat_r = pr[:, dstart:dstart + D + L - 1]
+    dat_i = pi_[:, dstart:dstart + D + L - 1]
+    rdat_r = dat_r[:, :R + L - 1]
+    rdat_i = dat_i[:, :R + L - 1]
+    for _ in range(cfg.ls_refit_iters):
+        ar, ai = _apply(rdat_r, rdat_i, cr, ci, L, R)
+        _, hr, hh = _slice_hard(ar, ai)
+        mag_raw = _sum(torch.sqrt(ar * ar + ai * ai)) / R
+        mag_h = _sum(torch.sqrt(hr * hr + hh * hh)) / R + 1e-12
+        scale = mag_raw / mag_h
+        cr2, ci2 = _fit(rdat_r, rdat_i, hr * scale, hh * scale, L,
+                        1e-3, R, cfg.ls_offtap_reg_refit)
+        vr2 = _apply_real(win_r, win_i, cr2, ci2, L, P)
+        m2 = _sum((vr2 * pn > 0.0).to(_F32))
+        keep = (m2 >= matches).to(_F32)
+        cr = [keep * a + (1.0 - keep) * b for a, b in zip(cr2, cr)]
+        ci = [keep * a + (1.0 - keep) * b for a, b in zip(ci2, ci)]
+
+    # ---- decode + clamped GUARDED phase/frequency refinement ----
+    def _derr(xr, xi):
+        dib_, hrr, hhh = _slice_hard(xr, xi)
+        mg = _sum(torch.sqrt(xr * xr + xi * xi)) / D + 1e-9
+        er = xr / mg - hrr
+        ei = xi / mg - hhh
+        return _sum(torch.sqrt(er * er + ei * ei)), dib_, hrr, hhh
+
+    ar, ai = _apply(dat_r, dat_i, cr, ci, L, D)
+    a_max = np.float32(np.pi / 8.0)
+    b_max = np.float32(np.pi / 8.0 / D)
+    kd = torch.arange(D, dtype=_F32, device=dev)[None]
+    if cfg.phase_refine_iters:
+        cur_err, dib, hr, hh = _derr(ar, ai)
+    for _ in range(cfg.phase_refine_iters):
+        zr = ar * hr + ai * hh
+        zi = ai * hr - ar * hh
+        incr = _sum(zr[:, 1:] * zr[:, :-1] + zi[:, 1:] * zi[:, :-1])
+        inci = _sum(zi[:, 1:] * zr[:, :-1] - zr[:, 1:] * zi[:, :-1])
+        b = torch.clamp(inci / (torch.abs(incr) + 1e-20), -b_max, b_max)
+        angd = -b * kd
+        dc, dsn = _cossin_small(angd)
+        zr2 = zr * dc - zi * dsn
+        zi2 = zr * dsn + zi * dc
+        z0r = _sum(zr2)
+        z0i = _sum(zi2)
+        a = torch.clamp(z0i / (torch.abs(z0r) + 1e-20), -a_max, a_max)
+        ang2 = -a - b * kd
+        c2, s2 = _cossin_small(ang2)
+        ar2, ai2 = ar * c2 - ai * s2, ar * s2 + ai * c2
+        new_err, dib2, hr2, hh2 = _derr(ar2, ai2)
+        keep = (new_err <= cur_err).to(_F32)
+        cur_err = keep * new_err + (1.0 - keep) * cur_err
+        ar = keep * ar2 + (1.0 - keep) * ar
+        ai = keep * ai2 + (1.0 - keep) * ai
+        dib = keep * dib2 + (1.0 - keep) * dib
+        hr = keep * hr2 + (1.0 - keep) * hr
+        hh = keep * hh2 + (1.0 - keep) * hh
+    if cfg.phase_refine_iters:
+        eq_err = cur_err * np.float32(1.0 / D)
+    else:
+        dib, hr, hh = _slice_hard(ar, ai)
+        mag = _sum(torch.sqrt(ar * ar + ai * ai)) / D + 1e-9
+        err_r = ar / mag - hr
+        err_i = ai / mag - hh
+        eq_err = _sum(torch.sqrt(err_r * err_r + err_i * err_i)) / D
+
+    # ---- descramble (XOR of the {0..3} dibits) ----
+    di = dib.to(torch.int32)
+    mi = mask.to(torch.int32)[None]
+    dscr = (((di // 2 + mi // 2) % 2) * 2 + (di % 2 + mi % 2) % 2).to(_F32)
+    return torch.cat([dscr, matches, eq_err, cfo, gated.to(_F32), energy],
+                     dim=1)
+
+
+@functools.lru_cache(maxsize=4)
+def _mask_np(D: int, descramble: bool) -> np.ndarray:
+    if descramble:
+        return scramble_dibit_mask()[:D].astype(np.float32)
+    return np.zeros(D, np.float32)
+
+
+def extract_decode_ref(cfg: ModemConfig, decim, dprev0, lag, phase, peak,
+                       *, descramble: bool = True):
+    """Plain PyTorch version of :func:`extract_decode`."""
+    _, _, pkt_len = _geometry(cfg)
+    wins = _windows(cfg, decim, dprev0)                     # [cyc, 2, N, wp]
+    N = wins.shape[2]
+    rows = torch.arange(N, device=wins.device)
+    sel = wins[phase.long(), :, rows]                       # [N, 2, wp]
+    idx = lag.long()[:, None] + torch.arange(pkt_len, device=wins.device)
+    pkt = torch.gather(sel, 2, idx[:, None].expand(N, 2, pkt_len))
+    mask = torch.from_numpy(_mask_np(cfg.frame_symbols, descramble))
+    head = _decode_core(cfg, pkt[:, 0], pkt[:, 1], peak[:, None],
+                        mask.to(wins.device))
+    tail = torch.stack([lag.to(_F32), phase.to(_F32), peak], dim=1)
+    return torch.cat([head, tail], dim=1)
+
+
+def extract_decode(cfg: ModemConfig, decim, dprev0, lag, phase, peak, *,
+                   descramble: bool = True):
+    """Extract each row's packet at its hunt (phase, lag) and decode it.
+
+    Args are :func:`hunt`'s planes and results.  Returns the packed
+    [N, frame_symbols + 8] f32 stats: descrambled dibits, matches,
+    eq_error, cfo_hz, gated, energy, lag, phase, peak.
+    """
+    if decim.device.type == "cpu":
+        return extract_decode_ref(cfg, decim, dprev0, lag, phase, peak,
+                                  descramble=descramble)
+    _build.require_kernel_geometry(cfg)
+    _check_planes(cfg, decim, dprev0)
+    N, C = decim.shape[2], dprev0.shape[2]
+    dev = decim.device
+    for t, dt in ((lag, torch.int32), (phase, torch.int32), (peak, _F32)):
+        if t.dtype != dt or tuple(t.shape) != (N,):
+            raise ValueError(f"expected {dt} [{N}], got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    P, D = cfg.preamble_length, cfg.frame_symbols
+    wm = dft_matrix(P, cfg.cfo_nfft)
+    wr = torch.from_numpy(wm.real.copy()).to(dev)
+    wi = torch.from_numpy(wm.imag.copy()).to(dev)
+    pn = torch.from_numpy(PREAMBLE_VALUES.astype(np.float32)).to(dev)
+    mask = torch.from_numpy(_mask_np(D, descramble)).to(dev)
+    out = torch.empty((N, D + 8), dtype=_F32, device=dev)
+    ptrs = _build.cuda_args(decim, dprev0, lag, phase, peak, wr, wi, pn,
+                            mask, out, device=dev)
+    err = _build.load().sc_extract_decode(
+        *ptrs, N, C, int(decim.dtype == torch.bfloat16),
+        cfg.ls_refit_symbols or D, cfg.ls_refit_iters,
+        cfg.phase_refine_iters, float(cfg.effective_peak_gate),
+        float(cfg.ls_reg), float(cfg.ls_offtap_reg),
+        float(cfg.ls_offtap_reg_refit), float(cfg.rs / cfg.cfo_nfft),
+        float(np.float32(-2.0 * np.pi / cfg.rs)),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "extract_decode")
+    _build.LAUNCHES["extract_decode"] += 1
+    return out

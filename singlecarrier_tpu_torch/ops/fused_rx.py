@@ -1,0 +1,119 @@
+"""The one-kernel RX of the JAX package, as three kernels on the card.
+
+Counterpart of ``singlecarrier_tpu/ops/fused_rx.py::fused_rx_block``.
+The Pallas kernel walks the time blocks of a channel block in order and
+carries the previous block's decim planes and the FIR halo in VMEM.
+CUDA blocks run in no order, so the port splits the kernel where that
+carry sits:
+
+  1. ``frontend.frontend_decim`` -- every (block, channel) row at once;
+     the halo of row b*C + ch is recomputed from row (b-1)*C + ch's raw
+     tail (the closed-form phase recursion makes it exact);
+  2. ``decode.hunt`` -- row n's window reads row n - C's planes (or the
+     carried ``dprev0``);
+  3. ``decode.extract_decode``.
+
+The price is one write and two reads of the decim planes in device
+memory, which the Pallas kernel avoided.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import ModemConfig
+from ..dsp.mixer import downmix_tail
+from .decode import extract_decode, hunt
+from .frontend import frontend_decim
+
+
+# knob -> (value the port runs, ROADMAP item that brings the others)
+_SUPPORTED = {
+    "frontend_dtype": ("bf16", "f32 front-end matmul operands"),
+    "cfo_dtype": ("f32", "bf16 CFO DFT"),
+    "hunt_norm": ("espan", "hunt_norm energy/none"),
+    "ls_gram": ("sliding", "ls_gram=direct"),
+    "ls_bvec": ("reduce", "ls_bvec=matmul"),
+    "mixer_fold": (False, "mixer-fold kernels #2 and #4"),
+}
+
+
+def check_supported(cfg: ModemConfig, stage: str = "full") -> None:
+    """Raise NotImplementedError for a config the port cannot run yet."""
+    for knob, (value, item) in _SUPPORTED.items():
+        if getattr(cfg, knob) != value:
+            raise NotImplementedError(
+                f"cfg.{knob}={getattr(cfg, knob)!r} is not ported yet "
+                f"(only {value!r}); ROADMAP: {item}")
+    if cfg.hunt_dtype not in ("bf16", "int8"):
+        raise NotImplementedError(
+            f"cfg.hunt_dtype={cfg.hunt_dtype!r} is not ported yet (bf16 "
+            "and int8 are); ROADMAP: hunt_dtype=f32")
+    if stage != "full":
+        raise NotImplementedError(
+            f"stage={stage!r} is not ported yet; ROADMAP: gated RX "
+            "(stage='gate')")
+
+
+def _f32(x: float, device) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def fused_rx_block(cfg: ModemConfig, pcm_frames, p0r, p0i, tail0_r,
+                   tail0_i, dprev0_t, *, descramble: bool = True,
+                   stage: str = "full"):
+    """Run the RX over [B, C, frame_size] int16 frames.
+
+    Args:
+      p0r/p0i:         [C] mixer phasor planes entering block 0.
+      tail0_r/tail0_i: [C, ntaps-1] DOWNMIXED FIR halo planes.
+      dprev0_t:        [cyc, 2, C, n_sym] carried decim planes
+                       (cfg.decim_dtype).
+
+    Returns ``(dec, dlast, (fin_pr, fin_pi, fin_tr, fin_ti))``: the stat
+    dict with [B*C] leaves, the [cyc, 2, C, n_sym] stream state leaving
+    block B-1, and the closed-form final phase/tail planes.
+    """
+    check_supported(cfg, stage)
+    D = cfg.frame_symbols
+    n = cfg.frame_size
+    halo = cfg.ntaps - 1
+    B, C = pcm_frames.shape[0], pcm_frames.shape[1]
+    dev = pcm_frames.device
+
+    # adv^b for b in [0, B]: float64 phase -> exactly-unit complex64
+    w_ = -2.0 * np.pi * cfg.center / cfg.fs
+    advs = np.exp(1j * w_ * n * np.arange(B + 1)).astype(np.complex64)
+    adv = torch.from_numpy(np.stack([advs.real[:B], advs.imag[:B]])).to(dev)
+
+    decim = frontend_decim(cfg, pcm_frames, p0r, p0i, tail0_r, tail0_i, adv)
+    dprev0 = dprev0_t.to(decim.dtype).contiguous()
+    lag, phase, peak = hunt(cfg, decim, dprev0)
+    out = extract_decode(cfg, decim, dprev0, lag, phase, peak,
+                         descramble=descramble)
+    dec = {
+        "dibits": out[:, :D],
+        "matches": out[:, D].to(torch.int32),
+        "eq_error": out[:, D + 1],
+        "cfo_hz": out[:, D + 2],
+        "gated": out[:, D + 3] > 0.5,
+        "energy": out[:, D + 4],
+        "lag": out[:, D + 5].to(torch.int32),
+        "phase_idx": out[:, D + 6].to(torch.int32),
+        "peak": out[:, D + 7],
+    }
+    dlast = decim[:, :, (B - 1) * C:].clone()
+
+    # ---- closed-form final phase + tail (O(C) glue) ----
+    def _ph(b):
+        ar, ai = _f32(advs.real[b], dev), _f32(advs.imag[b], dev)
+        return p0r * ar - p0i * ai, p0r * ai + p0i * ar
+
+    fr, fi = _ph(B)
+    mag = torch.sqrt(fr * fr + fi * fi)
+    x_t = pcm_frames[-1, :, n - halo:].float() * (1.0 / cfg.tx_amplitude)
+    lr, li = _ph(B - 1)
+    fin_tr, fin_ti = downmix_tail(cfg.center, cfg.fs, n, halo, x_t,
+                                  lr[:, None], li[:, None])
+    return dec, dlast, (fr / mag, fi / mag, fin_tr, fin_ti)
