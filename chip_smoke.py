@@ -8,7 +8,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  into ``build/torch_kernels/`` and prints ptxas' register
                  and spill report;
   3. kernels  -- each kernel against its plain PyTorch version on the
-                 card (C=256 channels x 4 blocks, golden packets + noise);
+                 card (C=256 channels x 4 blocks, golden packets + noise),
+                 at the library default and the bench operating point;
   4. main     -- ``prod_rx_batch(fuse_frontend=True)`` at the bench
                  operating point, 8192 channels, two chained dispatches
                  of 10 blocks carrying the state, on the golden stream
@@ -18,8 +19,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  are counted); 32 channels are checked
                  against the plain path on the CPU; then one noise-only
                  dispatch counts false detects;
-  5. timing   -- chained dispatches of the main path (8192 x 128 blocks),
-                 and each kernel against its plain version.
+  5. paths    -- on the same frames, at the same width: (a) the
+                 two-kernel batch path ``prod_rx_batch(fuse_frontend=
+                 False)`` with the plane state, (b) the per-block
+                 streaming path ``prod_rx_stream_pallas`` with a
+                 ``ProdRxState``, (c) the two unfused batch paths
+                 (``fuse_hunt=False`` and ``fuse_extract=False``) on the
+                 first 4 blocks; each must decode every packet and agree
+                 with the others at the level of decisions, and each is
+                 driven with the launch counters at 0 just before and
+                 read just after;
+  6. timing   -- chained dispatches of the main path and of (a)
+                 (8192 x 128 blocks), (b) over 128 blocks, the batch
+                 paths' kernels at that dispatch size, and each kernel
+                 against its plain version at 8192 x 4 rows, each beside
+                 its bound (``_kernel_bounds``).
 
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line and, last, ``{"ok": true, "device": {...}}``.  Any failing phase
@@ -38,17 +52,96 @@ C_CMP, B_CMP = 256, 4          # kernel-vs-plain comparison geometry
 C_MAIN, B_MAIN = 8192, 10      # main path: two dispatches of B_MAIN blocks
 B_TIME, ITERS = 128, 3         # timed dispatches of C_MAIN x B_TIME
 B_KTIME = 4                    # per-kernel timing: C_MAIN x B_KTIME rows
+B_UNFUSED = 4                  # blocks of the unfused paths (c)
 N_REF_CH = 32                  # channels re-run on the CPU plain path
 SEED = 1234
 
+# name -> (source, file:line of the Pallas body it replaces, note)
 KERNELS = {
-    "frontend_decim": ("singlecarrier_tpu_torch/csrc/frontend.cu",
-                       "singlecarrier_tpu/ops/fused_rx.py:155"),
-    "hunt": ("singlecarrier_tpu_torch/csrc/hunt.cu",
-             "singlecarrier_tpu/ops/decode_pallas.py:705"),
-    "extract_decode": ("singlecarrier_tpu_torch/csrc/decode.cu",
-                       "singlecarrier_tpu/ops/decode_pallas.py:398"),
+    "frontend_decim": (
+        "singlecarrier_tpu_torch/csrc/frontend.cu",
+        "singlecarrier_tpu/ops/fused_rx.py:155",
+        "front-end stage of kernel #1 fused_rx_block"),
+    "frontend_rows": (
+        "singlecarrier_tpu_torch/csrc/frontend.cu",
+        "singlecarrier_tpu/ops/frontend_pallas.py:200",
+        "kernel #3 fused_frontend_decim (_kernel_decim_aligned :200 and "
+        "_kernel_decim :149)"),
+    "hunt": (
+        "singlecarrier_tpu_torch/csrc/hunt.cu",
+        "singlecarrier_tpu/ops/decode_pallas.py:705",
+        "hunt of _hunt_decode_core, inlined in kernel #1 and in kernel #5 "
+        "fused_hunt_decode_decim (_hunt_decode_decim_kernel "
+        "decode_pallas.py:933), whose launcher runs hunt + extract_decode"),
+    "extract_decode": (
+        "singlecarrier_tpu_torch/csrc/decode.cu",
+        "singlecarrier_tpu/ops/decode_pallas.py:398",
+        "extraction + _decode_core, inlined in kernel #1 and in kernel #5 "
+        "fused_hunt_decode_decim (decode_pallas.py:933)"),
+    "decode_extract": (
+        "singlecarrier_tpu_torch/csrc/decode.cu",
+        "singlecarrier_tpu/ops/decode_pallas.py:1140",
+        "kernel #6 fused_decode_extract"),
+    "decode_packets": (
+        "singlecarrier_tpu_torch/csrc/decode.cu",
+        "singlecarrier_tpu/ops/decode_pallas.py:370",
+        "kernel #7 fused_decode"),
 }
+
+# Published peaks of one H100 SXM (dense): bytes/s of device memory and
+# operations/s by operand type (int8 and bf16 on the tensor cores, f32 on
+# the CUDA cores).
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+
+
+def _bound(nbytes: float, ops: dict):
+    """(least ms the card could take, what binds): the larger of bytes
+    over the memory rate and operations over the peak of their type."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = sum(n / PEAK_OPS[k] for k, n in ops.items())
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _kernel_bounds(cfg, N: int, C: int) -> dict:
+    """Bounds of every kernel for N rows of C channels at ``cfg``: each
+    input read once, each output written once; operations counted from
+    the shapes (multiply-add = 2)."""
+    n, cyc, n_sym = cfg.frame_size, cfg.cycles, cfg.symbols_per_block
+    halo, P, D = cfg.ntaps - 1, cfg.preamble_length, cfg.frame_symbols
+    L, pkt = cfg.eq_length, cfg.pkt_window
+    plane_b = 2 if cfg.decim_dtype == "bf16" else 4
+    planes = cyc * 2 * n_sym                       # values per row
+    out_row = 4 * (D + 8)
+    fir = {"bf16": N * 2 * n * cfg.ntaps * 2,      # bf16 operands, f32 sum
+           "f32": N * n * 14}                      # scale + complex downmix
+    hunt_ops = {cfg.hunt_dtype: N * cyc * 2 * n_sym * P * 2,
+                "f32": N * (2 * planes * 2 + n_sym * P       # squares, energy
+                            + cyc * n_sym * (4 * cfg.corr_segments + 2))}
+    decode_ops = {"f32": N * (
+        P * cfg.cfo_nfft * 4 * 2 + cfg.cfo_nfft * 3           # CFO DFT, power
+        + pkt * 8 + 2 * P * 2                                 # derotate, gate
+        + (P + (cfg.ls_refit_symbols or D)) * (L * 8 + L * 8)  # Gram, b-vec
+        + (P * 2 + (cfg.ls_refit_symbols or D) + D) * L * 8   # apply x4
+        + (1 + cfg.phase_refine_iters) * D * 40)}             # refine passes
+    return {
+        "frontend_decim": _bound(
+            N * n * 2 + C * (2 + 2 * halo) * 4 + N * planes * plane_b, fir),
+        "frontend_rows": _bound(
+            N * n * 2 + N * (2 + 2 * halo) * 4 + N * planes * plane_b, fir),
+        "hunt": _bound((N + C) * planes * plane_b + N * 12, hunt_ops),
+        "extract_decode": _bound(
+            (N + C) * planes * plane_b + N * 12 + N * out_row
+            + 2 * P * cfg.cfo_nfft * 4, decode_ops),
+        # the packet a row needs of its windows: 2 planes x pkt_window f32
+        "decode_extract": _bound(
+            N * 2 * pkt * 4 + N * 12 + N * out_row
+            + 2 * P * cfg.cfo_nfft * 4, decode_ops),
+        "decode_packets": _bound(
+            N * 2 * pkt * 4 + N * 4 + N * out_row
+            + 2 * P * cfg.cfo_nfft * 4, decode_ops),
+    }
 
 
 class PhaseError(RuntimeError):
@@ -97,8 +190,11 @@ def _frames(stream, B, n):
     return stream[:, :B * n].reshape(C, B, n).permute(1, 0, 2).contiguous()
 
 
-def _decisions_agree(a, b, what: str) -> None:
-    """The port's decision-level parity criterion (tools/tpu_parity.py)."""
+def _decisions_agree(a, b, what: str, stats: bool = True) -> None:
+    """The port's decision-level parity criterion (tools/tpu_parity.py);
+    ``stats=False`` leaves out cfo and eq_error (paths that read the
+    planes in different dtypes are compared by decisions, as the JAX
+    package's own tests compare them)."""
     import torch
     v = a.valid
     _require(torch.equal(v, b.valid), f"{what}: valid differs "
@@ -107,7 +203,7 @@ def _decisions_agree(a, b, what: str) -> None:
     _require(torch.equal(a.lag[v], b.lag[v]), f"{what}: lag differs")
     _require(torch.equal(a.timing_phase[v], b.timing_phase[v]),
              f"{what}: timing phase differs")
-    if bool(v.any()):
+    if stats and bool(v.any()):
         dc = float((a.cfo_hz[v] - b.cfo_hz[v]).abs().max())
         de = float((a.eq_error[v] - b.eq_error[v]).abs().max())
         _require(dc < 0.5 and de < 2e-3,
@@ -183,11 +279,14 @@ def _kernel_inputs(torch, np, gen, tx, cfg, C, B, dev):
 def _compare_kernels(torch, cfg, inputs, what: str) -> dict:
     """Each kernel against its plain version on the same operands; returns
     {name: {"max_abs_err": x}}."""
+    from singlecarrier_tpu_torch.modem.rx_production import (
+        _extract_packet_planes)
     from singlecarrier_tpu_torch.ops.decode import (
-        extract_decode, extract_decode_ref, hunt, hunt_ref)
+        extract_decode, extract_decode_ref, fused_decode,
+        fused_decode_extract, fused_decode_extract_ref, fused_decode_ref,
+        hunt, hunt_ref)
     from singlecarrier_tpu_torch.ops.frontend import (
-        frontend_decim, frontend_decim_ref)
-    D = cfg.frame_symbols
+        frontend_decim, frontend_decim_ref, frontend_rows, frontend_rows_ref)
     ddt = torch.bfloat16 if cfg.decim_dtype == "bf16" else torch.float32
     pcm, p0r, p0i, t0r, t0i, adv, dprev0 = inputs
     report = {}
@@ -220,24 +319,120 @@ def _compare_kernels(torch, cfg, inputs, what: str) -> dict:
     ok_ = extract_decode(cfg, dk, dprev0, lk, pk_, qk)
     or_ = extract_decode_ref(cfg, dk, dprev0, lk, pk_, qk)
     torch.cuda.synchronize()
-    vk = (ok_[:, D + 3] > 0.5) & (ok_[:, D] > cfg.match_threshold)
-    vr = (or_[:, D + 3] > 0.5) & (or_[:, D] > cfg.match_threshold)
-    _require(torch.equal(vk, vr), f"{what}: extract_decode valid differs "
+    report["extract_decode"] = _compare_decode(torch, cfg, ok_, or_, what,
+                                               "extract_decode")
+
+    # ---- the per-row front-end, both layouts ----
+    C = pcm.shape[1]
+    rows = _row_inputs(torch, cfg, pcm, p0r, p0i, t0r, t0i, adv)
+    worst = 0.0
+    for transposed in (True, False):
+        fk = frontend_rows(cfg, *rows, transposed=transposed)
+        fr = frontend_rows_ref(cfg, *rows, transposed=transposed)
+        torch.cuda.synchronize()
+        odt = ddt if transposed else torch.float32
+        _require(fk.dtype == odt, f"{what}: frontend_rows dtype "
+                 f"{fk.dtype}, want {odt}")
+        err = (fk.float() - fr.float()).abs()
+        _require(bool((err <= _ulp(fr.float(), odt)).all()),
+                 f"{what}: frontend_rows (transposed={transposed}) differs "
+                 f"from its plain version by more than 1 ulp")
+        worst = max(worst, float(err.max()))
+        layout = (f"transposed {cfg.decim_dtype}" if transposed
+                  else "row-major f32")
+        print(f"[kernels] {what}: frontend_rows ({layout}) vs plain: max "
+              f"|err| {float(err.max()):.3e} (tolerance 1 ulp), exact share "
+              f"{float((err == 0).float().mean()):.6f}", flush=True)
+        if transposed:
+            _require(torch.equal(fk, dk), f"{what}: frontend_rows with "
+                     f"the batch path's phases and tails differs from "
+                     f"frontend_decim")
+        else:
+            drow = fk
+    report["frontend_rows"] = {"max_abs_err": worst}
+
+    # ---- the decode variants, on windows of the row-major planes ----
+    wins, lag, ph, peak = _hunt_windows(torch, cfg, drow, C)
+    off = cfg.eq_length // 2
+    pkt = _extract_packet_planes(
+        cfg, wins[..., off:off + 2 * drow.shape[-1]].contiguous(), lag, ph)
+    pkt_r, pkt_i = pkt[:, 0].contiguous(), pkt[:, 1].contiguous()
+
+    def _rows_of(dec):
+        return torch.cat([dec["dibits"], dec["matches"].float()[:, None],
+                          dec["eq_error"][:, None], dec["cfo_hz"][:, None],
+                          dec["gated"].float()[:, None],
+                          dec["energy"][:, None]], dim=1)
+
+    ek = _rows_of(fused_decode_extract(cfg, wins, lag, ph, peak))
+    er = fused_decode_extract_ref(cfg, wins, lag, ph, peak)
+    pk = _rows_of(fused_decode(cfg, pkt_r, pkt_i, peak))
+    pr = fused_decode_ref(cfg, pkt_r, pkt_i, peak)
+    torch.cuda.synchronize()
+    report["decode_extract"] = _compare_decode(torch, cfg, ek, er, what,
+                                               "decode_extract")
+    report["decode_packets"] = _compare_decode(torch, cfg, pk, pr, what,
+                                               "decode_packets")
+    _require(torch.equal(ek, pk), f"{what}: decode_extract and "
+             f"decode_packets disagree on the same packets")
+    return report
+
+
+def _compare_decode(torch, cfg, out_k, out_r, what: str, name: str) -> dict:
+    """A decode kernel's packed rows against its plain version's: valid
+    and dibits equal, |dcfo| < 0.5 Hz, |deq_error| < 2e-3."""
+    D = cfg.frame_symbols
+    vk = (out_k[:, D + 3] > 0.5) & (out_k[:, D] > cfg.match_threshold)
+    vr = (out_r[:, D + 3] > 0.5) & (out_r[:, D] > cfg.match_threshold)
+    _require(torch.equal(vk, vr), f"{what}: {name} valid differs "
              f"on {int((vk != vr).sum())} rows")
-    _require(bool(vk.any()), f"{what}: no packet decoded")
-    _require(torch.equal(ok_[vk, :D], or_[vr, :D]),
-             f"{what}: extract_decode dibits differ on valid rows")
-    stat_err = (ok_[vk, D:D + 8] - or_[vr, D:D + 8]).abs()
+    _require(bool(vk.any()), f"{what}: {name}: no packet decoded")
+    _require(torch.equal(out_k[vk, :D], out_r[vr, :D]),
+             f"{what}: {name} dibits differ on valid rows")
+    stat_err = (out_k[vk, D:D + 5] - out_r[vr, D:D + 5]).abs()
     dcfo, deq = float(stat_err[:, 2].max()), float(stat_err[:, 1].max())
     _require(dcfo < 0.5 and deq < 2e-3,
-             f"{what}: extract_decode |dcfo| {dcfo}, |deq| {deq}")
-    report["extract_decode"] = {"max_abs_err": float(stat_err.max())}
-    print(f"[kernels] {what}: extract_decode vs plain: valid identical "
+             f"{what}: {name} |dcfo| {dcfo}, |deq| {deq}")
+    print(f"[kernels] {what}: {name} vs plain: valid identical "
           f"({int(vk.sum())}/{vk.numel()} rows valid), descrambled dibits "
           f"identical, |dcfo| {dcfo:.3e} Hz, |deq_error| {deq:.3e}, max "
           f"|err| of the valid rows' stats {float(stat_err.max()):.3e} "
           f"(tolerances 0.5 Hz, 2e-3)", flush=True)
-    return report
+    return {"max_abs_err": float(stat_err.max())}
+
+
+def _row_inputs(torch, cfg, pcm, p0r, p0i, t0r, t0i, adv):
+    """The per-row operands ``prod_rx_batch`` derives for the per-row
+    front-end: phases p0 * adv^b and the downmixed tail of the previous
+    raw block (the carried tail for block 0)."""
+    from singlecarrier_tpu_torch.dsp.mixer import downmix_tail
+    B, C, n = pcm.shape
+    halo = cfg.ntaps - 1
+    ar, ai = adv[0][:, None], adv[1][:, None]
+    ph_r = p0r[None] * ar - p0i[None] * ai
+    ph_i = p0r[None] * ai + p0i[None] * ar
+    x_t = pcm[:, :, n - halo:].float() * (1.0 / cfg.tx_amplitude)
+    tl_r, tl_i = downmix_tail(cfg.center, cfg.fs, n, halo, x_t,
+                              ph_r[..., None], ph_i[..., None])
+    N = B * C
+    return (pcm.reshape(N, n), ph_r.reshape(N), ph_i.reshape(N),
+            torch.cat([t0r[None], tl_r[:-1]]).reshape(N, halo),
+            torch.cat([t0i[None], tl_i[:-1]]).reshape(N, halo))
+
+
+def _hunt_windows(torch, cfg, drow, C):
+    """Padded hunt windows [N, cyc, 2, 768] of row-major planes
+    ``drow`` [N, cyc, 2, n_sym] (row n's previous block is row n - C;
+    zeros before block 0), and the plain hunt's (lag, phase, peak)."""
+    from singlecarrier_tpu_torch.modem.rx_production import _hunt_planes
+    off = cfg.eq_length // 2
+    n_sym = drow.shape[-1]
+    prev = torch.cat([torch.zeros_like(drow[:C]), drow[:-C]])
+    wp = -(-max(n_sym - 1 + cfg.pkt_window, off + 2 * n_sym) // 128) * 128
+    wins = torch.nn.functional.pad(torch.cat([prev, drow], -1),
+                                   (off, wp - off - 2 * n_sym))
+    lag, ph, peak = _hunt_planes(cfg, wins, col_offset=off)
+    return wins.contiguous(), lag, ph, peak
 
 
 def main() -> int:
@@ -251,13 +446,19 @@ def main() -> int:
     sys.path.insert(0, here)
     try:
         from singlecarrier_tpu_torch import DEFAULT_CONFIG
-        from singlecarrier_tpu_torch.modem import (prod_rx_batch,
-                                                   prod_rx_init_planes)
+        from singlecarrier_tpu_torch.modem import (
+            ProdRxOut, prod_rx_batch, prod_rx_init, prod_rx_init_planes,
+            prod_rx_stream_pallas)
+        from singlecarrier_tpu_torch.modem.rx_production import (
+            _extract_packet_planes)
         from singlecarrier_tpu_torch.ops import _build
         from singlecarrier_tpu_torch.ops.decode import (
-            extract_decode, extract_decode_ref, hunt, hunt_ref)
+            extract_decode, extract_decode_ref, fused_decode,
+            fused_decode_extract, fused_decode_extract_ref,
+            fused_decode_ref, hunt, hunt_ref)
         from singlecarrier_tpu_torch.ops.frontend import (
-            frontend_decim, frontend_decim_ref)
+            frontend_decim, frontend_decim_ref, frontend_rows,
+            frontend_rows_ref)
         golden = np.load(os.path.join(here, "tests", "golden",
                                       "reference.npz"))
     except (ImportError, OSError) as e:
@@ -308,26 +509,50 @@ def main() -> int:
                               "bench operating point")
 
     # ---- 4. main path ----
+    def _drive(what, fn, expect):
+        """Run ``fn`` with the launch counters at 0 just before and read
+        just after; every kernel in ``expect`` must have been launched."""
+        _build.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        print(f"[{what}] launches: {counts}", flush=True)
+        _require(all(counts[k] > 0 for k in expect),
+                 f"{what}: a kernel of the path was never launched: "
+                 f"{counts}")
+        _require(all(v == 0 for k, v in counts.items() if k not in expect),
+                 f"{what}: a kernel outside the path was launched: {counts}")
+        for k, v in counts.items():
+            path_launches[k] = path_launches.get(k, 0) + v
+        return res
+
+    def _chained(state, parts, **kw):
+        outs = []
+        for part in parts:
+            state, out = prod_rx_batch(cfg, state, part, descramble=False,
+                                       **kw)
+            outs.append(out)
+        return outs
+
+    def _finite(outs, what):
+        for o in outs:
+            _require(bool(torch.isfinite(o.eq_error).all()
+                          and torch.isfinite(o.cfo_hz).all()
+                          and torch.isfinite(o.peak).all()),
+                     f"{what}: non-finite outputs")
+
+    def _cat(outs):
+        return ProdRxOut(*(torch.cat(xs) for xs in zip(*outs)))
+
+    path_launches = {}
     offsets = torch.arange(C_MAIN, device=dev) % n
     stream = _golden_stream(torch, tx, C_MAIN, 2 * B_MAIN * n, offsets, dev)
     frames = _frames(stream, 2 * B_MAIN, n)
-    state = prod_rx_init_planes(cfg, C_MAIN, dev)
-    _build.reset_launches()
-    outs = []
-    for part in (frames[:B_MAIN], frames[B_MAIN:]):
-        state, out = prod_rx_batch(cfg, state, part, descramble=False,
-                                   fuse_frontend=True)
-        outs.append(out)
-    torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    print(f"[main] launches in the main path: {launches}", flush=True)
-    _require(all(v > 0 for v in launches.values()),
-             f"a kernel of the path was never launched: {launches}")
-    for o in outs:
-        _require(bool(torch.isfinite(o.eq_error).all()
-                      and torch.isfinite(o.cfo_hz).all()
-                      and torch.isfinite(o.peak).all()),
-                 "non-finite outputs")
+    halves = (frames[:B_MAIN], frames[B_MAIN:])
+    outs = _drive("main", lambda: _chained(
+        prod_rx_init_planes(cfg, C_MAIN), halves, fuse_frontend=True),
+        ("frontend_decim", "hunt", "extract_decode"))
+    _finite(outs, "main")
     n_dup = _check_packets(torch, outs, tx_bits, cfg)
     print(f"[main] {C_MAIN} channels x 2 dispatches x {B_MAIN} blocks: "
           f"10/10 packets on every channel, bits exact except the "
@@ -335,8 +560,8 @@ def main() -> int:
           f"detect one packet twice across a block seam (the JAX "
           f"package's behaviour at those offsets)", flush=True)
 
-    ref_state = prod_rx_init_planes(cfg, N_REF_CH)
-    for k, part in enumerate((frames[:B_MAIN], frames[B_MAIN:])):
+    ref_state = prod_rx_init_planes(cfg, N_REF_CH, "cpu")
+    for k, part in enumerate(halves):
         ref_state, ref = prod_rx_batch(
             cfg, ref_state, part[:, :N_REF_CH].cpu(), descramble=False,
             fuse_frontend=True)
@@ -345,58 +570,188 @@ def main() -> int:
     print(f"[main] first {N_REF_CH} channels agree with the CPU plain "
           f"path (valid, bits, lag, phase; |dcfo| < 0.5 Hz, |deq| < 2e-3)",
           flush=True)
-    del frames, stream, outs
+    main_out = _cat(outs)
+
+    # ---- 5. the other paths, same frames, same width ----
+    outs = _drive("paths a", lambda: _chained(
+        prod_rx_init_planes(cfg, C_MAIN), halves),
+        ("frontend_rows", "hunt", "extract_decode"))
+    _finite(outs, "paths a")
+    n_dup_a = _check_packets(torch, outs, tx_bits, cfg)
+    out_a = _cat(outs)
+    _decisions_agree(out_a, main_out, "two-kernel batch path vs main path")
+    print(f"[paths] (a) prod_rx_batch(fuse_frontend=False), plane state, "
+          f"{C_MAIN} channels x 2 dispatches x {B_MAIN} blocks: 10/10 "
+          f"packets on every channel ({n_dup_a} seam repeats), decisions "
+          f"equal to the main path's (valid, bits, lag, phase; |dcfo| < "
+          f"0.5 Hz, |deq| < 2e-3)", flush=True)
+    # host PCM with the state on the card runs on the card
+    _, host_out = prod_rx_batch(cfg, prod_rx_init_planes(cfg, N_REF_CH),
+                                frames[:2, :N_REF_CH].cpu(),
+                                descramble=False)
+    _require(host_out.valid.is_cuda and torch.equal(
+        host_out.valid, out_a.valid[:2, :N_REF_CH]),
+        "host PCM with a state on the card did not run on the card")
+
+    st_b, out_b = _drive("paths b", lambda: prod_rx_stream_pallas(
+        cfg, prod_rx_init(cfg, (C_MAIN,)), frames, descramble=False),
+        ("frontend_rows", "hunt", "extract_decode"))
+    _finite([out_b], "paths b")
+    _require(st_b.decim_prev.dtype == torch.complex64
+             and st_b.phase.is_cuda, "paths b: bad final state")
+    n_dup_b = _check_packets(torch, [out_b], tx_bits, cfg)
+    _decisions_agree(out_b, out_a, "streaming path vs two-kernel batch path")
+    print(f"[paths] (b) prod_rx_stream_pallas, ProdRxState, {C_MAIN} "
+          f"channels x {2 * B_MAIN} blocks one at a time: 10/10 packets on "
+          f"every channel ({n_dup_b} seam repeats), decisions equal to "
+          f"(a)'s", flush=True)
+
+    few = frames[:B_UNFUSED]
+    _, out_x = _drive("paths c1", lambda: prod_rx_batch(
+        cfg, prod_rx_init(cfg, (C_MAIN,)), few, descramble=False,
+        fuse_hunt=False), ("frontend_rows", "decode_extract"))
+    _, out_u = _drive("paths c2", lambda: prod_rx_batch(
+        cfg, prod_rx_init(cfg, (C_MAIN,)), few, descramble=False,
+        fuse_hunt=False, fuse_extract=False),
+        ("frontend_rows", "decode_packets"))
+    _finite([out_x, out_u], "paths c")
+    _decisions_agree(out_x, out_u, "fuse_hunt=False vs fuse_extract=False")
+    sub_a = ProdRxOut(*(x[:B_UNFUSED] for x in out_a))
+    _decisions_agree(out_x, sub_a, "unfused paths vs two-kernel batch path",
+                     stats=False)
+    print(f"[paths] (c) fuse_hunt=False and fuse_extract=False, "
+          f"ProdRxState, {C_MAIN} channels x {B_UNFUSED} blocks: "
+          f"{int(out_x.valid.sum())} packets, decisions equal to each "
+          f"other and (valid, bits; lag and phase on detected blocks) to "
+          f"(a)'s, which reads bf16 planes where these read f32",
+          flush=True)
+    _require(all(path_launches.get(k, 0) > 0 for k in KERNELS),
+             f"a kernel was launched on no path: {path_launches}")
+    print(f"[paths] launches over the five driven paths: {path_launches}",
+          flush=True)
+    del frames, stream, outs, halves, few, main_out, out_a, out_b, out_x
+    del out_u, sub_a, st_b
 
     noise = torch.randint(-16384, 16384, (B_TIME, C_MAIN, n), generator=gen,
                           device=dev, dtype=torch.int16)
-    state = prod_rx_init_planes(cfg, C_MAIN, dev)
+    state = prod_rx_init_planes(cfg, C_MAIN)
     state, out = prod_rx_batch(cfg, state, noise, fuse_frontend=True)
     fa = int(out.valid.sum())
     print(f"[main] noise-only dispatch {C_MAIN} x {B_TIME}: {fa} false "
           f"detects in {C_MAIN * B_TIME} blocks", flush=True)
     del out
 
-    # ---- 5. timing ----
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(ITERS):
-        state, out = prod_rx_batch(cfg, state, noise, fuse_frontend=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    rate = ITERS * B_TIME * C_MAIN * n / wall
-    print(f"[timing] main path {C_MAIN} ch x {B_TIME} blocks x {ITERS} "
-          f"chained dispatches: {wall:.3f} s, {rate:.4e} samples/s = "
-          f"{rate / cfg.fs:.1f} real-time channels; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
-          f"{smi_line}", flush=True)
-    del out, noise, state
+    # ---- 6. timing ----
+    def _rate(what, fn, blocks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        enqueued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rate = blocks * C_MAIN * n / wall
+        print(f"[timing] {what}: {wall:.3f} s (the host had enqueued it "
+              f"after {enqueued:.3f} s), {rate:.4e} samples/s = "
+              f"{rate / cfg.fs:.1f} real-time channels; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
+              f"{smi_line}", flush=True)
+
+    def _dispatches(state, **kw):
+        for _ in range(ITERS):
+            state, _ = prod_rx_batch(cfg, state, noise, **kw)
+
+    _rate(f"main path {C_MAIN} ch x {B_TIME} blocks x {ITERS} chained "
+          f"dispatches", lambda: _dispatches(state, fuse_frontend=True),
+          ITERS * B_TIME)
+    del state
+    state = prod_rx_init_planes(cfg, C_MAIN)
+    state, _ = prod_rx_batch(cfg, state, noise)                  # warm-up
+    _rate(f"(a) two-kernel batch path {C_MAIN} ch x {B_TIME} blocks x "
+          f"{ITERS} chained dispatches", lambda: _dispatches(state),
+          ITERS * B_TIME)
+    del state
+    cstate = prod_rx_init(cfg, (C_MAIN,))
+    cstate, _ = prod_rx_stream_pallas(cfg, cstate, noise[:2])    # warm-up
+    _rate(f"(b) streaming path {C_MAIN} ch x {B_TIME} blocks one at a "
+          f"time", lambda: prod_rx_stream_pallas(cfg, cstate, noise),
+          B_TIME)
+    del cstate
+
+    # the batch paths' kernels at the full dispatch size, with their bounds
+    p0r, p0i, t0r, t0i, dprev0 = prod_rx_init_planes(cfg, C_MAIN)
+    advs = np.exp(-2j * np.pi * cfg.center / cfg.fs * n
+                  * np.arange(B_TIME)).astype(np.complex64)
+    adv = torch.from_numpy(np.stack([advs.real, advs.imag])).to(dev)
+    rows = _row_inputs(torch, cfg, noise, p0r, p0i, t0r, t0i, adv)
+    dk = frontend_decim(cfg, noise, p0r, p0i, t0r, t0i, adv)
+    lk, pk_, qk = hunt(cfg, dk, dprev0)
+    full = {
+        "frontend_decim": lambda: frontend_decim(cfg, noise, p0r, p0i, t0r,
+                                                 t0i, adv),
+        "frontend_rows": lambda: frontend_rows(cfg, *rows, transposed=True),
+        "hunt": lambda: hunt(cfg, dk, dprev0),
+        "extract_decode": lambda: extract_decode(cfg, dk, dprev0, lk, pk_,
+                                                 qk),
+    }
+    bounds = _kernel_bounds(cfg, C_MAIN * B_TIME, C_MAIN)
+    for name, kern in full.items():
+        ms = _time_cuda(kern, 3)
+        print(f"[timing] {name} at {C_MAIN} ch x {B_TIME} blocks "
+              f"({C_MAIN * B_TIME} rows): kernel {ms:.3f} ms, bound "
+              f"{bounds[name][0]:.3f} ms ({bounds[name][1]}); {smi_line}",
+              flush=True)
+    del noise, rows, dk, lk, pk_, qk, full
 
     pcm, p0r, p0i, t0r, t0i, adv, dprev0 = _inputs(cfg, C_MAIN, B_KTIME)
     dk = frontend_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv)
     lk, pk_, qk = hunt(cfg, dk, dprev0)
+    rows = _row_inputs(torch, cfg, pcm, p0r, p0i, t0r, t0i, adv)
+    drow = frontend_rows(cfg, *rows)
+    wins, wl, wph, wpk = _hunt_windows(torch, cfg, drow, C_MAIN)
+    off = cfg.eq_length // 2
+    pkt = _extract_packet_planes(
+        cfg, wins[..., off:off + 2 * drow.shape[-1]].contiguous(), wl, wph)
+    pkt_r, pkt_i = pkt[:, 0].contiguous(), pkt[:, 1].contiguous()
+    del drow, pkt
     calls = {
         "frontend_decim": (
             lambda: frontend_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv),
             lambda: frontend_decim_ref(cfg, pcm, p0r, p0i, t0r, t0i, adv)),
+        "frontend_rows": (
+            lambda: frontend_rows(cfg, *rows, transposed=True),
+            lambda: frontend_rows_ref(cfg, *rows, transposed=True)),
         "hunt": (lambda: hunt(cfg, dk, dprev0),
                  lambda: hunt_ref(cfg, dk, dprev0)),
         "extract_decode": (
             lambda: extract_decode(cfg, dk, dprev0, lk, pk_, qk),
             lambda: extract_decode_ref(cfg, dk, dprev0, lk, pk_, qk)),
+        "decode_extract": (
+            lambda: fused_decode_extract(cfg, wins, wl, wph, wpk),
+            lambda: fused_decode_extract_ref(cfg, wins, wl, wph, wpk)),
+        "decode_packets": (
+            lambda: fused_decode(cfg, pkt_r, pkt_i, wpk),
+            lambda: fused_decode_ref(cfg, pkt_r, pkt_i, wpk)),
     }
+    bounds = _kernel_bounds(cfg, C_MAIN * B_KTIME, C_MAIN)
     for name, (kern, plain) in calls.items():
         report[name]["ms"] = _time_cuda(kern, 10)
         report[name]["plain_ms"] = _time_cuda(plain, 3)
+        bound_ms, bound_by = bounds[name]
         print(f"[timing] {name} at {C_MAIN} ch x {B_KTIME} blocks: kernel "
               f"{report[name]['ms']:.3f} ms, plain "
-              f"{report[name]['plain_ms']:.3f} ms; {smi_line}", flush=True)
+              f"{report[name]['plain_ms']:.3f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), no single PyTorch call computes it; "
+              f"{smi_line}", flush=True)
 
     kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": launches[name],
+                "replaces": rep, "stands_for": note,
+                "launches": path_launches[name],
                 "max_abs_err": report[name]["max_abs_err"],
                 "ms": report[name]["ms"],
-                "plain_ms": report[name]["plain_ms"]}
-               for name, (src, rep) in KERNELS.items()]
+                "plain_ms": report[name]["plain_ms"],
+                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                "library_ms": None}
+               for name, (src, rep, note) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

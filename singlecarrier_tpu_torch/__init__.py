@@ -2,21 +2,39 @@
 
 A port of ``singlecarrier_tpu`` (JAX, Pallas on a TPU) to PyTorch with
 CUDA kernels written by hand for an NVIDIA H100 (``sm_90a``).  The JAX
-package is the reference and shares its numpy-only numerology
-(``ModemConfig``) and constant tables with this package; nothing here
-imports JAX.
+package is the reference; this package imports nothing of it and
+nothing of JAX, and keeps its own copies of the numerology
+(``ModemConfig``), the constant tables and the filter designer.
+
+The device rule: state constructors (``prod_rx_init``,
+``prod_rx_init_planes``) and ``interop.*_from_numpy`` make their
+tensors on the card unless the caller passes ``device`` (``"cpu"`` in
+the tests) and raise where there is no card; the processing entry
+points run on the device their state lies on and move the PCM there.
+A kernel wrapper takes its plain PyTorch version only for tensors that
+lie on the CPU; for a CUDA tensor it launches its kernel or raises.
 
 Layer map:
-  config, constants  re-exports of the shared numerology and tables
+  config, constants, filter_design  numerology, tables, RRC designer
+  device             the device rule (``resolve_device``)
   dsp/               mixer table + FIR-tail carry-out, DFT table
-  ops/               frontend_decim, hunt, extract_decode (CUDA kernels
-                     in csrc/ with plain PyTorch twins); fused_rx_block
-  modem/             prod_rx_batch (the one-kernel production RX path)
-  interop            the JAX plane state <-> torch tensors
+  ops/               frontend_decim, fused_frontend_decim, hunt,
+                     extract_decode, fused_hunt_decode_decim,
+                     fused_decode_extract, fused_decode (CUDA kernels in
+                     csrc/ beside plain PyTorch versions); fused_rx_block
+  modem/             prod_rx_batch, prod_rx_stream_pallas,
+                     prod_rx_stream_superstep, ProdRxState and the plane
+                     state
+  interop            configs and RX state across the two packages
 """
 
 from .config import DEFAULT_CONFIG, ModemConfig
-from .modem import ProdRxOut, prod_rx_batch, prod_rx_init_planes
+from .modem import (ProdRxOut, ProdRxState, make_prod_rx_fn, planes_to_state,
+                    prod_rx_batch, prod_rx_init, prod_rx_init_planes,
+                    prod_rx_stream_pallas, prod_rx_stream_superstep,
+                    state_to_planes)
 
-__all__ = ["ModemConfig", "DEFAULT_CONFIG", "ProdRxOut", "prod_rx_batch",
-           "prod_rx_init_planes"]
+__all__ = ["ModemConfig", "DEFAULT_CONFIG", "ProdRxOut", "ProdRxState",
+           "make_prod_rx_fn", "planes_to_state", "prod_rx_batch",
+           "prod_rx_init", "prod_rx_init_planes", "prod_rx_stream_pallas",
+           "prod_rx_stream_superstep", "state_to_planes"]

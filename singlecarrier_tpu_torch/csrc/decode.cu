@@ -1,25 +1,38 @@
-// K3 extract_decode: packet extraction + full decode, one warp per row.
+// The decode kernels: packet -> full decode, one warp per row.
 //
-// Replaces the extraction and decode of the Pallas kernel
-// ops/fused_rx.py::_fused_rx_kernel_premix: the phase select + barrel
-// shift of singlecarrier_tpu/ops/decode_pallas.py::_hunt_decode_core
-// (decode_pallas.py:884-911; a plain gather here) and _decode_core
-// (decode_pallas.py:398-597): energy gate, CFO DFT (128 x 512, f32),
-// derotation (cosf/sinf), LS train (sliding Gram, ridge, off-tap prior,
-// unrolled 5x5 complex Cholesky), one guarded refit over the first R data
-// symbols, decode, three guarded phase/frequency refines (Taylor
-// cos/sin, small-angle ratio) and the descramble XOR.  Output: the packed
-// [N, 256] f32 row of fused_rx.py:551-561.
+// decode_packet is _decode_core of
+// singlecarrier_tpu/ops/decode_pallas.py (:398-597): energy gate, CFO
+// DFT (128 x 512, f32), derotation (cosf/sinf), LS train (sliding Gram,
+// ridge, off-tap prior, unrolled 5x5 complex Cholesky), one guarded
+// refit over the first R data symbols, decode, three guarded
+// phase/frequency refines (Taylor cos/sin, small-angle ratio) and the
+// descramble XOR, into slots 0..D+4 of the packed [N, 256] f32 row of
+// fused_rx.py:551-561.  Three entry points differ only in how they fill
+// the warp's packet:
+//
+//   * K3 extract_decode_kernel -- from the decim planes at the hunt's
+//     (phase, lag): the phase select + barrel shift of
+//     _hunt_decode_core (decode_pallas.py:884-911; a plain gather here),
+//     as inlined in ops/fused_rx.py::_fused_rx_kernel_premix and in
+//     _hunt_decode_decim_kernel (:933).  Writes lag, phase and peak to
+//     slots D+5..D+7.
+//   * decode_extract_kernel -- replaces _decode_extract_kernel (:1140):
+//     from windows[n][phase][plane][lag + i] of the [N, cyc, 2, wp]
+//     hunt windows, which already hold the eq_length//2 left pad.
+//   * decode_packets_kernel -- replaces _decode_kernel (:370): straight
+//     from the extracted packet planes pkt_r[n][i], pkt_i[n][i].
+//   The last two leave slots D+5..D+7 zero.
 //
 // A warp owns a row: the 384-symbol packet planes sit in shared memory,
 // per-symbol decode arrays in registers (symbol t = lane + 32 j), and
 // every reduction is a butterfly whose result all lanes hold bit-equal,
 // so the small solves run redundantly on every lane with no broadcast.
 //
-// Bound on the card: the CFO DFT, 128 x 512 x 4 multiply-adds per row
-// with the 512 KB f32 table streamed from L2 (it does not fit L1); the
-// rest is ~50 warp reductions per row.  Sharing table tiles across the
-// warps of a block through shared memory is the next step.
+// Bound on the card: operations.  The CFO DFT is 128 x 512 x 4 f32
+// multiply-adds per row with the 512 KB f32 table streamed from L2 (it
+// does not fit L1); the rest is ~50 warp reductions per row.  Sharing
+// table tiles across the warps of a block through shared memory is the
+// next step.
 #include "common.cuh"
 
 using namespace sc;
@@ -257,35 +270,14 @@ struct WarpSmem {
   float pw[NFFT];
 };
 
-__global__ void __launch_bounds__(DEC_WARPS * 32) extract_decode_kernel(
-    const void* __restrict__ decim, const void* __restrict__ dprev0,
-    int in_bf16, const int* __restrict__ lag_in,
-    const int* __restrict__ ph_in, const float* __restrict__ peak_in,
+// _decode_core on the warp's packet (pr, pi: PKT f32 each in shared
+// memory, first chip at OFF; pwf: NFFT f32 of scratch).  Writes slots
+// 0..D+4 of the output row o.
+__device__ __forceinline__ void decode_packet(
+    float* pr, float* pi, float* pwf, const float* pns, const float* msk,
+    float peak,
     const float* __restrict__ dft_r, const float* __restrict__ dft_i,
-    const float* __restrict__ pn, const float* __restrict__ mask,
-    float* __restrict__ out, long long N, int C, Params prm) {
-  __shared__ float pns[P];
-  __shared__ float msk[D];
-  __shared__ WarpSmem wsm[DEC_WARPS];
-  for (int i = threadIdx.x; i < P; i += blockDim.x) pns[i] = pn[i];
-  for (int i = threadIdx.x; i < D; i += blockDim.x) msk[i] = mask[i];
-  __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long n = (long long)blockIdx.x * DEC_WARPS + warp;
-  if (n >= N) return;
-  float* pr = wsm[warp].pr;
-  float* pi = wsm[warp].pi;
-  float* pwf = wsm[warp].pw;
-  const int lag = lag_in[n], ph = ph_in[n];
-  const float peak = peak_in[n];
-
-  // ---- extract: packet[i] = window[ph][lag + i] ----
-  for (int i = lane; i < PKT; i += 32) {
-    pr[i] = window_at(decim, dprev0, in_bf16, N, C, n, ph, 0, lag + i);
-    pi[i] = window_at(decim, dprev0, in_bf16, N, C, n, ph, 1, lag + i);
-  }
-  __syncwarp();
-
+    const Params& prm, int lane, float* o) {
   // ---- energy gate ----
   float e = 0.f;
 #pragma unroll
@@ -488,7 +480,6 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) extract_decode_kernel(
   }
 
   // ---- descramble (XOR of {0..3} dibits) + packed output row ----
-  float* o = out + n * N_OUT;
 #pragma unroll
   for (int j = 0; j < MAXJ; ++j) {
     const int t = lane + 32 * j;
@@ -503,12 +494,104 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) extract_decode_kernel(
     o[D + 2] = cfo;
     o[D + 3] = gated ? 1.f : 0.f;
     o[D + 4] = energy;
-    o[D + 5] = (float)lag;
-    o[D + 6] = (float)ph;
+  }
+}
+
+// Block prologue shared by the entry points: the PN and descramble
+// tables into shared memory, then this warp's row n, packet planes and
+// output row; a warp past the last row leaves.
+#define SC_DECODE_PROLOGUE()                                              \
+  __shared__ float pns[P];                                                \
+  __shared__ float msk[D];                                                \
+  __shared__ WarpSmem wsm[DEC_WARPS];                                     \
+  for (int i = threadIdx.x; i < P; i += blockDim.x) pns[i] = pn[i];       \
+  for (int i = threadIdx.x; i < D; i += blockDim.x) msk[i] = mask[i];     \
+  __syncthreads();                                                        \
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;             \
+  const long long n = (long long)blockIdx.x * DEC_WARPS + warp;           \
+  if (n >= N) return;                                                     \
+  float* pr = wsm[warp].pr;                                               \
+  float* pi = wsm[warp].pi;                                               \
+  float* o = out + n * N_OUT
+
+__device__ __forceinline__ void write_tail(float* o, int lane, float lag,
+                                           float ph, float peak) {
+  if (lane == 0) {
+    o[D + 5] = lag;
+    o[D + 6] = ph;
     o[D + 7] = peak;
   }
 }
 
+__global__ void __launch_bounds__(DEC_WARPS * 32) extract_decode_kernel(
+    const void* __restrict__ decim, const void* __restrict__ dprev0,
+    int in_bf16, const int* __restrict__ lag_in,
+    const int* __restrict__ ph_in, const float* __restrict__ peak_in,
+    const float* __restrict__ dft_r, const float* __restrict__ dft_i,
+    const float* __restrict__ pn, const float* __restrict__ mask,
+    float* __restrict__ out, long long N, int C, Params prm) {
+  SC_DECODE_PROLOGUE();
+  const int lag = lag_in[n], ph = ph_in[n];
+  const float peak = peak_in[n];
+  // packet[i] = window[ph][lag + i]
+  for (int i = lane; i < PKT; i += 32) {
+    pr[i] = window_at(decim, dprev0, in_bf16, N, C, n, ph, 0, lag + i);
+    pi[i] = window_at(decim, dprev0, in_bf16, N, C, n, ph, 1, lag + i);
+  }
+  __syncwarp();
+  decode_packet(pr, pi, wsm[warp].pw, pns, msk, peak, dft_r, dft_i, prm,
+                lane, o);
+  write_tail(o, lane, (float)lag, (float)ph, peak);
+}
+
+__global__ void __launch_bounds__(DEC_WARPS * 32) decode_extract_kernel(
+    const float* __restrict__ windows, int wp,
+    const int* __restrict__ lag_in, const int* __restrict__ ph_in,
+    const float* __restrict__ peak_in, const float* __restrict__ dft_r,
+    const float* __restrict__ dft_i, const float* __restrict__ pn,
+    const float* __restrict__ mask, float* __restrict__ out, long long N,
+    Params prm) {
+  SC_DECODE_PROLOGUE();
+  const int lag = lag_in[n], ph = ph_in[n];
+  // packet[i] = windows[n][ph][plane][lag + i]; zero past the window
+  const float* wr = windows + ((n * CYC + ph) * 2) * (long long)wp;
+  const float* wi = wr + wp;
+  for (int i = lane; i < PKT; i += 32) {
+    const int j = lag + i;
+    pr[i] = j < wp ? wr[j] : 0.f;
+    pi[i] = j < wp ? wi[j] : 0.f;
+  }
+  __syncwarp();
+  decode_packet(pr, pi, wsm[warp].pw, pns, msk, peak_in[n], dft_r, dft_i,
+                prm, lane, o);
+  write_tail(o, lane, 0.f, 0.f, 0.f);
+}
+
+__global__ void __launch_bounds__(DEC_WARPS * 32) decode_packets_kernel(
+    const float* __restrict__ pkt_r, const float* __restrict__ pkt_i,
+    const float* __restrict__ peak_in, const float* __restrict__ dft_r,
+    const float* __restrict__ dft_i, const float* __restrict__ pn,
+    const float* __restrict__ mask, float* __restrict__ out, long long N,
+    Params prm) {
+  SC_DECODE_PROLOGUE();
+  for (int i = lane; i < PKT; i += 32) {
+    pr[i] = pkt_r[n * PKT + i];
+    pi[i] = pkt_i[n * PKT + i];
+  }
+  __syncwarp();
+  decode_packet(pr, pi, wsm[warp].pw, pns, msk, peak_in[n], dft_r, dft_i,
+                prm, lane, o);
+  write_tail(o, lane, 0.f, 0.f, 0.f);
+}
+
+}  // namespace
+
+namespace {
+unsigned decode_blocks(int N) {
+  return (unsigned)((N + DEC_WARPS - 1) / DEC_WARPS);
+}
+const float* f32p(const void* p) { return static_cast<const float*>(p); }
+const int* i32p(const void* p) { return static_cast<const int*>(p); }
 }  // namespace
 
 extern "C" int sc_extract_decode(
@@ -520,13 +603,42 @@ extern "C" int sc_extract_decode(
     float cfo_scale, float derot_k, void* stream) {
   const Params prm{refit_sym, refit_iters, refine_iters, peak_gate,
                    ls_reg, ls_offtap, ls_offtap_refit, cfo_scale, derot_k};
-  const unsigned blocks = (unsigned)((N + DEC_WARPS - 1) / DEC_WARPS);
-  extract_decode_kernel<<<blocks, DEC_WARPS * 32, 0,
+  extract_decode_kernel<<<decode_blocks(N), DEC_WARPS * 32, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      decim, dprev0, in_bf16, static_cast<const int*>(lag),
-      static_cast<const int*>(phase), static_cast<const float*>(peak),
-      static_cast<const float*>(dft_r), static_cast<const float*>(dft_i),
-      static_cast<const float*>(pn), static_cast<const float*>(mask),
+      decim, dprev0, in_bf16, i32p(lag), i32p(phase), f32p(peak),
+      f32p(dft_r), f32p(dft_i), f32p(pn), f32p(mask),
       static_cast<float*>(out), (long long)N, C, prm);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sc_decode_extract(
+    const void* windows, const void* lag, const void* phase,
+    const void* peak, const void* dft_r, const void* dft_i, const void* pn,
+    const void* mask, void* out, int N, int wp, int refit_sym,
+    int refit_iters, int refine_iters, float peak_gate, float ls_reg,
+    float ls_offtap, float ls_offtap_refit, float cfo_scale, float derot_k,
+    void* stream) {
+  const Params prm{refit_sym, refit_iters, refine_iters, peak_gate,
+                   ls_reg, ls_offtap, ls_offtap_refit, cfo_scale, derot_k};
+  decode_extract_kernel<<<decode_blocks(N), DEC_WARPS * 32, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      f32p(windows), wp, i32p(lag), i32p(phase), f32p(peak), f32p(dft_r),
+      f32p(dft_i), f32p(pn), f32p(mask), static_cast<float*>(out),
+      (long long)N, prm);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sc_decode_packets(
+    const void* pkt_r, const void* pkt_i, const void* peak,
+    const void* dft_r, const void* dft_i, const void* pn, const void* mask,
+    void* out, int N, int refit_sym, int refit_iters, int refine_iters,
+    float peak_gate, float ls_reg, float ls_offtap, float ls_offtap_refit,
+    float cfo_scale, float derot_k, void* stream) {
+  const Params prm{refit_sym, refit_iters, refine_iters, peak_gate,
+                   ls_reg, ls_offtap, ls_offtap_refit, cfo_scale, derot_k};
+  decode_packets_kernel<<<decode_blocks(N), DEC_WARPS * 32, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      f32p(pkt_r), f32p(pkt_i), f32p(peak), f32p(dft_r), f32p(dft_i),
+      f32p(pn), f32p(mask), static_cast<float*>(out), (long long)N, prm);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
-// K1 frontend_decim: int16 PCM -> decim planes, one CUDA block per row.
+// The front-end kernels: int16 PCM -> decim planes, one CUDA block per row.
 //
-// Replaces the front-end stage of the Pallas kernel
-// singlecarrier_tpu/ops/fused_rx.py::_fused_rx_kernel_premix
+// K1 frontend_decim_kernel replaces the front-end stage of the Pallas
+// kernel singlecarrier_tpu/ops/fused_rx.py::_fused_rx_kernel_premix
 // (fused_rx.py:166-209, the math of
 // ops/frontend_pallas.py::_kernel_decim_aligned).  The Pallas grid walks
 // time blocks in order and keeps the FIR halo in VMEM; here blocks run
@@ -9,16 +9,27 @@
 // (b-1)*C + ch's raw tail with phase p0*adv^(b-1) -- the same products
 // the previous grid step stored, hence the same bf16 values.
 //
-// Per row: stage u = [halo | z] (2 planes x 1928 f32, bf16-rounded) in
-// shared memory, then every output decim[c][p][n][s] =
-// sum_k w[k] * u[p][5s + c + k] in ascending k, in f32 (-fmad=false: the
-// plain PyTorch version's exact sequence), rounded to the output dtype.
+// frontend_rows_kernel replaces the stand-alone front-end
+// singlecarrier_tpu/ops/frontend_pallas.py::_kernel_decim_aligned (:200)
+// and ::_kernel_decim (:149; the same math without the lane alignment):
+// every row is given its own mixer phase and its already-downmixed f32
+// halo, which is rounded to bf16 before it is summed
+// (frontend_pallas.py:238).  Output [cyc][2][N][N_SYM] (transposed, f32
+// or bf16) or [N][cyc][2][N_SYM] (row-major, always f32).
 //
-// Bound on the card: 3.76 KB of PCM in and 7.5 KB (bf16) out per row,
-// against 49 x 3760 multiply-adds from shared memory.  The design keeps
-// one pass over device memory (u never leaves shared memory; the stride-5
-// tap reads are bank-conflict free); moving the MACs to tensor cores as
-// the banded matmul of the TPU kernel is later work.
+// Both share stage_block (downmix into shared memory) and decim_sums:
+// per row, u = [halo | z] (2 planes x 1928 f32, bf16-rounded) sits in
+// shared memory, then every output y[c][p][s] = sum_k w[k] *
+// u[p][5s + c + k] in ascending k, in f32 (-fmad=false: the plain
+// PyTorch version's exact sequence), rounded to the output dtype.
+//
+// Bound on the card: bytes.  3.76 KB of PCM in and 7.5 KB (bf16) or
+// 15 KB (f32) out per row, against 49 x 3760 multiply-adds from shared
+// memory, which is what the kernels spend their time on today.  The
+// design keeps one pass over device memory (u never leaves shared
+// memory; the stride-5 tap reads are bank-conflict free); moving the
+// MACs to tensor cores as the banded matmul of the TPU kernel is later
+// work.
 #include "common.cuh"
 
 using namespace sc;
@@ -34,6 +45,47 @@ __device__ __forceinline__ float to_out<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 to_out<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+// z = bf16(x * (p * table[t])) for the raw sample at index t of a block
+// entered with mixer phase (pr, pi).
+__device__ __forceinline__ void downmix(const int16_t* __restrict__ x_row,
+                                        const float* __restrict__ tab, int t,
+                                        float pr, float pi, float inv_scale,
+                                        float& zr, float& zi) {
+  const float x = (float)x_row[t] * inv_scale;
+  const float tr = tab[t], ti = tab[N_SAMP + t];
+  zr = bf16_round(x * (pr * tr - pi * ti));
+  zi = bf16_round(x * (pr * ti + pi * tr));
+}
+
+// u[.][HALO + t] = downmixed block of this row.
+__device__ __forceinline__ void stage_block(
+    float (&u)[2][HALO + N_SAMP], const int16_t* __restrict__ x_row,
+    const float* __restrict__ tab, float pr, float pi, float inv_scale,
+    int tid) {
+  for (int t = tid; t < N_SAMP; t += FE_THREADS)
+    downmix(x_row, tab, t, pr, pi, inv_scale, u[0][HALO + t],
+            u[1][HALO + t]);
+}
+
+// The 49-tap decimating sums of one row, in tap order.  ROW_MAJOR writes
+// out[row][c][p][s], else out[c][p][row][s].
+template <typename OutT, bool ROW_MAJOR>
+__device__ __forceinline__ void decim_sums(
+    const float (&u)[2][HALO + N_SAMP], const float (&w)[NTAPS],
+    OutT* __restrict__ out, long long N, long long row, int tid) {
+  for (int idx = tid; idx < 2 * CYC * N_SYM; idx += FE_THREADS) {
+    const int cp = idx / N_SYM;            // c * 2 + p
+    const int s = idx - cp * N_SYM;
+    const float* up = u[cp & 1] + CYC * s + (cp >> 1);
+    float acc = 0.f;
+#pragma unroll
+    for (int k = 0; k < NTAPS; ++k) acc = acc + w[k] * up[k];
+    const long long o = ROW_MAJOR ? (row * (2 * CYC) + cp) * N_SYM + s
+                                  : ((long long)cp * N + row) * N_SYM + s;
+    out[o] = to_out<OutT>(acc);
+  }
 }
 
 template <typename OutT>
@@ -57,13 +109,7 @@ __global__ void __launch_bounds__(FE_THREADS) frontend_decim_kernel(
   const float a_r = adv[b], a_i = adv[B + b];
   const float pr = q_r * a_r - q_i * a_i;
   const float pi = q_r * a_i + q_i * a_r;
-  const int16_t* x_row = pcm + row * N_SAMP;
-  for (int t = tid; t < N_SAMP; t += FE_THREADS) {
-    const float x = (float)x_row[t] * inv_scale;
-    const float tr = tab[t], ti = tab[N_SAMP + t];
-    u[0][HALO + t] = bf16_round(x * (pr * tr - pi * ti));
-    u[1][HALO + t] = bf16_round(x * (pr * ti + pi * tr));
-  }
+  stage_block(u, pcm + row * N_SAMP, tab, pr, pi, inv_scale, tid);
   if (tid < HALO) {
     if (b == 0) {
       u[0][tid] = bf16_round(tail0_r[ch * HALO + tid]);
@@ -72,24 +118,34 @@ __global__ void __launch_bounds__(FE_THREADS) frontend_decim_kernel(
       const float c_r = adv[b - 1], c_i = adv[B + b - 1];
       const float sr = q_r * c_r - q_i * c_i;
       const float si = q_r * c_i + q_i * c_r;
-      const int t = N_SAMP - HALO + tid;
-      const float x = (float)pcm[(row - C) * N_SAMP + t] * inv_scale;
-      const float tr = tab[t], ti = tab[N_SAMP + t];
-      u[0][tid] = bf16_round(x * (sr * tr - si * ti));
-      u[1][tid] = bf16_round(x * (sr * ti + si * tr));
+      downmix(pcm + (row - C) * N_SAMP, tab, N_SAMP - HALO + tid, sr, si,
+              inv_scale, u[0][tid], u[1][tid]);
     }
   }
   __syncthreads();
+  decim_sums<OutT, false>(u, w, out, N, row, tid);
+}
 
-  for (int idx = tid; idx < 2 * CYC * N_SYM; idx += FE_THREADS) {
-    const int cp = idx / N_SYM;            // c * 2 + p
-    const int s = idx - cp * N_SYM;
-    const float* up = u[cp & 1] + CYC * s + (cp >> 1);
-    float acc = 0.f;
-#pragma unroll
-    for (int k = 0; k < NTAPS; ++k) acc = acc + w[k] * up[k];
-    out[((long long)cp * N + row) * N_SYM + s] = to_out<OutT>(acc);
+template <typename OutT, bool ROW_MAJOR>
+__global__ void __launch_bounds__(FE_THREADS) frontend_rows_kernel(
+    const int16_t* __restrict__ pcm, const float* __restrict__ ph_r,
+    const float* __restrict__ ph_i, const float* __restrict__ tail_r,
+    const float* __restrict__ tail_i, const float* __restrict__ tab,
+    const float* __restrict__ taps, OutT* __restrict__ out, long long N,
+    float inv_scale) {
+  __shared__ float u[2][HALO + N_SAMP];
+  __shared__ float w[NTAPS];
+  const long long row = blockIdx.x;
+  const int tid = threadIdx.x;
+  if (tid < NTAPS) w[tid] = taps[tid];
+  stage_block(u, pcm + row * N_SAMP, tab, ph_r[row], ph_i[row], inv_scale,
+              tid);
+  if (tid < HALO) {
+    u[0][tid] = bf16_round(tail_r[row * HALO + tid]);
+    u[1][tid] = bf16_round(tail_i[row * HALO + tid]);
   }
+  __syncthreads();
+  decim_sums<OutT, ROW_MAJOR>(u, w, out, N, row, tid);
 }
 
 }  // namespace
@@ -116,6 +172,37 @@ extern "C" int sc_frontend_decim(const void* pcm, const void* p0r,
         static_cast<const float*>(tail0_i), static_cast<const float*>(adv),
         static_cast<const float*>(tab), static_cast<const float*>(taps),
         static_cast<float*>(out), B, C, inv_scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+// layout: 0 = transposed f32, 1 = transposed bf16, 2 = row-major f32.
+extern "C" int sc_frontend_rows(const void* pcm, const void* ph_r,
+                                const void* ph_i, const void* tail_r,
+                                const void* tail_i, const void* tab,
+                                const void* taps, void* out, int N,
+                                int layout, float inv_scale, void* stream) {
+  const dim3 grid((unsigned)N);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int16_t* x = static_cast<const int16_t*>(pcm);
+  const float* pr = static_cast<const float*>(ph_r);
+  const float* pi = static_cast<const float*>(ph_i);
+  const float* tr = static_cast<const float*>(tail_r);
+  const float* ti = static_cast<const float*>(tail_i);
+  const float* tb = static_cast<const float*>(tab);
+  const float* tp = static_cast<const float*>(taps);
+  if (layout == 1) {
+    frontend_rows_kernel<__nv_bfloat16, false><<<grid, FE_THREADS, 0, st>>>(
+        x, pr, pi, tr, ti, tb, tp, static_cast<__nv_bfloat16*>(out),
+        (long long)N, inv_scale);
+  } else if (layout == 2) {
+    frontend_rows_kernel<float, true><<<grid, FE_THREADS, 0, st>>>(
+        x, pr, pi, tr, ti, tb, tp, static_cast<float*>(out), (long long)N,
+        inv_scale);
+  } else {
+    frontend_rows_kernel<float, false><<<grid, FE_THREADS, 0, st>>>(
+        x, pr, pi, tr, ti, tb, tp, static_cast<float*>(out), (long long)N,
+        inv_scale);
   }
   return (int)cudaGetLastError();
 }

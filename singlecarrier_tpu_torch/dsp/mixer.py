@@ -35,8 +35,16 @@ def downmix_tail(center: float, fs: float, n: int, halo: int,
     The single definition of the carry-out: the operation order is the
     JAX package's, so both packages carry bit-identical tails.
     """
-    table = mixer_table(-center, fs, n)
-    tr = torch.from_numpy(table.real[n - halo:].copy()).to(x_t.device)
-    ti = torch.from_numpy(table.imag[n - halo:].copy()).to(x_t.device)
+    tr, ti = tail_table(center, fs, n, halo, x_t.device)
     return (x_t * (ph_r * tr - ph_i * ti),
             x_t * (ph_r * ti + ph_i * tr))
+
+
+@functools.lru_cache(maxsize=32)
+def tail_table(center: float, fs: float, n: int, halo: int, device):
+    """(real, imag) planes of the RX mixer table's last ``halo`` entries
+    on ``device``, uploaded once: a per-block streaming loop must not
+    wait on host copies."""
+    table = mixer_table(-center, fs, n)
+    return (torch.from_numpy(table.real[n - halo:].copy()).to(device),
+            torch.from_numpy(table.imag[n - halo:].copy()).to(device))

@@ -1,16 +1,31 @@
-"""Carry RX state across the two packages.
+"""Carry configs and RX state across the two packages.
 
 The system has no weights; what crosses between the JAX package and the
-port is the plane state of ``prod_rx_init_planes``: ``(phase_r,
-phase_i, fir_tail_r, fir_tail_i, decim_prev_t)`` as numpy arrays, where
-``decim_prev_t`` may be ``ml_dtypes.bfloat16``.  ``torch.from_numpy``
-refuses that dtype, so bf16 crosses as its raw 16-bit pattern.
+port is a ``ModemConfig`` (as ``dataclasses.asdict``: the two classes
+are different types with the same fields) and the RX state, as numpy
+arrays: the plane state of ``prod_rx_init_planes`` (``(phase_r,
+phase_i, fir_tail_r, fir_tail_i, decim_prev_t)``, where
+``decim_prev_t`` may be ``ml_dtypes.bfloat16``) or the complex
+``ProdRxState`` (phase c64 [C], fir_tail c64 [C, ntaps-1], decim_prev
+c64 [C, cycles, n_sym]).  ``torch.from_numpy`` refuses bf16, so bf16
+crosses as its raw 16-bit pattern.  Tensors are made on the card unless
+``device`` says otherwise.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .config import ModemConfig
+from .device import resolve_device
+from .modem.rx_production import ProdRxState
+
+
+def config_from_dict(fields: dict) -> ModemConfig:
+    """The port's ``ModemConfig`` from ``dataclasses.asdict`` of the JAX
+    package's (or of its own)."""
+    return ModemConfig(**fields)
 
 
 def _to_torch(a: np.ndarray, device) -> torch.Tensor:
@@ -31,10 +46,24 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def planes_from_numpy(planes, device=None):
     """JAX plane state (numpy arrays) -> tuple of torch tensors."""
-    return tuple(_to_torch(np.asarray(a), device) for a in planes)
+    dev = resolve_device(device)
+    return tuple(_to_torch(np.asarray(a), dev) for a in planes)
 
 
 def planes_to_numpy(planes):
     """Torch plane state -> tuple of numpy arrays (bf16 as
     ``ml_dtypes.bfloat16``, the JAX package's host type)."""
     return tuple(_to_numpy(t) for t in planes)
+
+
+def state_from_numpy(state, device=None) -> ProdRxState:
+    """JAX ``ProdRxState`` leaves (complex64 numpy arrays, in field
+    order) -> the port's ``ProdRxState``."""
+    dev = resolve_device(device)
+    return ProdRxState(*(_to_torch(np.asarray(a, np.complex64), dev)
+                         for a in state))
+
+
+def state_to_numpy(state: ProdRxState):
+    """The port's ``ProdRxState`` -> tuple of complex64 numpy arrays."""
+    return tuple(_to_numpy(t) for t in state)

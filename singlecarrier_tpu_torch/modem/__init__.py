@@ -1,7 +1,12 @@
 """Production RX of the port (``singlecarrier_tpu.modem`` counterpart)."""
 
-from .rx_production import (ProdRxOut, dibits_to_bits, prod_rx_batch,
-                            prod_rx_init_planes)
+from .rx_production import (ProdRxOut, ProdRxState, dibits_to_bits,
+                            make_prod_rx_fn, planes_to_state, prod_rx_batch,
+                            prod_rx_init, prod_rx_init_planes,
+                            prod_rx_stream_pallas, prod_rx_stream_superstep,
+                            state_to_planes)
 
-__all__ = ["ProdRxOut", "dibits_to_bits", "prod_rx_batch",
-           "prod_rx_init_planes"]
+__all__ = ["ProdRxOut", "ProdRxState", "dibits_to_bits", "make_prod_rx_fn",
+           "planes_to_state", "prod_rx_batch", "prod_rx_init",
+           "prod_rx_init_planes", "prod_rx_stream_pallas",
+           "prod_rx_stream_superstep", "state_to_planes"]

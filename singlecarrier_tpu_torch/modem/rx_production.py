@@ -1,22 +1,49 @@
-"""Production RX, block-parallel batch path (``prod_rx_batch``).
+"""Production RX: the block-parallel batch path and the streaming paths.
 
-Counterpart of ``singlecarrier_tpu/modem/rx_production.py`` for the
-one-kernel path, ``prod_rx_batch(fuse_frontend=True)`` with the plane
-state of ``prod_rx_init_planes``: every carried quantity of the
-production RX is a closed-form function of the raw input (mixer phase
-= phase0 * adv^b, FIR halo = downmixed tail of the previous raw block,
-hunt window = the previous block's decim planes), so all B*C
-(block, channel) rows of a dispatch run at once.
+Counterpart of ``singlecarrier_tpu/modem/rx_production.py`` for
+``prod_rx_batch`` (every flag combination without ``mixer_fold``),
+``prod_rx_stream_pallas`` (its plane-typed body) and
+``prod_rx_stream_superstep``.  Every carried quantity of the production
+RX is a closed-form function of the raw input (mixer phase = phase0 *
+adv^b, FIR halo = downmixed tail of the previous raw block, hunt window
+= the previous block's decim planes), so all B*C (block, channel) rows
+of a dispatch run at once.
+
+State is either the plane tuple of :func:`prod_rx_init_planes` or the
+public complex :class:`ProdRxState`; the same type comes back.  Every
+entry point runs on the device its state lies on and moves the PCM
+there.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..config import ModemConfig
-from ..ops.fused_rx import fused_rx_block
+from ..constants import PREAMBLE_VALUES
+from ..device import resolve_device
+from ..dsp.mixer import downmix_tail
+from ..ops.decode import (fused_decode, fused_decode_extract,
+                          fused_hunt_decode_decim)
+from ..ops.frontend import fused_frontend_decim
+from ..ops.fused_rx import check_supported, fused_rx_block
+
+_F32 = torch.float32
+
+# rows of the plain hunt done at once: its correlation intermediate is
+# [rows, 2*cycles, n_lags*corr_segments] f32, 120 KB per row at the
+# reference numerology, so 16384 rows keep it under 2 GB
+_HUNT_ROWS = 16384
+
+
+class ProdRxState(NamedTuple):
+    phase: torch.Tensor        # [..] c64 downmix phasor
+    fir_tail: torch.Tensor     # [.., ntaps-1] c64 matched-filter halo
+    decim_prev: torch.Tensor   # [.., cycles, n_sym] prev block, all phases
 
 
 class ProdRxOut(NamedTuple):
@@ -31,20 +58,224 @@ class ProdRxOut(NamedTuple):
     eq_error: torch.Tensor     # [..] f32 mean |decision error| over data
 
 
+def _plane_dtype(cfg: ModemConfig):
+    return torch.bfloat16 if cfg.decim_dtype == "bf16" else _F32
+
+
+def prod_rx_init(cfg: ModemConfig, batch_shape=(), device=None) -> ProdRxState:
+    """Initial complex RX state (unit phasor, zero halo, zero planes),
+    on the card unless ``device`` says otherwise."""
+    dev = resolve_device(device)
+    c64 = dict(dtype=torch.complex64, device=dev)
+    return ProdRxState(
+        phase=torch.ones(tuple(batch_shape), **c64),
+        fir_tail=torch.zeros((*batch_shape, cfg.ntaps - 1), **c64),
+        decim_prev=torch.zeros(
+            (*batch_shape, cfg.cycles, cfg.symbols_per_block), **c64))
+
+
 def prod_rx_init_planes(cfg: ModemConfig, channels: int, device=None):
     """Plane-typed RX state: ``(phase_r [C], phase_i [C],
     fir_tail_r [C, ntaps-1], fir_tail_i [C, ntaps-1],
     decim_prev_t [cyc, 2, C, n_sym])``, the last in ``cfg.decim_dtype``
-    -- the layout the kernels consume."""
-    ddt = torch.bfloat16 if cfg.decim_dtype == "bf16" else torch.float32
-    f32 = dict(dtype=torch.float32, device=device)
+    -- the layout the kernels consume.  On the card unless ``device``
+    says otherwise."""
+    dev = resolve_device(device)
+    f32 = dict(dtype=_F32, device=dev)
     return (torch.ones((channels,), **f32),
             torch.zeros((channels,), **f32),
             torch.zeros((channels, cfg.ntaps - 1), **f32),
             torch.zeros((channels, cfg.ntaps - 1), **f32),
             torch.zeros((cfg.cycles, 2, channels, cfg.symbols_per_block),
-                        dtype=ddt, device=device))
+                        dtype=_plane_dtype(cfg), device=dev))
 
+
+def _planes_t(decim_prev) -> torch.Tensor:
+    """Complex [C, cyc, n_sym] -> f32 planes [cyc, 2, C, n_sym]."""
+    return torch.stack([decim_prev.real, decim_prev.imag],
+                       dim=0).permute(2, 0, 1, 3)
+
+
+def _complex_planes(dprev_t) -> torch.Tensor:
+    """Planes [cyc, 2, C, n_sym] -> complex [C, cyc, n_sym] (widened to
+    f32: exact for bf16 planes)."""
+    return torch.complex(dprev_t[:, 0].permute(1, 0, 2).float(),
+                         dprev_t[:, 1].permute(1, 0, 2).float())
+
+
+def state_to_planes(cfg: ModemConfig, state: ProdRxState):
+    """ProdRxState -> the plane tuple (one-time conversion).  The
+    ``.real`` / ``.imag`` views are made contiguous: the kernels take
+    plain pointers."""
+    return (state.phase.real.contiguous(), state.phase.imag.contiguous(),
+            state.fir_tail.real.contiguous(),
+            state.fir_tail.imag.contiguous(),
+            _planes_t(state.decim_prev).to(_plane_dtype(cfg)).contiguous())
+
+
+def planes_to_state(planes) -> ProdRxState:
+    """Plane tuple -> ProdRxState (one-time conversion)."""
+    pr, pi_, tr, ti, dprev_t = planes
+    return ProdRxState(phase=torch.complex(pr, pi_),
+                       fir_tail=torch.complex(tr, ti),
+                       decim_prev=_complex_planes(dprev_t))
+
+
+# ------------------------------------------------- the plain-tensor hunt
+
+@functools.lru_cache(maxsize=8)
+def _segment_band_matrix(n_lags: int, n_segments: int, p: int):
+    """Banded correlation matrix B[w, l*n_seg + s] = v[16s + k] at
+    w = l + 16s + k: one dense [win, n_lags*n_seg] product computes
+    every (lag, segment) partial sum of the real-kernel PN correlation
+    (|corr|^2 = 2 |...|^2 for the (1+j) chips)."""
+    v = PREAMBLE_VALUES.astype(np.float32)
+    seg = p // n_segments
+    win = n_lags + p - 1
+    b = np.zeros((win, n_lags * n_segments), np.float32)
+    for l in range(n_lags):
+        for s in range(n_segments):
+            for k in range(seg):
+                b[l + s * seg + k, l * n_segments + s] = v[s * seg + k]
+    return b
+
+
+@functools.lru_cache(maxsize=8)
+def _energy_band_matrix(n_lags: int, p: int):
+    """Ones band E[w, l] = 1 for l <= w < l + p: the per-lag window
+    energy of the squared-magnitude planes."""
+    win = n_lags + p - 1
+    b = np.zeros((win, n_lags), np.float32)
+    for l in range(n_lags):
+        b[l:l + p, l] = 1.0
+    return b
+
+
+@functools.lru_cache(maxsize=8)
+def _on_device(fn, args, dev) -> torch.Tensor:
+    """``fn(*args)`` (a cached numpy table) as a tensor on ``dev``."""
+    return torch.from_numpy(fn(*args)).to(dev)
+
+
+def _require_true_f32(t: torch.Tensor) -> None:
+    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("the plain hunt needs true f32 matmuls: set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")
+
+
+def _hunt_corr(cfg: ModemConfig, planes, mat):
+    """Correlation product in ``cfg.hunt_dtype``: ``planes``
+    [..., rows, win] f32 against the +/-1/0 chip matrix ``mat`` (f32).
+
+    The operands are rounded to the hunt dtype and the product runs in
+    true f32, which is what an f32-accumulating bf16 or int8 matmul
+    computes: the products against +/-1/0 are exact, and the int8 sums
+    (16 terms of at most 127) are exact integers.
+    """
+    _require_true_f32(planes)
+    if cfg.hunt_dtype == "int8":
+        q = torch.clamp(torch.round(planes.float() * cfg.hunt_int8_scale),
+                        -127.0, 127.0)
+        return torch.matmul(q, mat)
+    if cfg.hunt_dtype == "bf16":
+        return torch.matmul(planes.to(torch.bfloat16).float(), mat)
+    return torch.matmul(planes.float(), mat)
+
+
+def _hunt_power_scale(cfg: ModemConfig) -> float:
+    """2x for the (1+j) chip factor, /s^2 to undo the int8 quantization
+    so the peak stays in matched-filter units for the energy gate."""
+    if cfg.hunt_dtype == "int8":
+        return float(2.0 / (cfg.hunt_int8_scale ** 2))
+    return 2.0
+
+
+def _hunt_metric(cfg: ModemConfig, power, sq):
+    """Hunt argmax statistic from the raw segmented power.
+
+    ``power``: [..., cyc, n_lags]; ``sq``: squared window magnitude
+    [..., cyc, n_lags+p-1].  "espan": power over the span energy shared
+    across the phases -- the squared planes summed in ascending phase
+    order, then one band product.
+    """
+    if cfg.hunt_norm != "espan":
+        raise NotImplementedError(
+            f"cfg.hunt_norm={cfg.hunt_norm!r} is not ported yet (only "
+            "'espan'); ROADMAP: hunt_norm energy/none")
+    _require_true_f32(sq)
+    eband = _on_device(_energy_band_matrix,
+                       (cfg.symbols_per_block, cfg.preamble_length),
+                       sq.device)
+    sq = sq.float()
+    ssum = sq[..., 0, :]
+    for c in range(1, sq.shape[-2]):
+        ssum = ssum + sq[..., c, :]
+    energy = torch.matmul(ssum, eband)
+    return power / (energy[..., None, :] + 1e-12)
+
+
+def _hunt_planes_rows(cfg: ModemConfig, windows, col_offset: int):
+    n_lags, p = cfg.symbols_per_block, cfg.preamble_length
+    n_seg = cfg.corr_segments
+    dev = windows.device
+    mat = _on_device(_segment_band_matrix, (n_lags, n_seg, p), dev)
+    N, cyc = windows.shape[0], windows.shape[1]
+    w = windows[..., col_offset:col_offset + n_lags + p - 1]
+    corr = _hunt_corr(cfg, w.reshape(N, cyc * 2, -1), mat)
+    corr = corr.reshape(N, cyc, 2, n_lags, n_seg)
+    power = _hunt_power_scale(cfg) * (corr * corr).sum(dim=(-3, -1))
+    metric = _hunt_metric(cfg, power,
+                          w[:, :, 0] * w[:, :, 0] + w[:, :, 1] * w[:, :, 1])
+
+    # argmax of the flattened [cyc * n_lags] metric, first maximum: the
+    # lowest lag among a phase's maxima, strict > across ascending phases
+    lags = torch.arange(n_lags, device=dev)
+    mx = metric.amax(dim=-1)                                # [N, cyc]
+    first = torch.where(metric == mx[..., None], lags,
+                        n_lags).amin(dim=-1)                # [N, cyc]
+    best_m, best_lag = mx[:, 0], first[:, 0]
+    best_ph = torch.zeros_like(best_lag)
+    for c in range(1, cyc):
+        upd = mx[:, c] > best_m
+        best_m = torch.where(upd, mx[:, c], best_m)
+        best_lag = torch.where(upd, first[:, c], best_lag)
+        best_ph = torch.where(upd, torch.full_like(best_ph, c), best_ph)
+    peak = power[torch.arange(N, device=dev), best_ph, best_lag]
+    return best_lag.to(torch.int32), best_ph.to(torch.int32), peak
+
+
+def _hunt_planes(cfg: ModemConfig, windows, *, col_offset: int = 0):
+    """Plane-typed hunt: ``windows`` [N, cyc, 2, >=2*n_sym] f32
+    (real/imag planes on axis 2).  Returns (lag, phase_idx, peak).
+    ``col_offset`` skips leading pad columns (the fused-extract path
+    stores windows left-padded by eq_length//2).  The rows are
+    independent and walked ``_HUNT_ROWS`` at a time, which bounds the
+    correlation intermediate and changes no result."""
+    parts = [_hunt_planes_rows(cfg, windows[i:i + _HUNT_ROWS], col_offset)
+             for i in range(0, windows.shape[0], _HUNT_ROWS)]
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def _extract_packet_planes(cfg: ModemConfig, windows, lag, phase_idx):
+    """Plane-typed packet extraction (integer timing only).
+
+    ``windows``: [N, cyc, 2, 2*n_sym] f32.  pkt[t] =
+    windows[phase_idx, :, lag - off + t]: a left pad of eq_length//2,
+    a zero right pad for lags near the window's end, one gather.
+    Returns [N, 2, pkt_window].
+    """
+    off = cfg.eq_length // 2
+    pkt_len = cfg.pkt_window
+    N, W = windows.shape[0], windows.shape[-1]
+    dev = windows.device
+    sel = windows[torch.arange(N, device=dev), phase_idx.long()]
+    rpad = max(0, (cfg.symbols_per_block - 1) + pkt_len - (off + W))
+    sp = torch.nn.functional.pad(sel, (off, rpad))
+    idx = lag.long()[:, None] + torch.arange(pkt_len, device=dev)
+    return torch.gather(sp, 2, idx[:, None].expand(N, 2, pkt_len))
+
+
+# ------------------------------------------------------ entry points
 
 def _auto_cb(C: int, cap: int) -> int:
     """Largest channel-block size <= cap that divides C (the JAX
@@ -74,35 +305,272 @@ def _decode_out(cfg: ModemConfig, dec, lag, phase_idx, peak) -> ProdRxOut:
     )
 
 
+def _is_plane_state(state) -> bool:
+    if isinstance(state, ProdRxState):
+        return False
+    if not (isinstance(state, tuple) and len(state) == 5
+            and all(isinstance(t, torch.Tensor) for t in state)):
+        raise TypeError("state must be a ProdRxState or the 5-tuple of "
+                        "prod_rx_init_planes")
+    return True
+
+
+def _frames_on(state, pcm_frames) -> torch.Tensor:
+    """The PCM on the device the state lies on."""
+    return pcm_frames.to(state[0].device)
+
+
 def prod_rx_batch(cfg: ModemConfig, state, pcm_frames, *,
-                  descramble: bool = True, fuse_extract: bool = True,
-                  fuse_hunt: bool = True, fuse_frontend: bool = False):
+                  descramble: bool = True, block_channels: int = 128,
+                  decode_block_channels: int | None = None,
+                  segs_per_chunk: int = 2,
+                  fuse_extract: bool = True, fuse_hunt: bool = True,
+                  fuse_frontend: bool = False, interpret: bool = False):
     """Block-parallel batched demod of [B, C, frame_size] int16 frames.
 
-    ``state`` is the plane tuple of :func:`prod_rx_init_planes` (or the
-    one a previous call returned).  Returns ``(state, ProdRxOut)`` with
-    [B, C, ...] leaves.  Only the one-kernel path is ported:
-    ``fuse_frontend=True`` (what ``bench.py`` runs).
+    ``state`` is a :class:`ProdRxState` or the plane tuple of
+    :func:`prod_rx_init_planes` (or what a previous call returned); the
+    same type comes back.  Returns ``(state, ProdRxOut)`` with
+    [B, C, ...] leaves.  Runs on the state's device.
+
+      * ``fuse_frontend=True``: the one-kernel path
+        (``ops.fused_rx.fused_rx_block``);
+      * else the per-row front-end (``ops.frontend.fused_frontend_decim``)
+        and, by ``fuse_hunt`` / ``fuse_extract``:
+        ``fused_hunt_decode_decim`` on transposed planes (both set), the
+        plain hunt + ``fused_decode_extract`` (``fuse_hunt=False``), or
+        the plain hunt and extraction + ``fused_decode``
+        (``fuse_extract=False``).  The last two read the row-major f32
+        planes whatever ``cfg.decim_dtype`` says, and need a
+        ``ProdRxState``.
+
+    ``block_channels``, ``decode_block_channels``, ``segs_per_chunk`` and
+    ``interpret`` only size the TPU kernels; they are accepted and
+    ignored so that a call written for the JAX package runs unchanged.
     """
-    if cfg.frac_timing:
+    if cfg.frac_timing and (fuse_hunt or fuse_extract or fuse_frontend):
         raise ValueError(
             "cfg.frac_timing=True is not supported by the fused batch "
             "paths (integer-timing extraction only); set "
             "frac_timing=False")
-    if not (fuse_frontend and fuse_extract and fuse_hunt):
-        raise NotImplementedError(
-            "only prod_rx_batch(fuse_frontend=True) is ported; ROADMAP: "
-            "two-kernel and streaming paths")
-    if not (isinstance(state, tuple) and len(state) == 5
-            and all(isinstance(t, torch.Tensor) for t in state)):
-        raise NotImplementedError(
-            "only the plane state (prod_rx_init_planes) is ported; "
-            "ROADMAP: XLA production path (ProdRxState)")
+    check_supported(cfg)
+    plane_state = _is_plane_state(state)
+    pcm_frames = _frames_on(state, pcm_frames)
     B, C = pcm_frames.shape[0], pcm_frames.shape[1]
-    p0r, p0i, tail0_r, tail0_i, dprev0_t = state
-    dec, dlast, (fr, fi, ftr, fti) = fused_rx_block(
-        cfg, pcm_frames, p0r, p0i, tail0_r, tail0_i, dprev0_t,
-        descramble=descramble)
-    out = _decode_out(cfg, dec, dec["lag"], dec["phase_idx"], dec["peak"])
+    n = cfg.frame_size
+    halo = cfg.ntaps - 1
+    n_sym = cfg.symbols_per_block
+    inv_scale = 1.0 / cfg.tx_amplitude
+
+    if plane_state:
+        if not (fuse_extract and fuse_hunt):
+            raise TypeError(
+                "plane-typed state (prod_rx_init_planes) requires the "
+                "fully fused path (fuse_extract=True, fuse_hunt=True); "
+                "pass a ProdRxState for the unfused paths")
+        p0r, p0i, tail0_r, tail0_i, dprev0_t_in = state
+    else:
+        p0r, p0i, tail0_r, tail0_i = (
+            t.contiguous() for t in (state.phase.real, state.phase.imag,
+                                     state.fir_tail.real,
+                                     state.fir_tail.imag))
+        dprev0_t_in = None
+
+    if fuse_frontend:
+        if not (fuse_extract and fuse_hunt):
+            raise ValueError(
+                "fuse_frontend requires fuse_extract and fuse_hunt")
+        dprev0_t = (dprev0_t_in if plane_state
+                    else _planes_t(state.decim_prev))
+        dec, dlast, (fr, fi, ftr, fti) = fused_rx_block(
+            cfg, pcm_frames, p0r, p0i, tail0_r, tail0_i, dprev0_t,
+            descramble=descramble)
+        out = _decode_out(cfg, dec, dec["lag"], dec["phase_idx"],
+                          dec["peak"])
+        out = ProdRxOut(*(x.reshape(B, C, *x.shape[1:]) for x in out))
+        if plane_state:
+            return (fr, fi, ftr, fti, dlast), out
+        return ProdRxState(phase=torch.complex(fr, fi),
+                           fir_tail=torch.complex(ftr, fti),
+                           decim_prev=_complex_planes(dlast)), out
+
+    dev = pcm_frames.device
+    # adv^b for b in [0, B]: float64 phase -> exactly-unit complex64
+    w = -2.0 * np.pi * cfg.center / cfg.fs
+    advs = np.exp(1j * w * n * np.arange(B + 1)).astype(np.complex64)
+
+    # phases[b] = phase_0 * adv^b  (planes [B, C])
+    ar = torch.from_numpy(advs.real[:B, None].copy()).to(dev)
+    ai = torch.from_numpy(advs.imag[:B, None].copy()).to(dev)
+    ph_r = p0r[None, :] * ar - p0i[None, :] * ai
+    ph_i = p0r[None, :] * ai + p0i[None, :] * ar
+
+    # tails[b] = last `halo` downmixed samples of raw block b-1
+    # (tails[0] = carried state), in scaled units
+    x_t = pcm_frames[:, :, n - halo:].float() * inv_scale
+    tl_r, tl_i = downmix_tail(cfg.center, cfg.fs, n, halo, x_t,
+                              ph_r[..., None], ph_i[..., None])
+    tails_r = torch.cat([tail0_r[None], tl_r[:-1]], 0)
+    tails_i = torch.cat([tail0_i[None], tl_i[:-1]], 0)
+    # copies, so that the state does not keep the whole batch alive
+    fin_tr, fin_ti = tl_r[-1].clone(), tl_i[-1].clone()
+
+    # final phase (closed form)
+    fr = p0r * float(advs.real[B]) - p0i * float(advs.imag[B])
+    fi = p0r * float(advs.imag[B]) + p0i * float(advs.real[B])
+    mag = torch.sqrt(fr * fr + fi * fi)
+    fr, fi = fr / mag, fi / mag
+
+    # ---- one batched front-end over all B*C (block, channel) rows ----
+    N = B * C
+    rows = (pcm_frames.reshape(N, n), ph_r.reshape(N), ph_i.reshape(N),
+            tails_r.reshape(N, halo), tails_i.reshape(N, halo))
+
+    if fuse_extract and fuse_hunt:
+        dcur_t = fused_frontend_decim(cfg, *rows, transposed=True)[0]
+        dprev0_t = (dprev0_t_in if plane_state
+                    else _planes_t(state.decim_prev))
+        dprev0_t = dprev0_t.to(dcur_t.dtype).contiguous()
+        dec = fused_hunt_decode_decim(cfg, dprev0_t, dcur_t, channels=C,
+                                      descramble=descramble)
+        out = _decode_out(cfg, dec, dec["lag"], dec["phase_idx"],
+                          dec["peak"])
+        out = ProdRxOut(*(x.reshape(B, C, *x.shape[1:]) for x in out))
+        dlast = dcur_t[:, :, (B - 1) * C:].clone()
+        if plane_state:
+            return (fr, fi, fin_tr, fin_ti, dlast), out
+        return ProdRxState(phase=torch.complex(fr, fi),
+                           fir_tail=torch.complex(fin_tr, fin_ti),
+                           decim_prev=_complex_planes(dlast)), out
+
+    dcur = fused_frontend_decim(cfg, *rows)[0]
+    decim = dcur.reshape(B, C, cfg.cycles, 2, n_sym)
+
+    # hunt windows: [prev | cur] along the symbol axis
+    dprev0 = torch.stack([state.decim_prev.real, state.decim_prev.imag],
+                         dim=1)                             # [C, 2, ...]
+    dprev0 = dprev0.transpose(1, 2)[None]                   # [1, C, cyc, 2, .]
+    dprev = torch.cat([dprev0, decim[:-1]], dim=0)
+
+    if fuse_extract:
+        # one padded windows array serves both the hunt (reads at a
+        # column offset) and the kernel's extraction (packets start at
+        # `lag`): [off | prev | cur | rpad]
+        off = cfg.eq_length // 2
+        need = (n_sym - 1) + cfg.pkt_window
+        wp = -(-max(need, off + 2 * n_sym) // 128) * 128
+        zl = decim.new_zeros((B, C, cfg.cycles, 2, off))
+        zr_ = decim.new_zeros((B, C, cfg.cycles, 2, wp - off - 2 * n_sym))
+        windows = torch.cat([zl, dprev, decim, zr_], -1).reshape(
+            N, cfg.cycles, 2, wp)
+        lag, phase_idx, peak = _hunt_planes(cfg, windows, col_offset=off)
+        dec = fused_decode_extract(cfg, windows, lag, phase_idx, peak,
+                                   descramble=descramble)
+    else:
+        windows = torch.cat([dprev, decim], dim=-1).reshape(
+            N, cfg.cycles, 2, 2 * n_sym)
+        lag, phase_idx, peak = _hunt_planes(cfg, windows)
+        pkt = _extract_packet_planes(cfg, windows, lag, phase_idx)
+        dec = fused_decode(cfg, pkt[:, 0].contiguous(),
+                           pkt[:, 1].contiguous(), peak,
+                           descramble=descramble)
+    out = _decode_out(cfg, dec, lag, phase_idx, peak)
     out = ProdRxOut(*(x.reshape(B, C, *x.shape[1:]) for x in out))
-    return (fr, fi, ftr, fti, dlast), out
+    final = ProdRxState(
+        phase=torch.complex(fr, fi),
+        fir_tail=torch.complex(fin_tr, fin_ti),
+        decim_prev=torch.complex(decim[-1, :, :, 0, :].contiguous(),
+                                 decim[-1, :, :, 1, :].contiguous()))
+    return final, out
+
+
+def prod_rx_stream_pallas(cfg: ModemConfig, state: ProdRxState,
+                          pcm_frames, *, descramble: bool = True,
+                          block_channels: int = 256,
+                          decode_block_channels: int = 64,
+                          fuse_decode: bool = True,
+                          interpret: bool = False):
+    """Batched stream demod, one block at a time.
+
+    ``state``: channel-batched ProdRxState ([C] leading axis);
+    ``pcm_frames``: [n_frames, C, frame_size] int16.  Per block: the
+    per-row front-end, then hunt + extraction + decode
+    (``fused_hunt_decode_decim``); the carried state stays in plane
+    layout on the device across the loop, with no synchronisation, and
+    becomes a ProdRxState again once at the end.  Returns
+    ``(state, ProdRxOut)`` with [n_frames, C, ...] leaves.
+
+    ``block_channels``, ``decode_block_channels`` and ``interpret`` only
+    size the TPU kernels; accepted and ignored.
+    """
+    if not fuse_decode or cfg.frac_timing:
+        raise NotImplementedError(
+            "prod_rx_stream_pallas with fuse_decode=False or "
+            "cfg.frac_timing=True is not ported yet; ROADMAP: kernel #8 "
+            "with the frac streaming body and the XLA production path")
+    check_supported(cfg)
+    if not isinstance(state, ProdRxState):
+        raise TypeError("prod_rx_stream_pallas takes a ProdRxState")
+    pcm_frames = _frames_on(state, pcm_frames)
+    C = pcm_frames.shape[1]
+    pr, pi_, tr, ti, dprev_t = state_to_planes(cfg, state)
+    outs = []
+    for pcm in pcm_frames:
+        dcur_t, tr, ti, pr, pi_ = fused_frontend_decim(
+            cfg, pcm, pr, pi_, tr, ti, transposed=True)
+        dec = fused_hunt_decode_decim(cfg, dprev_t, dcur_t, channels=C,
+                                      descramble=descramble)
+        outs.append(_decode_out(cfg, dec, dec["lag"], dec["phase_idx"],
+                                dec["peak"]))
+        dprev_t = dcur_t
+    outs = ProdRxOut(*(torch.stack(xs) for xs in zip(*outs)))
+    return planes_to_state((pr, pi_, tr, ti, dprev_t)), outs
+
+
+def prod_rx_stream_superstep(cfg: ModemConfig, state, pcm_frames, *,
+                             superstep: int = 4, descramble: bool = True,
+                             block_channels: int = 128,
+                             decode_block_channels: int | None = None,
+                             fuse_frontend: bool = False,
+                             interpret: bool = False):
+    """Streaming demod at batch-mode throughput: a loop of
+    :func:`prod_rx_batch` over groups of ``superstep`` blocks, so a
+    stream that arrives K blocks at a time runs each arrival as one
+    dispatch (latency bounded at K blocks).
+
+    ``state`` may be a ProdRxState or the plane tuple; the same type is
+    returned.  ``pcm_frames``: [n_blocks, C, frame_size] int16 with
+    n_blocks a multiple of ``superstep``.  ``block_channels``,
+    ``decode_block_channels`` and ``interpret`` are accepted and
+    ignored.
+    """
+    B = pcm_frames.shape[0]
+    if B % superstep:
+        raise ValueError(f"n_blocks ({B}) not a multiple of "
+                         f"superstep ({superstep})")
+    plane_state = _is_plane_state(state)
+    st = state if plane_state else state_to_planes(cfg, state)
+    outs = []
+    for i in range(0, B, superstep):
+        st, out = prod_rx_batch(cfg, st, pcm_frames[i:i + superstep],
+                                descramble=descramble,
+                                fuse_frontend=fuse_frontend)
+        outs.append(out)
+    outs = ProdRxOut(*(torch.cat(xs) for xs in zip(*outs)))
+    return (st if plane_state else planes_to_state(st)), outs
+
+
+def make_prod_rx_fn(cfg: ModemConfig, *, descramble: bool = True,
+                    batched: bool = False, pallas: bool = False):
+    """``fn(state, pcm_frames)`` for the streaming RX.  Only
+    ``pallas=True`` (:func:`prod_rx_stream_pallas`) is ported; PyTorch
+    runs eagerly, so there is nothing to jit."""
+    if not pallas:
+        raise NotImplementedError(
+            "make_prod_rx_fn(pallas=False) is not ported yet; ROADMAP: "
+            "XLA production path (prod_rx_stream)")
+
+    def fn(state, pcm_frames):
+        return prod_rx_stream_pallas(cfg, state, pcm_frames,
+                                     descramble=descramble)
+    return fn

@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface under ``build/torch_kernels/`` of the
+The sources are compiled by ``nvcc`` for ``sm_90a`` (one ``nvcc`` per
+source, all started together, then one link) into one shared library
+with a plain C interface under ``build/torch_kernels/`` of the
 checkout, at first use, and loaded with ``ctypes``.  Each C entry point
 launches on the stream it is given and returns ``cudaGetLastError()``;
 :func:`check` raises on anything but 0.
@@ -25,14 +26,17 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("frontend.cu", "hunt.cu", "decode.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"frontend_decim": 0, "hunt": 0, "extract_decode": 0}
+LAUNCHES = {"frontend_decim": 0, "frontend_rows": 0, "hunt": 0,
+            "extract_decode": 0, "decode_extract": 0, "decode_packets": 0}
 
 _lib = None
 
@@ -50,6 +54,16 @@ _SIGNATURES = {
     # N, C, in_bf16, refit_sym, refit_iters, refine_iters, peak_gate,
     # ls_reg, ls_offtap, ls_offtap_refit, cfo_scale, derot_k, stream
     "sc_extract_decode": [_P] * 10 + [_I] * 6 + [_F] * 6 + [_P],
+    # pcm, ph_r, ph_i, tail_r, tail_i, tab, taps, out, N, layout,
+    # inv_scale, stream
+    "sc_frontend_rows": [_P] * 8 + [_I] * 2 + [_F, _P],
+    # windows, lag, phase, peak, dft_r, dft_i, pn, mask, out, N, wp,
+    # refit_sym, refit_iters, refine_iters, then the six floats of
+    # sc_extract_decode, stream
+    "sc_decode_extract": [_P] * 9 + [_I] * 5 + [_F] * 6 + [_P],
+    # pkt_r, pkt_i, peak, dft_r, dft_i, pn, mask, out, N, refit_sym,
+    # refit_iters, refine_iters, the six floats, stream
+    "sc_decode_packets": [_P] * 8 + [_I] * 4 + [_F] * 6 + [_P],
 }
 
 
@@ -86,15 +100,32 @@ def build(verbose: bool = False) -> tuple[Path, str]:
     if lib_path.exists() and not verbose:
         return lib_path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stdout}\n{res.stderr}")
+    nvcc = _nvcc()
+    tag = f"{lib_path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c",
+         "-o", str(obj), str(CSRC / src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(SOURCES, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    try:
+        for src, proc, log in zip(SOURCES, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src} "
+                                   f"({proc.returncode}):\n{log}")
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                              *map(str, objs)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stdout}\n{res.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, lib_path)
-    return lib_path, res.stdout + res.stderr
+    return lib_path, "".join(logs) + res.stdout + res.stderr
 
 
 def load():
@@ -123,6 +154,16 @@ KERNEL_GEOMETRY = {"frame_size": 1880, "cycles": 5, "ntaps": 49,
                    "preamble_length": 128, "corr_segments": 8,
                    "frame_symbols": 248, "eq_length": 5, "cfo_nfft": 512,
                    "pkt_window": 384}
+
+
+def decode_params(cfg) -> list:
+    """The trailing scalar arguments every decode entry point takes
+    (``csrc/decode.cu`` ``Params``)."""
+    return [cfg.ls_refit_symbols or cfg.frame_symbols, cfg.ls_refit_iters,
+            cfg.phase_refine_iters, float(cfg.effective_peak_gate),
+            float(cfg.ls_reg), float(cfg.ls_offtap_reg),
+            float(cfg.ls_offtap_reg_refit), float(cfg.rs / cfg.cfo_nfft),
+            float(np.float32(-2.0 * np.pi / cfg.rs))]
 
 
 def require_kernel_geometry(cfg) -> None:

@@ -1,4 +1,4 @@
-"""Hunt, packet extraction and decode of the one-kernel RX.
+"""Hunt, packet extraction and decode.
 
 Counterparts of ``singlecarrier_tpu/ops/decode_pallas.py``:
 
@@ -11,11 +11,18 @@ Counterparts of ``singlecarrier_tpu/ops/decode_pallas.py``:
     ``_decode_core`` (``:398-597``): energy gate, CFO DFT, derotation,
     LS train, guarded refit, decode, guarded phase refine and
     descramble, packed into the [N, 256] f32 layout of
-    ``fused_rx.py:551-561``.
+    ``fused_rx.py:551-561``;
+  * :func:`fused_hunt_decode_decim` -- the launcher of the same name
+    (``:978``): the two kernels above, one after the other;
+  * :func:`fused_decode_extract` -- ``:1196``: extraction at a given
+    (phase, lag) from padded hunt windows, then ``_decode_core``;
+  * :func:`fused_decode` -- ``:626``: ``_decode_core`` on extracted
+    packets.
 
 Each wrapper launches its CUDA kernel (``csrc/hunt.cu``,
-``csrc/decode.cu``) for tensors on the card; ``hunt_ref`` and
-``extract_decode_ref`` are the plain versions, used for CPU tensors and
+``csrc/decode.cu``) for tensors on the card; ``hunt_ref``,
+``extract_decode_ref``, ``fused_decode_extract_ref`` and
+``fused_decode_ref`` are the plain versions, used for CPU tensors and
 as the kernels' references.  The plain helpers keep the JAX names and
 operation order; complex values travel as real/imag planes of shape
 [N, width] (one row per block-channel).
@@ -152,7 +159,7 @@ def hunt(cfg: ModemConfig, decim, dprev0):
     lag = torch.empty((N,), dtype=torch.int32, device=dev)
     ph = torch.empty((N,), dtype=torch.int32, device=dev)
     peak = torch.empty((N,), dtype=_F32, device=dev)
-    pn = torch.from_numpy(PREAMBLE_VALUES.astype(np.float32)).to(dev)
+    pn = _pn(dev)
     int8_hunt = cfg.hunt_dtype == "int8"
     peak_scale = (float(np.float32(1.0 / cfg.hunt_int8_scale ** 2))
                   if int8_hunt else 1.0)
@@ -492,27 +499,202 @@ def extract_decode(cfg: ModemConfig, decim, dprev0, lag, phase, peak, *,
     _check_planes(cfg, decim, dprev0)
     N, C = decim.shape[2], dprev0.shape[2]
     dev = decim.device
-    for t, dt in ((lag, torch.int32), (phase, torch.int32), (peak, _F32)):
-        if t.dtype != dt or tuple(t.shape) != (N,):
-            raise ValueError(f"expected {dt} [{N}], got {t.dtype} "
-                             f"{tuple(t.shape)}")
-    P, D = cfg.preamble_length, cfg.frame_symbols
-    wm = dft_matrix(P, cfg.cfo_nfft)
-    wr = torch.from_numpy(wm.real.copy()).to(dev)
-    wi = torch.from_numpy(wm.imag.copy()).to(dev)
-    pn = torch.from_numpy(PREAMBLE_VALUES.astype(np.float32)).to(dev)
-    mask = torch.from_numpy(_mask_np(D, descramble)).to(dev)
+    _check_row_stats(N, lag, phase, peak)
+    D = cfg.frame_symbols
     out = torch.empty((N, D + 8), dtype=_F32, device=dev)
-    ptrs = _build.cuda_args(decim, dprev0, lag, phase, peak, wr, wi, pn,
-                            mask, out, device=dev)
+    ptrs = _build.cuda_args(decim, dprev0, lag, phase, peak,
+                            *_decode_tables(cfg, descramble, dev), out,
+                            device=dev)
     err = _build.load().sc_extract_decode(
         *ptrs, N, C, int(decim.dtype == torch.bfloat16),
-        cfg.ls_refit_symbols or D, cfg.ls_refit_iters,
-        cfg.phase_refine_iters, float(cfg.effective_peak_gate),
-        float(cfg.ls_reg), float(cfg.ls_offtap_reg),
-        float(cfg.ls_offtap_reg_refit), float(cfg.rs / cfg.cfo_nfft),
-        float(np.float32(-2.0 * np.pi / cfg.rs)),
+        *_build.decode_params(cfg),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "extract_decode")
     _build.LAUNCHES["extract_decode"] += 1
     return out
+
+
+@functools.lru_cache(maxsize=8)
+def _pn(dev) -> torch.Tensor:
+    """The PN chips as f32 on ``dev`` (uploaded once per device: a
+    per-block streaming loop must not wait on host copies)."""
+    return torch.from_numpy(PREAMBLE_VALUES.astype(np.float32)).to(dev)
+
+
+@functools.lru_cache(maxsize=8)
+def _decode_tables(cfg: ModemConfig, descramble: bool, dev):
+    """(dft_r, dft_i, pn, mask) operands of the decode kernels, uploaded
+    once per (config, device)."""
+    P, D = cfg.preamble_length, cfg.frame_symbols
+    wm = dft_matrix(P, cfg.cfo_nfft)
+    return (torch.from_numpy(wm.real.copy()).to(dev),
+            torch.from_numpy(wm.imag.copy()).to(dev), _pn(dev),
+            torch.from_numpy(_mask_np(D, descramble)).to(dev))
+
+
+def stat_dict(cfg: ModemConfig, out, *, hunt: bool):
+    """The packed [N, D + 8] rows as the JAX launchers' stat dict;
+    ``hunt`` adds the lag, phase and peak of the in-kernel hunt."""
+    D = cfg.frame_symbols
+    dec = {
+        "dibits": out[:, :D],
+        "matches": out[:, D].to(torch.int32),
+        "eq_error": out[:, D + 1],
+        "cfo_hz": out[:, D + 2],
+        "gated": out[:, D + 3] > 0.5,
+        "energy": out[:, D + 4],
+    }
+    if hunt:
+        dec["lag"] = out[:, D + 5].to(torch.int32)
+        dec["phase_idx"] = out[:, D + 6].to(torch.int32)
+        dec["peak"] = out[:, D + 7]
+    return dec
+
+
+def fused_hunt_decode_decim(cfg: ModemConfig, decim_prev0, decim_cur, *,
+                            channels: int, descramble: bool = True,
+                            block_channels: int = 64,
+                            segs_per_chunk: int = 2, stage: str = "full",
+                            interpret: bool = False):
+    """Hunt + extraction + decode straight from decimated planes.
+
+    Args:
+      decim_prev0: [cycles, 2, channels, n_sym] the carried planes of the
+                   block before each channel's first block.
+      decim_cur:   [cycles, 2, N, n_sym] the batch's planes, row
+                   n = b*channels + ch: row n's previous block is row
+                   n - channels, or ``decim_prev0`` row n.
+
+    Returns the :func:`fused_decode` stat dict plus "lag", "phase_idx"
+    and "peak".  On the card this is :func:`hunt` then
+    :func:`extract_decode`, two kernels launched one after the other.
+    ``block_channels``, ``segs_per_chunk`` and ``interpret`` only size
+    the TPU kernel; they are accepted and ignored.
+    """
+    if stage != "full":
+        raise NotImplementedError(
+            f"stage={stage!r} is not ported yet; ROADMAP: gated RX "
+            "(stage='gate')")
+    if decim_prev0.shape[2] != channels:
+        raise ValueError(f"decim_prev0 has {decim_prev0.shape[2]} rows, "
+                         f"channels={channels}")
+    lag, phase, peak = hunt(cfg, decim_cur, decim_prev0)
+    out = extract_decode(cfg, decim_cur, decim_prev0, lag, phase, peak,
+                         descramble=descramble)
+    return stat_dict(cfg, out, hunt=True)
+
+
+def _pad_tail(head):
+    """[N, D + 5] decode head -> the [N, D + 8] row with the hunt slots
+    left zero."""
+    return torch.cat([head, head.new_zeros((head.shape[0], 3))], dim=1)
+
+
+def _check_row_stats(N: int, lag, phase, peak):
+    for t, dt in ((lag, torch.int32), (phase, torch.int32), (peak, _F32)):
+        if t is not None and (t.dtype != dt or tuple(t.shape) != (N,)):
+            raise ValueError(f"expected {dt} [{N}], got {t.dtype} "
+                             f"{tuple(t.shape)}")
+
+
+def fused_decode_extract_ref(cfg: ModemConfig, windows, lag, phase_idx,
+                             peak, *, descramble: bool = True):
+    """Plain PyTorch version of :func:`fused_decode_extract` (the packed
+    [N, D + 8] rows)."""
+    N, pkt_len = windows.shape[0], cfg.pkt_window
+    rows = torch.arange(N, device=windows.device)
+    sel = windows[rows, phase_idx.long()]                   # [N, 2, wp]
+    idx = lag.long()[:, None] + torch.arange(pkt_len, device=windows.device)
+    pkt = torch.gather(sel, 2, idx[:, None].expand(N, 2, pkt_len))
+    mask = torch.from_numpy(_mask_np(cfg.frame_symbols, descramble))
+    return _pad_tail(_decode_core(cfg, pkt[:, 0], pkt[:, 1], peak[:, None],
+                                  mask.to(windows.device)))
+
+
+def fused_decode_extract(cfg: ModemConfig, windows, lag, phase_idx, peak,
+                         *, descramble: bool = True,
+                         block_channels: int = 64,
+                         interpret: bool = False):
+    """Extract each row's packet from its padded hunt windows and decode.
+
+    Args:
+      windows:   [N, cycles, 2, wp] f32 window planes, left-padded by
+                 eq_length//2 zeros (a packet at lag l starts at padded
+                 index l) and right-padded so that
+                 n_sym - 1 + pkt_window <= wp.
+      lag, phase_idx: [N] int32; peak: [N] f32.
+
+    Returns the :func:`fused_decode` stat dict.  ``block_channels`` and
+    ``interpret`` only size the TPU kernel; accepted and ignored.
+    """
+    N, wp = windows.shape[0], windows.shape[-1]
+    if wp < (cfg.symbols_per_block - 1) + cfg.pkt_window or \
+            tuple(windows.shape) != (N, cfg.cycles, 2, wp):
+        raise ValueError(f"bad windows shape {tuple(windows.shape)}")
+    if windows.dtype != _F32:
+        raise TypeError(f"windows must be f32, got {windows.dtype}")
+    lag, phase_idx = lag.to(torch.int32), phase_idx.to(torch.int32)
+    _check_row_stats(N, lag, phase_idx, peak)
+    if windows.device.type == "cpu":
+        out = fused_decode_extract_ref(cfg, windows, lag, phase_idx, peak,
+                                       descramble=descramble)
+        return stat_dict(cfg, out, hunt=False)
+    _build.require_kernel_geometry(cfg)
+    dev = windows.device
+    out = torch.empty((N, cfg.frame_symbols + 8), dtype=_F32, device=dev)
+    ptrs = _build.cuda_args(windows, lag, phase_idx, peak,
+                            *_decode_tables(cfg, descramble, dev), out,
+                            device=dev)
+    err = _build.load().sc_decode_extract(
+        *ptrs, N, wp, *_build.decode_params(cfg),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "decode_extract")
+    _build.LAUNCHES["decode_extract"] += 1
+    return stat_dict(cfg, out, hunt=False)
+
+
+def fused_decode_ref(cfg: ModemConfig, pkt_r, pkt_i, peak, *,
+                     descramble: bool = True):
+    """Plain PyTorch version of :func:`fused_decode` (the packed
+    [N, D + 8] rows)."""
+    mask = torch.from_numpy(_mask_np(cfg.frame_symbols, descramble))
+    return _pad_tail(_decode_core(cfg, pkt_r, pkt_i, peak[:, None],
+                                  mask.to(pkt_r.device)))
+
+
+def fused_decode(cfg: ModemConfig, pkt_r, pkt_i, peak, *,
+                 descramble: bool = True, block_channels: int = 256,
+                 interpret: bool = False):
+    """Decode extracted packets.
+
+    Args:
+      pkt_r/pkt_i: [N, pkt_window] f32 aligned packet planes (first chip
+                   at index eq_length//2).
+      peak:        [N] f32 hunt correlation peak.
+
+    Returns a dict with dibits (f32 [N, D]), matches, eq_error, cfo_hz,
+    gated, energy.  ``block_channels`` and ``interpret`` only size the
+    TPU kernel; accepted and ignored.
+    """
+    N = pkt_r.shape[0]
+    for t in (pkt_r, pkt_i):
+        if t.dtype != _F32 or tuple(t.shape) != (N, cfg.pkt_window):
+            raise ValueError(f"expected f32 [{N}, {cfg.pkt_window}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    _check_row_stats(N, None, None, peak)
+    if pkt_r.device.type == "cpu":
+        out = fused_decode_ref(cfg, pkt_r, pkt_i, peak,
+                               descramble=descramble)
+        return stat_dict(cfg, out, hunt=False)
+    _build.require_kernel_geometry(cfg)
+    dev = pkt_r.device
+    out = torch.empty((N, cfg.frame_symbols + 8), dtype=_F32, device=dev)
+    ptrs = _build.cuda_args(pkt_r, pkt_i, peak,
+                            *_decode_tables(cfg, descramble, dev), out,
+                            device=dev)
+    err = _build.load().sc_decode_packets(
+        *ptrs, N, *_build.decode_params(cfg),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "decode_packets")
+    _build.LAUNCHES["decode_packets"] += 1
+    return stat_dict(cfg, out, hunt=False)

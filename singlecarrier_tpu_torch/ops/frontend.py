@@ -1,6 +1,6 @@
-"""Front-end of the one-kernel RX: int16 PCM -> decimated symbol planes.
+"""The front-ends: int16 PCM -> decimated symbol planes.
 
-Counterpart of the front-end stage of
+:func:`frontend_decim` is the counterpart of the front-end stage of
 ``singlecarrier_tpu/ops/fused_rx.py::_fused_rx_kernel_premix``
 (``fused_rx.py:166-209``), which does the math of
 ``ops/frontend_pallas.py::_kernel_decim_aligned``: per (block b,
@@ -15,9 +15,21 @@ channel ch) row
     rounded to ``cfg.decim_dtype``; w_k = bf16(2.2 * taps[k]) is the
     band of ``_decim_tap_matrix_aligned``.
 
-``frontend_decim`` launches the CUDA kernel (``csrc/frontend.cu``) for
-tensors on the card; ``frontend_decim_ref`` is the plain version, used
-for CPU tensors and as the kernel's reference.
+:func:`fused_frontend_decim` is the counterpart of the stand-alone
+front-end ``ops/frontend_pallas.py::fused_frontend_decim`` (:438):
+the same sums, but every row is given its own mixer phase and its
+already-downmixed f32 halo, and the planes come out transposed
+([cyc, 2, N, n_sym] in ``cfg.decim_dtype``) or row-major
+([N, cyc, 2, n_sym], always f32).
+
+Its kernel wrapper is :func:`frontend_rows`; the new tail and phase
+are O(N) tensor glue around it.
+
+Each wrapper launches its CUDA kernel (``csrc/frontend.cu``) for
+tensors on the card; ``frontend_decim_ref`` and ``frontend_rows_ref``
+(``fused_frontend_decim_ref`` with the state out) are the plain
+versions, used for CPU
+tensors and as the kernels' references.
 """
 
 from __future__ import annotations
@@ -29,7 +41,7 @@ import torch
 
 from ..config import ModemConfig
 from ..constants import rrc_taps
-from ..dsp.mixer import mixer_table
+from ..dsp.mixer import mixer_table, tail_table
 from . import _build
 
 _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
@@ -48,6 +60,14 @@ def _decim_tap_matrix_aligned(alpha: float, ntaps: int, gain: float,
             r0 = lead + j * cyc + c
             t[r0:r0 + ntaps, c * chunk + j] = taps
     return t
+
+
+@functools.lru_cache(maxsize=8)
+def _kernel_tables(cfg: ModemConfig, dev):
+    """(mixer planes, taps) operands of the kernels, uploaded once per
+    (config, device): a per-block streaming loop must not wait on host
+    copies."""
+    return _mixer_planes(cfg, dev), decim_taps(cfg).to(dev)
 
 
 def decim_taps(cfg: ModemConfig) -> torch.Tensor:
@@ -71,6 +91,18 @@ def _mixer_planes(cfg: ModemConfig, device) -> torch.Tensor:
     return torch.from_numpy(np.stack([table.real, table.imag])).to(device)
 
 
+def _tap_sums(cfg: ModemConfig, u):
+    """acc[..., t] = sum_k w_k u[..., t + k] in ascending k, f32: the
+    full-rate matched-filter output of ``u`` = [halo | z]."""
+    n = cfg.frame_size
+    w = decim_taps(cfg).to(u.device)
+    acc = torch.zeros((*u.shape[:-1], n), dtype=torch.float32,
+                      device=u.device)
+    for k in range(cfg.ntaps):
+        acc = acc + w[k] * u[..., k:k + n]
+    return acc
+
+
 def frontend_decim_ref(cfg: ModemConfig, pcm, p0r, p0i, tail0_r, tail0_i,
                        adv):
     """Plain PyTorch version of :func:`frontend_decim`."""
@@ -90,11 +122,7 @@ def frontend_decim_ref(cfg: ModemConfig, pcm, p0r, p0i, tail0_r, tail0_i,
     for z, tail0 in ((zr, tail0_r), (zi, tail0_i)):
         h = torch.cat([tail0.to(zdt)[None], z[:-1, :, n - halo:]], 0)
         u.append(torch.cat([h, z], -1).float())             # [B, C, halo+n]
-    u = torch.stack(u)                                      # [2, B, C, .]
-    w = decim_taps(cfg).to(pcm.device)
-    acc = torch.zeros((2, B, C, n), dtype=torch.float32, device=pcm.device)
-    for k in range(cfg.ntaps):
-        acc = acc + w[k] * u[..., k:k + n]
+    acc = _tap_sums(cfg, torch.stack(u))                    # [2, B, C, n]
     # acc[..., t] is the full-rate filter output; phase c keeps t = 5s + c
     dec = acc.reshape(2, B * C, n_sym, cyc).permute(3, 0, 1, 2)
     return dec.to(_DTYPES[cfg.decim_dtype]).contiguous()
@@ -129,8 +157,7 @@ def frontend_decim(cfg: ModemConfig, pcm, p0r, p0i, tail0_r, tail0_i,
     ddt = _DTYPES[cfg.decim_dtype]
     out = torch.empty((cfg.cycles, 2, B * C, cfg.symbols_per_block),
                       dtype=ddt, device=pcm.device)
-    tab = _mixer_planes(cfg, pcm.device)
-    taps = decim_taps(cfg).to(pcm.device)
+    tab, taps = _kernel_tables(cfg, pcm.device)
     ptrs = _build.cuda_args(pcm, p0r, p0i, tail0_r, tail0_i, adv, tab,
                             taps, out, device=pcm.device)
     lib = _build.load()
@@ -140,3 +167,136 @@ def frontend_decim(cfg: ModemConfig, pcm, p0r, p0i, tail0_r, tail0_i,
     _build.check(err, "frontend_decim")
     _build.LAUNCHES["frontend_decim"] += 1
     return out
+
+
+# ------------------------------------------- per-row phases and halos
+
+def _check_rows_config(cfg: ModemConfig, mixer_fold, debug_mode: str):
+    if cfg.frontend_dtype != "bf16":
+        raise NotImplementedError(
+            f"cfg.frontend_dtype={cfg.frontend_dtype!r} is not ported yet "
+            "(only 'bf16'); ROADMAP: f32 front-end matmul operands")
+    if cfg.mixer_fold if mixer_fold is None else mixer_fold:
+        raise NotImplementedError(
+            "mixer_fold=True is not ported yet; ROADMAP: mixer-fold "
+            "kernels #2 and #4")
+    if debug_mode != "none":
+        raise NotImplementedError(
+            f"debug_mode={debug_mode!r} is a cost probe of the TPU kernel "
+            "and has no counterpart; ROADMAP: not to port (stage probes)")
+
+
+def _frontend_state_out(cfg: ModemConfig, decim, pcm, phase_r, phase_i):
+    """New FIR tail + phase advance of every row
+    (``frontend_pallas._frontend_state_out``; it divides by
+    ``tx_amplitude`` where the batch path multiplies by the inverse,
+    each kept as written)."""
+    n, halo = cfg.frame_size, cfg.ntaps - 1
+    table = mixer_table(-cfg.center, cfg.fs, n)
+    x_t = pcm[:, n - halo:].float() / cfg.tx_amplitude
+    tr_t, ti_t = tail_table(cfg.center, cfg.fs, n, halo, pcm.device)
+    ntail_r = x_t * (phase_r[:, None] * tr_t - phase_i[:, None] * ti_t)
+    ntail_i = x_t * (phase_r[:, None] * ti_t + phase_i[:, None] * tr_t)
+    adv = table[n - 1]
+    a_r, a_i = float(adv.real), float(adv.imag)
+    npr = phase_r * a_r - phase_i * a_i
+    npi = phase_r * a_i + phase_i * a_r
+    mag = torch.sqrt(npr * npr + npi * npi)
+    return decim, ntail_r, ntail_i, npr / mag, npi / mag
+
+
+def frontend_rows_ref(cfg: ModemConfig, pcm, phase_r, phase_i, tail_r,
+                      tail_i, *, transposed: bool = False):
+    """Plain PyTorch version of :func:`frontend_rows`."""
+    N, n = pcm.shape
+    zdt = _DTYPES[cfg.frontend_dtype]
+    x = pcm.float() * (1.0 / cfg.tx_amplitude)              # [N, n]
+    pr, pi = phase_r[:, None], phase_i[:, None]
+    tr, ti = _mixer_planes(cfg, pcm.device)
+    zr = (x * (pr * tr - pi * ti)).to(zdt)
+    zi = (x * (pr * ti + pi * tr)).to(zdt)
+    u = torch.stack([torch.cat([tail_r.to(zdt), zr], -1),
+                     torch.cat([tail_i.to(zdt), zi], -1)]).float()
+    acc = _tap_sums(cfg, u).reshape(2, N, cfg.symbols_per_block,
+                                    cfg.cycles)
+    if transposed:
+        return acc.permute(3, 0, 1, 2).to(
+            _DTYPES[cfg.decim_dtype]).contiguous()
+    return acc.permute(1, 3, 0, 2).contiguous()
+
+
+def frontend_rows(cfg: ModemConfig, pcm, phase_r, phase_i, tail_r, tail_i,
+                  *, transposed: bool = False):
+    """Downmix + RRC matched filter + x5 decimation of N independent
+    rows, each with its own mixer phase and downmixed halo (the kernel of
+    :func:`fused_frontend_decim`, whose arguments these are).  Returns
+    the decim planes: [N, cycles, 2, n_sym] f32, or with ``transposed``
+    [cycles, 2, N, n_sym] in ``cfg.decim_dtype``."""
+    if pcm.device.type == "cpu":
+        return frontend_rows_ref(cfg, pcm, phase_r, phase_i, tail_r, tail_i,
+                                 transposed=transposed)
+    _build.require_kernel_geometry(cfg)
+    N = pcm.shape[0]
+    if pcm.dtype != torch.int16 or tuple(pcm.shape) != (N, cfg.frame_size):
+        raise TypeError(f"pcm must be int16 [N, {cfg.frame_size}], got "
+                        f"{pcm.dtype} {tuple(pcm.shape)}")
+    halo = cfg.ntaps - 1
+    for t, shape in ((phase_r, (N,)), (phase_i, (N,)),
+                     (tail_r, (N, halo)), (tail_i, (N, halo))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"expected f32 {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    dev = pcm.device
+    n_sym = cfg.symbols_per_block
+    if transposed:
+        ddt = _DTYPES[cfg.decim_dtype]
+        layout = int(ddt == torch.bfloat16)
+        out = torch.empty((cfg.cycles, 2, N, n_sym), dtype=ddt, device=dev)
+    else:
+        layout = 2
+        out = torch.empty((N, cfg.cycles, 2, n_sym), dtype=torch.float32,
+                          device=dev)
+    tab, taps = _kernel_tables(cfg, dev)
+    ptrs = _build.cuda_args(pcm, phase_r, phase_i, tail_r, tail_i, tab,
+                            taps, out, device=dev)
+    err = _build.load().sc_frontend_rows(
+        *ptrs, N, layout, 1.0 / cfg.tx_amplitude,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "frontend_rows")
+    _build.LAUNCHES["frontend_rows"] += 1
+    return out
+
+
+def fused_frontend_decim_ref(cfg: ModemConfig, pcm, phase_r, phase_i,
+                             tail_r, tail_i, *, transposed: bool = False):
+    """Plain PyTorch version of :func:`fused_frontend_decim`."""
+    decim = frontend_rows_ref(cfg, pcm, phase_r, phase_i, tail_r, tail_i,
+                              transposed=transposed)
+    return _frontend_state_out(cfg, decim, pcm, phase_r, phase_i)
+
+
+def fused_frontend_decim(cfg: ModemConfig, pcm, phase_r, phase_i, tail_r,
+                         tail_i, *, block_channels: int = 256,
+                         chunk: int = 128, transposed: bool = False,
+                         aligned: bool = True, debug_mode: str = "none",
+                         mixer_fold: bool | None = None,
+                         interpret: bool = False):
+    """Front-end of N independent rows, each with its own phase and halo.
+
+    Args:
+      pcm:             [N, frame_size] int16.
+      phase_r/phase_i: [N] f32 mixer phasor entering each row's block.
+      tail_r/tail_i:   [N, ntaps-1] f32 downmixed FIR halo of each row.
+
+    Returns ``(decim, new_tail_r, new_tail_i, new_phase_r,
+    new_phase_i)``: ``decim`` from :func:`frontend_rows`, the state out
+    as O(N) tensor glue.
+
+    ``block_channels``, ``chunk``, ``aligned`` and ``interpret`` only
+    size or route the TPU kernel; they are accepted and ignored so that
+    a call written for the JAX package runs unchanged.
+    """
+    _check_rows_config(cfg, mixer_fold, debug_mode)
+    decim = frontend_rows(cfg, pcm, phase_r, phase_i, tail_r, tail_i,
+                          transposed=transposed)
+    return _frontend_state_out(cfg, decim, pcm, phase_r, phase_i)

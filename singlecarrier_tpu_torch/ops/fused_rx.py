@@ -11,7 +11,8 @@ carry sits:
      tail (the closed-form phase recursion makes it exact);
   2. ``decode.hunt`` -- row n's window reads row n - C's planes (or the
      carried ``dprev0``);
-  3. ``decode.extract_decode``.
+  3. ``decode.extract_decode`` (2 and 3 through
+     ``decode.fused_hunt_decode_decim``).
 
 The price is one write and two reads of the decim planes in device
 memory, which the Pallas kernel avoided.
@@ -24,7 +25,7 @@ import torch
 
 from ..config import ModemConfig
 from ..dsp.mixer import downmix_tail
-from .decode import extract_decode, hunt
+from .decode import fused_hunt_decode_decim
 from .frontend import frontend_decim
 
 
@@ -76,7 +77,6 @@ def fused_rx_block(cfg: ModemConfig, pcm_frames, p0r, p0i, tail0_r,
     block B-1, and the closed-form final phase/tail planes.
     """
     check_supported(cfg, stage)
-    D = cfg.frame_symbols
     n = cfg.frame_size
     halo = cfg.ntaps - 1
     B, C = pcm_frames.shape[0], pcm_frames.shape[1]
@@ -89,20 +89,8 @@ def fused_rx_block(cfg: ModemConfig, pcm_frames, p0r, p0i, tail0_r,
 
     decim = frontend_decim(cfg, pcm_frames, p0r, p0i, tail0_r, tail0_i, adv)
     dprev0 = dprev0_t.to(decim.dtype).contiguous()
-    lag, phase, peak = hunt(cfg, decim, dprev0)
-    out = extract_decode(cfg, decim, dprev0, lag, phase, peak,
-                         descramble=descramble)
-    dec = {
-        "dibits": out[:, :D],
-        "matches": out[:, D].to(torch.int32),
-        "eq_error": out[:, D + 1],
-        "cfo_hz": out[:, D + 2],
-        "gated": out[:, D + 3] > 0.5,
-        "energy": out[:, D + 4],
-        "lag": out[:, D + 5].to(torch.int32),
-        "phase_idx": out[:, D + 6].to(torch.int32),
-        "peak": out[:, D + 7],
-    }
+    dec = fused_hunt_decode_decim(cfg, dprev0, decim, channels=C,
+                                  descramble=descramble)
     dlast = decim[:, :, (B - 1) * C:].clone()
 
     # ---- closed-form final phase + tail (O(C) glue) ----

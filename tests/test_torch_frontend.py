@@ -11,6 +11,8 @@ planes by at most one bf16 ulp.  The halo for block b > 0 is recomputed
 by the port from the previous block's raw tail with the same products.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,10 +22,12 @@ from singlecarrier_tpu.config import DEFAULT_CONFIG as CFG
 from singlecarrier_tpu.dsp import fftops as jfft
 from singlecarrier_tpu.dsp import mixer as jmix
 from singlecarrier_tpu.ops import frontend_pallas as jfe
+from singlecarrier_tpu_torch.config import ModemConfig as TorchConfig
 from singlecarrier_tpu_torch.dsp import fftops, mixer
 from singlecarrier_tpu_torch.ops import frontend
 
 C, B = 4, 3
+TCFG = TorchConfig(**dataclasses.asdict(CFG))
 
 
 def test_mixer_table_and_downmix_tail_match_jax():
@@ -57,7 +61,7 @@ def test_decim_taps_are_the_jax_tap_matrix_band():
     assert np.array_equal(t, jfe._decim_tap_matrix_aligned(*args))
     # every column holds the same 49 taps; the kernel consumes them in
     # the front-end dtype, as the JAX kernel's .astype(bf16) operand
-    w = frontend.decim_taps(CFG)
+    w = frontend.decim_taps(TCFG)
     lead = 128 - halo
     col = t[lead + 7 * CFG.cycles + 3:lead + 7 * CFG.cycles + 3 + CFG.ntaps,
             3 * 128 + 7]
@@ -117,9 +121,9 @@ def test_frontend_decim_ref_matches_jax_kernel(decim_dtype):
     want = _jax_decim(cfg, pcm, p0r, p0i, t0r, t0i, advs)
     adv = torch.from_numpy(np.stack([advs.real[:B], advs.imag[:B]]))
     got = frontend.frontend_decim(
-        cfg, torch.from_numpy(pcm), torch.from_numpy(p0r),
-        torch.from_numpy(p0i), torch.from_numpy(t0r), torch.from_numpy(t0i),
-        adv)
+        TCFG.replace(decim_dtype=decim_dtype), torch.from_numpy(pcm),
+        torch.from_numpy(p0r), torch.from_numpy(p0i), torch.from_numpy(t0r),
+        torch.from_numpy(t0i), adv)
     assert got.shape == (cfg.cycles, 2, B * C, cfg.symbols_per_block)
     assert got.dtype == (torch.bfloat16 if decim_dtype == "bf16"
                          else torch.float32)

@@ -11,6 +11,8 @@ hunt peak to rtol 1e-5 on detected rows (the correlation is exact in
 int8; f32 sums differ only in order).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +25,8 @@ from singlecarrier_tpu.ops.decode_pallas import (
     _cossin_small, _gram_sliding, _slice_hard, _solve_chol,
     fused_hunt_decode_decim)
 from singlecarrier_tpu.ops.frontend_pallas import fused_frontend_decim
-from singlecarrier_tpu_torch.interop import planes_from_numpy
+from singlecarrier_tpu_torch.interop import (config_from_dict,
+                                             planes_from_numpy)
 from singlecarrier_tpu_torch.ops import decode
 
 BENCH = CFG.replace(decim_dtype="bf16", hunt_dtype="int8",
@@ -68,9 +71,10 @@ def test_hunt_and_decode_match_jax_kernel(name):
                                    block_channels=C, interpret=True)
     want = jax.tree.map(np.asarray, want)
 
-    tp, tc = planes_from_numpy((dprev0, dcur))
-    lag, ph, peak = decode.hunt(cfg, tc, tp)
-    out = decode.extract_decode(cfg, tc, tp, lag, ph, peak).numpy()
+    tcfg = config_from_dict(dataclasses.asdict(cfg))
+    tp, tc = planes_from_numpy((dprev0, dcur), device="cpu")
+    lag, ph, peak = decode.hunt(tcfg, tc, tp)
+    out = decode.extract_decode(tcfg, tc, tp, lag, ph, peak).numpy()
     D = cfg.frame_symbols
     got_valid = (out[:, D + 3] > 0.5) & (out[:, D] > cfg.match_threshold)
     want_valid = want["gated"] & (want["matches"] > cfg.match_threshold)

@@ -1,6 +1,8 @@
-"""PyTorch port: state interop, JAX-free imports, unsupported knobs, and
-the CPU route of the kernel wrappers."""
+"""PyTorch port: its own numerology and tables against the JAX package's,
+state interop, imports free of JAX and of the JAX package, the device
+rule, unsupported knobs, and the CPU route of the kernel wrappers."""
 
+import dataclasses
 import pathlib
 import re
 import subprocess
@@ -11,26 +13,95 @@ import numpy as np
 import pytest
 import torch
 
+from singlecarrier_tpu import constants as jconst
+from singlecarrier_tpu import filter_design as jfd
 from singlecarrier_tpu.config import DEFAULT_CONFIG as CFG
+from singlecarrier_tpu.config import ModemConfig as JaxConfig
 from singlecarrier_tpu.modem import rx_production as jrx
+from singlecarrier_tpu_torch import constants as tconst
+from singlecarrier_tpu_torch import filter_design as tfd
 from singlecarrier_tpu_torch import interop
-from singlecarrier_tpu_torch.modem import prod_rx_batch, prod_rx_init_planes
+from singlecarrier_tpu_torch.config import DEFAULT_CONFIG as TCFG
+from singlecarrier_tpu_torch.config import ModemConfig as TorchConfig
+from singlecarrier_tpu_torch.modem import (ProdRxState, make_prod_rx_fn,
+                                           planes_to_state, prod_rx_batch,
+                                           prod_rx_init, prod_rx_init_planes,
+                                           prod_rx_stream_pallas,
+                                           state_to_planes)
 from singlecarrier_tpu_torch.modem import rx_production as trx
 from singlecarrier_tpu_torch.ops import _build
+from singlecarrier_tpu_torch.ops.frontend import fused_frontend_decim
 from singlecarrier_tpu_torch.ops.fused_rx import fused_rx_block
 
-PKG = pathlib.Path(__file__).resolve().parents[1] / "singlecarrier_tpu_torch"
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "singlecarrier_tpu_torch"
+
+VARIANTS = [{}, {"decim_dtype": "bf16", "hunt_dtype": "int8",
+                 "ls_refit_symbols": 128},
+            {"alpha": 0.50, "corr_segments": 32, "eq_length": 7},
+            {"fs": 9600.0, "rs": 2400.0, "ns": 4, "preamble_length": 64}]
+
+
+def _properties(cls):
+    return sorted(k for k, v in vars(cls).items() if isinstance(v, property))
+
+
+def test_config_copy_equals_the_jax_package():
+    """Every field, default and derived property of the port's own
+    ``ModemConfig`` equals the JAX package's, so the copies cannot drift
+    apart unseen."""
+    assert TorchConfig is not JaxConfig
+    fj = [(f.name, f.type, f.default) for f in dataclasses.fields(JaxConfig)]
+    ft = [(f.name, f.type, f.default)
+          for f in dataclasses.fields(TorchConfig)]
+    assert fj == ft
+    assert dataclasses.asdict(TCFG) == dataclasses.asdict(CFG)
+    props = _properties(JaxConfig)
+    assert props == _properties(TorchConfig)
+    assert {"effective_peak_gate", "pkt_window", "symbols_per_block",
+            "frame_size", "match_threshold", "bits_per_frame"} <= set(props)
+    for kw in VARIANTS:
+        cj = CFG.replace(**kw)
+        ct = interop.config_from_dict(dataclasses.asdict(cj))
+        assert isinstance(ct, TorchConfig)
+        assert ct == TCFG.replace(**kw)
+        for name in props:
+            assert getattr(ct, name) == getattr(cj, name), name
+    for bad in ({"ntaps": 48}, {"fs": 8000.0, "rs": 3000.0},
+                {"hunt_dtype": "fp8"}, {"alpha": 0.0}):
+        for cls in (JaxConfig, TorchConfig):
+            with pytest.raises(ValueError):
+                cls(**bad)
+
+
+def test_constant_tables_equal_the_jax_package():
+    names = [n for n in dir(jconst) if n.isupper()]
+    assert {"PREAMBLE_VALUES", "ALPHA35_ROOT", "ALPHA50_ROOT"} <= set(names)
+    for n in names:
+        a, b = getattr(jconst, n), getattr(tconst, n)
+        assert np.array_equal(np.asarray(a), np.asarray(b)), n
+        assert np.asarray(a).dtype == np.asarray(b).dtype, n
+    for alpha in (0.35, 0.50):
+        assert np.array_equal(tconst.rrc_taps(alpha, 49),
+                              jconst.rrc_taps(alpha, 49))
+        assert np.array_equal(tfd.reference_taps(alpha),
+                              jfd.reference_taps(alpha))
+    assert np.array_equal(tconst.scramble_dibit_mask(),
+                          jconst.scramble_dibit_mask())
+    assert np.array_equal(tconst.scramble_keystream(),
+                          jconst.scramble_keystream())
 
 
 @pytest.mark.parametrize("decim_dtype", ["bf16", "f32"])
 def test_plane_state_round_trip(decim_dtype):
     cfg = CFG.replace(decim_dtype=decim_dtype)
+    tcfg = TCFG.replace(decim_dtype=decim_dtype)
     rng = np.random.default_rng(0)
     planes = [np.asarray(a) for a in jrx.prod_rx_init_planes(cfg, 3)]
     planes = [(rng.normal(size=a.shape)).astype(a.dtype) for a in planes]
     want_dt = ml_dtypes.bfloat16 if decim_dtype == "bf16" else np.float32
     assert planes[4].dtype == want_dt
-    st = interop.planes_from_numpy(planes)
+    st = interop.planes_from_numpy(planes, device="cpu")
     assert st[4].dtype == (torch.bfloat16 if decim_dtype == "bf16"
                            else torch.float32)
     # the same values the JAX package would compute with
@@ -41,29 +112,93 @@ def test_plane_state_round_trip(decim_dtype):
         assert a.dtype == b.dtype
         assert np.array_equal(a.view(np.uint8), b.view(np.uint8))
     # and the port's own initial state is the JAX package's
-    mine = interop.planes_to_numpy(prod_rx_init_planes(cfg, 3))
+    mine = interop.planes_to_numpy(prod_rx_init_planes(tcfg, 3, "cpu"))
     for a, b in zip(jrx.prod_rx_init_planes(cfg, 3), mine):
         assert np.asarray(a).dtype == b.dtype
         assert np.array_equal(np.asarray(a), b)
 
 
+@pytest.mark.parametrize("decim_dtype", ["bf16", "f32"])
+def test_complex_state_round_trip(decim_dtype):
+    """``ProdRxState`` crosses the packages unchanged, and
+    planes -> state -> planes is exact (bf16 planes widen to f32 and
+    round back), as in the JAX package."""
+    cfg = CFG.replace(decim_dtype=decim_dtype)
+    tcfg = TCFG.replace(decim_dtype=decim_dtype)
+    init_j = [np.asarray(a) for a in jrx.prod_rx_init(cfg, (3,))]
+    init_t = interop.state_to_numpy(prod_rx_init(tcfg, (3,), "cpu"))
+    for a, b in zip(init_j, init_t):
+        assert a.dtype == b.dtype == np.complex64
+        assert np.array_equal(a, b)
+    rng = np.random.default_rng(5)
+    leaves = [(rng.normal(size=a.shape) + 1j * rng.normal(size=a.shape)
+               ).astype(np.complex64) for a in init_j]
+    st = interop.state_from_numpy(leaves, device="cpu")
+    assert isinstance(st, ProdRxState)
+    for a, b in zip(leaves, interop.state_to_numpy(st)):
+        assert np.array_equal(a, b)
+    # state_to_planes equals the JAX package's, bit for bit
+    want = jrx.state_to_planes(cfg, jrx.ProdRxState(*leaves))
+    got = state_to_planes(tcfg, st)
+    for a, b in zip(want, interop.planes_to_numpy(got)):
+        a = np.ascontiguousarray(a)
+        assert a.dtype == b.dtype
+        assert np.array_equal(a.view(np.uint8), b.view(np.uint8))
+    # planes -> state -> planes is exact
+    again = state_to_planes(tcfg, planes_to_state(got))
+    for a, b in zip(got, again):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    back_j = jrx.planes_to_state(want)
+    for a, b in zip(back_j, interop.state_to_numpy(planes_to_state(got))):
+        assert np.array_equal(np.asarray(a), b)
+
+
+def test_the_card_is_the_default_device():
+    """Without ``device`` the constructors make CUDA tensors, and raise
+    where there is no card; the processing entry points follow their
+    state."""
+    if torch.cuda.is_available():
+        assert prod_rx_init_planes(TCFG, 2)[0].is_cuda
+        assert prod_rx_init(TCFG, (2,)).phase.is_cuda
+        return
+    z = np.zeros(2, np.float32)
+    for make in (lambda: prod_rx_init_planes(TCFG, 2),
+                 lambda: prod_rx_init(TCFG, (2,)),
+                 lambda: interop.planes_from_numpy([z]),
+                 lambda: interop.state_from_numpy([z])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    state = prod_rx_init_planes(TCFG, 2, device="cpu")
+    assert all(t.device.type == "cpu" for t in state)
+    pcm = torch.zeros((1, 2, TCFG.frame_size), dtype=torch.int16)
+    new, out = prod_rx_batch(TCFG, state, pcm)
+    assert out.valid.device.type == new[4].device.type == "cpu"
+
+
 def test_package_imports_without_jax():
     code = ("import sys; import singlecarrier_tpu_torch, "
             "singlecarrier_tpu_torch.modem, singlecarrier_tpu_torch.interop, "
-            "singlecarrier_tpu_torch.ops.fused_rx; "
-            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
-            "if m.startswith('jax'))")
+            "singlecarrier_tpu_torch.ops.fused_rx, "
+            "singlecarrier_tpu_torch.ops._build; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'singlecarrier_tpu' or "
+            "m.startswith('singlecarrier_tpu.')); assert not bad, bad; "
+            "assert 'singlecarrier_tpu_torch.config' in sys.modules")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, cwd=PKG.parent, timeout=120)
+                         text=True, cwd=ROOT, timeout=120)
     assert res.returncode == 0, res.stderr
 
 
 def test_no_jax_import_in_package_sources():
-    pat = re.compile(r"^\s*(import jax|from jax)", re.M)
-    files = sorted(PKG.rglob("*.py"))
-    assert len(files) >= 10
+    pat = re.compile(r"^\s*(import jax|from jax|import singlecarrier_tpu\b"
+                     r"(?!_torch)|from singlecarrier_tpu(\.|\s))", re.M)
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) >= 14
     for f in files:
         assert not pat.search(f.read_text()), f
+    assert pat.search("from singlecarrier_tpu.config import X")
+    assert pat.search("    import singlecarrier_tpu")
+    assert not pat.search("from singlecarrier_tpu_torch.config import X")
 
 
 @pytest.mark.parametrize("knob", [
@@ -72,26 +207,43 @@ def test_no_jax_import_in_package_sources():
     {"frontend_dtype": "f32"}, {"mixer_fold": True}, {"hunt_dtype": "f32"},
 ], ids=lambda k: "-".join(f"{a}={b}" for a, b in k.items()))
 def test_unported_knobs_raise(knob):
-    cfg = CFG.replace(**knob)
-    state = prod_rx_init_planes(cfg, 2)
+    cfg = TCFG.replace(**knob)
+    state = prod_rx_init_planes(cfg, 2, "cpu")
     pcm = torch.zeros((1, 2, cfg.frame_size), dtype=torch.int16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         prod_rx_batch(cfg, state, pcm, fuse_frontend=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        prod_rx_batch(cfg, state, pcm)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        prod_rx_stream_pallas(cfg, prod_rx_init(cfg, (2,), "cpu"), pcm)
 
 
 def test_unported_paths_raise():
-    state = prod_rx_init_planes(CFG, 2)
-    pcm = torch.zeros((1, 2, CFG.frame_size), dtype=torch.int16)
+    state = prod_rx_init_planes(TCFG, 2, "cpu")
+    cstate = prod_rx_init(TCFG, (2,), "cpu")
+    pcm = torch.zeros((1, 2, TCFG.frame_size), dtype=torch.int16)
+    with pytest.raises(TypeError, match="ProdRxState or the 5-tuple"):
+        prod_rx_batch(TCFG, state[:4], pcm, fuse_frontend=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prod_rx_batch(CFG, state, pcm)                  # two-kernel path
+        fused_rx_block(TCFG, pcm, *state, stage="gate")
+    # the streaming bodies that wait for kernel #8 and the XLA path
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prod_rx_batch(CFG, state[:4], pcm, fuse_frontend=True)
+        prod_rx_stream_pallas(TCFG.replace(frac_timing=True), cstate, pcm)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_rx_block(CFG, pcm, *state, stage="gate")
+        prod_rx_stream_pallas(TCFG, cstate, pcm, fuse_decode=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_prod_rx_fn(TCFG)
+    # the mixer-fold kernels, by config or by argument
+    z = torch.zeros((2,))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fused_frontend_decim(TCFG, pcm[0], z, z, z, z, mixer_fold=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fused_frontend_decim(TCFG, pcm[0], z, z, z, z,
+                             debug_mode="store_only")
     with pytest.raises(ValueError, match="frac_timing"):
-        prod_rx_batch(CFG.replace(frac_timing=True), state, pcm,
+        prod_rx_batch(TCFG.replace(frac_timing=True), state, pcm,
                       fuse_frontend=True)
-    cfg = CFG.replace(eq_length=7)
+    cfg = TCFG.replace(eq_length=7)
     with pytest.raises(NotImplementedError, match="numerolog"):
         _build.require_kernel_geometry(cfg)
 
@@ -100,16 +252,26 @@ def test_cpu_tensors_take_the_plain_path():
     """CPU tensors go through the plain versions: no kernel is built or
     launched, and the counters stay at 0."""
     _build.reset_launches()
-    cfg = CFG.replace(decim_dtype="bf16", hunt_dtype="int8")
+    cfg = TCFG.replace(decim_dtype="bf16", hunt_dtype="int8")
     rng = np.random.default_rng(1)
     pcm = torch.from_numpy(rng.integers(-16384, 16384, (2, 2, CFG.frame_size),
                                         dtype=np.int16))
-    state, out = prod_rx_batch(cfg, prod_rx_init_planes(cfg, 2), pcm,
+    state, out = prod_rx_batch(cfg, prod_rx_init_planes(cfg, 2, "cpu"), pcm,
                                fuse_frontend=True)
     assert out.valid.shape == (2, 2)
     assert out.bits.shape == (2, 2, CFG.bits_per_frame)
     assert out.bits.dtype == torch.uint8
     assert state[4].dtype == torch.bfloat16
+    cstate = prod_rx_init(cfg, (2,), "cpu")
+    for flags in ({}, {"fuse_hunt": False}, {"fuse_extract": False,
+                                             "fuse_hunt": False}):
+        _, out = prod_rx_batch(cfg, cstate, pcm, **flags)
+        assert out.valid.shape == (2, 2)
+    _, out = prod_rx_stream_pallas(cfg, cstate, pcm)
+    assert out.bits.shape == (2, 2, CFG.bits_per_frame)
+    assert set(_build.LAUNCHES) == {
+        "frontend_decim", "frontend_rows", "hunt", "extract_decode",
+        "decode_extract", "decode_packets"}
     assert all(v == 0 for v in _build.LAUNCHES.values())
     assert _build._lib is None
 

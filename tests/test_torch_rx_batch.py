@@ -14,6 +14,8 @@ f32 the reassociation of the 49-term filter sum (< 2e-5,
 test_torch_frontend.py).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +25,8 @@ import torch
 from singlecarrier_tpu.config import DEFAULT_CONFIG as CFG
 from singlecarrier_tpu.modem import tx_stream
 from singlecarrier_tpu.modem import rx_production as jrx
-from singlecarrier_tpu_torch.interop import planes_from_numpy
+from singlecarrier_tpu_torch.interop import (config_from_dict,
+                                             planes_from_numpy)
 from singlecarrier_tpu_torch.modem import prod_rx_batch
 
 BENCH = CFG.replace(decim_dtype="bf16", hunt_dtype="int8",
@@ -63,15 +66,17 @@ def _awgn_frames(seed=21):
 
 def _run_both(cfg, frames, descramble):
     half = frames.shape[0] // 2
+    tcfg = config_from_dict(dataclasses.asdict(cfg))
     st_j = jrx.prod_rx_init_planes(cfg, C)
     outs_j, outs_t, states = [], [], []
     for part in (frames[:half], frames[half:]):
-        st_t = planes_from_numpy([np.asarray(a) for a in st_j])
+        st_t = planes_from_numpy([np.asarray(a) for a in st_j],
+                                 device="cpu")
         st_j, o_j = jrx.prod_rx_batch(
             cfg, st_j, jnp.asarray(part), descramble=descramble,
             block_channels=C, decode_block_channels=C, fuse_frontend=True,
             interpret=True)
-        st_t, o_t = prod_rx_batch(cfg, st_t, torch.from_numpy(part),
+        st_t, o_t = prod_rx_batch(tcfg, st_t, torch.from_numpy(part),
                                   descramble=descramble, fuse_frontend=True)
         outs_j.append(jax.tree.map(np.asarray, o_j))
         outs_t.append(o_t)
