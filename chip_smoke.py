@@ -7,9 +7,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
   2. build    -- compiles the kernels (``singlecarrier_tpu_torch/csrc``)
                  into ``build/torch_kernels/`` and prints ptxas' register
                  and spill report;
-  3. kernels  -- each kernel against its plain PyTorch version on the
-                 card (C=256 channels x 4 blocks, golden packets + noise),
-                 at the library default and the bench operating point;
+  3. kernels  -- each of the ten kernels against its plain PyTorch
+                 version on the card (C=256 channels x 4 blocks, golden
+                 packets + noise), at the library default and the bench
+                 operating point; the mixer-folded front-ends in all
+                 three output layouts; the gate stage against the full
+                 decode's gate column;
   4. main     -- ``prod_rx_batch(fuse_frontend=True)`` at the bench
                  operating point, 8192 channels, two chained dispatches
                  of 10 blocks carrying the state, on the golden stream
@@ -28,12 +31,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  first 4 blocks; each must decode every packet and agree
                  with the others at the level of decisions, and each is
                  driven with the launch counters at 0 just before and
-                 read just after;
-  6. timing   -- chained dispatches of the main path and of (a)
-                 (8192 x 128 blocks), (b) over 128 blocks, the batch
-                 paths' kernels at that dispatch size, and each kernel
-                 against its plain version at 8192 x 4 rows, each beside
-                 its bound (``_kernel_bounds``).
+                 read just after; then, the same way, (d) both batch
+                 paths with ``mixer_fold=True`` (decisions equal to the
+                 premix main path's), (e) the gated two-phase RX
+                 ``prod_rx_batch_gated`` on 8192 channels of which every
+                 32nd carries the golden stream and the rest full-scale
+                 noise (count, order and rows equal to the full path's,
+                 across the dispatch seam; a small capacity reports its
+                 overflow), (f) ``prod_rx_stream_pallas`` with
+                 ``frac_timing=True`` one block at a time (32 channels
+                 against the plain path on the CPU, ``frac`` included);
+  6. timing   -- chained dispatches of the main path (premix, then
+                 ``mixer_fold=True``), of (a) and of the gated RX
+                 (8192 x 128 blocks), (b) and (f) over 128 blocks, the
+                 batch paths' kernels at that dispatch size, and each
+                 kernel against its plain version at 8192 x 4 rows, each
+                 beside its bound (``_kernel_bounds``).
 
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line and, last, ``{"ok": true, "device": {...}}``.  Any failing phase
@@ -54,6 +67,11 @@ B_TIME, ITERS = 128, 3         # timed dispatches of C_MAIN x B_TIME
 B_KTIME = 4                    # per-kernel timing: C_MAIN x B_KTIME rows
 B_UNFUSED = 4                  # blocks of the unfused paths (c)
 N_REF_CH = 32                  # channels re-run on the CPU plain path
+GOLDEN_EVERY = 32              # gated RX: every 32nd channel carries packets
+K_GATED, K_SMALL = 8192, 64    # gated RX capacities (the second overflows)
+K_TIME = (1024, 8192)          # gated RX capacities of the timed noise run:
+                               # the first overflows, the second holds the
+                               # rows of full-scale noise that pass the gate
 SEED = 1234
 
 # name -> (source, file:line of the Pallas body it replaces, note)
@@ -86,6 +104,25 @@ KERNELS = {
         "singlecarrier_tpu_torch/csrc/decode.cu",
         "singlecarrier_tpu/ops/decode_pallas.py:370",
         "kernel #7 fused_decode"),
+    "frontend_decim_folded": (
+        "singlecarrier_tpu_torch/csrc/frontend.cu",
+        "singlecarrier_tpu/ops/fused_rx.py:217",
+        "front-end stage of kernel #2 fused_rx_block with mixer_fold "
+        "(_fused_rx_kernel_folded), followed by hunt + extract_decode"),
+    "frontend_rows_folded": (
+        "singlecarrier_tpu_torch/csrc/frontend.cu",
+        "singlecarrier_tpu/ops/frontend_pallas.py:286",
+        "kernel #4 fused_frontend_decim with mixer_fold "
+        "(_kernel_decim_folded)"),
+    "extract_gate": (
+        "singlecarrier_tpu_torch/csrc/decode.cu",
+        "singlecarrier_tpu/ops/decode_pallas.py:417",
+        "stage='gate' of kernels #1, #2 and #5: extraction + energy gate, "
+        "the decode tail not executed"),
+    "frontend_full": (
+        "singlecarrier_tpu_torch/csrc/frontend.cu",
+        "singlecarrier_tpu/ops/frontend_pallas.py:45",
+        "kernel #8 fused_frontend"),
 }
 
 # Published peaks of one H100 SXM (dense): bytes/s of device memory and
@@ -125,11 +162,27 @@ def _kernel_bounds(cfg, N: int, C: int) -> dict:
         + (P + (cfg.ls_refit_symbols or D)) * (L * 8 + L * 8)  # Gram, b-vec
         + (P * 2 + (cfg.ls_refit_symbols or D) + D) * L * 8   # apply x4
         + (1 + cfg.phase_refine_iters) * D * 40)}             # refine passes
+    k1_bytes = N * n * 2 + C * (2 + 2 * halo) * 4 + N * planes * plane_b
+    rows_in = N * n * 2 + N * (2 + 2 * halo) * 4
     return {
-        "frontend_decim": _bound(
-            N * n * 2 + C * (2 + 2 * halo) * 4 + N * planes * plane_b, fir),
-        "frontend_rows": _bound(
-            N * n * 2 + N * (2 + 2 * halo) * 4 + N * planes * plane_b, fir),
+        # the fold does the same multiply-adds (two sums over one plane)
+        # and moves the mixer's products behind them: K1's bytes and
+        # operations
+        "frontend_decim": _bound(k1_bytes, fir),
+        "frontend_decim_folded": _bound(k1_bytes, fir),
+        "frontend_rows": _bound(rows_in + N * planes * plane_b, fir),
+        "frontend_rows_folded": _bound(rows_in + N * planes * plane_b, fir),
+        # all f32: 3.76 KB in and 15 KB out per row, 49 x 3760
+        # multiply-adds outside the tensor cores and 9 operations a
+        # sample for the scale (1), p * table (6) and x * (.) (2)
+        "frontend_full": _bound(
+            rows_in + N * 2 * n * 4,
+            {"f32": N * (2 * n * cfg.ntaps * 2 + n * 9)}),
+        # the 128 preamble chips a row's energy needs of its two planes,
+        # its lag, phase and peak, one packed row out
+        "extract_gate": _bound(
+            N * 2 * P * plane_b + N * 12 + N * out_row,
+            {"f32": N * (2 * P * 2)}),
         "hunt": _bound((N + C) * planes * plane_b + N * 12, hunt_ops),
         "extract_decode": _bound(
             (N + C) * planes * plane_b + N * 12 + N * out_row
@@ -375,7 +428,92 @@ def _compare_kernels(torch, cfg, inputs, what: str) -> dict:
                                                "decode_packets")
     _require(torch.equal(ek, pk), f"{what}: decode_extract and "
              f"decode_packets disagree on the same packets")
+    _compare_new_kernels(torch, cfg, inputs, rows, what, report)
     return report
+
+
+def _compare_new_kernels(torch, cfg, inputs, rows, what: str, report: dict):
+    """The mixer-folded front-ends, the gate stage and the full-rate
+    front-end against their plain versions; adds their entries to
+    ``report``."""
+    from singlecarrier_tpu_torch.ops.decode import (
+        extract_decode, extract_gate, extract_gate_ref, hunt)
+    from singlecarrier_tpu_torch.ops.frontend import (
+        frontend_decim, frontend_decim_folded_ref, frontend_full,
+        frontend_full_ref, frontend_rows, frontend_rows_folded_ref)
+    ddt = torch.bfloat16 if cfg.decim_dtype == "bf16" else torch.float32
+    pcm, p0r, p0i, t0r, t0i, adv, dprev0 = inputs
+
+    def _planes(name, got, want, dtype, note=""):
+        torch.cuda.synchronize()
+        _require(got.dtype == dtype, f"{what}: {name}{note} dtype "
+                 f"{got.dtype}, want {dtype}")
+        err = (got.float() - want.float()).abs()
+        _require(bool((err <= _ulp(want.float(), dtype)).all()),
+                 f"{what}: {name}{note} differs from its plain version by "
+                 f"more than 1 ulp")
+        print(f"[kernels] {what}: {name}{note} vs plain: max |err| "
+              f"{float(err.max()):.3e} (tolerance 1 ulp of its output type; "
+              f"same operation order), exact share "
+              f"{float((err == 0).double().mean()):.6f}", flush=True)
+        return float(err.max())
+
+    # each folded kernel against ITS OWN plain version: the two take their
+    # halos differently, so their planes are not the same to the bit
+    dk = frontend_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv, mixer_fold=True)
+    report["frontend_decim_folded"] = {"max_abs_err": _planes(
+        "frontend_decim_folded", dk,
+        frontend_decim_folded_ref(cfg, pcm, p0r, p0i, t0r, t0i, adv), ddt)}
+    worst = 0.0
+    for dd, transposed in (("f32", True), ("bf16", True), ("f32", False)):
+        c_ = cfg.replace(decim_dtype=dd)
+        odt = torch.bfloat16 if dd == "bf16" else torch.float32
+        fk = frontend_rows(c_, *rows, transposed=transposed, mixer_fold=True)
+        worst = max(worst, _planes(
+            "frontend_rows_folded", fk,
+            frontend_rows_folded_ref(c_, *rows, transposed=transposed), odt,
+            f" ({'transposed ' + dd if transposed else 'row-major f32'})"))
+        if transposed and odt == ddt:
+            n_diff = int((fk != dk).sum())
+            print(f"[kernels] {what}: the two folded front-ends differ on "
+                  f"{n_diff} of {dk.numel()} plane values (a carried halo "
+                  f"un-rotates to the raw sample only up to rounding)",
+                  flush=True)
+    report["frontend_rows_folded"] = {"max_abs_err": worst}
+
+    D = cfg.frame_symbols
+    lk, pk_, qk = hunt(cfg, dk, dprev0)
+    gk = extract_gate(cfg, dk, dprev0, lk, pk_, qk)
+    gr = extract_gate_ref(cfg, dk, dprev0, lk, pk_, qk)
+    full = extract_decode(cfg, dk, dprev0, lk, pk_, qk)
+    torch.cuda.synchronize()
+    _require(torch.equal(gk[:, D + 3], gr[:, D + 3])
+             and torch.equal(gk[:, D + 3], full[:, D + 3]),
+             f"{what}: extract_gate's gated flags differ from its plain "
+             f"version's or from extract_decode's")
+    n_gated = int(gk[:, D + 3].sum())
+    _require(0 < n_gated < gk.shape[0], f"{what}: extract_gate gated "
+             f"{n_gated} of {gk.shape[0]} rows")
+    _require(torch.equal(gk[:, D + 4:], full[:, D + 4:]),
+             f"{what}: extract_gate's energy or hunt slots differ from "
+             f"extract_decode's")
+    _require(bool((gk[:, :D + 3] == 0).all()),
+             f"{what}: extract_gate left a decode slot non-zero")
+    rel = float(((gk[:, D + 4] - gr[:, D + 4]).abs()
+                 / gr[:, D + 4].abs().clamp_min(1e-30)).max())
+    _require(rel <= 1e-5 and torch.equal(gk[:, D + 5:], gr[:, D + 5:]),
+             f"{what}: extract_gate energy rel err {rel}")
+    print(f"[kernels] {what}: extract_gate vs plain: gated identical "
+          f"({n_gated}/{gk.shape[0]} rows) and equal to extract_decode's "
+          f"column; energy, lag, phase, peak equal to extract_decode's, "
+          f"energy rel err vs plain {rel:.3e} (tolerance 1e-5; a 128-term "
+          f"sum in butterfly order); every decode slot zero", flush=True)
+    report["extract_gate"] = {
+        "max_abs_err": float((gk - gr).abs().max())}
+
+    report["frontend_full"] = {"max_abs_err": _planes(
+        "frontend_full", frontend_full(cfg, *rows),
+        frontend_full_ref(cfg, *rows), torch.float32)}
 
 
 def _compare_decode(torch, cfg, out_k, out_r, what: str, name: str) -> dict:
@@ -447,18 +585,22 @@ def main() -> int:
     try:
         from singlecarrier_tpu_torch import DEFAULT_CONFIG
         from singlecarrier_tpu_torch.modem import (
-            ProdRxOut, prod_rx_batch, prod_rx_init, prod_rx_init_planes,
+            ProdRxOut, dibits_to_bits, prod_rx_batch, prod_rx_batch_gated,
+            prod_rx_gated_init, prod_rx_init, prod_rx_init_planes,
             prod_rx_stream_pallas)
+        from singlecarrier_tpu_torch.modem.rx_gated import _pair_operands
         from singlecarrier_tpu_torch.modem.rx_production import (
-            _extract_packet_planes)
+            _extract_packet, _extract_packet_planes, _hunt)
         from singlecarrier_tpu_torch.ops import _build
         from singlecarrier_tpu_torch.ops.decode import (
-            extract_decode, extract_decode_ref, fused_decode,
-            fused_decode_extract, fused_decode_extract_ref,
-            fused_decode_ref, hunt, hunt_ref)
+            extract_decode, extract_decode_ref, extract_gate,
+            extract_gate_ref, fused_decode, fused_decode_extract,
+            fused_decode_extract_ref, fused_decode_ref, hunt, hunt_ref)
         from singlecarrier_tpu_torch.ops.frontend import (
-            frontend_decim, frontend_decim_ref, frontend_rows,
-            frontend_rows_ref)
+            frontend_decim, frontend_decim_folded_ref, frontend_decim_ref,
+            frontend_full, frontend_full_ref, frontend_rows,
+            frontend_rows_folded_ref, frontend_rows_ref, fused_frontend)
+        from singlecarrier_tpu_torch.ops.fused_rx import fused_rx_block
         golden = np.load(os.path.join(here, "tests", "golden",
                                       "reference.npz"))
     except (ImportError, OSError) as e:
@@ -526,10 +668,10 @@ def main() -> int:
             path_launches[k] = path_launches.get(k, 0) + v
         return res
 
-    def _chained(state, parts, **kw):
+    def _chained(state, parts, cfg_=cfg, **kw):
         outs = []
         for part in parts:
-            state, out = prod_rx_batch(cfg, state, part, descramble=False,
+            state, out = prod_rx_batch(cfg_, state, part, descramble=False,
                                        **kw)
             outs.append(out)
         return outs
@@ -625,9 +767,145 @@ def main() -> int:
           f"other and (valid, bits; lag and phase on detected blocks) to "
           f"(a)'s, which reads bf16 planes where these read f32",
           flush=True)
+    # ---- (d) both batch paths with the mixer folded ----
+    fold = cfg.replace(mixer_fold=True)
+    for tag, fuse, kern in (("d1", True, "frontend_decim_folded"),
+                            ("d2", False, "frontend_rows_folded")):
+        outs = _drive(f"paths {tag}", lambda: _chained(
+            prod_rx_init_planes(fold, C_MAIN), halves, fold,
+            fuse_frontend=fuse), (kern, "hunt", "extract_decode"))
+        _finite(outs, f"paths {tag}")
+        n_dup_d = _check_packets(torch, outs, tx_bits, cfg)
+        _decisions_agree(_cat(outs), main_out, f"mixer_fold=True, "
+                         f"fuse_frontend={fuse} vs the premix main path")
+        print(f"[paths] (d) prod_rx_batch(fuse_frontend={fuse}) with "
+              f"mixer_fold=True, {C_MAIN} channels x 2 dispatches x "
+              f"{B_MAIN} blocks: 10/10 packets on every channel "
+              f"({n_dup_d} seam repeats), decisions equal to the premix "
+              f"main path's (valid, bits, lag, phase; |dcfo| < 0.5 Hz, "
+              f"|deq| < 2e-3)", flush=True)
+
+    # ---- (e) the gated two-phase RX against the full path ----
+    golden_ch = torch.arange(C_MAIN, device=dev) % GOLDEN_EVERY == 0
+    gframes = torch.randint(-16384, 16384, frames.shape, generator=gen,
+                            device=dev, dtype=torch.int16)
+    gframes = torch.where(golden_ch[None, :, None], frames, gframes)
+    ghalves = (gframes[:B_MAIN], gframes[B_MAIN:])
+    st = prod_rx_init_planes(cfg, C_MAIN)
+    full_decs = []
+    for part in ghalves:            # the full path, with its gate column
+        dec, dlast, fin = fused_rx_block(cfg, part, *st, descramble=False)
+        st = (fin[0], fin[1], fin[2], fin[3], dlast)
+        full_decs.append(dec)
+
+    def _gated(K, parts):
+        gst, outs = prod_rx_gated_init(cfg, C_MAIN), []
+        for part in parts:
+            gst, out = prod_rx_batch_gated(cfg, gst, part, max_detections=K,
+                                           descramble=False)
+            outs.append(out)
+        return outs
+
+    gouts = _drive("paths e", lambda: _gated(K_GATED, ghalves),
+                   ("frontend_decim", "hunt", "extract_gate",
+                    "extract_decode"))
+    n_rows = 0
+    for k, (out, dec) in enumerate(zip(gouts, full_decs)):
+        hits = torch.nonzero(dec["gated"])[:, 0]
+        count = int(out["count"])
+        _require(count == hits.numel() and 0 < count <= K_GATED,
+                 f"paths e, dispatch {k}: count {count}, the full path "
+                 f"gates {hits.numel()} rows (capacity {K_GATED})")
+        flat = (out["block_idx"].long() * C_MAIN
+                + out["channel_idx"].long())[:count]
+        _require(torch.equal(flat, hits), f"paths e, dispatch {k}: the "
+                 f"compacted rows are not the gated rows in stream order")
+        fvalid = dec["gated"] & (dec["matches"] > cfg.match_threshold)
+        _require(torch.equal(out["valid"][:count], fvalid[flat])
+                 and not bool(out["valid"][count:].any()),
+                 f"paths e, dispatch {k}: valid differs from the full path")
+        v = out["valid"][:count]
+        rows_ = flat[v]
+        _require(torch.equal(out["bits"][:count][v],
+                             dibits_to_bits(dec["dibits"][rows_]))
+                 and torch.equal(out["lag"][:count][v], dec["lag"][rows_])
+                 and torch.equal(out["timing_phase"][:count][v],
+                                 dec["phase_idx"][rows_]),
+                 f"paths e, dispatch {k}: bits, lag or phase of a "
+                 f"compacted row differ from the full path's")
+        n_rows += int(v.sum())
+    seam = gouts[1]["valid"] & (gouts[1]["block_idx"] == 0)
+    _require(bool(seam.any()), "paths e: no detection in block 0 of the "
+             "second dispatch")
+    n_golden = int(golden_ch.sum())
+    _require(n_rows >= 10 * n_golden, f"paths e: {n_rows} packets on "
+             f"{n_golden} golden channels")
+    print(f"[paths] (e) prod_rx_batch_gated, {C_MAIN} channels ({n_golden} "
+          f"golden, the rest full-scale noise) x 2 dispatches x {B_MAIN} "
+          f"blocks, max_detections={K_GATED}: counts "
+          f"{[int(o['count']) for o in gouts]} equal to the full path's "
+          f"gated rows, compacted in stream order; {n_rows} valid rows "
+          f"with bits, lag and phase equal to the full path's, "
+          f"{int(seam.sum())} of them in block 0 of the second dispatch",
+          flush=True)
+    small = _gated(K_SMALL, ghalves[:1])[0]
+    _require(int(small["count"]) == int(gouts[0]["count"]) > K_SMALL
+             and int(small["valid"].sum()) <= K_SMALL
+             and torch.equal(small["valid"], gouts[0]["valid"][:K_SMALL]),
+             f"paths e: capacity {K_SMALL} did not report its overflow")
+    print(f"[paths] (e) max_detections={K_SMALL}: count "
+          f"{int(small['count'])} > capacity, the first {K_SMALL} rows as "
+          f"before", flush=True)
+    del gframes, ghalves, full_decs, gouts, small, st, dec, dlast
+
+    # ---- (f) the fractional-timing streaming RX ----
+    fcfg = cfg.replace(frac_timing=True)
+    st_f, out_f = _drive("paths f", lambda: prod_rx_stream_pallas(
+        fcfg, prod_rx_init(fcfg, (C_MAIN,)), frames, descramble=False),
+        ("frontend_full", "decode_packets"))
+    _finite([out_f], "paths f")
+    _require(st_f.decim_prev.dtype == torch.complex64
+             and st_f.phase.is_cuda, "paths f: bad final state")
+    n_dup_f = _check_packets(torch, [out_f], tx_bits, cfg)
+    _, ref_f = prod_rx_stream_pallas(
+        fcfg, prod_rx_init(fcfg, (N_REF_CH,), "cpu"),
+        frames[:, :N_REF_CH].cpu(), descramble=False)
+    sub = ProdRxOut(*(x[:, :N_REF_CH].cpu() for x in out_f))
+    _decisions_agree(sub, ref_f, "frac streaming path vs CPU plain")
+    # frac itself: the hunt on the same windows, card against CPU
+    sub_st = prod_rx_init(fcfg, (N_REF_CH,))
+    dfrac, n_det = 0.0, 0
+    for b in range(4):
+        pcm_b = frames[b, :N_REF_CH].contiguous()
+        fr_, fi_, tr_, ti_, pr_, pi_ = fused_frontend(
+            fcfg, pcm_b, sub_st.phase.real.contiguous(),
+            sub_st.phase.imag.contiguous(),
+            sub_st.fir_tail.real.contiguous(),
+            sub_st.fir_tail.imag.contiguous())
+        dcur = torch.complex(fr_, fi_).reshape(
+            -1, cfg.symbols_per_block, cfg.cycles).transpose(-1, -2)
+        wins = torch.cat([sub_st.decim_prev, dcur], -1)
+        frac_k = _hunt(fcfg, wins)[3].cpu()
+        frac_c = _hunt(fcfg, wins.cpu())[3]
+        det = sub.valid[b]
+        if bool(det.any()):
+            dfrac = max(dfrac, float((frac_k - frac_c)[det].abs().max()))
+            n_det += int(det.sum())
+        sub_st = type(sub_st)(torch.complex(pr_, pi_),
+                              torch.complex(tr_, ti_), dcur)
+    _require(n_det > 0 and dfrac < 1e-3,
+             f"paths f: frac differs by {dfrac} on {n_det} detected rows")
+    print(f"[paths] (f) prod_rx_stream_pallas(frac_timing=True), "
+          f"ProdRxState, {C_MAIN} channels x {2 * B_MAIN} blocks one at a "
+          f"time: 10/10 packets on every channel ({n_dup_f} seam repeats); "
+          f"first {N_REF_CH} channels agree with the CPU plain path by "
+          f"decisions, frac within {dfrac:.3e} on {n_det} detected rows "
+          f"(tolerance 1e-3)", flush=True)
+    del st_f, out_f, ref_f, sub, sub_st, wins, dcur
+
     _require(all(path_launches.get(k, 0) > 0 for k in KERNELS),
              f"a kernel was launched on no path: {path_launches}")
-    print(f"[paths] launches over the five driven paths: {path_launches}",
+    print(f"[paths] launches over the driven paths: {path_launches}",
           flush=True)
     del frames, stream, outs, halves, few, main_out, out_a, out_b, out_x
     del out_u, sub_a, st_b
@@ -656,14 +934,42 @@ def main() -> int:
               f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
               f"{smi_line}", flush=True)
 
-    def _dispatches(state, **kw):
+    def _dispatches(state, cfg_=cfg, **kw):
         for _ in range(ITERS):
-            state, _ = prod_rx_batch(cfg, state, noise, **kw)
+            state, _ = prod_rx_batch(cfg_, state, noise, **kw)
 
     _rate(f"main path {C_MAIN} ch x {B_TIME} blocks x {ITERS} chained "
           f"dispatches", lambda: _dispatches(state, fuse_frontend=True),
           ITERS * B_TIME)
     del state
+    state = prod_rx_init_planes(fold, C_MAIN)
+    state, _ = prod_rx_batch(fold, state, noise, fuse_frontend=True)
+    _rate(f"(d) main path with mixer_fold=True {C_MAIN} ch x {B_TIME} "
+          f"blocks x {ITERS} chained dispatches",
+          lambda: _dispatches(state, fold, fuse_frontend=True),
+          ITERS * B_TIME)
+    del state
+
+    def _gated_dispatches(gstate, k):
+        for _ in range(ITERS):
+            gstate, _ = prod_rx_batch_gated(cfg, gstate, noise,
+                                            max_detections=k)
+
+    for k in K_TIME:
+        gstate = prod_rx_gated_init(cfg, C_MAIN)
+        gstate, gout = prod_rx_batch_gated(cfg, gstate, noise,
+                                           max_detections=k)
+        count = int(gout["count"])
+        print(f"[timing] gated RX on noise, max_detections={k}: {count} of "
+              f"{C_MAIN * B_TIME} rows pass the energy gate, phase 2 "
+              f"decodes {min(count, k)} of them (capacity "
+              f"{'overflowed' if count > k else 'holds them'}), "
+              f"{int(gout['valid'].sum())} valid", flush=True)
+        _rate(f"(e) gated RX, max_detections={k} (capacity "
+              f"{'overflowed' if count > k else 'holds the gated rows'}), "
+              f"{C_MAIN} ch x {B_TIME} blocks x {ITERS} chained dispatches",
+              lambda: _gated_dispatches(gstate, k), ITERS * B_TIME)
+        del gstate, gout
     state = prod_rx_init_planes(cfg, C_MAIN)
     state, _ = prod_rx_batch(cfg, state, noise)                  # warm-up
     _rate(f"(a) two-kernel batch path {C_MAIN} ch x {B_TIME} blocks x "
@@ -675,7 +981,58 @@ def main() -> int:
     _rate(f"(b) streaming path {C_MAIN} ch x {B_TIME} blocks one at a "
           f"time", lambda: prod_rx_stream_pallas(cfg, cstate, noise),
           B_TIME)
-    del cstate
+    cstate, _ = prod_rx_stream_pallas(fcfg, cstate, noise[:2])   # warm-up
+    _rate(f"(f) frac streaming path {C_MAIN} ch x {B_TIME} blocks one at a "
+          f"time", lambda: prod_rx_stream_pallas(fcfg, cstate, noise),
+          B_TIME)
+    # (f)'s stages on one 8192-row block
+    planes_f = [t.contiguous() for t in (
+        cstate.phase.real, cstate.phase.imag, cstate.fir_tail.real,
+        cstate.fir_tail.imag)]
+    fr_, fi_ = fused_frontend(fcfg, noise[2], *planes_f)[:2]
+    wins = torch.cat([cstate.decim_prev, torch.complex(fr_, fi_).reshape(
+        -1, cfg.symbols_per_block, cfg.cycles).transpose(-1, -2)], -1)
+    hl, hp, hq, hf = _hunt(fcfg, wins)
+    pkt = _extract_packet(fcfg, wins, hl, hp, hf)
+    pkt_r, pkt_i = pkt.real.contiguous(), pkt.imag.contiguous()
+    stages = {
+        "fused_frontend (frontend_full + state glue)":
+            lambda: fused_frontend(fcfg, noise[2], *planes_f),
+        "plain hunt with frac (torch.matmul)": lambda: _hunt(fcfg, wins),
+        "blended extraction (gathers)":
+            lambda: _extract_packet(fcfg, wins, hl, hp, hf),
+        "fused_decode (decode_packets)":
+            lambda: fused_decode(fcfg, pkt_r, pkt_i, hq),
+    }
+    print(f"[timing] (f) stages on one {C_MAIN}-row block: " + ", ".join(
+        f"{k} {_time_cuda(fn, 5):.3f} ms" for k, fn in stages.items())
+        + f"; {smi_line}", flush=True)
+    del cstate, wins, pkt, pkt_r, pkt_i, stages, planes_f, fr_, fi_
+
+    # (e)'s stages at the full dispatch
+    gplanes = prod_rx_init_planes(cfg, C_MAIN)
+    gprev = torch.zeros((C_MAIN, n), dtype=torch.int16, device=dev)
+    gdec = fused_rx_block(cfg, noise, *gplanes, stage="gate")[0]
+    stages = {
+        "phase 1 (fused_rx_block, stage='gate')":
+            lambda: fused_rx_block(cfg, noise, *gplanes, stage="gate"),
+    }
+    for k in K_TIME:
+        def _pairs(k=k):
+            return _pair_operands(cfg, gdec["gated"], noise, gplanes[0],
+                                  gplanes[1], k, gprev, gprev[:, :48])
+        pairs_ = _pairs()
+        dp0 = torch.zeros((cfg.cycles, 2, k, cfg.symbols_per_block),
+                          dtype=torch.bfloat16, device=dev)
+        stages[f"compaction to {k} (stable argsort + gathers)"] = _pairs
+        stages[f"phase 2 (fused_rx_block on 2 x {k} rows)"] = (
+            lambda pairs_=pairs_, dp0=dp0: fused_rx_block(
+                cfg, *pairs_[:5], dp0))
+    print(f"[timing] (e) stages at {C_MAIN} ch x {B_TIME} blocks: "
+          + ", ".join(f"{k} {_time_cuda(fn, 3):.3f} ms"
+                      for k, fn in stages.items()) + f"; {smi_line}",
+          flush=True)
+    del gplanes, gprev, gdec, pairs_, dp0, stages
 
     # the batch paths' kernels at the full dispatch size, with their bounds
     p0r, p0i, t0r, t0i, dprev0 = prod_rx_init_planes(cfg, C_MAIN)
@@ -692,6 +1049,9 @@ def main() -> int:
         "hunt": lambda: hunt(cfg, dk, dprev0),
         "extract_decode": lambda: extract_decode(cfg, dk, dprev0, lk, pk_,
                                                  qk),
+        "frontend_decim_folded": lambda: frontend_decim(
+            cfg, noise, p0r, p0i, t0r, t0i, adv, mixer_fold=True),
+        "extract_gate": lambda: extract_gate(cfg, dk, dprev0, lk, pk_, qk),
     }
     bounds = _kernel_bounds(cfg, C_MAIN * B_TIME, C_MAIN)
     for name, kern in full.items():
@@ -731,6 +1091,20 @@ def main() -> int:
         "decode_packets": (
             lambda: fused_decode(cfg, pkt_r, pkt_i, wpk),
             lambda: fused_decode_ref(cfg, pkt_r, pkt_i, wpk)),
+        "frontend_decim_folded": (
+            lambda: frontend_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv,
+                                   mixer_fold=True),
+            lambda: frontend_decim_folded_ref(cfg, pcm, p0r, p0i, t0r, t0i,
+                                              adv)),
+        "frontend_rows_folded": (
+            lambda: frontend_rows(cfg, *rows, transposed=True,
+                                  mixer_fold=True),
+            lambda: frontend_rows_folded_ref(cfg, *rows, transposed=True)),
+        "extract_gate": (
+            lambda: extract_gate(cfg, dk, dprev0, lk, pk_, qk),
+            lambda: extract_gate_ref(cfg, dk, dprev0, lk, pk_, qk)),
+        "frontend_full": (lambda: frontend_full(cfg, *rows),
+                          lambda: frontend_full_ref(cfg, *rows)),
     }
     bounds = _kernel_bounds(cfg, C_MAIN * B_KTIME, C_MAIN)
     for name, (kern, plain) in calls.items():

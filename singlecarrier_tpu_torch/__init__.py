@@ -18,23 +18,26 @@ Layer map:
   config, constants, filter_design  numerology, tables, RRC designer
   device             the device rule (``resolve_device``)
   dsp/               mixer table + FIR-tail carry-out, DFT table
-  ops/               frontend_decim, fused_frontend_decim, hunt,
-                     extract_decode, fused_hunt_decode_decim,
+  ops/               frontend_decim, fused_frontend_decim (both also
+                     mixer-folded), fused_frontend, hunt, extract_decode,
+                     extract_gate, fused_hunt_decode_decim,
                      fused_decode_extract, fused_decode (CUDA kernels in
                      csrc/ beside plain PyTorch versions); fused_rx_block
   modem/             prod_rx_batch, prod_rx_stream_pallas,
                      prod_rx_stream_superstep, ProdRxState and the plane
-                     state
+                     state; prod_rx_batch_gated and GatedRxState
   interop            configs and RX state across the two packages
 """
 
 from .config import DEFAULT_CONFIG, ModemConfig
-from .modem import (ProdRxOut, ProdRxState, make_prod_rx_fn, planes_to_state,
-                    prod_rx_batch, prod_rx_init, prod_rx_init_planes,
+from .modem import (GatedRxState, ProdRxOut, ProdRxState, make_prod_rx_fn,
+                    planes_to_state, prod_rx_batch, prod_rx_batch_gated,
+                    prod_rx_gated_init, prod_rx_init, prod_rx_init_planes,
                     prod_rx_stream_pallas, prod_rx_stream_superstep,
                     state_to_planes)
 
-__all__ = ["ModemConfig", "DEFAULT_CONFIG", "ProdRxOut", "ProdRxState",
-           "make_prod_rx_fn", "planes_to_state", "prod_rx_batch",
+__all__ = ["ModemConfig", "DEFAULT_CONFIG", "GatedRxState", "ProdRxOut",
+           "ProdRxState", "make_prod_rx_fn", "planes_to_state",
+           "prod_rx_batch", "prod_rx_batch_gated", "prod_rx_gated_init",
            "prod_rx_init", "prod_rx_init_planes", "prod_rx_stream_pallas",
            "prod_rx_stream_superstep", "state_to_planes"]

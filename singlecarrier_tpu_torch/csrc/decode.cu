@@ -23,6 +23,12 @@
 //     from the extracted packet planes pkt_r[n][i], pkt_i[n][i].
 //   The last two leave slots D+5..D+7 zero.
 //
+// extract_gate_kernel is the gate stage of the same Pallas kernels
+// (stage="gate", decode_pallas.py:417-427): K3's extraction narrowed to
+// the 128 preamble chips the energy gate sums, read straight from the
+// planes into registers, then the row zeroed except gated (D+3), energy
+// (D+4) and the hunt's slots.  It takes no table and runs no decode.
+//
 // A warp owns a row: the 384-symbol packet planes sit in shared memory,
 // per-symbol decode arrays in registers (symbol t = lane + 32 j), and
 // every reduction is a butterfly whose result all lanes hold bit-equal,
@@ -544,6 +550,34 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) extract_decode_kernel(
   write_tail(o, lane, (float)lag, (float)ph, peak);
 }
 
+// _decode_core stopped after its energy gate: chip k of the row's packet
+// is window[ph][lag + OFF + k], summed in decode_packet's order.
+__global__ void __launch_bounds__(DEC_WARPS * 32) extract_gate_kernel(
+    const void* __restrict__ decim, const void* __restrict__ dprev0,
+    int in_bf16, const int* __restrict__ lag_in,
+    const int* __restrict__ ph_in, const float* __restrict__ peak_in,
+    float* __restrict__ out, long long N, int C, float peak_gate) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long n = (long long)blockIdx.x * DEC_WARPS + warp;
+  if (n >= N) return;
+  float* o = out + n * N_OUT;
+  const int lag = lag_in[n], ph = ph_in[n];
+  const float peak = peak_in[n];
+  float e = 0.f;
+#pragma unroll
+  for (int j = 0; j < P / 32; ++j) {
+    const int i = lag + OFF + lane + 32 * j;
+    const float a = window_at(decim, dprev0, in_bf16, N, C, n, ph, 0, i);
+    const float b = window_at(decim, dprev0, in_bf16, N, C, n, ph, 1, i);
+    e = e + (a * a + b * b);
+  }
+  const float energy = warp_sum(e);
+  const bool gated = peak > energy * peak_gate;
+  for (int i = lane; i < D + 5; i += 32)
+    o[i] = i == D + 3 ? (gated ? 1.f : 0.f) : i == D + 4 ? energy : 0.f;
+  write_tail(o, lane, (float)lag, (float)ph, peak);
+}
+
 __global__ void __launch_bounds__(DEC_WARPS * 32) decode_extract_kernel(
     const float* __restrict__ windows, int wp,
     const int* __restrict__ lag_in, const int* __restrict__ ph_in,
@@ -608,6 +642,19 @@ extern "C" int sc_extract_decode(
       decim, dprev0, in_bf16, i32p(lag), i32p(phase), f32p(peak),
       f32p(dft_r), f32p(dft_i), f32p(pn), f32p(mask),
       static_cast<float*>(out), (long long)N, C, prm);
+  return (int)cudaGetLastError();
+}
+
+// The gate stage of sc_extract_decode: the same planes, hunt results and
+// packed rows, and of the decode's operands only peak_gate.
+extern "C" int sc_extract_gate(
+    const void* decim, const void* dprev0, const void* lag,
+    const void* phase, const void* peak, void* out, int N, int C,
+    int in_bf16, float peak_gate, void* stream) {
+  extract_gate_kernel<<<decode_blocks(N), DEC_WARPS * 32, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      decim, dprev0, in_bf16, i32p(lag), i32p(phase), f32p(peak),
+      static_cast<float*>(out), (long long)N, C, peak_gate);
   return (int)cudaGetLastError();
 }
 

@@ -7,7 +7,8 @@ arrays: the plane state of ``prod_rx_init_planes`` (``(phase_r,
 phase_i, fir_tail_r, fir_tail_i, decim_prev_t)``, where
 ``decim_prev_t`` may be ``ml_dtypes.bfloat16``) or the complex
 ``ProdRxState`` (phase c64 [C], fir_tail c64 [C, ntaps-1], decim_prev
-c64 [C, cycles, n_sym]).  ``torch.from_numpy`` refuses bf16, so bf16
+c64 [C, cycles, n_sym]) or the ``GatedRxState`` (the plane state plus
+two int16 PCM leaves).  ``torch.from_numpy`` refuses bf16, so bf16
 crosses as its raw 16-bit pattern.  Tensors are made on the card unless
 ``device`` says otherwise.
 """
@@ -19,6 +20,7 @@ import torch
 
 from .config import ModemConfig
 from .device import resolve_device
+from .modem.rx_gated import GatedRxState
 from .modem.rx_production import ProdRxState
 
 
@@ -67,3 +69,21 @@ def state_from_numpy(state, device=None) -> ProdRxState:
 def state_to_numpy(state: ProdRxState):
     """The port's ``ProdRxState`` -> tuple of complex64 numpy arrays."""
     return tuple(_to_numpy(t) for t in state)
+
+
+def gated_state_from_numpy(state, device=None) -> GatedRxState:
+    """JAX ``GatedRxState`` leaves as numpy arrays (``(planes, pcm_prev,
+    pcm_prev2_tail)``) -> the port's ``GatedRxState``."""
+    planes, pcm_prev, pcm_prev2_tail = state
+    dev = resolve_device(device)
+    return GatedRxState(
+        planes=planes_from_numpy(planes, dev),
+        pcm_prev=_to_torch(np.asarray(pcm_prev, np.int16), dev),
+        pcm_prev2_tail=_to_torch(np.asarray(pcm_prev2_tail, np.int16), dev))
+
+
+def gated_state_to_numpy(state: GatedRxState):
+    """The port's ``GatedRxState`` -> ``(planes, pcm_prev,
+    pcm_prev2_tail)`` of numpy arrays."""
+    return (planes_to_numpy(state.planes), _to_numpy(state.pcm_prev),
+            _to_numpy(state.pcm_prev2_tail))

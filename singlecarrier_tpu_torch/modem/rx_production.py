@@ -1,8 +1,9 @@
 """Production RX: the block-parallel batch path and the streaming paths.
 
 Counterpart of ``singlecarrier_tpu/modem/rx_production.py`` for
-``prod_rx_batch`` (every flag combination without ``mixer_fold``),
-``prod_rx_stream_pallas`` (its plane-typed body) and
+``prod_rx_batch`` (every flag combination, ``cfg.mixer_fold`` included),
+``prod_rx_stream_pallas`` (its plane-typed body and, with
+``cfg.frac_timing``, its fractional-timing body) and
 ``prod_rx_stream_superstep``.  Every carried quantity of the production
 RX is a closed-form function of the raw input (mixer phase = phase0 *
 adv^b, FIR halo = downmixed tail of the previous raw block, hunt window
@@ -29,7 +30,7 @@ from ..device import resolve_device
 from ..dsp.mixer import downmix_tail
 from ..ops.decode import (fused_decode, fused_decode_extract,
                           fused_hunt_decode_decim)
-from ..ops.frontend import fused_frontend_decim
+from ..ops.frontend import fused_frontend, fused_frontend_decim
 from ..ops.fused_rx import check_supported, fused_rx_block
 
 _F32 = torch.float32
@@ -214,7 +215,8 @@ def _hunt_metric(cfg: ModemConfig, power, sq):
     return power / (energy[..., None, :] + 1e-12)
 
 
-def _hunt_planes_rows(cfg: ModemConfig, windows, col_offset: int):
+def _hunt_planes_rows(cfg: ModemConfig, windows, col_offset: int,
+                      frac: bool):
     n_lags, p = cfg.symbols_per_block, cfg.preamble_length
     n_seg = cfg.corr_segments
     dev = windows.device
@@ -241,19 +243,74 @@ def _hunt_planes_rows(cfg: ModemConfig, windows, col_offset: int):
         best_lag = torch.where(upd, first[:, c], best_lag)
         best_ph = torch.where(upd, torch.full_like(best_ph, c), best_ph)
     peak = power[torch.arange(N, device=dev), best_ph, best_lag]
-    return best_lag.to(torch.int32), best_ph.to(torch.int32), peak
+    res = (best_lag.to(torch.int32), best_ph.to(torch.int32), peak)
+    if not frac:
+        return res
+    # Sub-sample timing: (lag, phase) is the absolute sample t =
+    # lag*cyc + phase; the power at t-1 / t+1 brackets the peak and a
+    # parabola through the three gives the fractional offset.
+    pt = power.transpose(-1, -2).reshape(N, -1)             # time order
+    t = (best_lag * cyc + best_ph)[:, None]
+    tmax = pt.shape[-1] - 1
+    pm = torch.gather(pt, 1, (t - 1).clamp(0, tmax))[:, 0]
+    pp = torch.gather(pt, 1, (t + 1).clamp(0, tmax))[:, 0]
+    denom = pm + pp - 2.0 * peak
+    fr = torch.where(denom < -1e-12, 0.5 * (pm - pp) / denom, 0.0)
+    fr = fr.clamp(-0.5, 0.5)
+    t = t[:, 0]
+    return (*res, torch.where((t > 0) & (t < tmax), fr, 0.0))
 
 
-def _hunt_planes(cfg: ModemConfig, windows, *, col_offset: int = 0):
+def _hunt_planes(cfg: ModemConfig, windows, *, col_offset: int = 0,
+                 frac: bool = False):
     """Plane-typed hunt: ``windows`` [N, cyc, 2, >=2*n_sym] f32
-    (real/imag planes on axis 2).  Returns (lag, phase_idx, peak).
+    (real/imag planes on axis 2).  Returns (lag, phase_idx, peak), with
+    ``frac`` also the parabolic sub-sample offset in [-0.5, 0.5].
     ``col_offset`` skips leading pad columns (the fused-extract path
     stores windows left-padded by eq_length//2).  The rows are
     independent and walked ``_HUNT_ROWS`` at a time, which bounds the
     correlation intermediate and changes no result."""
-    parts = [_hunt_planes_rows(cfg, windows[i:i + _HUNT_ROWS], col_offset)
+    parts = [_hunt_planes_rows(cfg, windows[i:i + _HUNT_ROWS], col_offset,
+                               frac)
              for i in range(0, windows.shape[0], _HUNT_ROWS)]
     return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def _hunt(cfg: ModemConfig, windows):
+    """Find the (phase, lag) correlation peak of complex windows
+    [N, cyc, 2*n_sym] for the fractional-timing path (the integer paths
+    hunt planes).  Returns (lag, phase_idx, peak, frac)."""
+    planes = torch.view_as_real(windows).permute(0, 1, 3, 2)
+    return _hunt_planes(cfg, planes, frac=True)
+
+
+def _extract_packet(cfg: ModemConfig, windows, lag, phase_idx, frac):
+    """Extract the aligned packets [N, pkt_window] from complex windows
+    [N, cyc, 2*n_sym].
+
+    A (lag, phase) pair addresses absolute sample
+    t0 = (lag - L//2)*cyc + phase of the time-ordered filtered stream
+    s2[n*cyc + c] = windows[c, n]; the packet is the stride-``cyc`` comb
+    from t0, zero outside the stream.  Each comb sample is blended with
+    its neighbour one sample later (frac >= 0) or earlier by |frac|: a
+    2-tap fractional delay (the integer paths extract planes).
+    """
+    cyc, off = cfg.cycles, cfg.eq_length // 2
+    N = windows.shape[0]
+    s2 = windows.transpose(-1, -2).reshape(N, -1)
+    T = s2.shape[-1]
+    base = ((lag.long() - off) * cyc + phase_idx.long())[:, None] + cyc * \
+        torch.arange(cfg.pkt_window, device=windows.device)
+
+    def comb(shift: int):
+        idx = base + shift
+        vals = torch.gather(s2, 1, idx.clamp(0, T - 1))
+        return torch.where((idx >= 0) & (idx < T), vals, 0.0)
+
+    grid = comb(0)
+    af = frac.abs().to(_F32)[:, None]
+    nb = torch.where((frac >= 0)[:, None], comb(1), comb(-1))
+    return grid * (1.0 - af) + nb * af
 
 
 def _extract_packet_planes(cfg: ModemConfig, windows, lag, phase_idx):
@@ -500,18 +557,24 @@ def prod_rx_stream_pallas(cfg: ModemConfig, state: ProdRxState,
     becomes a ProdRxState again once at the end.  Returns
     ``(state, ProdRxOut)`` with [n_frames, C, ...] leaves.
 
+    With ``cfg.frac_timing`` the body is the reference-structured one:
+    the full-rate front-end (``fused_frontend``), the plain hunt with its
+    parabolic sub-sample offset, the blended extraction and
+    ``fused_decode``, carrying the complex state.
+
     ``block_channels``, ``decode_block_channels`` and ``interpret`` only
     size the TPU kernels; accepted and ignored.
     """
-    if not fuse_decode or cfg.frac_timing:
+    if not fuse_decode:
         raise NotImplementedError(
-            "prod_rx_stream_pallas with fuse_decode=False or "
-            "cfg.frac_timing=True is not ported yet; ROADMAP: kernel #8 "
-            "with the frac streaming body and the XLA production path")
+            "prod_rx_stream_pallas(fuse_decode=False) is not ported yet; "
+            "ROADMAP: XLA production path (prod_rx_backend)")
     check_supported(cfg)
     if not isinstance(state, ProdRxState):
         raise TypeError("prod_rx_stream_pallas takes a ProdRxState")
     pcm_frames = _frames_on(state, pcm_frames)
+    if cfg.frac_timing:
+        return _stream_frac(cfg, state, pcm_frames, descramble)
     C = pcm_frames.shape[1]
     pr, pi_, tr, ti, dprev_t = state_to_planes(cfg, state)
     outs = []
@@ -525,6 +588,36 @@ def prod_rx_stream_pallas(cfg: ModemConfig, state: ProdRxState,
         dprev_t = dcur_t
     outs = ProdRxOut(*(torch.stack(xs) for xs in zip(*outs)))
     return planes_to_state((pr, pi_, tr, ti, dprev_t)), outs
+
+
+def _stream_frac(cfg: ModemConfig, state: ProdRxState, pcm_frames,
+                 descramble: bool):
+    """The fractional-timing body of :func:`prod_rx_stream_pallas`
+    (``rx_production.py:565-601`` of the JAX package with
+    ``fuse_decode``).  Every per-block intermediate (the [C, 2, n] filter
+    output, the complex windows, the time-ordered stream) dies with its
+    iteration; only the previous block's phases are carried."""
+    n_sym, cyc = cfg.symbols_per_block, cfg.cycles
+    ph_r, ph_i, tl_r, tl_i = (
+        t.contiguous() for t in (state.phase.real, state.phase.imag,
+                                 state.fir_tail.real, state.fir_tail.imag))
+    dprev = state.decim_prev
+    outs = []
+    for pcm in pcm_frames:
+        fr, fi, tl_r, tl_i, ph_r, ph_i = fused_frontend(
+            cfg, pcm, ph_r, ph_i, tl_r, tl_i)
+        dcur = torch.complex(fr, fi).reshape(-1, n_sym, cyc).transpose(-1, -2)
+        windows = torch.cat([dprev, dcur], dim=-1)
+        lag, phase_idx, peak, frac = _hunt(cfg, windows)
+        pkt = _extract_packet(cfg, windows, lag, phase_idx, frac)
+        dec = fused_decode(cfg, pkt.real.contiguous(), pkt.imag.contiguous(),
+                           peak, descramble=descramble)
+        outs.append(_decode_out(cfg, dec, lag, phase_idx, peak))
+        dprev = dcur
+    outs = ProdRxOut(*(torch.stack(xs) for xs in zip(*outs)))
+    return ProdRxState(phase=torch.complex(ph_r, ph_i),
+                       fir_tail=torch.complex(tl_r, tl_i),
+                       decim_prev=dprev.contiguous()), outs
 
 
 def prod_rx_stream_superstep(cfg: ModemConfig, state, pcm_frames, *,

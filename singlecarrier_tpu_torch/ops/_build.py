@@ -36,7 +36,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"frontend_decim": 0, "frontend_rows": 0, "hunt": 0,
-            "extract_decode": 0, "decode_extract": 0, "decode_packets": 0}
+            "extract_decode": 0, "decode_extract": 0, "decode_packets": 0,
+            "frontend_decim_folded": 0, "frontend_rows_folded": 0,
+            "extract_gate": 0, "frontend_full": 0}
 
 _lib = None
 
@@ -64,6 +66,16 @@ _SIGNATURES = {
     # pkt_r, pkt_i, peak, dft_r, dft_i, pn, mask, out, N, refit_sym,
     # refit_iters, refine_iters, the six floats, stream
     "sc_decode_packets": [_P] * 8 + [_I] * 4 + [_F] * 6 + [_P],
+    # sc_frontend_decim's operands with (ctaps, unrot) for taps
+    "sc_frontend_decim_folded": [_P] * 10 + [_I] * 3 + [_F, _P],
+    # sc_frontend_rows's operands with (ctaps, unrot) for taps
+    "sc_frontend_rows_folded": [_P] * 9 + [_I] * 2 + [_F, _P],
+    # pcm, ph_r, ph_i, tail_r, tail_i, tab, taps, out, N, inv_scale,
+    # gain, stream
+    "sc_frontend_full": [_P] * 8 + [_I] + [_F] * 2 + [_P],
+    # decim, dprev0, lag, phase, peak, out, N, C, in_bf16, peak_gate,
+    # stream
+    "sc_extract_gate": [_P] * 6 + [_I] * 3 + [_F, _P],
 }
 
 

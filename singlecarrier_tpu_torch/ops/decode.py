@@ -12,8 +12,12 @@ Counterparts of ``singlecarrier_tpu/ops/decode_pallas.py``:
     LS train, guarded refit, decode, guarded phase refine and
     descramble, packed into the [N, 256] f32 layout of
     ``fused_rx.py:551-561``;
+  * :func:`extract_gate` -- the same extraction, then ``_decode_core``
+    truncated after its energy gate (``stage="gate"``, ``:417-427``):
+    every slot zero but gated, energy and the hunt's three;
   * :func:`fused_hunt_decode_decim` -- the launcher of the same name
-    (``:978``): the two kernels above, one after the other;
+    (``:978``): the hunt, then ``extract_decode`` or (``stage="gate"``)
+    ``extract_gate``;
   * :func:`fused_decode_extract` -- ``:1196``: extraction at a given
     (phase, lag) from padded hunt windows, then ``_decode_core``;
   * :func:`fused_decode` -- ``:626``: ``_decode_core`` on extracted
@@ -21,8 +25,9 @@ Counterparts of ``singlecarrier_tpu/ops/decode_pallas.py``:
 
 Each wrapper launches its CUDA kernel (``csrc/hunt.cu``,
 ``csrc/decode.cu``) for tensors on the card; ``hunt_ref``,
-``extract_decode_ref``, ``fused_decode_extract_ref`` and
-``fused_decode_ref`` are the plain versions, used for CPU tensors and
+``extract_decode_ref``, ``extract_gate_ref``,
+``fused_decode_extract_ref`` and ``fused_decode_ref`` are the plain
+versions, used for CPU tensors and
 as the kernels' references.  The plain helpers keep the JAX names and
 operation order; complex values travel as real/imag planes of shape
 [N, width] (one row per block-channel).
@@ -467,21 +472,53 @@ def _mask_np(D: int, descramble: bool) -> np.ndarray:
     return np.zeros(D, np.float32)
 
 
-def extract_decode_ref(cfg: ModemConfig, decim, dprev0, lag, phase, peak,
-                       *, descramble: bool = True):
-    """Plain PyTorch version of :func:`extract_decode`."""
+def _extract_from_planes(cfg: ModemConfig, decim, dprev0, lag, phase):
+    """[N, 2, pkt_window] f32 packets at each row's (phase, lag) of its
+    [prev | cur] window."""
     _, _, pkt_len = _geometry(cfg)
     wins = _windows(cfg, decim, dprev0)                     # [cyc, 2, N, wp]
     N = wins.shape[2]
     rows = torch.arange(N, device=wins.device)
     sel = wins[phase.long(), :, rows]                       # [N, 2, wp]
     idx = lag.long()[:, None] + torch.arange(pkt_len, device=wins.device)
-    pkt = torch.gather(sel, 2, idx[:, None].expand(N, 2, pkt_len))
+    return torch.gather(sel, 2, idx[:, None].expand(N, 2, pkt_len))
+
+
+def _hunt_tail(lag, phase, peak):
+    return torch.stack([lag.to(_F32), phase.to(_F32), peak], dim=1)
+
+
+def extract_decode_ref(cfg: ModemConfig, decim, dprev0, lag, phase, peak,
+                       *, descramble: bool = True):
+    """Plain PyTorch version of :func:`extract_decode`."""
+    pkt = _extract_from_planes(cfg, decim, dprev0, lag, phase)
     mask = torch.from_numpy(_mask_np(cfg.frame_symbols, descramble))
     head = _decode_core(cfg, pkt[:, 0], pkt[:, 1], peak[:, None],
-                        mask.to(wins.device))
-    tail = torch.stack([lag.to(_F32), phase.to(_F32), peak], dim=1)
-    return torch.cat([head, tail], dim=1)
+                        mask.to(pkt.device))
+    return torch.cat([head, _hunt_tail(lag, phase, peak)], dim=1)
+
+
+def extract_gate_ref(cfg: ModemConfig, decim, dprev0, lag, phase, peak):
+    """Plain PyTorch version of :func:`extract_gate`."""
+    P, D, off = cfg.preamble_length, cfg.frame_symbols, cfg.eq_length // 2
+    pkt = _extract_from_planes(cfg, decim, dprev0, lag, phase)
+    chips_r = pkt[:, 0, off:off + P]
+    chips_i = pkt[:, 1, off:off + P]
+    energy = _sum(chips_r * chips_r + chips_i * chips_i)
+    gated = peak[:, None] > energy * cfg.effective_peak_gate
+    return torch.cat([energy.new_zeros((energy.shape[0], D + 3)),
+                      gated.to(_F32), energy, _hunt_tail(lag, phase, peak)],
+                     dim=1)
+
+
+def _extract_operands(cfg: ModemConfig, decim, dprev0, lag, phase, peak):
+    """Check the operands the extraction kernels share; return (N, C, out)."""
+    _build.require_kernel_geometry(cfg)
+    _check_planes(cfg, decim, dprev0)
+    N, C = decim.shape[2], dprev0.shape[2]
+    _check_row_stats(N, lag, phase, peak)
+    return N, C, torch.empty((N, cfg.frame_symbols + 8), dtype=_F32,
+                             device=decim.device)
 
 
 def extract_decode(cfg: ModemConfig, decim, dprev0, lag, phase, peak, *,
@@ -495,13 +532,8 @@ def extract_decode(cfg: ModemConfig, decim, dprev0, lag, phase, peak, *,
     if decim.device.type == "cpu":
         return extract_decode_ref(cfg, decim, dprev0, lag, phase, peak,
                                   descramble=descramble)
-    _build.require_kernel_geometry(cfg)
-    _check_planes(cfg, decim, dprev0)
-    N, C = decim.shape[2], dprev0.shape[2]
     dev = decim.device
-    _check_row_stats(N, lag, phase, peak)
-    D = cfg.frame_symbols
-    out = torch.empty((N, D + 8), dtype=_F32, device=dev)
+    N, C, out = _extract_operands(cfg, decim, dprev0, lag, phase, peak)
     ptrs = _build.cuda_args(decim, dprev0, lag, phase, peak,
                             *_decode_tables(cfg, descramble, dev), out,
                             device=dev)
@@ -511,6 +543,25 @@ def extract_decode(cfg: ModemConfig, decim, dprev0, lag, phase, peak, *,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "extract_decode")
     _build.LAUNCHES["extract_decode"] += 1
+    return out
+
+
+def extract_gate(cfg: ModemConfig, decim, dprev0, lag, phase, peak):
+    """Phase 1 of the detection-gated RX: :func:`extract_decode`'s
+    extraction and energy gate without its decode tail.  Returns the
+    packed [N, frame_symbols + 8] rows, zero except gated (slot D+3),
+    energy (D+4) and lag, phase, peak (D+5..D+7)."""
+    if decim.device.type == "cpu":
+        return extract_gate_ref(cfg, decim, dprev0, lag, phase, peak)
+    dev = decim.device
+    N, C, out = _extract_operands(cfg, decim, dprev0, lag, phase, peak)
+    ptrs = _build.cuda_args(decim, dprev0, lag, phase, peak, out, device=dev)
+    err = _build.load().sc_extract_gate(
+        *ptrs, N, C, int(decim.dtype == torch.bfloat16),
+        float(cfg.effective_peak_gate),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "extract_gate")
+    _build.LAUNCHES["extract_gate"] += 1
     return out
 
 
@@ -567,21 +618,31 @@ def fused_hunt_decode_decim(cfg: ModemConfig, decim_prev0, decim_cur, *,
 
     Returns the :func:`fused_decode` stat dict plus "lag", "phase_idx"
     and "peak".  On the card this is :func:`hunt` then
-    :func:`extract_decode`, two kernels launched one after the other.
-    ``block_channels``, ``segs_per_chunk`` and ``interpret`` only size
-    the TPU kernel; they are accepted and ignored.
+    :func:`extract_decode`, two kernels launched one after the other;
+    ``stage="gate"`` runs :func:`extract_gate` for the second (gated and
+    energy are real, the decode's stats zero).  ``block_channels``,
+    ``segs_per_chunk`` and ``interpret`` only size the TPU kernel; they
+    are accepted and ignored.
     """
-    if stage != "full":
-        raise NotImplementedError(
-            f"stage={stage!r} is not ported yet; ROADMAP: gated RX "
-            "(stage='gate')")
+    check_stage(stage)
     if decim_prev0.shape[2] != channels:
         raise ValueError(f"decim_prev0 has {decim_prev0.shape[2]} rows, "
                          f"channels={channels}")
     lag, phase, peak = hunt(cfg, decim_cur, decim_prev0)
-    out = extract_decode(cfg, decim_cur, decim_prev0, lag, phase, peak,
-                         descramble=descramble)
+    if stage == "gate":
+        out = extract_gate(cfg, decim_cur, decim_prev0, lag, phase, peak)
+    else:
+        out = extract_decode(cfg, decim_cur, decim_prev0, lag, phase, peak,
+                             descramble=descramble)
     return stat_dict(cfg, out, hunt=True)
+
+
+def check_stage(stage: str) -> None:
+    """Only the production stage and the gate stage are ported."""
+    if stage not in ("full", "gate"):
+        raise NotImplementedError(
+            f"stage={stage!r} is a cost probe of the TPU kernel and has "
+            "no counterpart; ROADMAP: not to port (stage probes)")
 
 
 def _pad_tail(head):

@@ -25,11 +25,27 @@ already-downmixed f32 halo, and the planes come out transposed
 Its kernel wrapper is :func:`frontend_rows`; the new tail and phase
 are O(N) tensor glue around it.
 
+With ``mixer_fold`` (argument, or ``cfg.mixer_fold``) both run the
+mixer-folded math of ``fused_rx.py::_fused_rx_kernel_folded`` (:217) and
+``frontend_pallas.py::_kernel_decim_folded`` (:286): one raw plane
+u = [halo | bf16(x)], two 49-term sums against the real and imaginary
+parts of the complex taps c_k = bf16(2.2 * taps[k] * e^{jw(k-48)}), and
+the mixer as a rotation of the decimated sums by phase * table[5s + c].
+The per-row form un-rotates each row's downmixed halo back to raw
+samples; the batch form takes the halo of a block b > 0 from the
+previous block's raw PCM and un-rotates only the carried seed.
+
+:func:`fused_frontend` is the counterpart of
+``ops/frontend_pallas.py::fused_frontend`` (:73): downmix and the
+full-rate 49-tap filter in f32 with no bf16 rounding, [C, frame_size]
+real and imaginary outputs; its kernel wrapper is :func:`frontend_full`.
+
 Each wrapper launches its CUDA kernel (``csrc/frontend.cu``) for
-tensors on the card; ``frontend_decim_ref`` and ``frontend_rows_ref``
-(``fused_frontend_decim_ref`` with the state out) are the plain
-versions, used for CPU
-tensors and as the kernels' references.
+tensors on the card; ``frontend_decim_ref``, ``frontend_rows_ref``,
+``frontend_decim_folded_ref``, ``frontend_rows_folded_ref`` and
+``frontend_full_ref`` (``fused_frontend_decim_ref`` and
+``fused_frontend_ref`` with the state out) are the plain versions, used
+for CPU tensors and as the kernels' references.
 """
 
 from __future__ import annotations
@@ -85,8 +101,35 @@ def decim_taps(cfg: ModemConfig) -> torch.Tensor:
     return col.to(_DTYPES[cfg.frontend_dtype]).float()
 
 
+@functools.lru_cache(maxsize=8)
+def _fold_tables(cfg: ModemConfig, dev):
+    """(ctaps [2, ntaps], unrot [2, halo]) f32 on ``dev``: real/imag of
+    the folded taps c_k = gain * taps[k] * e^{jw(k-halo)} (float64, cast
+    to f32, rounded to the front-end dtype as the JAX kernel consumes
+    ``_decim_tap_matrix_folded``) and cos/sin of w(m-halo+1), the halo
+    un-rotation of ``frontend_pallas._fold_tables``."""
+    halo = cfg.ntaps - 1
+    w = -2.0 * np.pi * cfg.center / cfg.fs
+    taps = rrc_taps(cfg.alpha, cfg.ntaps) * cfg.fir_gain
+    ck = taps * np.exp(1j * w * (np.arange(cfg.ntaps) - halo))
+    eu = np.exp(1j * w * (np.arange(halo) - halo + 1))
+    ctaps = torch.from_numpy(np.stack([ck.real, ck.imag]).astype(np.float32))
+    unrot = torch.from_numpy(np.stack([eu.real, eu.imag]).astype(np.float32))
+    return (ctaps.to(_DTYPES[cfg.frontend_dtype]).float().to(dev),
+            unrot.to(dev))
+
+
+@functools.lru_cache(maxsize=8)
+def _full_taps(cfg: ModemConfig, dev) -> torch.Tensor:
+    """[ntaps] unrounded f32 RRC taps (the full-rate kernel multiplies
+    them by the gain itself), uploaded once per (config, device)."""
+    return torch.from_numpy(rrc_taps(cfg.alpha, cfg.ntaps)).to(dev)
+
+
+@functools.lru_cache(maxsize=8)
 def _mixer_planes(cfg: ModemConfig, device) -> torch.Tensor:
-    """[2, n] f32 (real, imag) planes of the RX mixer table."""
+    """[2, n] f32 (real, imag) planes of the RX mixer table, uploaded
+    once per (config, device)."""
     table = mixer_table(-cfg.center, cfg.fs, cfg.frame_size)
     return torch.from_numpy(np.stack([table.real, table.imag])).to(device)
 
@@ -128,8 +171,55 @@ def frontend_decim_ref(cfg: ModemConfig, pcm, p0r, p0i, tail0_r, tail0_i,
     return dec.to(_DTYPES[cfg.decim_dtype]).contiguous()
 
 
+def _unrotate(cfg: ModemConfig, tail_r, tail_i, pr, pi):
+    """Raw halo samples (front-end dtype) of downmixed tail planes
+    [..., halo] carried with phase (pr, pi) [..., 1]:
+    Re[tail * conj(phase) * e^{-jw(m-halo+1)}]."""
+    eur, eui = _fold_tables(cfg, tail_r.device)[1]
+    a = tail_r * pr + tail_i * pi
+    b = tail_i * pr - tail_r * pi
+    return (a * eur + b * eui).to(_DTYPES[cfg.frontend_dtype])
+
+
+def _folded_sums(cfg: ModemConfig, u, pr, pi):
+    """Full-rate folded filter output [2, R, n] f32 of the raw plane
+    ``u`` [R, halo + n]: A + jB = sum_k c_k u[t + k] in ascending k,
+    rotated by (pr + j pi) [R, 1] times the mixer table at t."""
+    n = cfg.frame_size
+    cre, cim = _fold_tables(cfg, u.device)[0]
+    A = torch.zeros((u.shape[0], n), dtype=torch.float32, device=u.device)
+    B = torch.zeros_like(A)
+    for k in range(cfg.ntaps):
+        A = A + cre[k] * u[:, k:k + n]
+        B = B + cim[k] * u[:, k:k + n]
+    ta, tb = _mixer_planes(cfg, u.device)
+    mr = pr * ta - pi * tb
+    mi = pr * tb + pi * ta
+    return torch.stack([mr * A - mi * B, mr * B + mi * A])
+
+
+def frontend_decim_folded_ref(cfg: ModemConfig, pcm, p0r, p0i, tail0_r,
+                              tail0_i, adv):
+    """Plain PyTorch version of :func:`frontend_decim` with the mixer
+    folded."""
+    B, C, n = pcm.shape
+    halo = cfg.ntaps - 1
+    zdt = _DTYPES[cfg.frontend_dtype]
+    z = (pcm.float() * (1.0 / cfg.tx_amplitude)).to(zdt)    # [B, C, n]
+    ar, ai = adv[0][:, None], adv[1][:, None]               # [B, 1]
+    pr = (p0r[None] * ar - p0i[None] * ai)[..., None]       # [B, C, 1]
+    pi = (p0r[None] * ai + p0i[None] * ar)[..., None]
+    h0 = _unrotate(cfg, tail0_r, tail0_i, pr[0], pi[0])
+    h = torch.cat([h0[None], z[:-1, :, n - halo:]], 0)
+    u = torch.cat([h, z], -1).float().reshape(B * C, halo + n)
+    acc = _folded_sums(cfg, u, pr.reshape(-1, 1), pi.reshape(-1, 1))
+    dec = acc.reshape(2, B * C, cfg.symbols_per_block,
+                      cfg.cycles).permute(3, 0, 1, 2)
+    return dec.to(_DTYPES[cfg.decim_dtype]).contiguous()
+
+
 def frontend_decim(cfg: ModemConfig, pcm, p0r, p0i, tail0_r, tail0_i,
-                   adv):
+                   adv, *, mixer_fold: bool | None = None):
     """Downmix + RRC matched filter + x5 decimation of every row.
 
     Args:
@@ -140,10 +230,13 @@ def frontend_decim(cfg: ModemConfig, pcm, p0r, p0i, tail0_r, tail0_i,
       adv:      [2, B] f32 real/imag of adv^b (the per-block advance).
 
     Returns the decim planes [cycles, 2, B*C, n_sym] in
-    ``cfg.decim_dtype``; row n = b*C + ch.
+    ``cfg.decim_dtype``; row n = b*C + ch.  ``mixer_fold`` (default
+    ``cfg.mixer_fold``) runs the mixer-folded kernel.
     """
+    fold = cfg.mixer_fold if mixer_fold is None else mixer_fold
     if pcm.device.type == "cpu":
-        return frontend_decim_ref(cfg, pcm, p0r, p0i, tail0_r, tail0_i, adv)
+        ref = frontend_decim_folded_ref if fold else frontend_decim_ref
+        return ref(cfg, pcm, p0r, p0i, tail0_r, tail0_i, adv)
     _build.require_kernel_geometry(cfg)
     B, C, _ = pcm.shape
     if pcm.dtype != torch.int16:
@@ -157,29 +250,34 @@ def frontend_decim(cfg: ModemConfig, pcm, p0r, p0i, tail0_r, tail0_i,
     ddt = _DTYPES[cfg.decim_dtype]
     out = torch.empty((cfg.cycles, 2, B * C, cfg.symbols_per_block),
                       dtype=ddt, device=pcm.device)
-    tab, taps = _kernel_tables(cfg, pcm.device)
-    ptrs = _build.cuda_args(pcm, p0r, p0i, tail0_r, tail0_i, adv, tab,
-                            taps, out, device=pcm.device)
-    lib = _build.load()
-    err = lib.sc_frontend_decim(
+    name, tables = _kernel_operands(cfg, "frontend_decim", fold, pcm.device)
+    ptrs = _build.cuda_args(pcm, p0r, p0i, tail0_r, tail0_i, adv, *tables,
+                            out, device=pcm.device)
+    err = getattr(_build.load(), "sc_" + name)(
         *ptrs, B, C, int(ddt == torch.bfloat16), 1.0 / cfg.tx_amplitude,
         torch.cuda.current_stream(pcm.device).cuda_stream)
-    _build.check(err, "frontend_decim")
-    _build.LAUNCHES["frontend_decim"] += 1
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
     return out
+
+
+def _kernel_operands(cfg: ModemConfig, name: str, fold: bool, dev):
+    """(kernel name, constant-table operands) of a decimating front-end:
+    (mixer planes, taps), or folded (mixer planes, complex taps, halo
+    un-rotation)."""
+    if fold:
+        return name + "_folded", (_mixer_planes(cfg, dev),
+                                  *_fold_tables(cfg, dev))
+    return name, _kernel_tables(cfg, dev)
 
 
 # ------------------------------------------- per-row phases and halos
 
-def _check_rows_config(cfg: ModemConfig, mixer_fold, debug_mode: str):
+def _check_rows_config(cfg: ModemConfig, debug_mode: str = "none"):
     if cfg.frontend_dtype != "bf16":
         raise NotImplementedError(
             f"cfg.frontend_dtype={cfg.frontend_dtype!r} is not ported yet "
             "(only 'bf16'); ROADMAP: f32 front-end matmul operands")
-    if cfg.mixer_fold if mixer_fold is None else mixer_fold:
-        raise NotImplementedError(
-            "mixer_fold=True is not ported yet; ROADMAP: mixer-fold "
-            "kernels #2 and #4")
     if debug_mode != "none":
         raise NotImplementedError(
             f"debug_mode={debug_mode!r} is a cost probe of the TPU kernel "
@@ -208,7 +306,6 @@ def _frontend_state_out(cfg: ModemConfig, decim, pcm, phase_r, phase_i):
 def frontend_rows_ref(cfg: ModemConfig, pcm, phase_r, phase_i, tail_r,
                       tail_i, *, transposed: bool = False):
     """Plain PyTorch version of :func:`frontend_rows`."""
-    N, n = pcm.shape
     zdt = _DTYPES[cfg.frontend_dtype]
     x = pcm.float() * (1.0 / cfg.tx_amplitude)              # [N, n]
     pr, pi = phase_r[:, None], phase_i[:, None]
@@ -217,25 +314,21 @@ def frontend_rows_ref(cfg: ModemConfig, pcm, phase_r, phase_i, tail_r,
     zi = (x * (pr * ti + pi * tr)).to(zdt)
     u = torch.stack([torch.cat([tail_r.to(zdt), zr], -1),
                      torch.cat([tail_i.to(zdt), zi], -1)]).float()
-    acc = _tap_sums(cfg, u).reshape(2, N, cfg.symbols_per_block,
-                                    cfg.cycles)
+    return _rows_out(cfg, _tap_sums(cfg, u), transposed)
+
+
+def _rows_out(cfg: ModemConfig, acc, transposed: bool):
+    """Full-rate filter output [2, N, n] -> the decim planes of
+    :func:`frontend_rows` in the layout asked for."""
+    acc = acc.reshape(2, acc.shape[1], cfg.symbols_per_block, cfg.cycles)
     if transposed:
         return acc.permute(3, 0, 1, 2).to(
             _DTYPES[cfg.decim_dtype]).contiguous()
     return acc.permute(1, 3, 0, 2).contiguous()
 
 
-def frontend_rows(cfg: ModemConfig, pcm, phase_r, phase_i, tail_r, tail_i,
-                  *, transposed: bool = False):
-    """Downmix + RRC matched filter + x5 decimation of N independent
-    rows, each with its own mixer phase and downmixed halo (the kernel of
-    :func:`fused_frontend_decim`, whose arguments these are).  Returns
-    the decim planes: [N, cycles, 2, n_sym] f32, or with ``transposed``
-    [cycles, 2, N, n_sym] in ``cfg.decim_dtype``."""
-    if pcm.device.type == "cpu":
-        return frontend_rows_ref(cfg, pcm, phase_r, phase_i, tail_r, tail_i,
-                                 transposed=transposed)
-    _build.require_kernel_geometry(cfg)
+def _check_row_operands(cfg: ModemConfig, pcm, phase_r, phase_i, tail_r,
+                        tail_i):
     N = pcm.shape[0]
     if pcm.dtype != torch.int16 or tuple(pcm.shape) != (N, cfg.frame_size):
         raise TypeError(f"pcm must be int16 [N, {cfg.frame_size}], got "
@@ -246,6 +339,36 @@ def frontend_rows(cfg: ModemConfig, pcm, phase_r, phase_i, tail_r, tail_i,
         if t.dtype != torch.float32 or tuple(t.shape) != shape:
             raise ValueError(f"expected f32 {shape}, got {t.dtype} "
                              f"{tuple(t.shape)}")
+
+
+def frontend_rows_folded_ref(cfg: ModemConfig, pcm, phase_r, phase_i,
+                             tail_r, tail_i, *, transposed: bool = False):
+    """Plain PyTorch version of :func:`frontend_rows` with the mixer
+    folded."""
+    zdt = _DTYPES[cfg.frontend_dtype]
+    pr, pi = phase_r[:, None], phase_i[:, None]
+    z = (pcm.float() * (1.0 / cfg.tx_amplitude)).to(zdt)
+    u = torch.cat([_unrotate(cfg, tail_r, tail_i, pr, pi), z], -1).float()
+    return _rows_out(cfg, _folded_sums(cfg, u, pr, pi), transposed)
+
+
+def frontend_rows(cfg: ModemConfig, pcm, phase_r, phase_i, tail_r, tail_i,
+                  *, transposed: bool = False,
+                  mixer_fold: bool | None = None):
+    """Downmix + RRC matched filter + x5 decimation of N independent
+    rows, each with its own mixer phase and downmixed halo (the kernel of
+    :func:`fused_frontend_decim`, whose arguments these are).  Returns
+    the decim planes: [N, cycles, 2, n_sym] f32, or with ``transposed``
+    [cycles, 2, N, n_sym] in ``cfg.decim_dtype``.  ``mixer_fold``
+    (default ``cfg.mixer_fold``) runs the mixer-folded kernel."""
+    fold = cfg.mixer_fold if mixer_fold is None else mixer_fold
+    if pcm.device.type == "cpu":
+        ref = frontend_rows_folded_ref if fold else frontend_rows_ref
+        return ref(cfg, pcm, phase_r, phase_i, tail_r, tail_i,
+                   transposed=transposed)
+    _build.require_kernel_geometry(cfg)
+    _check_row_operands(cfg, pcm, phase_r, phase_i, tail_r, tail_i)
+    N = pcm.shape[0]
     dev = pcm.device
     n_sym = cfg.symbols_per_block
     if transposed:
@@ -256,22 +379,25 @@ def frontend_rows(cfg: ModemConfig, pcm, phase_r, phase_i, tail_r, tail_i,
         layout = 2
         out = torch.empty((N, cfg.cycles, 2, n_sym), dtype=torch.float32,
                           device=dev)
-    tab, taps = _kernel_tables(cfg, dev)
-    ptrs = _build.cuda_args(pcm, phase_r, phase_i, tail_r, tail_i, tab,
-                            taps, out, device=dev)
-    err = _build.load().sc_frontend_rows(
+    name, tables = _kernel_operands(cfg, "frontend_rows", fold, dev)
+    ptrs = _build.cuda_args(pcm, phase_r, phase_i, tail_r, tail_i, *tables,
+                            out, device=dev)
+    err = getattr(_build.load(), "sc_" + name)(
         *ptrs, N, layout, 1.0 / cfg.tx_amplitude,
         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "frontend_rows")
-    _build.LAUNCHES["frontend_rows"] += 1
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
     return out
 
 
 def fused_frontend_decim_ref(cfg: ModemConfig, pcm, phase_r, phase_i,
-                             tail_r, tail_i, *, transposed: bool = False):
+                             tail_r, tail_i, *, transposed: bool = False,
+                             mixer_fold: bool | None = None):
     """Plain PyTorch version of :func:`fused_frontend_decim`."""
-    decim = frontend_rows_ref(cfg, pcm, phase_r, phase_i, tail_r, tail_i,
-                              transposed=transposed)
+    fold = cfg.mixer_fold if mixer_fold is None else mixer_fold
+    ref = frontend_rows_folded_ref if fold else frontend_rows_ref
+    decim = ref(cfg, pcm, phase_r, phase_i, tail_r, tail_i,
+                transposed=transposed)
     return _frontend_state_out(cfg, decim, pcm, phase_r, phase_i)
 
 
@@ -292,11 +418,86 @@ def fused_frontend_decim(cfg: ModemConfig, pcm, phase_r, phase_i, tail_r,
     new_phase_i)``: ``decim`` from :func:`frontend_rows`, the state out
     as O(N) tensor glue.
 
-    ``block_channels``, ``chunk``, ``aligned`` and ``interpret`` only
-    size or route the TPU kernel; they are accepted and ignored so that
-    a call written for the JAX package runs unchanged.
+    ``mixer_fold`` (default ``cfg.mixer_fold``) runs the mixer-folded
+    kernel.  ``block_channels``, ``chunk``, ``aligned`` and ``interpret``
+    only size or route the TPU kernel; they are accepted and ignored so
+    that a call written for the JAX package runs unchanged (the JAX
+    launcher drops the fold when ``aligned`` is false; the port has one
+    kernel and folds whenever asked).
     """
-    _check_rows_config(cfg, mixer_fold, debug_mode)
+    _check_rows_config(cfg, debug_mode)
     decim = frontend_rows(cfg, pcm, phase_r, phase_i, tail_r, tail_i,
-                          transposed=transposed)
+                          transposed=transposed, mixer_fold=mixer_fold)
     return _frontend_state_out(cfg, decim, pcm, phase_r, phase_i)
+
+
+# ------------------------------------------- the full-rate front-end
+
+def frontend_full_ref(cfg: ModemConfig, pcm, phase_r, phase_i, tail_r,
+                      tail_i):
+    """Plain PyTorch version of :func:`frontend_full`."""
+    n = cfg.frame_size
+    x = pcm.float() * (1.0 / cfg.tx_amplitude)              # [C, n]
+    pr, pi = phase_r[:, None], phase_i[:, None]
+    tr, ti = _mixer_planes(cfg, pcm.device)
+    u = torch.stack([torch.cat([tail_r, x * (pr * tr - pi * ti)], -1),
+                     torch.cat([tail_i, x * (pr * ti + pi * tr)], -1)], 1)
+    w = _full_taps(cfg, pcm.device) * torch.tensor(cfg.fir_gain,
+                                                   dtype=torch.float32)
+    acc = torch.zeros((pcm.shape[0], 2, n), dtype=torch.float32,
+                      device=pcm.device)
+    for k in range(cfg.ntaps):
+        acc = acc + w[k] * u[..., k:k + n]
+    return acc
+
+
+def frontend_full(cfg: ModemConfig, pcm, phase_r, phase_i, tail_r, tail_i):
+    """Downmix + full-rate RRC matched filter of C rows, all in f32:
+    y[p][t] = sum_k (taps[k] * gain) * u[p][t + k] in ascending k over
+    u = [tail | downmixed block].  Returns [C, 2, frame_size] f32 (the
+    kernel of :func:`fused_frontend`, whose arguments these are)."""
+    if pcm.device.type == "cpu":
+        return frontend_full_ref(cfg, pcm, phase_r, phase_i, tail_r, tail_i)
+    _build.require_kernel_geometry(cfg)
+    _check_row_operands(cfg, pcm, phase_r, phase_i, tail_r, tail_i)
+    C, dev = pcm.shape[0], pcm.device
+    out = torch.empty((C, 2, cfg.frame_size), dtype=torch.float32,
+                      device=dev)
+    ptrs = _build.cuda_args(pcm, phase_r, phase_i, tail_r, tail_i,
+                            _mixer_planes(cfg, dev), _full_taps(cfg, dev),
+                            out, device=dev)
+    err = _build.load().sc_frontend_full(
+        *ptrs, C, 1.0 / cfg.tx_amplitude, float(cfg.fir_gain),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "frontend_full")
+    _build.LAUNCHES["frontend_full"] += 1
+    return out
+
+
+def _fused_frontend_out(cfg: ModemConfig, filt, pcm, phase_r, phase_i):
+    _, ntr, nti, npr, npi = _frontend_state_out(cfg, None, pcm, phase_r,
+                                                phase_i)
+    return filt[:, 0], filt[:, 1], ntr, nti, npr, npi
+
+
+def fused_frontend_ref(cfg: ModemConfig, pcm, phase_r, phase_i, tail_r,
+                       tail_i):
+    """Plain PyTorch version of :func:`fused_frontend`."""
+    filt = frontend_full_ref(cfg, pcm, phase_r, phase_i, tail_r, tail_i)
+    return _fused_frontend_out(cfg, filt, pcm, phase_r, phase_i)
+
+
+def fused_frontend(cfg: ModemConfig, pcm, phase_r, phase_i, tail_r, tail_i,
+                   *, block_channels: int = 256, interpret: bool = False):
+    """Full-rate front-end of C rows.
+
+    Args as :func:`fused_frontend_decim`.  Returns ``(filt_r, filt_i,
+    new_tail_r, new_tail_i, new_phase_r, new_phase_i)``; ``filt_*`` are
+    the [C, frame_size] f32 matched-filter outputs (views of one
+    [C, 2, frame_size] tensor).  ``cfg.frontend_dtype`` and
+    ``cfg.decim_dtype`` play no part: nothing is rounded to bf16.
+    ``block_channels`` and ``interpret`` only size the TPU kernel;
+    accepted and ignored.
+    """
+    filt = frontend_full(cfg, pcm, phase_r, phase_i, tail_r, tail_i)
+    return _fused_frontend_out(cfg, filt, pcm, phase_r, phase_i)

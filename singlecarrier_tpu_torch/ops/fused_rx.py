@@ -8,10 +8,13 @@ carry sits:
 
   1. ``frontend.frontend_decim`` -- every (block, channel) row at once;
      the halo of row b*C + ch is recomputed from row (b-1)*C + ch's raw
-     tail (the closed-form phase recursion makes it exact);
+     tail (the closed-form phase recursion makes it exact).  With
+     ``cfg.mixer_fold`` it is the mixer-folded kernel
+     (``_fused_rx_kernel_folded``), whose halo is the raw tail itself;
   2. ``decode.hunt`` -- row n's window reads row n - C's planes (or the
      carried ``dprev0``);
-  3. ``decode.extract_decode`` (2 and 3 through
+  3. ``decode.extract_decode``, or ``decode.extract_gate`` for
+     ``stage="gate"`` (2 and 3 through
      ``decode.fused_hunt_decode_decim``).
 
 The price is one write and two reads of the decim planes in device
@@ -20,12 +23,14 @@ memory, which the Pallas kernel avoided.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from ..config import ModemConfig
 from ..dsp.mixer import downmix_tail
-from .decode import fused_hunt_decode_decim
+from .decode import check_stage, fused_hunt_decode_decim
 from .frontend import frontend_decim
 
 
@@ -36,7 +41,6 @@ _SUPPORTED = {
     "hunt_norm": ("espan", "hunt_norm energy/none"),
     "ls_gram": ("sliding", "ls_gram=direct"),
     "ls_bvec": ("reduce", "ls_bvec=matmul"),
-    "mixer_fold": (False, "mixer-fold kernels #2 and #4"),
 }
 
 
@@ -51,10 +55,19 @@ def check_supported(cfg: ModemConfig, stage: str = "full") -> None:
         raise NotImplementedError(
             f"cfg.hunt_dtype={cfg.hunt_dtype!r} is not ported yet (bf16 "
             "and int8 are); ROADMAP: hunt_dtype=f32")
-    if stage != "full":
-        raise NotImplementedError(
-            f"stage={stage!r} is not ported yet; ROADMAP: gated RX "
-            "(stage='gate')")
+    check_stage(stage)
+
+
+@functools.lru_cache(maxsize=32)
+def _advances(cfg: ModemConfig, B: int, dev):
+    """adv^b for b in [0, B]: the complex64 numpy table (float64 phase ->
+    exactly-unit complex64) and its first B entries as [2, B] f32 planes
+    on ``dev``, uploaded once per (config, B, device)."""
+    w_ = -2.0 * np.pi * cfg.center / cfg.fs
+    advs = np.exp(1j * w_ * cfg.frame_size * np.arange(B + 1)).astype(
+        np.complex64)
+    return advs, torch.from_numpy(
+        np.stack([advs.real[:B], advs.imag[:B]])).to(dev)
 
 
 def _f32(x: float, device) -> torch.Tensor:
@@ -75,6 +88,8 @@ def fused_rx_block(cfg: ModemConfig, pcm_frames, p0r, p0i, tail0_r,
     Returns ``(dec, dlast, (fin_pr, fin_pi, fin_tr, fin_ti))``: the stat
     dict with [B*C] leaves, the [cyc, 2, C, n_sym] stream state leaving
     block B-1, and the closed-form final phase/tail planes.
+    ``stage="gate"`` stops each row after its energy gate (phase 1 of
+    ``modem.rx_gated``); the stream state is the full stage's.
     """
     check_supported(cfg, stage)
     n = cfg.frame_size
@@ -82,15 +97,11 @@ def fused_rx_block(cfg: ModemConfig, pcm_frames, p0r, p0i, tail0_r,
     B, C = pcm_frames.shape[0], pcm_frames.shape[1]
     dev = pcm_frames.device
 
-    # adv^b for b in [0, B]: float64 phase -> exactly-unit complex64
-    w_ = -2.0 * np.pi * cfg.center / cfg.fs
-    advs = np.exp(1j * w_ * n * np.arange(B + 1)).astype(np.complex64)
-    adv = torch.from_numpy(np.stack([advs.real[:B], advs.imag[:B]])).to(dev)
-
+    advs, adv = _advances(cfg, B, dev)
     decim = frontend_decim(cfg, pcm_frames, p0r, p0i, tail0_r, tail0_i, adv)
     dprev0 = dprev0_t.to(decim.dtype).contiguous()
     dec = fused_hunt_decode_decim(cfg, dprev0, decim, channels=C,
-                                  descramble=descramble)
+                                  descramble=descramble, stage=stage)
     dlast = decim[:, :, (B - 1) * C:].clone()
 
     # ---- closed-form final phase + tail (O(C) glue) ----

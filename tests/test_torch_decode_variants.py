@@ -187,4 +187,9 @@ def test_launchers_check_their_operands():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         decode.fused_hunt_decode_decim(tcfg, z((5, 2, 4, 376)),
                                        z((5, 2, 4, 376)), channels=4,
-                                       stage="gate")
+                                       stage="cfo")
+    # the gate stage runs: zero planes gate nothing
+    dec = decode.fused_hunt_decode_decim(tcfg, z((5, 2, 4, 376)),
+                                         z((5, 2, 8, 376)), channels=4,
+                                         stage="gate")
+    assert dec["gated"].shape == (8,) and not bool(dec["gated"].any())

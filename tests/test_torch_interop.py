@@ -23,10 +23,13 @@ from singlecarrier_tpu_torch import filter_design as tfd
 from singlecarrier_tpu_torch import interop
 from singlecarrier_tpu_torch.config import DEFAULT_CONFIG as TCFG
 from singlecarrier_tpu_torch.config import ModemConfig as TorchConfig
-from singlecarrier_tpu_torch.modem import (ProdRxState, make_prod_rx_fn,
-                                           planes_to_state, prod_rx_batch,
-                                           prod_rx_init, prod_rx_init_planes,
+from singlecarrier_tpu_torch.modem import (GatedRxState, ProdRxState,
+                                           make_prod_rx_fn, planes_to_state,
+                                           prod_rx_batch, prod_rx_batch_gated,
+                                           prod_rx_gated_init, prod_rx_init,
+                                           prod_rx_init_planes,
                                            prod_rx_stream_pallas,
+                                           prod_rx_stream_superstep,
                                            state_to_planes)
 from singlecarrier_tpu_torch.modem import rx_production as trx
 from singlecarrier_tpu_torch.ops import _build
@@ -153,6 +156,39 @@ def test_complex_state_round_trip(decim_dtype):
         assert np.array_equal(np.asarray(a), b)
 
 
+@pytest.mark.parametrize("decim_dtype", ["bf16", "f32"])
+def test_gated_state_round_trip(decim_dtype):
+    """``GatedRxState`` crosses the packages unchanged: the planes as
+    the plane state, the two int16 PCM leaves as they are; and the
+    port's initial state is the JAX package's."""
+    from singlecarrier_tpu.modem import prod_rx_gated_init as jax_init
+    cfg = CFG.replace(decim_dtype=decim_dtype)
+    tcfg = TCFG.replace(decim_dtype=decim_dtype)
+    init_j = jax_init(cfg, 3)
+    init_t = interop.gated_state_to_numpy(prod_rx_gated_init(tcfg, 3, "cpu"))
+    for a, b in zip(init_j.planes, init_t[0]):
+        assert np.asarray(a).dtype == b.dtype
+        assert np.array_equal(np.asarray(a), b)
+    for a, b in zip(init_j[1:], init_t[1:]):
+        assert b.dtype == np.int16 and np.array_equal(np.asarray(a), b)
+    rng = np.random.default_rng(9)
+    planes = [rng.normal(size=a.shape).astype(np.asarray(a).dtype)
+              for a in init_j.planes]
+    pcm = [rng.integers(-2 ** 15, 2 ** 15, a.shape).astype(np.int16)
+           for a in init_j[1:]]
+    st = interop.gated_state_from_numpy((planes, *pcm), device="cpu")
+    assert isinstance(st, GatedRxState)
+    assert st.pcm_prev.dtype == st.pcm_prev2_tail.dtype == torch.int16
+    assert st.planes[4].dtype == (torch.bfloat16 if decim_dtype == "bf16"
+                                  else torch.float32)
+    back = interop.gated_state_to_numpy(st)
+    for a, b in zip(planes, back[0]):
+        assert a.dtype == b.dtype
+        assert np.array_equal(a.view(np.uint8), b.view(np.uint8))
+    for a, b in zip(pcm, back[1:]):
+        assert np.array_equal(a, b)
+
+
 def test_the_card_is_the_default_device():
     """Without ``device`` the constructors make CUDA tensors, and raise
     where there is no card; the processing entry points follow their
@@ -164,8 +200,10 @@ def test_the_card_is_the_default_device():
     z = np.zeros(2, np.float32)
     for make in (lambda: prod_rx_init_planes(TCFG, 2),
                  lambda: prod_rx_init(TCFG, (2,)),
+                 lambda: prod_rx_gated_init(TCFG, 2),
                  lambda: interop.planes_from_numpy([z]),
-                 lambda: interop.state_from_numpy([z])):
+                 lambda: interop.state_from_numpy([z]),
+                 lambda: interop.gated_state_from_numpy(([z], z, z))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     state = prod_rx_init_planes(TCFG, 2, device="cpu")
@@ -204,7 +242,7 @@ def test_no_jax_import_in_package_sources():
 @pytest.mark.parametrize("knob", [
     {"hunt_norm": "energy"}, {"hunt_norm": "none"}, {"ls_gram": "direct"},
     {"ls_bvec": "matmul"}, {"cfo_dtype": "bf16"},
-    {"frontend_dtype": "f32"}, {"mixer_fold": True}, {"hunt_dtype": "f32"},
+    {"frontend_dtype": "f32"}, {"hunt_dtype": "f32"},
 ], ids=lambda k: "-".join(f"{a}={b}" for a, b in k.items()))
 def test_unported_knobs_raise(knob):
     cfg = TCFG.replace(**knob)
@@ -218,25 +256,51 @@ def test_unported_knobs_raise(knob):
         prod_rx_stream_pallas(cfg, prod_rx_init(cfg, (2,), "cpu"), pcm)
 
 
+@pytest.mark.parametrize("knob", [
+    {"mixer_fold": True}, {"frac_timing": True},
+    {"mixer_fold": True, "decim_dtype": "bf16", "hunt_dtype": "int8"},
+], ids=lambda k: "-".join(f"{a}={b}" for a, b in k.items()))
+def test_ported_knobs_run(knob):
+    """The knobs this port once refused: every entry point that takes
+    them runs."""
+    cfg = TCFG.replace(**knob)
+    state = prod_rx_init_planes(cfg, 2, "cpu")
+    cstate = prod_rx_init(cfg, (2,), "cpu")
+    pcm = torch.zeros((2, 2, cfg.frame_size), dtype=torch.int16)
+    _, out = prod_rx_stream_pallas(cfg, cstate, pcm)
+    assert out.valid.shape == (2, 2) and not bool(out.valid.any())
+    if cfg.frac_timing:
+        return                  # the batch paths refuse it, as in JAX
+    for flags in ({"fuse_frontend": True}, {}):
+        _, out = prod_rx_batch(cfg, state, pcm, **flags)
+        assert out.valid.shape == (2, 2)
+    for flags in ({"fuse_hunt": False},
+                  {"fuse_hunt": False, "fuse_extract": False}):
+        _, out = prod_rx_batch(cfg, cstate, pcm, **flags)
+        assert out.valid.shape == (2, 2)
+    _, out = prod_rx_stream_superstep(cfg, state, pcm, superstep=2,
+                                      fuse_frontend=True)
+    assert out.valid.shape == (2, 2)
+
+
 def test_unported_paths_raise():
     state = prod_rx_init_planes(TCFG, 2, "cpu")
     cstate = prod_rx_init(TCFG, (2,), "cpu")
     pcm = torch.zeros((1, 2, TCFG.frame_size), dtype=torch.int16)
     with pytest.raises(TypeError, match="ProdRxState or the 5-tuple"):
         prod_rx_batch(TCFG, state[:4], pcm, fuse_frontend=True)
+    # the stage probes of the TPU kernel (only "full" and "gate" run)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_rx_block(TCFG, pcm, *state, stage="gate")
-    # the streaming bodies that wait for kernel #8 and the XLA path
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prod_rx_stream_pallas(TCFG.replace(frac_timing=True), cstate, pcm)
+        fused_rx_block(TCFG, pcm, *state, stage="hunt")
+    # the streaming body that waits for the XLA back end
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         prod_rx_stream_pallas(TCFG, cstate, pcm, fuse_decode=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_prod_rx_fn(TCFG)
-    # the mixer-fold kernels, by config or by argument
-    z = torch.zeros((2,))
+        prod_rx_stream_pallas(TCFG.replace(frac_timing=True), cstate, pcm,
+                              fuse_decode=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_frontend_decim(TCFG, pcm[0], z, z, z, z, mixer_fold=True)
+        make_prod_rx_fn(TCFG)
+    z = torch.zeros((2,))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fused_frontend_decim(TCFG, pcm[0], z, z, z, z,
                              debug_mode="store_only")
@@ -269,9 +333,18 @@ def test_cpu_tensors_take_the_plain_path():
         assert out.valid.shape == (2, 2)
     _, out = prod_rx_stream_pallas(cfg, cstate, pcm)
     assert out.bits.shape == (2, 2, CFG.bits_per_frame)
+    fold = cfg.replace(mixer_fold=True)
+    prod_rx_batch(fold, prod_rx_init_planes(fold, 2, "cpu"), pcm,
+                  fuse_frontend=True)
+    prod_rx_batch(fold, prod_rx_init_planes(fold, 2, "cpu"), pcm)
+    prod_rx_stream_pallas(cfg.replace(frac_timing=True), cstate, pcm)
+    _, gout = prod_rx_batch_gated(cfg, prod_rx_gated_init(cfg, 2, "cpu"),
+                                  pcm, max_detections=3)
+    assert gout["bits"].shape == (3, CFG.bits_per_frame)
     assert set(_build.LAUNCHES) == {
         "frontend_decim", "frontend_rows", "hunt", "extract_decode",
-        "decode_extract", "decode_packets"}
+        "decode_extract", "decode_packets", "frontend_decim_folded",
+        "frontend_rows_folded", "extract_gate", "frontend_full"}
     assert all(v == 0 for v in _build.LAUNCHES.values())
     assert _build._lib is None
 
