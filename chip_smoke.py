@@ -12,7 +12,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  packets + noise), at the library default and the bench
                  operating point; the mixer-folded front-ends in all
                  three output layouts; the gate stage against the full
-                 decode's gate column;
+                 decode's gate column; the bench operating point again
+                 on 5 channels x 3 blocks (a row count no block size
+                 divides); then the hunt alone on 8192 x 4 rows of
+                 full-scale noise at both operating points and with the
+                 int8 operand on f32 planes (lag and phase equal on every
+                 row; in int8 mode the peak equal to the bit, here as
+                 above);
   4. main     -- ``prod_rx_batch(fuse_frontend=True)`` at the bench
                  operating point, 8192 channels, two chained dispatches
                  of 10 blocks carrying the state, on the golden stream
@@ -46,7 +52,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  (8192 x 128 blocks), (b) and (f) over 128 blocks, the
                  batch paths' kernels at that dispatch size, and each
                  kernel against its plain version at 8192 x 4 rows, each
-                 beside its bound (``_kernel_bounds``).
+                 beside its bound (``_kernel_bounds``), the hunt in both
+                 operand modes.
 
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line and, last, ``{"ok": true, "device": {...}}``.  Any failing phase
@@ -183,7 +190,11 @@ def _kernel_bounds(cfg, N: int, C: int) -> dict:
         "extract_gate": _bound(
             N * 2 * P * plane_b + N * 12 + N * out_row,
             {"f32": N * (2 * P * 2)}),
-        "hunt": _bound((N + C) * planes * plane_b + N * 12, hunt_ops),
+        # every row's planes once: whole as the previous block of row
+        # n + C, and of the last C rows (previous to none) only the
+        # P - 1 values a correlation at lag < n_sym reaches into them
+        "hunt": _bound((N * planes + C * cyc * 2 * (P - 1)) * plane_b
+                       + N * 12, hunt_ops),
         "extract_decode": _bound(
             (N + C) * planes * plane_b + N * 12 + N * out_row
             + 2 * P * cfg.cfo_nfft * 4, decode_ops),
@@ -337,7 +348,7 @@ def _compare_kernels(torch, cfg, inputs, what: str) -> dict:
     from singlecarrier_tpu_torch.ops.decode import (
         extract_decode, extract_decode_ref, fused_decode,
         fused_decode_extract, fused_decode_extract_ref, fused_decode_ref,
-        hunt, hunt_ref)
+        hunt)
     from singlecarrier_tpu_torch.ops.frontend import (
         frontend_decim, frontend_decim_ref, frontend_rows, frontend_rows_ref)
     ddt = torch.bfloat16 if cfg.decim_dtype == "bf16" else torch.float32
@@ -356,18 +367,8 @@ def _compare_kernels(torch, cfg, inputs, what: str) -> dict:
           f"same f32 sum order), exact share "
           f"{float((err1 == 0).float().mean()):.6f}", flush=True)
 
+    report["hunt"] = _compare_hunt(torch, cfg, dk, dprev0, what)
     lk, pk_, qk = hunt(cfg, dk, dprev0)
-    lr, pr_, qr = hunt_ref(cfg, dk, dprev0)
-    torch.cuda.synchronize()
-    rel = float(((qk - qr).abs() / qr.abs().clamp_min(1e-30)).max())
-    report["hunt"] = {"max_abs_err": float((qk - qr).abs().max())}
-    _require(torch.equal(lk, lr) and torch.equal(pk_, pr_),
-             f"{what}: hunt lag/phase differ on {int((lk != lr).sum())}/"
-             f"{int((pk_ != pr_).sum())} rows")
-    _require(rel <= 1e-5, f"{what}: hunt peak rel err {rel}")
-    print(f"[kernels] {what}: hunt vs plain: lag/phase identical on "
-          f"{lk.numel()} rows, peak max rel err {rel:.3e} (tolerance 1e-5)",
-          flush=True)
 
     ok_ = extract_decode(cfg, dk, dprev0, lk, pk_, qk)
     or_ = extract_decode_ref(cfg, dk, dprev0, lk, pk_, qk)
@@ -430,6 +431,32 @@ def _compare_kernels(torch, cfg, inputs, what: str) -> dict:
              f"decode_packets disagree on the same packets")
     _compare_new_kernels(torch, cfg, inputs, rows, what, report)
     return report
+
+
+def _compare_hunt(torch, cfg, dk, dprev0, what: str) -> dict:
+    """The hunt against its plain version on planes ``dk``: lag and phase
+    equal on every row; the peak equal to the bit in int8 mode (the
+    integer correlation is exact and the f32 sums keep the plain order),
+    within 1e-5 relative in the bf16 mode."""
+    from singlecarrier_tpu_torch.ops.decode import hunt, hunt_ref
+    lk, pk_, qk = hunt(cfg, dk, dprev0)
+    lr, pr_, qr = hunt_ref(cfg, dk, dprev0)
+    torch.cuda.synchronize()
+    rel = float(((qk - qr).abs() / qr.abs().clamp_min(1e-30)).max())
+    _require(torch.equal(lk, lr) and torch.equal(pk_, pr_),
+             f"{what}: hunt lag/phase differ on {int((lk != lr).sum())}/"
+             f"{int((pk_ != pr_).sum())} rows")
+    if cfg.hunt_dtype == "int8":
+        _require(torch.equal(qk, qr), f"{what}: hunt peak differs on "
+                 f"{int((qk != qr).sum())} rows (rel err {rel})")
+        tol = "equal to the bit"
+    else:
+        _require(rel <= 1e-5, f"{what}: hunt peak rel err {rel}")
+        tol = f"max rel err {rel:.3e} (tolerance 1e-5)"
+    print(f"[kernels] {what}: hunt ({cfg.hunt_dtype} operand) vs plain: "
+          f"lag and phase identical on {lk.numel()} rows, peak {tol}",
+          flush=True)
+    return {"max_abs_err": float((qk - qr).abs().max())}
 
 
 def _compare_new_kernels(torch, cfg, inputs, rows, what: str, report: dict):
@@ -649,6 +676,23 @@ def main() -> int:
                      "library default")
     report = _compare_kernels(torch, cfg, _inputs(cfg, C_CMP, B_CMP),
                               "bench operating point")
+    # a row count no block size divides: the last hunt block has three
+    # of its four warps live, the last decode block seven of eight
+    _compare_kernels(torch, cfg, _inputs(cfg, 5, 3),
+                     "bench operating point, 5 channels x 3 blocks")
+    # the hunt on full-scale noise, where a reordered sum or a tie-rule
+    # slip would show: every row's lag and phase
+    for what, cfg_ in (("library default", default),
+                       ("bench operating point", cfg),
+                       ("int8 operand on f32 planes",
+                        default.replace(hunt_dtype="int8"))):
+        pcm, p0r, p0i, t0r, t0i, adv, dprev0 = _inputs(cfg_, C_MAIN, B_KTIME)
+        pcm = torch.randint(-16384, 16384, pcm.shape, generator=gen,
+                            device=dev, dtype=torch.int16)
+        dk = frontend_decim(cfg_, pcm, p0r, p0i, t0r, t0i, adv)
+        _compare_hunt(torch, cfg_, dk, dprev0,
+                      f"{what}, {C_MAIN} x {B_KTIME} rows of noise")
+        del pcm, dk, dprev0
 
     # ---- 4. main path ----
     def _drive(what, fn, expect):
@@ -1106,6 +1150,17 @@ def main() -> int:
         "frontend_full": (lambda: frontend_full(cfg, *rows),
                           lambda: frontend_full_ref(cfg, *rows)),
     }
+    dk32 = dk.float()
+    dprev32 = dprev0.float()
+    for what, cfg_ in (("bf16 operand, f32 planes (the library default)",
+                        default),
+                       ("int8 operand, f32 planes",
+                        default.replace(hunt_dtype="int8"))):
+        b_ms, b_by = _kernel_bounds(cfg_, C_MAIN * B_KTIME, C_MAIN)["hunt"]
+        print(f"[timing] hunt, {what}, at {C_MAIN} ch x {B_KTIME} blocks: "
+              f"kernel {_time_cuda(lambda: hunt(cfg_, dk32, dprev32), 10):.3f}"
+              f" ms, bound {b_ms:.4f} ms ({b_by}); {smi_line}", flush=True)
+    del dk32, dprev32
     bounds = _kernel_bounds(cfg, C_MAIN * B_KTIME, C_MAIN)
     for name, (kern, plain) in calls.items():
         report[name]["ms"] = _time_cuda(kern, 10)

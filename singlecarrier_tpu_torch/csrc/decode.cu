@@ -1,4 +1,5 @@
-// The decode kernels: packet -> full decode, one warp per row.
+// The decode kernels: packet -> full decode, a warp per row, the CFO DFT
+// by a block of rows.
 //
 // decode_packet is _decode_core of
 // singlecarrier_tpu/ops/decode_pallas.py (:398-597): energy gate, CFO
@@ -29,26 +30,83 @@
 // planes into registers, then the row zeroed except gated (D+3), energy
 // (D+4) and the hunt's slots.  It takes no table and runs no decode.
 //
-// A warp owns a row: the 384-symbol packet planes sit in shared memory,
-// per-symbol decode arrays in registers (symbol t = lane + 32 j), and
-// every reduction is a butterfly whose result all lanes hold bit-equal,
-// so the small solves run redundantly on every lane with no broadcast.
+// A block owns DEC_ROWS rows, a warp each: the 384-symbol packet planes
+// sit in shared memory, per-symbol decode arrays in registers (symbol
+// t = lane + 32 j), and every reduction is a butterfly whose result all
+// lanes hold bit-equal, so the small solves run redundantly on every lane
+// with no broadcast.
+//
+// The CFO DFT is the one stage the block runs together (cfo_dft_block):
+// the 128 x 512 f32 table (dft_r, dft_i: 512 KB, more than L1 holds) is
+// walked in tiles of KC rows of k, copied into shared memory with
+// cp.async, double-buffered, and each tile element is read from shared
+// memory once for all the rows of the block.  A thread keeps the four
+// running sums of BPT bins x DEC_ROWS rows in registers; the rows'
+// (chip * pn) operands are a small table in shared memory, read as
+// broadcast 16-byte loads.  Every (row, bin) keeps its arithmetic: s1..s4
+// in ascending k, each product rounded before its sum (-fmad=false), then
+// sr = s1 - s2, si = s3 + s4 and the power, which the row's warp reads
+// back for the first-maximum argmax and the parabola.  So the table
+// leaves L2 once per block, not once per row.
 //
 // Bound on the card: operations.  The CFO DFT is 128 x 512 x 4 f32
-// multiply-adds per row with the 512 KB f32 table streamed from L2 (it
-// does not fit L1); the rest is ~50 warp reductions per row.  Sharing
-// table tiles across the warps of a block through shared memory is the
-// next step.
+// multiply-adds per row, two instructions each without contraction; the
+// rest is ~50 warp reductions per row, three small solves and a
+// cosf/sinf pair per packet sample.  The DFT runs at that f32 rate; the
+// stages after it are the larger part of the kernel's time.
+//
+// With -DSC_STAGE_CLOCKS lane 0 of every warp adds the clock64() ticks
+// it spent in each stage to sc_stage_cycles (read by
+// sc_decode_stage_cycles); without it the stamps compile to nothing.
+#include <cuda_pipeline_primitives.h>
+
 #include "common.cuh"
 
 using namespace sc;
 
 namespace {
 
-constexpr int DEC_WARPS = 4;               // rows per block
+constexpr int DEC_ROWS = 8;                // rows (warps) per block
+constexpr int DEC_THREADS = DEC_ROWS * 32;
+constexpr int GATE_WARPS = 4;              // rows per block of the gate stage
 constexpr int MAXJ = (D + 31) / 32;        // symbols per lane
-constexpr int BINS = NFFT / 32;            // DFT bins per lane
+constexpr int BINS = NFFT / 32;            // DFT bins per lane (argmax)
+constexpr int BPT = NFFT / DEC_THREADS;    // DFT bins per thread (sums)
+constexpr int KC = 4;                      // table rows of k per tile
+constexpr int NCHUNK = P / KC;
+constexpr int TILE_F = KC * NFFT;          // floats of one plane's tile
+constexpr int N_STAGES = 8;                // stage clocks
 constexpr unsigned FULL = 0xffffffffu;
+
+static_assert(NFFT % DEC_THREADS == 0 && P % KC == 0, "DFT tiling");
+static_assert(DEC_ROWS % 2 == 0, "operand table read two rows a load");
+static_assert(TILE_F % (4 * DEC_THREADS) == 0, "16-byte copies a thread");
+
+// ticks per stage, summed over the warps of every launch since the last
+// reset: extraction, CFO DFT, CFO peak, derotation, train, refit, refine,
+// descramble and output
+__device__ unsigned long long sc_stage_cycles[N_STAGES];
+
+struct StageClock {
+#ifdef SC_STAGE_CLOCKS
+  long long t;
+  bool on;
+  __device__ __forceinline__ void start(bool lane0) {
+    on = lane0;
+    t = clock64();
+  }
+  __device__ __forceinline__ void stamp(int stage) {
+    if (on) {
+      const long long now = clock64();
+      atomicAdd(&sc_stage_cycles[stage], (unsigned long long)(now - t));
+      t = now;
+    }
+  }
+#else
+  __device__ __forceinline__ void start(bool) {}
+  __device__ __forceinline__ void stamp(int) {}
+#endif
+};
 
 struct Params {
   int refit_sym, refit_iters, refine_iters;
@@ -270,20 +328,106 @@ __device__ float derr(const float (&xr)[MAXJ], const float (&xi)[MAXJ],
   return warp_sum(e);
 }
 
-struct WarpSmem {
-  float pr[PKT];
-  float pi[PKT];
-  float pw[NFFT];
+// The block's dynamic shared memory (every member 16-byte aligned).
+struct BlockSmem {
+  float pns[P];
+  float msk[D];
+  float pkt[DEC_ROWS][2][PKT];     // each row's packet planes
+  float2 ttab[P][DEC_ROWS];        // (chip k * pn[k]) of each row, (re, im)
+  float tile[2][2][TILE_F];        // [buffer][dft_r | dft_i][KC][NFFT];
+                                   // after the DFT: the power [row][NFFT]
 };
+static_assert(sizeof(float) * (P + D) % 16 == 0, "pkt stays aligned");
+static_assert(2 * 2 * TILE_F >= DEC_ROWS * NFFT, "the power fits the tiles");
 
-// _decode_core on the warp's packet (pr, pi: PKT f32 each in shared
-// memory, first chip at OFF; pwf: NFFT f32 of scratch).  Writes slots
-// 0..D+4 of the output row o.
+__device__ __forceinline__ void load_tile(BlockSmem& sm, int buf, int chunk,
+                                          const float* __restrict__ dft_r,
+                                          const float* __restrict__ dft_i) {
+  const float* src_r = dft_r + chunk * TILE_F;
+  const float* src_i = dft_i + chunk * TILE_F;
+  for (int i = 4 * threadIdx.x; i < TILE_F; i += 4 * DEC_THREADS) {
+    __pipeline_memcpy_async(&sm.tile[buf][0][i], src_r + i, 16);
+    __pipeline_memcpy_async(&sm.tile[buf][1][i], src_i + i, 16);
+  }
+  __pipeline_commit();
+}
+
+// The CFO DFT of the block's rows, run by all its threads: the power
+// |(chips * pn) x DFT|^2 of every (row, bin) into sm.tile (as
+// [DEC_ROWS][NFFT]).  Every warp has filled its packet (zeros for a row
+// past the last); on return the power is visible to the whole block.
+__device__ __forceinline__ void cfo_dft_block(
+    BlockSmem& sm, const float* __restrict__ dft_r,
+    const float* __restrict__ dft_i) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  load_tile(sm, 0, 0, dft_r, dft_i);
+  const float* pr = sm.pkt[warp][0];
+  const float* pi = sm.pkt[warp][1];
+  for (int k = lane; k < P; k += 32)
+    sm.ttab[k][warp] = make_float2(pr[OFF + k] * sm.pns[k],
+                                   pi[OFF + k] * sm.pns[k]);
+  float s1[DEC_ROWS][BPT], s2[DEC_ROWS][BPT], s3[DEC_ROWS][BPT],
+      s4[DEC_ROWS][BPT];
+#pragma unroll
+  for (int r = 0; r < DEC_ROWS; ++r)
+#pragma unroll
+    for (int b = 0; b < BPT; ++b) s1[r][b] = s2[r][b] = s3[r][b] = s4[r][b] = 0.f;
+  for (int ch = 0; ch < NCHUNK; ++ch) {
+    if (ch + 1 < NCHUNK) {
+      load_tile(sm, (ch + 1) & 1, ch + 1, dft_r, dft_i);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();          // tile ch (and, first, the operand table)
+    const float* wr = sm.tile[ch & 1][0] + tid;
+    const float* wi = sm.tile[ch & 1][1] + tid;
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) {
+      float r[BPT], m[BPT];
+#pragma unroll
+      for (int b = 0; b < BPT; ++b) {
+        r[b] = wr[kk * NFFT + DEC_THREADS * b];
+        m[b] = wi[kk * NFFT + DEC_THREADS * b];
+      }
+      const float4* t4 =
+          reinterpret_cast<const float4*>(&sm.ttab[ch * KC + kk][0]);
+#pragma unroll
+      for (int rp = 0; rp < DEC_ROWS / 2; ++rp) {
+        const float4 t = t4[rp];       // rows 2 rp and 2 rp + 1: (re, im)
+#pragma unroll
+        for (int b = 0; b < BPT; ++b) {
+          s1[2 * rp][b] = s1[2 * rp][b] + t.x * r[b];
+          s2[2 * rp][b] = s2[2 * rp][b] + t.y * m[b];
+          s3[2 * rp][b] = s3[2 * rp][b] + t.x * m[b];
+          s4[2 * rp][b] = s4[2 * rp][b] + t.y * r[b];
+          s1[2 * rp + 1][b] = s1[2 * rp + 1][b] + t.z * r[b];
+          s2[2 * rp + 1][b] = s2[2 * rp + 1][b] + t.w * m[b];
+          s3[2 * rp + 1][b] = s3[2 * rp + 1][b] + t.z * m[b];
+          s4[2 * rp + 1][b] = s4[2 * rp + 1][b] + t.w * r[b];
+        }
+      }
+    }
+    __syncthreads();          // the buffer may be filled again
+  }
+  float* pw = &sm.tile[0][0][0];
+#pragma unroll
+  for (int r = 0; r < DEC_ROWS; ++r)
+#pragma unroll
+    for (int b = 0; b < BPT; ++b) {
+      const float sr = s1[r][b] - s2[r][b], si = s3[r][b] + s4[r][b];
+      pw[r * NFFT + tid + DEC_THREADS * b] = sr * sr + si * si;
+    }
+  __syncthreads();
+}
+
+// _decode_core on the warp's packet after the block's CFO DFT (pr, pi:
+// PKT f32 each in shared memory, first chip at OFF; pwf: the row's NFFT
+// DFT powers).  Writes slots 0..D+4 of the output row o.
 __device__ __forceinline__ void decode_packet(
-    float* pr, float* pi, float* pwf, const float* pns, const float* msk,
-    float peak,
-    const float* __restrict__ dft_r, const float* __restrict__ dft_i,
-    const Params& prm, int lane, float* o) {
+    float* pr, float* pi, const float* pwf, const float* pns,
+    const float* msk, float peak, const Params& prm, int lane, float* o,
+    StageClock& clk) {
   // ---- energy gate ----
   float e = 0.f;
 #pragma unroll
@@ -294,30 +438,12 @@ __device__ __forceinline__ void decode_packet(
   const float energy = warp_sum(e);
   const bool gated = peak > energy * prm.peak_gate;
 
-  // ---- CFO: |(chips * pn) x DFT|^2, first-max argmax, parabolic peak --
-  float s1[BINS], s2[BINS], s3[BINS], s4[BINS];
-#pragma unroll
-  for (int q = 0; q < BINS; ++q) s1[q] = s2[q] = s3[q] = s4[q] = 0.f;
-  for (int k = 0; k < P; ++k) {
-    const float tr = pr[OFF + k] * pns[k], ti = pi[OFF + k] * pns[k];
-    const float* wrk = dft_r + k * NFFT + lane;
-    const float* wik = dft_i + k * NFFT + lane;
-#pragma unroll
-    for (int q = 0; q < BINS; ++q) {
-      const float r = __ldg(wrk + 32 * q), m = __ldg(wik + 32 * q);
-      s1[q] = s1[q] + tr * r;
-      s2[q] = s2[q] + ti * m;
-      s3[q] = s3[q] + tr * m;
-      s4[q] = s4[q] + ti * r;
-    }
-  }
+  // ---- CFO: first-max argmax of the DFT power, parabolic peak ----
   float bv = -1.f;
   int bi = 0;
 #pragma unroll
   for (int q = 0; q < BINS; ++q) {
-    const float sr = s1[q] - s2[q], si = s3[q] + s4[q];
-    const float p = sr * sr + si * si;
-    pwf[lane + 32 * q] = p;
+    const float p = pwf[lane + 32 * q];
     if (p > bv) {
       bv = p;
       bi = lane + 32 * q;
@@ -332,7 +458,6 @@ __device__ __forceinline__ void decode_packet(
       bi = i;
     }
   }
-  __syncwarp();
   const float p0 = bv;
   const float pm = pwf[(bi + NFFT - 1) % NFFT];
   const float pp = pwf[(bi + 1) % NFFT];
@@ -342,6 +467,7 @@ __device__ __forceinline__ void decode_packet(
   float kf = (float)bi + delta;
   if (kf > NFFT / 2.f) kf = kf - (float)NFFT;
   const float cfo = gated ? kf * prm.cfo_scale : 0.f;
+  clk.stamp(2);
 
   // ---- de-rotate the packet (in place) ----
   const float kc = prm.derot_k * cfo;
@@ -353,6 +479,7 @@ __device__ __forceinline__ void decode_packet(
     pi[i] = a * rsn + b * rc;
   }
   __syncwarp();
+  clk.stamp(3);
 
   // ---- LS train on the preamble ----
   const float zero[MAXJ] = {};
@@ -360,6 +487,7 @@ __device__ __forceinline__ void decode_packet(
   fit<true>(pr, pi, P, pns, zero, zero, prm.ls_reg, prm.ls_offtap, lane,
             cf);
   const float matches = matches_of(pr, pi, cf, pns, lane);
+  clk.stamp(4);
 
   // ---- guarded decision-directed refit on the first R data symbols ----
   const int R = prm.refit_sym;
@@ -396,6 +524,8 @@ __device__ __forceinline__ void decode_packet(
       cf.i[i] = keep * c2.i[i] + (1.f - keep) * cf.i[i];
     }
   }
+
+  clk.stamp(5);
 
   // ---- decode + clamped guarded phase/frequency refinement ----
   apply(dr, di, cf, D, lane, ar, ai);
@@ -485,6 +615,8 @@ __device__ __forceinline__ void decode_packet(
     eq_err = warp_sum(s) / (float)D;
   }
 
+  clk.stamp(6);
+
   // ---- descramble (XOR of {0..3} dibits) + packed output row ----
 #pragma unroll
   for (int j = 0; j < MAXJ; ++j) {
@@ -501,24 +633,40 @@ __device__ __forceinline__ void decode_packet(
     o[D + 3] = gated ? 1.f : 0.f;
     o[D + 4] = energy;
   }
+  clk.stamp(7);
 }
 
 // Block prologue shared by the entry points: the PN and descramble
-// tables into shared memory, then this warp's row n, packet planes and
-// output row; a warp past the last row leaves.
+// tables on their way into shared memory (SC_DECODE_BODY's barrier makes
+// them visible), then this warp's row n, packet planes and output row.
+// A warp past the last row stays (the block runs the CFO DFT together)
+// with a zero packet.
 #define SC_DECODE_PROLOGUE()                                              \
-  __shared__ float pns[P];                                                \
-  __shared__ float msk[D];                                                \
-  __shared__ WarpSmem wsm[DEC_WARPS];                                     \
-  for (int i = threadIdx.x; i < P; i += blockDim.x) pns[i] = pn[i];       \
-  for (int i = threadIdx.x; i < D; i += blockDim.x) msk[i] = mask[i];     \
-  __syncthreads();                                                        \
+  extern __shared__ __align__(16) unsigned char smem_raw[];               \
+  BlockSmem& sm = *reinterpret_cast<BlockSmem*>(smem_raw);                \
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;             \
-  const long long n = (long long)blockIdx.x * DEC_WARPS + warp;           \
-  if (n >= N) return;                                                     \
-  float* pr = wsm[warp].pr;                                               \
-  float* pi = wsm[warp].pi;                                               \
-  float* o = out + n * N_OUT
+  StageClock clk;                                                         \
+  clk.start(lane == 0);                                                   \
+  for (int i = threadIdx.x; i < P; i += blockDim.x) sm.pns[i] = pn[i];    \
+  for (int i = threadIdx.x; i < D; i += blockDim.x) sm.msk[i] = mask[i];  \
+  const long long n = (long long)blockIdx.x * DEC_ROWS + warp;            \
+  const bool live = n < N;                                                \
+  float* pr = sm.pkt[warp][0];                                            \
+  float* pi = sm.pkt[warp][1];                                            \
+  if (!live)                                                              \
+    for (int i = lane; i < PKT; i += 32) pr[i] = pi[i] = 0.f
+
+// The rest of every entry point: the block's CFO DFT, then each live
+// warp's decode of its row.
+#define SC_DECODE_BODY(peak)                                              \
+  __syncthreads();              /* the tables and every row's packet */   \
+  clk.stamp(0);                                                           \
+  cfo_dft_block(sm, dft_r, dft_i);                                        \
+  clk.stamp(1);                                                           \
+  if (!live) return;                                                      \
+  float* o = out + n * N_OUT;                                             \
+  decode_packet(pr, pi, &sm.tile[0][0][0] + warp * NFFT, sm.pns, sm.msk,  \
+                peak, prm, lane, o, clk)
 
 __device__ __forceinline__ void write_tail(float* o, int lane, float lag,
                                            float ph, float peak) {
@@ -529,7 +677,7 @@ __device__ __forceinline__ void write_tail(float* o, int lane, float lag,
   }
 }
 
-__global__ void __launch_bounds__(DEC_WARPS * 32) extract_decode_kernel(
+__global__ void __launch_bounds__(DEC_THREADS) extract_decode_kernel(
     const void* __restrict__ decim, const void* __restrict__ dprev0,
     int in_bf16, const int* __restrict__ lag_in,
     const int* __restrict__ ph_in, const float* __restrict__ peak_in,
@@ -537,28 +685,46 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) extract_decode_kernel(
     const float* __restrict__ pn, const float* __restrict__ mask,
     float* __restrict__ out, long long N, int C, Params prm) {
   SC_DECODE_PROLOGUE();
-  const int lag = lag_in[n], ph = ph_in[n];
-  const float peak = peak_in[n];
-  // packet[i] = window[ph][lag + i]
-  for (int i = lane; i < PKT; i += 32) {
-    pr[i] = window_at(decim, dprev0, in_bf16, N, C, n, ph, 0, lag + i);
-    pi[i] = window_at(decim, dprev0, in_bf16, N, C, n, ph, 1, lag + i);
+  const int lag = live ? lag_in[n] : 0, ph = live ? ph_in[n] : 0;
+  const float peak = live ? peak_in[n] : 0.f;
+  // packet[i] = window[ph][lag + i]: the window is [OFF zeros | the
+  // previous block's row | this block's row | zeros]
+  if (live) {
+    const long long cp = ph * 2;
+    const long long prev_r = n < C ? (cp * C + n) * N_SYM
+                                   : (cp * N + n - C) * N_SYM;
+    const long long prev_i = n < C ? ((cp + 1) * C + n) * N_SYM
+                                   : ((cp + 1) * N + n - C) * N_SYM;
+    const void* prev = n < C ? dprev0 : decim;
+    const long long cur_r = (cp * N + n) * N_SYM;
+    const long long cur_i = ((cp + 1) * N + n) * N_SYM;
+    for (int i = lane; i < PKT; i += 32) {
+      const int j = lag + i - OFF;
+      float a = 0.f, b = 0.f;
+      if (j >= 0 && j < N_SYM) {
+        a = load_plane(prev, prev_r + j, in_bf16);
+        b = load_plane(prev, prev_i + j, in_bf16);
+      } else if (j >= N_SYM && j < 2 * N_SYM) {
+        a = load_plane(decim, cur_r + j - N_SYM, in_bf16);
+        b = load_plane(decim, cur_i + j - N_SYM, in_bf16);
+      }
+      pr[i] = a;
+      pi[i] = b;
+    }
   }
-  __syncwarp();
-  decode_packet(pr, pi, wsm[warp].pw, pns, msk, peak, dft_r, dft_i, prm,
-                lane, o);
+  SC_DECODE_BODY(peak);
   write_tail(o, lane, (float)lag, (float)ph, peak);
 }
 
 // _decode_core stopped after its energy gate: chip k of the row's packet
 // is window[ph][lag + OFF + k], summed in decode_packet's order.
-__global__ void __launch_bounds__(DEC_WARPS * 32) extract_gate_kernel(
+__global__ void __launch_bounds__(GATE_WARPS * 32) extract_gate_kernel(
     const void* __restrict__ decim, const void* __restrict__ dprev0,
     int in_bf16, const int* __restrict__ lag_in,
     const int* __restrict__ ph_in, const float* __restrict__ peak_in,
     float* __restrict__ out, long long N, int C, float peak_gate) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long n = (long long)blockIdx.x * DEC_WARPS + warp;
+  const long long n = (long long)blockIdx.x * GATE_WARPS + warp;
   if (n >= N) return;
   float* o = out + n * N_OUT;
   const int lag = lag_in[n], ph = ph_in[n];
@@ -578,7 +744,7 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) extract_gate_kernel(
   write_tail(o, lane, (float)lag, (float)ph, peak);
 }
 
-__global__ void __launch_bounds__(DEC_WARPS * 32) decode_extract_kernel(
+__global__ void __launch_bounds__(DEC_THREADS) decode_extract_kernel(
     const float* __restrict__ windows, int wp,
     const int* __restrict__ lag_in, const int* __restrict__ ph_in,
     const float* __restrict__ peak_in, const float* __restrict__ dft_r,
@@ -586,35 +752,34 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) decode_extract_kernel(
     const float* __restrict__ mask, float* __restrict__ out, long long N,
     Params prm) {
   SC_DECODE_PROLOGUE();
-  const int lag = lag_in[n], ph = ph_in[n];
-  // packet[i] = windows[n][ph][plane][lag + i]; zero past the window
-  const float* wr = windows + ((n * CYC + ph) * 2) * (long long)wp;
-  const float* wi = wr + wp;
-  for (int i = lane; i < PKT; i += 32) {
-    const int j = lag + i;
-    pr[i] = j < wp ? wr[j] : 0.f;
-    pi[i] = j < wp ? wi[j] : 0.f;
+  if (live) {
+    const int lag = lag_in[n], ph = ph_in[n];
+    // packet[i] = windows[n][ph][plane][lag + i]; zero past the window
+    const float* wr = windows + ((n * CYC + ph) * 2) * (long long)wp;
+    const float* wi = wr + wp;
+    for (int i = lane; i < PKT; i += 32) {
+      const int j = lag + i;
+      pr[i] = j < wp ? wr[j] : 0.f;
+      pi[i] = j < wp ? wi[j] : 0.f;
+    }
   }
-  __syncwarp();
-  decode_packet(pr, pi, wsm[warp].pw, pns, msk, peak_in[n], dft_r, dft_i,
-                prm, lane, o);
+  SC_DECODE_BODY(peak_in[n]);
   write_tail(o, lane, 0.f, 0.f, 0.f);
 }
 
-__global__ void __launch_bounds__(DEC_WARPS * 32) decode_packets_kernel(
+__global__ void __launch_bounds__(DEC_THREADS) decode_packets_kernel(
     const float* __restrict__ pkt_r, const float* __restrict__ pkt_i,
     const float* __restrict__ peak_in, const float* __restrict__ dft_r,
     const float* __restrict__ dft_i, const float* __restrict__ pn,
     const float* __restrict__ mask, float* __restrict__ out, long long N,
     Params prm) {
   SC_DECODE_PROLOGUE();
-  for (int i = lane; i < PKT; i += 32) {
-    pr[i] = pkt_r[n * PKT + i];
-    pi[i] = pkt_i[n * PKT + i];
-  }
-  __syncwarp();
-  decode_packet(pr, pi, wsm[warp].pw, pns, msk, peak_in[n], dft_r, dft_i,
-                prm, lane, o);
+  if (live)
+    for (int i = lane; i < PKT; i += 32) {
+      pr[i] = pkt_r[n * PKT + i];
+      pi[i] = pkt_i[n * PKT + i];
+    }
+  SC_DECODE_BODY(peak_in[n]);
   write_tail(o, lane, 0.f, 0.f, 0.f);
 }
 
@@ -622,10 +787,18 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) decode_packets_kernel(
 
 namespace {
 unsigned decode_blocks(int N) {
-  return (unsigned)((N + DEC_WARPS - 1) / DEC_WARPS);
+  return (unsigned)((N + DEC_ROWS - 1) / DEC_ROWS);
 }
 const float* f32p(const void* p) { return static_cast<const float*>(p); }
 const int* i32p(const void* p) { return static_cast<const int*>(p); }
+
+// BlockSmem is past the 48 KB a kernel gets unasked
+template <class Kernel>
+cudaError_t allow_block_smem(Kernel kernel) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)sizeof(BlockSmem));
+}
 }  // namespace
 
 extern "C" int sc_extract_decode(
@@ -637,7 +810,9 @@ extern "C" int sc_extract_decode(
     float cfo_scale, float derot_k, void* stream) {
   const Params prm{refit_sym, refit_iters, refine_iters, peak_gate,
                    ls_reg, ls_offtap, ls_offtap_refit, cfo_scale, derot_k};
-  extract_decode_kernel<<<decode_blocks(N), DEC_WARPS * 32, 0,
+  static const cudaError_t ready = allow_block_smem(extract_decode_kernel);
+  if (ready != cudaSuccess) return (int)ready;
+  extract_decode_kernel<<<decode_blocks(N), DEC_THREADS, sizeof(BlockSmem),
                           static_cast<cudaStream_t>(stream)>>>(
       decim, dprev0, in_bf16, i32p(lag), i32p(phase), f32p(peak),
       f32p(dft_r), f32p(dft_i), f32p(pn), f32p(mask),
@@ -651,7 +826,8 @@ extern "C" int sc_extract_gate(
     const void* decim, const void* dprev0, const void* lag,
     const void* phase, const void* peak, void* out, int N, int C,
     int in_bf16, float peak_gate, void* stream) {
-  extract_gate_kernel<<<decode_blocks(N), DEC_WARPS * 32, 0,
+  extract_gate_kernel<<<(unsigned)((N + GATE_WARPS - 1) / GATE_WARPS),
+                        GATE_WARPS * 32, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       decim, dprev0, in_bf16, i32p(lag), i32p(phase), f32p(peak),
       static_cast<float*>(out), (long long)N, C, peak_gate);
@@ -667,7 +843,9 @@ extern "C" int sc_decode_extract(
     void* stream) {
   const Params prm{refit_sym, refit_iters, refine_iters, peak_gate,
                    ls_reg, ls_offtap, ls_offtap_refit, cfo_scale, derot_k};
-  decode_extract_kernel<<<decode_blocks(N), DEC_WARPS * 32, 0,
+  static const cudaError_t ready = allow_block_smem(decode_extract_kernel);
+  if (ready != cudaSuccess) return (int)ready;
+  decode_extract_kernel<<<decode_blocks(N), DEC_THREADS, sizeof(BlockSmem),
                           static_cast<cudaStream_t>(stream)>>>(
       f32p(windows), wp, i32p(lag), i32p(phase), f32p(peak), f32p(dft_r),
       f32p(dft_i), f32p(pn), f32p(mask), static_cast<float*>(out),
@@ -683,9 +861,28 @@ extern "C" int sc_decode_packets(
     float cfo_scale, float derot_k, void* stream) {
   const Params prm{refit_sym, refit_iters, refine_iters, peak_gate,
                    ls_reg, ls_offtap, ls_offtap_refit, cfo_scale, derot_k};
-  decode_packets_kernel<<<decode_blocks(N), DEC_WARPS * 32, 0,
+  static const cudaError_t ready = allow_block_smem(decode_packets_kernel);
+  if (ready != cudaSuccess) return (int)ready;
+  decode_packets_kernel<<<decode_blocks(N), DEC_THREADS, sizeof(BlockSmem),
                           static_cast<cudaStream_t>(stream)>>>(
       f32p(pkt_r), f32p(pkt_i), f32p(peak), f32p(dft_r), f32p(dft_i),
       f32p(pn), f32p(mask), static_cast<float*>(out), (long long)N, prm);
   return (int)cudaGetLastError();
+}
+
+// Copies the stage clocks (N_STAGES 64-bit tick sums, zero unless built
+// with -DSC_STAGE_CLOCKS) to host memory after the stream's work, and
+// clears them if ``reset``.
+extern "C" int sc_decode_stage_cycles(void* host_out, int reset,
+                                      void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaStreamSynchronize(st);
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(host_out, sc_stage_cycles,
+                               sizeof(sc_stage_cycles));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[N_STAGES] = {};
+    err = cudaMemcpyToSymbol(sc_stage_cycles, zero, sizeof(zero));
+  }
+  return (int)err;
 }

@@ -1,136 +1,436 @@
-// K2 hunt: preamble hunt of every row's [prev | cur] window, one CUDA
-// block per row, one thread per lag.
+// K2 hunt: preamble hunt of every row's [prev | cur] window.
 //
 // Replaces the hunt of singlecarrier_tpu/ops/decode_pallas.py::
 // _hunt_decode_core (decode_pallas.py:742-876), inlined in the Pallas
 // kernel ops/fused_rx.py::_fused_rx_kernel_premix.  Per decimation phase
-// c the window planes are staged in shared memory as the hunt operand
-// (int8 mode: clip(rint(16 w), +/-127), round half to even as
-// fused_rx.py:89-91; bf16 mode: bf16(w)); thread l forms the 8 segment
-// correlations sum_k x[2 + l + 16s + k] * pn[16s + k] (exact for int8,
-// ascending k for bf16) and pw[c][l] = sum_s (re^2 + im^2).  The espan
-// denominator is the direct 128-term sum of the phase-summed squared
-// planes (ascending phases, decode_pallas.py:845-852) -- a direct sum,
-// not a prefix-sum difference, whose cancellation would move the
-// noise-block knife edge.  stat = pw / (en + 1e-12) in IEEE division;
-// argmax takes the first maximum over lags and a strict > across
-// ascending phases (decode_pallas.py:856-876).
+// c the window is turned into the hunt operand x (int8 mode:
+// clip(rint(16 w), +/-127), round half to even as fused_rx.py:89-91;
+// bf16 mode: bf16(w)); the 8 segment correlations of lag l are
+// sum_k x[2 + l + 16s + k] * pn[16s + k] (exact for int8, ascending k
+// for bf16) and pw[c][l] = sum_s (re^2 + im^2), added in f32 in
+// ascending s.  The espan denominator is the direct 128-term sum of the
+// phase-summed squared planes (ascending phases, decode_pallas.py:
+// 845-852) -- a direct sum, not a prefix-sum difference, whose
+// cancellation would move the noise-block knife edge.  stat = pw / (en +
+// 1e-12) in IEEE division; argmax takes the first maximum over lags and a
+// strict > across ascending phases (decode_pallas.py:856-876).
 //
-// Bound on the card: per row ~0.5 M correlation adds from shared memory
-// against 2 x 7.5 KB (bf16) of planes read.  The simple design reads each
-// window element once per phase and does the correlation on CUDA cores;
-// int8 tensor-core MMA (the TPU kernel's int8 MXU matmul) is later work.
+// Two bodies, chosen by the operand mode:
+//
+//   * int8 (hunt_mma_kernel): a warp owns a row.  The correlation is a
+//     Toeplitz product on the tensor cores: y[t][s] = sum_k x[2 + t + k]
+//     * pn[16s + k] for t = 0..495 is 31 tiles of
+//     mma.sync.m16n8k16.s8 (M = 16 values of t, N = 8 segments, K = 16
+//     chips), and segment s of lag l is y[l + 16s][s], so one pass over t
+//     serves all 8 segments from the same 16 operand bytes.  The five
+//     phases' two planes are quantised once into int8 in shared memory
+//     (512 bytes a plane: the window past x[2 + 511] is never read) from
+//     16-byte global loads, with the squared planes summed in registers
+//     in the same pass.  A thread's A fragment (4 consecutive operand
+//     bytes at a byte offset) is a funnel shift of two aligned words; the
+//     B fragment (the +/-1 PN segment matrix) is one register, loaded
+//     once.  The epilogue stays in registers: the thread of a quad that
+//     holds columns 2q, 2q+1 adds its two square-sums to the running sum
+//     it receives from its left neighbour two tiles later (segments of a
+//     lag sit one tile apart), so the sum runs in ascending s, and the
+//     last thread of the quad has pw of 16 lags per tile.  Each lane
+//     forms the espan sums of 13 adjacent lags in one sliding pass over
+//     the phase-summed squares (one load feeds 13 accumulators, each in
+//     ascending k).
+//   * bf16 / f32 operands (hunt_toeplitz_kernel): the same Toeplitz
+//     reuse on the CUDA cores, one block per row.  Thread t holds the 16
+//     operand values x[2 + t .. + 15] of both planes in registers and
+//     forms the 8 segment sums from them in ascending k, as the plain
+//     version rounds (a bf16 tensor-core product would not); the
+//     square-sums go through shared memory by (segment, lag), and thread
+//     l adds its lag's 8 in ascending s.  The espan sum is the direct
+//     128-term sum, one thread a lag.
+//
+// Bound on the card: operations (the int8 multiply-adds at the tensor
+// cores' rate) by a little over the bytes of the planes.  What the int8
+// body spends is neither: it is instruction issue for the quantising
+// pass, the fragment loads, the epilogue and the 48 k espan additions a
+// row.
 #include "common.cuh"
 
 using namespace sc;
 
 namespace {
 
-constexpr int HUNT_THREADS = 384;          // >= N_SYM lags, 12 warps
-constexpr int HUNT_WARPS = HUNT_THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Best {
   float v;    // statistic
   float pw;   // raw power at that lag
   int i;      // lag
+  int c;      // phase
 };
 
-// a beats b: larger statistic, ties to the lower lag (first maximum)
+// a beats b: larger statistic, ties to the lower phase, then the lower
+// lag (the first maximum over lags, a strict > across ascending phases)
 __device__ __forceinline__ bool beats(const Best& a, const Best& b) {
-  return a.v > b.v || (a.v == b.v && a.i < b.i);
+  return a.v > b.v ||
+         (a.v == b.v && (a.c < b.c || (a.c == b.c && a.i < b.i)));
 }
 
 __device__ __forceinline__ Best warp_best(Best x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     Best y{__shfl_xor_sync(FULL, x.v, o), __shfl_xor_sync(FULL, x.pw, o),
-           __shfl_xor_sync(FULL, x.i, o)};
+           __shfl_xor_sync(FULL, x.i, o), __shfl_xor_sync(FULL, x.c, o)};
     if (beats(y, x)) x = y;
   }
   return x;
 }
 
-__global__ void __launch_bounds__(HUNT_THREADS) hunt_kernel(
+// ------------------------------------------------------------ int8 body
+
+constexpr int MMA_WARPS = 4;               // rows per block
+constexpr int XW = 128;                    // words of an int8 plane
+constexpr int XN = 4 * XW;                 // operand values x[OFF + 0..511]
+constexpr int TILES = 31;                  // 16-row tiles of t = l + 16 s
+constexpr int CHUNK = 8;                   // values per 16-byte bf16 load
+constexpr int PREV_CHUNKS = N_SYM / CHUNK; // 47: chunks of the prev block
+constexpr int NL = 13;                     // adjacent lags a lane sums
+constexpr int EN_W = 384;                  // espan sums kept (lags padded)
+
+static_assert(N_SYM % CHUNK == 0, "the prev block is whole chunks");
+static_assert(XN == 2 * 32 * CHUNK, "two chunks a lane fill a plane");
+static_assert((TILES - 1) * 16 + 15 + SEG - 1 < XN, "tiles stay in x");
+static_assert(N_SYM - 1 + P - 1 < XN, "espan sums stay in x");
+static_assert(TILES == (N_SYM + 15) / 16 + NSEG - 1, "tiles cover lags");
+static_assert(29 * NL > N_SYM && 28 * NL + P + NL - 2 < XN, "espan lanes");
+static_assert(NSEG == 8 && SEG == 16, "the m16n8k16 shape");
+
+struct alignas(16) MmaWarpSmem {
+  uint32_t x[CYC][2][XW];   // int8 operand planes, x[OFF + j] at byte j
+  float ssum[XN];           // phase-summed squares, then the espan sums
+};
+
+// 8 window values j0..j0+7 (j0 a multiple of 8) of a plane row
+template <bool BF16>
+__device__ __forceinline__ void load8(const void* row, int j0,
+                                      float (&v)[CHUNK]) {
+  if (BF16) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(row) + j0));
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[2 * e] = __uint_as_float(w[e] << 16);
+      v[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+    }
+  } else {
+    const float4* p = reinterpret_cast<const float4*>(
+        static_cast<const float*>(row) + j0);
+    const float4 a = __ldg(p), b = __ldg(p + 1);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  }
+}
+
+template <bool BF16>
+__device__ __forceinline__ const void* plane_row(const void* base,
+                                                 long long row) {
+  return BF16 ? static_cast<const void*>(
+                    static_cast<const __nv_bfloat16*>(base) + row * N_SYM)
+              : static_cast<const void*>(
+                    static_cast<const float*>(base) + row * N_SYM);
+}
+
+// clip(rint(v * scale), +/-127) of 4 values, packed as int8 (rounding a
+// clamped value equals clamping the rounded one: the limits are integers)
+__device__ __forceinline__ uint32_t quant4(const float* v, float scale) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int q = __float2int_rn(fminf(fmaxf(v[e] * scale, -127.f), 127.f));
+    w |= (static_cast<uint32_t>(q) & 0xffu) << (8 * e);
+  }
+  return w;
+}
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1,
+                                       uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %7, %7, %7};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a0), "r"(a1), "r"(b), "r"(0));
+}
+
+template <bool BF16>
+__global__ void __launch_bounds__(MMA_WARPS * 32) hunt_mma_kernel(
+    const void* __restrict__ decim, const void* __restrict__ dprev0,
+    const float* __restrict__ pn, int* __restrict__ lag_out,
+    int* __restrict__ ph_out, float* __restrict__ peak_out, long long N,
+    int C, float hunt_scale, float peak_scale) {
+  __shared__ MmaWarpSmem wsm[MMA_WARPS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long n = (long long)blockIdx.x * MMA_WARPS + warp;
+  if (n >= N) return;        // a warp works alone: no block barrier below
+  MmaWarpSmem& sm = wsm[warp];
+  const int g = lane >> 2, tig = lane & 3;   // mma row group, quad thread
+
+  // B fragment: B[k][s] = pn[16 s + k]; this thread holds k = 4 tig..+3
+  // of column s = g
+  uint32_t bfrag = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    bfrag |= (static_cast<uint32_t>(static_cast<int>(
+                  pn[SEG * g + 4 * tig + i])) & 0xffu) << (8 * i);
+
+  // ---- pass 1: quantise the planes, sum the squares over the phases ----
+  float ss[2][CHUNK];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int e = 0; e < CHUNK; ++e) ss[h][e] = 0.f;
+  for (int c = 0; c < CYC; ++c) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = lane + 32 * h;           // chunk: x values 8q..8q+7
+      float vr[CHUNK], vi[CHUNK];
+      if (q < PREV_CHUNKS) {
+        if (n < C) {
+          load8<BF16>(plane_row<BF16>(dprev0, (c * 2LL) * C + n), CHUNK * q,
+                      vr);
+          load8<BF16>(plane_row<BF16>(dprev0, (c * 2LL + 1) * C + n),
+                      CHUNK * q, vi);
+        } else {
+          load8<BF16>(plane_row<BF16>(decim, (c * 2LL) * N + n - C),
+                      CHUNK * q, vr);
+          load8<BF16>(plane_row<BF16>(decim, (c * 2LL + 1) * N + n - C),
+                      CHUNK * q, vi);
+        }
+      } else {
+        load8<BF16>(plane_row<BF16>(decim, (c * 2LL) * N + n),
+                    CHUNK * (q - PREV_CHUNKS), vr);
+        load8<BF16>(plane_row<BF16>(decim, (c * 2LL + 1) * N + n),
+                    CHUNK * (q - PREV_CHUNKS), vi);
+      }
+#pragma unroll
+      for (int e = 0; e < CHUNK; ++e)
+        ss[h][e] = ss[h][e] + (vr[e] * vr[e] + vi[e] * vi[e]);
+      *reinterpret_cast<uint2*>(&sm.x[c][0][2 * q]) =
+          make_uint2(quant4(vr, hunt_scale), quant4(vr + 4, hunt_scale));
+      *reinterpret_cast<uint2*>(&sm.x[c][1][2 * q]) =
+          make_uint2(quant4(vi, hunt_scale), quant4(vi + 4, hunt_scale));
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float4* dst = reinterpret_cast<float4*>(&sm.ssum[CHUNK * (lane + 32 * h)]);
+    dst[0] = make_float4(ss[h][0], ss[h][1], ss[h][2], ss[h][3]);
+    dst[1] = make_float4(ss[h][4], ss[h][5], ss[h][6], ss[h][7]);
+  }
+  __syncwarp();
+
+  // ---- espan: en[l] = sum_k ssum[l + k], k ascending, NL lags a lane ----
+  float en[NL];
+#pragma unroll
+  for (int i = 0; i < NL; ++i) en[i] = 0.f;
+  const bool en_lane = lane * NL < N_SYM;
+  if (en_lane) {
+    const float* s = sm.ssum + lane * NL;
+#pragma unroll
+    for (int j = 0; j < NL - 1; ++j) {
+      const float v = s[j];
+#pragma unroll
+      for (int i = 0; i <= j; ++i) en[i] = en[i] + v;
+    }
+#pragma unroll 4
+    for (int j = NL - 1; j < P; ++j) {
+      const float v = s[j];
+#pragma unroll
+      for (int i = 0; i < NL; ++i) en[i] = en[i] + v;
+    }
+#pragma unroll
+    for (int j = P; j < P + NL - 1; ++j) {
+      const float v = s[j];
+#pragma unroll
+      for (int i = j - P + 1; i < NL; ++i) en[i] = en[i] + v;
+    }
+  }
+  __syncwarp();               // every lane has read its squares
+  float* en_s = sm.ssum;      // the espan sums take their place
+#pragma unroll
+  for (int i = 0; i < NL; ++i)
+    if (lane * NL + i < EN_W) en_s[lane * NL + i] = en[i];
+  __syncwarp();
+
+  // ---- pass 2: Toeplitz mma, ascending-s sum along the quad, argmax ----
+  Best best{-1.f, 0.f, 0, 0};
+  const int wbase = tig + (g >> 2);       // first operand word of tile 0
+  const int sh = 8 * (g & 3);             // byte offset inside it
+  const int lag0 = 16 * (tig >> 1) + g + 8 * (tig & 1);
+  for (int c = 0; c < CYC; ++c) {
+    const uint32_t* xr = sm.x[c][0] + wbase;
+    const uint32_t* xi = sm.x[c][1] + wbase;
+    // rows g (A) and g + 8 (B) of the tile: the even column's square-sum
+    // of the previous tile, the running sums of the last two tiles
+    float qeA = 0.f, qeB = 0.f, p1A = 0.f, p1B = 0.f, p2A = 0.f, p2B = 0.f;
+    float fA = 0.f, fB = 0.f;
+#pragma unroll
+    for (int T = 0; T < TILES; ++T) {
+      int dr[4], di[4];
+      mma_s8(dr, __funnelshift_r(xr[4 * T], xr[4 * T + 1], sh),
+             __funnelshift_r(xr[4 * T + 2], xr[4 * T + 3], sh), bfrag);
+      mma_s8(di, __funnelshift_r(xi[4 * T], xi[4 * T + 1], sh),
+             __funnelshift_r(xi[4 * T + 2], xi[4 * T + 3], sh), bfrag);
+      // re^2 + im^2 < 2^24: exact in int32 and in f32
+      float q[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        q[j] = static_cast<float>(dr[j] * dr[j] + di[j] * di[j]);
+      // this thread continues lag tile T - 2 tig - 1: segment 2 tig is
+      // column 2 tig of tile T - 1, segment 2 tig + 1 column 2 tig + 1 of
+      // tile T; its left neighbour left that lag tile two tiles ago
+      float rA = __shfl_up_sync(FULL, p2A, 1);
+      float rB = __shfl_up_sync(FULL, p2B, 1);
+      if (tig == 0) rA = rB = 0.f;
+      const float accA = (rA + qeA) + q[1];
+      const float accB = (rB + qeB) + q[3];
+      p2A = p1A; p1A = accA; qeA = q[0];
+      p2B = p1B; p1B = accB; qeB = q[2];
+      // quad thread 3 now holds pw of lag tile T - 7, rows g and g + 8;
+      // every second tile the quad shares out the last two tiles' four
+      if (T >= NSEG - 1) {
+        if ((T - (NSEG - 1)) % 2 == 0) {
+          fA = accA;
+          fB = accB;
+        } else {
+          const int src = lane | 3;
+          const float r0 = __shfl_sync(FULL, fA, src);
+          const float r1 = __shfl_sync(FULL, fB, src);
+          const float r2 = __shfl_sync(FULL, accA, src);
+          const float pw = tig == 0 ? r0 : tig == 1 ? r1 : tig == 2 ? r2
+                                                                    : accB;
+          const int lag = 16 * (T - NSEG) + lag0;
+          const float v = pw / (en_s[lag] + 1e-12f);
+          if (lag < N_SYM && v > best.v) best = Best{v, pw, lag, c};
+        }
+      }
+    }
+  }
+  best = warp_best(best);
+  if (lane == 0) {
+    lag_out[n] = best.i;
+    ph_out[n] = best.c;
+    peak_out[n] = (2.f * best.pw) * peak_scale;
+  }
+}
+
+// ---------------------------------------------------- bf16 / f32 operands
+
+constexpr int TOE_THREADS = 512;           // one thread per t = l + 16 s
+constexpr int TOE_WARPS = TOE_THREADS / 32;
+constexpr int T_ROWS = N_SYM + SEG * (NSEG - 1);   // 488 values of t
+constexpr int Q_STRIDE = N_SYM + 4;        // segment rows 16 bytes aligned
+
+static_assert(T_ROWS + SEG - 1 <= XN && XN == TOE_THREADS, "a thread per t");
+
+// x[OFF + j] of row n's window, phase c, plane p, for 0 <= j < XN: the
+// previous block's row, then this block's
+__device__ __forceinline__ float operand_at(const void* decim,
+                                            const void* dprev0, int bf16,
+                                            long long N, int C, long long n,
+                                            int c, int p, int j) {
+  const long long cp = c * 2 + p;
+  if (j >= N_SYM) return load_plane(decim, (cp * N + n) * N_SYM + j - N_SYM,
+                                    bf16);
+  return n < C ? load_plane(dprev0, (cp * C + n) * N_SYM + j, bf16)
+               : load_plane(decim, (cp * N + n - C) * N_SYM + j, bf16);
+}
+
+__global__ void __launch_bounds__(TOE_THREADS) hunt_toeplitz_kernel(
     const void* __restrict__ decim, const void* __restrict__ dprev0,
     int in_bf16, const float* __restrict__ pn, int* __restrict__ lag_out,
     int* __restrict__ ph_out, float* __restrict__ peak_out, long long N,
-    int C, int int8_hunt, float hunt_scale, float peak_scale) {
-  __shared__ float xs[2][WP];
-  __shared__ float ssum[WP];
-  __shared__ float pns[P];
-  __shared__ Best wbest[CYC][HUNT_WARPS];
+    int C, float peak_scale) {
+  __shared__ float xs[2][XN];              // bf16(w) as f32, x[OFF + j]
+  __shared__ float ssum[XN];
+  __shared__ __align__(16) float pns[P];
+  __shared__ float qs[NSEG][Q_STRIDE];     // re^2 + im^2 by (segment, lag)
+  __shared__ Best wbest[TOE_WARPS];
   const long long n = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   if (tid < P) pns[tid] = pn[tid];
-  for (int j = tid; j < WP; j += HUNT_THREADS) ssum[j] = 0.f;
+  float sq = 0.f;                          // ssum[tid], summed over phases
 
   float pw[CYC];
+  float vr = operand_at(decim, dprev0, in_bf16, N, C, n, 0, 0, tid);
+  float vi = operand_at(decim, dprev0, in_bf16, N, C, n, 0, 1, tid);
 #pragma unroll
   for (int c = 0; c < CYC; ++c) {
-    __syncthreads();   // previous phase's operand fully read
-    for (int j = tid; j < WP; j += HUNT_THREADS) {
-      const float vr = window_at(decim, dprev0, in_bf16, N, C, n, c, 0, j);
-      const float vi = window_at(decim, dprev0, in_bf16, N, C, n, c, 1, j);
-      ssum[j] = ssum[j] + (vr * vr + vi * vi);
-      if (int8_hunt) {
-        xs[0][j] = fminf(fmaxf(rintf(vr * hunt_scale), -127.f), 127.f);
-        xs[1][j] = fminf(fmaxf(rintf(vi * hunt_scale), -127.f), 127.f);
-      } else {
-        xs[0][j] = bf16_round(vr);
-        xs[1][j] = bf16_round(vi);
+    __syncthreads();   // the previous phase's operand and sums fully read
+    sq = sq + (vr * vr + vi * vi);
+    xs[0][tid] = bf16_round(vr);
+    xs[1][tid] = bf16_round(vi);
+    if (c + 1 < CYC) {   // the next phase's loads fly under this one's sums
+      vr = operand_at(decim, dprev0, in_bf16, N, C, n, c + 1, 0, tid);
+      vi = operand_at(decim, dprev0, in_bf16, N, C, n, c + 1, 1, tid);
+    }
+    __syncthreads();
+    if (tid < T_ROWS) {
+      // one pass over t serves the 8 segments from the same 16 values
+      float xr[SEG], xi[SEG];
+#pragma unroll
+      for (int k = 0; k < SEG; ++k) {
+        xr[k] = xs[0][tid + k];
+        xi[k] = xs[1][tid + k];
+      }
+#pragma unroll
+      for (int s = 0; s < NSEG; ++s) {
+        const float4* v4 = reinterpret_cast<const float4*>(pns + s * SEG);
+        float re = 0.f, im = 0.f;
+#pragma unroll
+        for (int k4 = 0; k4 < SEG / 4; ++k4) {
+          const float4 v = v4[k4];
+          const float vk[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            re = re + xr[4 * k4 + e] * vk[e];
+            im = im + xi[4 * k4 + e] * vk[e];
+          }
+        }
+        const int l = tid - SEG * s;       // segment s of lag l is y[t][s]
+        if (l >= 0 && l < N_SYM) qs[s][l] = re * re + im * im;
       }
     }
     __syncthreads();
     float acc = 0.f;
     if (tid < N_SYM) {
-      for (int s = 0; s < NSEG; ++s) {
-        const float* xr = xs[0] + OFF + tid + s * SEG;
-        const float* xi = xs[1] + OFF + tid + s * SEG;
-        const float* v = pns + s * SEG;
-        float re = 0.f, im = 0.f;
 #pragma unroll
-        for (int k = 0; k < SEG; ++k) {
-          re = re + xr[k] * v[k];
-          im = im + xi[k] * v[k];
-        }
-        acc = acc + (re * re + im * im);
-      }
+      for (int s = 0; s < NSEG; ++s) acc = acc + qs[s][tid];
     }
     pw[c] = acc;
   }
-  __syncthreads();   // ssum complete
+  ssum[tid] = sq;
+  __syncthreads();
 
   float en = 0.f;
   if (tid < N_SYM) {
-    for (int k = 0; k < P; ++k) en = en + ssum[OFF + tid + k];
+    for (int k = 0; k < P; ++k) en = en + ssum[tid + k];
   }
+  Best x{-1.f, 0.f, tid, 0};
+  if (tid < N_SYM) {
 #pragma unroll
-  for (int c = 0; c < CYC; ++c) {
-    Best x{-1.f, 0.f, tid};
-    if (tid < N_SYM) x = Best{pw[c] / (en + 1e-12f), pw[c], tid};
-    x = warp_best(x);
-    if (lane == 0) wbest[c][warp] = x;
+    for (int c = 0; c < CYC; ++c) {
+      const float v = pw[c] / (en + 1e-12f);
+      if (v > x.v) x = Best{v, pw[c], tid, c};
+    }
   }
+  x = warp_best(x);
+  if (lane == 0) wbest[warp] = x;
   __syncthreads();
   if (tid == 0) {
-    float best_m = -1.f, best_pk = -1.f;
-    int best_lag = 0, best_ph = 0;
-    for (int c = 0; c < CYC; ++c) {
-      Best x = wbest[c][0];
-      for (int w = 1; w < HUNT_WARPS; ++w)
-        if (beats(wbest[c][w], x)) x = wbest[c][w];
-      if (x.v > best_m) {
-        best_m = x.v;
-        best_pk = x.pw;
-        best_lag = x.i;
-        best_ph = c;
-      }
-    }
-    lag_out[n] = best_lag;
-    ph_out[n] = best_ph;
-    peak_out[n] = (2.f * best_pk) * peak_scale;
+    for (int w = 1; w < TOE_WARPS; ++w)
+      if (beats(wbest[w], x)) x = wbest[w];
+    lag_out[n] = x.i;
+    ph_out[n] = x.c;
+    peak_out[n] = (2.f * x.pw) * peak_scale;
   }
 }
 
@@ -140,11 +440,25 @@ extern "C" int sc_hunt(const void* decim, const void* dprev0, const void* pn,
                        void* lag, void* phase, void* peak, int N, int C,
                        int in_bf16, int int8_hunt, float hunt_scale,
                        float peak_scale, void* stream) {
-  hunt_kernel<<<dim3((unsigned)N), HUNT_THREADS, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      decim, dprev0, in_bf16, static_cast<const float*>(pn),
-      static_cast<int*>(lag), static_cast<int*>(phase),
-      static_cast<float*>(peak), (long long)N, C, int8_hunt, hunt_scale,
-      peak_scale);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* pnf = static_cast<const float*>(pn);
+  int* lg = static_cast<int*>(lag);
+  int* ph = static_cast<int*>(phase);
+  float* pk = static_cast<float*>(peak);
+  if (int8_hunt) {
+    const dim3 grid((unsigned)((N + MMA_WARPS - 1) / MMA_WARPS));
+    if (in_bf16)
+      hunt_mma_kernel<true><<<grid, MMA_WARPS * 32, 0, st>>>(
+          decim, dprev0, pnf, lg, ph, pk, (long long)N, C, hunt_scale,
+          peak_scale);
+    else
+      hunt_mma_kernel<false><<<grid, MMA_WARPS * 32, 0, st>>>(
+          decim, dprev0, pnf, lg, ph, pk, (long long)N, C, hunt_scale,
+          peak_scale);
+  } else {
+    hunt_toeplitz_kernel<<<dim3((unsigned)N), TOE_THREADS, 0, st>>>(
+        decim, dprev0, in_bf16, pnf, lg, ph, pk, (long long)N, C,
+        peak_scale);
+  }
   return (int)cudaGetLastError();
 }

@@ -13,12 +13,20 @@ version (and the JAX package) rounds it.  That is what makes the
 front-end's bf16 downmix and the recomputed FIR halo bit-identical to
 theirs.
 
+``build(csrc=..., defines=...)`` compiles another source tree (a parent
+commit's ``csrc`` unpacked beside the checkout) or a variant
+(``SC_STAGE_CLOCKS``: the decode kernels' per-stage clocks) into a
+library of its own name; :func:`bind` loads one and :func:`using` puts
+it in the wrappers' hands for a ``with`` block.  ``kernel_ab.py`` uses
+them to hold two builds against each other on the card.
+
 Module state: the library handle and :data:`LAUNCHES`, the per-kernel
 launch counters (each wrapper adds one where it launches its kernel).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -76,6 +84,8 @@ _SIGNATURES = {
     # decim, dprev0, lag, phase, peak, out, N, C, in_bf16, peak_gate,
     # stream
     "sc_extract_gate": [_P] * 6 + [_I] * 3 + [_F, _P],
+    # host_out (8 x uint64), reset, stream
+    "sc_decode_stage_cycles": [_P, _I, _P],
 }
 
 
@@ -94,21 +104,25 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in sorted(p.name for p in CSRC.iterdir()):
+def _digest(csrc: Path, flags) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for name in sorted(p.name for p in csrc.iterdir()):
         h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+        h.update((csrc / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def build(verbose: bool = False) -> tuple[Path, str]:
+def build(verbose: bool = False, *, csrc: Path = CSRC,
+          defines: tuple = ()) -> tuple[Path, str]:
     """Compile the kernels if the library for these sources is missing.
 
     Returns ``(library path, compiler output)``; ``verbose`` adds
     ``-Xptxas -v`` (registers, shared memory and spills per kernel).
+    ``csrc`` is the source tree (this package's by default), ``defines``
+    preprocessor names to set; each combination has its own library.
     """
-    lib_path = BUILD_DIR / f"libsc_kernels_{_digest()}.so"
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    lib_path = BUILD_DIR / f"libsc_kernels_{_digest(Path(csrc), flags)}.so"
     if lib_path.exists() and not verbose:
         return lib_path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -116,8 +130,8 @@ def build(verbose: bool = False) -> tuple[Path, str]:
     tag = f"{lib_path.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
     procs = [subprocess.Popen(
-        [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c",
-         "-o", str(obj), str(CSRC / src)],
+        [nvcc, *flags, *(["-Xptxas", "-v"] if verbose else []), "-c",
+         "-o", str(obj), str(Path(csrc) / src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for src, obj in zip(SOURCES, objs)]
     logs = [proc.communicate()[0] for proc in procs]
@@ -140,18 +154,36 @@ def build(verbose: bool = False) -> tuple[Path, str]:
     return lib_path, "".join(logs) + res.stdout + res.stderr
 
 
+def bind(path: Path):
+    """Load a built library and type its entry points (those it has: an
+    older source tree may lack the newest)."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def load():
     """The bound kernel library (built on first use)."""
     global _lib
     if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind(build()[0])
     return _lib
+
+
+@contextlib.contextmanager
+def using(lib):
+    """Let the wrappers launch from ``lib`` (a :func:`bind` result)
+    inside the block."""
+    global _lib
+    mine, _lib = load(), lib
+    try:
+        yield lib
+    finally:
+        _lib = mine
 
 
 def check(err: int, name: str) -> None:

@@ -77,6 +77,29 @@ def _sum(x):
 
 # ---------------------------------------------------------------- hunt
 
+def _hunt_operand(cfg: ModemConfig, wins):
+    """The hunt operand of f32 windows: int8 mode clip(rint(s w), +/-127)
+    (integers held in f32), else bf16(w)."""
+    if cfg.hunt_dtype == "int8":
+        return torch.clamp(torch.round(wins * cfg.hunt_int8_scale),
+                           -127.0, 127.0)
+    return wins.to(torch.bfloat16).float()
+
+
+def _segment_corr(cfg: ModemConfig, x, pn, s: int):
+    """[..., n_lags] correlation of PN segment ``s`` with the operand
+    ``x`` [..., wp] at every lag, summed in ascending k in f32."""
+    seg = cfg.preamble_length // cfg.corr_segments
+    n_lags = cfg.symbols_per_block
+    off = cfg.eq_length // 2
+    corr = torch.zeros(x.shape[:-1] + (n_lags,), dtype=_F32,
+                       device=x.device)
+    for k in range(seg):
+        st = off + s * seg + k
+        corr = corr + x[..., st:st + n_lags] * pn[s * seg + k]
+    return corr
+
+
 def _hunt_core(cfg: ModemConfig, wins):
     """Hunt of ``_hunt_decode_core``: (lag, phase, peak) per row.
 
@@ -84,28 +107,19 @@ def _hunt_core(cfg: ModemConfig, wins):
     s at lag l is sum_k x[off + l + 16s + k] * pn[16s + k] over the
     hunt operand x (int8: clip(rint(16 w), +/-127); bf16: bf16(w)),
     summed in ascending k -- exact for int8, and the kernel's order for
-    bf16.  power = sum_s (re^2 + im^2); the espan energy is the direct
-    128-term sum of the phase-summed squared planes.
+    bf16.  power = sum_s (re^2 + im^2), added in ascending s; the espan
+    energy is the direct 128-term sum of the phase-summed squared planes.
     """
     cyc, _, N, _ = wins.shape
     P, n_seg = cfg.preamble_length, cfg.corr_segments
-    seg = P // n_seg
     n_lags = cfg.symbols_per_block
     off, _, _ = _geometry(cfg)
     int8_hunt = cfg.hunt_dtype == "int8"
-    if int8_hunt:
-        x = torch.clamp(torch.round(wins * cfg.hunt_int8_scale),
-                        -127.0, 127.0)
-    else:
-        x = wins.to(torch.bfloat16).float()
+    x = _hunt_operand(cfg, wins)
     pn = torch.from_numpy(PREAMBLE_VALUES.astype(np.float32)).to(wins.device)
     pw = None
     for s in range(n_seg):
-        corr = torch.zeros((cyc, 2, N, n_lags), dtype=_F32,
-                           device=wins.device)
-        for k in range(seg):
-            st = off + s * seg + k
-            corr = corr + x[..., st:st + n_lags] * pn[s * seg + k]
+        corr = _segment_corr(cfg, x, pn, s)
         p2 = corr * corr
         blk = p2[:, 0] + p2[:, 1]                           # [cyc, N, lags]
         pw = blk if pw is None else pw + blk
@@ -169,6 +183,9 @@ def hunt(cfg: ModemConfig, decim, dprev0):
     peak_scale = (float(np.float32(1.0 / cfg.hunt_int8_scale ** 2))
                   if int8_hunt else 1.0)
     ptrs = _build.cuda_args(decim, dprev0, pn, lag, ph, peak, device=dev)
+    if ptrs[0] % 16 or ptrs[1] % 16:
+        raise ValueError("the hunt kernel reads the planes in 16-byte "
+                         "words: decim and dprev0 must be 16-byte aligned")
     err = _build.load().sc_hunt(
         *ptrs, N, C, int(decim.dtype == torch.bfloat16),
         int(int8_hunt), float(cfg.hunt_int8_scale), peak_scale,
