@@ -1,4 +1,6 @@
-// The front-end kernels: int16 PCM -> decim planes, one CUDA block per row.
+// The front-end kernels: int16 PCM -> decim planes; a CUDA block works on
+// one row at a time (the premix pair's blocks are persistent and take
+// many rows in turn).
 //
 // K1 frontend_decim_kernel replaces the front-end stage of the Pallas
 // kernel singlecarrier_tpu/ops/fused_rx.py::_fused_rx_kernel_premix
@@ -36,19 +38,51 @@
 // of its bound nearly meet.
 //
 // The premix pair shares stage_block (downmix into shared memory) and
-// decim_sums:
-// per row, u = [halo | z] (2 planes x 1928 f32, bf16-rounded) sits in
-// shared memory, then every output y[c][p][s] = sum_k w[k] *
-// u[p][5s + c + k] in ascending k, in f32 (-fmad=false: the plain
-// PyTorch version's exact sequence), rounded to the output dtype.
+// window_sums: per row, u = [halo | z] (2 planes x 1928 f32 holding bf16
+// values) sits in shared memory, then every output y[c][p][s] = sum_k
+// w[k] * u[p][5s + c + k] in ascending k, in f32, rounded to the output
+// dtype: the plain PyTorch version's exact sequence.
 //
-// Bound on the card: bytes.  3.76 KB of PCM in and 7.5 KB (bf16) or
-// 15 KB (f32) out per row, against 49 x 3760 multiply-adds from shared
-// memory, which is what the kernels spend their time on today.  The
-// design keeps one pass over device memory (u never leaves shared
-// memory; the stride-5 tap reads are bank-conflict free); moving the
-// MACs to tensor cores as the banded matmul of the TPU kernel is later
-// work.
+// Bound on the card: bytes (3.76 KB of PCM in and 7.5 KB (bf16) or 15 KB
+// (f32) out per row), but tap-order f32 sums on the CUDA cores cannot
+// reach it, nor half of it: a row is 2 x 1880 x 49 = 184,240
+// multiply-adds, and 132 SMs x 128 lanes issue one FFMA a lane a clock,
+// which is 5.8 ms per 1,048,576 rows at the 1.98 GHz the card holds under
+// this kernel (6.5 ms at 1.755 GHz) against 3.5 ms for the bytes; the
+// staging is another sixth of the instructions.  That FFMA floor is what
+// binds, and the design is laid out to come near it:
+//
+//   * a window in registers.  Neighbouring outputs of a plane share 48
+//     of their 49 inputs (the five phases together are the full-rate
+//     filter output y[p][t]).  A task is WIN_SYMS symbols of one plane:
+//     WIN_T = 5 * WIN_SYMS consecutive outputs from WIN_T + 48 inputs,
+//     which a thread reads from shared memory ONCE, 16 bytes a load, in
+//     ascending t; each input feeds every accumulator it belongs to
+//     while it is in a register, so accumulator i receives its terms in
+//     ascending k.  68 loaded values for 980 multiply-adds, where a
+//     thread per output read 49 values for 49: the shared-memory pipe
+//     (26 ms of the 29.6 ms the one-output form took) is out of the way.
+//     Tasks 20 floats apart are five 16-byte units apart: no bank
+//     conflict.  Step m needs taps m - 19 .. m only, so the compiler
+//     keeps a sliding part of the 49 in registers (56 registers a thread,
+//     six blocks an SM).
+//   * one instruction a multiply-add.  The build keeps -fmad=false, and
+//     the tap loop, and only it, fuses by hand (see window_sums for why
+//     that moves no bit).
+//   * persistent blocks that send for the next row's operands (cp.async,
+//     16 bytes a thread) before they start a row's sums, so device-memory
+//     latency hides behind the multiply-adds; staging from 16 bytes of
+//     PCM and 2 x 32 bytes of mixer table a thread; stores of WIN_SYMS
+//     neighbouring symbols a thread, so that a warp writes contiguous
+//     runs of each phase plane.
+//
+// The tensor cores were not taken: mma/wgmma would form the same exact
+// products but add them in the unit's own order and width, not in
+// ascending k in f32, so planes would differ from the plain version on
+// bf16 ties, and decisions can follow; and the FFMA floor is already
+// under the hunt's and the decode's times.
+#include <cuda_pipeline_primitives.h>
+
 #include "common.cuh"
 
 using namespace sc;
@@ -66,105 +100,308 @@ __device__ __forceinline__ __nv_bfloat16 to_out<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// z = bf16(x * (p * table[t])) for the raw sample at index t of a block
-// entered with mixer phase (pr, pi).
+// z = bf16(x * (p * table[t])) for the raw sample x_row[i], i = t unless
+// said otherwise, of a block entered with mixer phase (pr, pi).
 __device__ __forceinline__ void downmix(const int16_t* __restrict__ x_row,
                                         const float* __restrict__ tab, int t,
-                                        float pr, float pi, float inv_scale,
-                                        float& zr, float& zi) {
-  const float x = (float)x_row[t] * inv_scale;
+                                        int i, float pr, float pi,
+                                        float inv_scale, float& zr,
+                                        float& zi) {
+  const float x = (float)x_row[i] * inv_scale;
   const float tr = tab[t], ti = tab[N_SAMP + t];
   zr = bf16_round(x * (pr * tr - pi * ti));
   zi = bf16_round(x * (pr * ti + pi * tr));
 }
 
-// u[.][HALO + t] = downmixed block of this row.
-__device__ __forceinline__ void stage_block(
-    float (&u)[2][HALO + N_SAMP], const int16_t* __restrict__ x_row,
-    const float* __restrict__ tab, float pr, float pi, float inv_scale,
-    int tid) {
-  for (int t = tid; t < N_SAMP; t += FE_THREADS)
-    downmix(x_row, tab, t, pr, pi, inv_scale, u[0][HALO + t],
-            u[1][HALO + t]);
+// ------------------------------------------------------ the premix pair
+
+// Terms of each tap sum that are formed.  A build with -DSC_FE_TAPS=1
+// times the staging and the stores alone (kernel_ab --stages).
+#ifndef SC_FE_TAPS
+#define SC_FE_TAPS NTAPS
+#endif
+
+// A task is WIN_SYMS consecutive symbols of one plane of a row: outputs
+// y[p][WIN_T j .. WIN_T j + WIN_T - 1] from u[p][WIN_T j .. WIN_T j +
+// WIN_LEN - 1]; thread p * WIN_TASKS_PLANE + j takes task (p, j).
+constexpr int WIN_SYMS = 4;
+constexpr int WIN_BLOCKS_SM = 6;       // 56 registers a thread, no spills
+constexpr int WIN_T = CYC * WIN_SYMS;
+constexpr int WIN_LEN = WIN_T + HALO;
+constexpr int WIN_VEC = 4;                            // floats a shared load
+constexpr int WIN_TASKS_PLANE = N_SYM / WIN_SYMS;
+constexpr int WIN_TASKS = 2 * WIN_TASKS_PLANE;       // of one row
+constexpr int WIN_THREADS = (WIN_TASKS + 31) / 32 * 32;
+constexpr int U_LEN = HALO + N_SAMP;
+constexpr int W_PAD = (NTAPS + 3) / 4 * 4;
+constexpr int STAGE_VEC = 8;                          // samples per 16 B of PCM
+static_assert(N_SYM % WIN_SYMS == 0 && WIN_SYMS == 4 &&
+              WIN_T % WIN_VEC == 0 && U_LEN % 4 == 0 &&
+              N_SAMP % STAGE_VEC == 0 && HALO % STAGE_VEC == 0 &&
+              WIN_THREADS >= 2 * HALO && WIN_THREADS >= W_PAD,
+              "premix front-end geometry");
+
+// What a block keeps in shared memory: u of the row in work, and the raw
+// operands of the row after it, which arrive while the sums run.
+struct __align__(16) PremixSmem {
+  float u[2][U_LEN];        // [halo | z], bf16 values
+  float w[W_PAD];           // taps
+  int16_t x[N_SAMP];        // PCM of the next row
+  int16_t xh[HALO];         // batch form: raw tail of row n - C
+  float tail[2][HALO];      // downmixed halo as given (rows; block 0)
+  float ph[8];              // rows: phase; batch: p0, adv^b, adv^(b-1)
+};
+
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
 }
 
-// The 49-tap decimating sums of one row, in tap order.  ROW_MAJOR writes
-// out[row][c][p][s], else out[c][p][row][s].
-template <typename OutT, bool ROW_MAJOR>
-__device__ __forceinline__ void decim_sums(
-    const float (&u)[2][HALO + N_SAMP], const float (&w)[NTAPS],
-    OutT* __restrict__ out, long long N, long long row, int tid) {
-  for (int idx = tid; idx < 2 * CYC * N_SYM; idx += FE_THREADS) {
-    const int cp = idx / N_SYM;            // c * 2 + p
-    const int s = idx - cp * N_SYM;
-    const float* up = u[cp & 1] + CYC * s + (cp >> 1);
-    float acc = 0.f;
-#pragma unroll
-    for (int k = 0; k < NTAPS; ++k) acc = acc + w[k] * up[k];
-    const long long o = ROW_MAJOR ? (row * (2 * CYC) + cp) * N_SYM + s
-                                  : ((long long)cp * N + row) * N_SYM + s;
-    out[o] = to_out<OutT>(acc);
+// WIN_SYMS neighbouring symbols of one phase plane, one store, kept out
+// of L1 (the row-major layout took twice the time with plain stores).
+__device__ __forceinline__ void store_syms(float* o,
+                                           const float (&v)[WIN_SYMS]) {
+  __stcg(reinterpret_cast<float4*>(o), make_float4(v[0], v[1], v[2], v[3]));
+}
+__device__ __forceinline__ void store_syms(__nv_bfloat16* o,
+                                           const float (&v)[WIN_SYMS]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  __stcg(reinterpret_cast<uint2*>(o),
+         make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                    *reinterpret_cast<const unsigned*>(&hi)));
+}
+
+__device__ __forceinline__ bool aligned16(const void* a, const void* b,
+                                          const void* c, const void* d) {
+  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+           reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(d)) &
+          15) == 0;
+}
+
+// dst[0 .. n) = src[0 .. n), asynchronously 16 bytes a thread where the
+// pointers allow (vec; n * sizeof(T) is a multiple of 16), by threads
+// first .. first + n * sizeof(T) / 16 - 1; else element by element.
+template <typename T>
+__device__ __forceinline__ void fetch(T* dst, const T* __restrict__ src,
+                                      int n, bool vec, int tid, int first) {
+  constexpr int PER = 16 / sizeof(T);
+  if (vec) {
+    for (int q = tid - first; q >= 0 && q < n / PER; q += WIN_THREADS)
+      __pipeline_memcpy_async(dst + PER * q, src + PER * q, 16);
+  } else {
+    for (int i = tid; i < n; i += WIN_THREADS) dst[i] = src[i];
   }
 }
 
-template <typename OutT>
-__global__ void __launch_bounds__(FE_THREADS) frontend_decim_kernel(
-    const int16_t* __restrict__ pcm, const float* __restrict__ p0r,
-    const float* __restrict__ p0i, const float* __restrict__ tail0_r,
-    const float* __restrict__ tail0_i, const float* __restrict__ adv,
-    const float* __restrict__ tab, const float* __restrict__ taps,
-    OutT* __restrict__ out, int B, int C, float inv_scale) {
-  __shared__ float u[2][HALO + N_SAMP];
-  __shared__ float w[NTAPS];
-  const long long row = blockIdx.x;
-  const long long N = (long long)B * C;
-  const int b = (int)(row / C);
-  const int ch = (int)(row - (long long)b * C);
-  const int tid = threadIdx.x;
-  if (tid < NTAPS) w[tid] = taps[tid];
-
-  // mixer phase entering block b: p0 * adv^b
-  const float q_r = p0r[ch], q_i = p0i[ch];
-  const float a_r = adv[b], a_i = adv[B + b];
-  const float pr = q_r * a_r - q_i * a_i;
-  const float pi = q_r * a_i + q_i * a_r;
-  stage_block(u, pcm + row * N_SAMP, tab, pr, pi, inv_scale, tid);
-  if (tid < HALO) {
-    if (b == 0) {
-      u[0][tid] = bf16_round(tail0_r[ch * HALO + tid]);
-      u[1][tid] = bf16_round(tail0_i[ch * HALO + tid]);
+// sm.u[.][HALO + t] = downmixed block of the row whose PCM is in sm.x,
+// entered with mixer phase (pr, pi): 8 samples a thread and step.
+__device__ __forceinline__ void stage_block(PremixSmem& sm,
+                                            const float* __restrict__ tab,
+                                            bool vec, float pr, float pi,
+                                            float inv_scale, int tid) {
+  for (int t = STAGE_VEC * tid; t < N_SAMP; t += STAGE_VEC * WIN_THREADS) {
+    float tr[STAGE_VEC], ti[STAGE_VEC];
+    if (vec) {
+      load4(tab + t, tr);
+      load4(tab + t + 4, tr + 4);
+      load4(tab + N_SAMP + t, ti);
+      load4(tab + N_SAMP + t + 4, ti + 4);
     } else {
-      const float c_r = adv[b - 1], c_i = adv[B + b - 1];
-      const float sr = q_r * c_r - q_i * c_i;
-      const float si = q_r * c_i + q_i * c_r;
-      downmix(pcm + (row - C) * N_SAMP, tab, N_SAMP - HALO + tid, sr, si,
-              inv_scale, u[0][tid], u[1][tid]);
+#pragma unroll
+      for (int e = 0; e < STAGE_VEC; ++e)
+        tr[e] = tab[t + e], ti[e] = tab[N_SAMP + t + e];
+    }
+    const uint4 raw = *reinterpret_cast<const uint4*>(&sm.x[t]);
+    const unsigned word[4] = {raw.x, raw.y, raw.z, raw.w};
+    float zr[STAGE_VEC], zi[STAGE_VEC];
+#pragma unroll
+    for (int e = 0; e < STAGE_VEC; ++e) {
+      const short s = (short)(word[e >> 1] >> (16 * (e & 1)));
+      const float x = (float)s * inv_scale;
+      zr[e] = bf16_round(x * (pr * tr[e] - pi * ti[e]));
+      zi[e] = bf16_round(x * (pr * ti[e] + pi * tr[e]));
+    }
+#pragma unroll
+    for (int e = 0; e < STAGE_VEC; e += 4) {
+      *reinterpret_cast<float4*>(&sm.u[0][HALO + t + e]) =
+          make_float4(zr[e], zr[e + 1], zr[e + 2], zr[e + 3]);
+      *reinterpret_cast<float4*>(&sm.u[1][HALO + t + e]) =
+          make_float4(zi[e], zi[e + 1], zi[e + 2], zi[e + 3]);
     }
   }
-  __syncthreads();
-  decim_sums<OutT, false>(u, w, out, N, row, tid);
+}
+
+// The 49-tap sums of the row in sm.u, a task a thread.  The thread slides
+// its task's window through registers: input m = 0 .. WIN_LEN - 1 is
+// loaded once and added into accumulator i with tap k = m - i wherever
+// 0 <= k < 49, so every accumulator starts from 0.f and takes its 49
+// terms in ascending k, as the plain version does.
+//
+// The multiply-add is fused by hand (-fmad=false stays the build's flag)
+// and returns the bits of the unfused one BECAUSE BOTH OPERANDS ARE bf16
+// VALUES: w[k] = bf16(2.2 taps[k]) and every u was rounded to bf16 on
+// its way into shared memory.  Their product has at most 16 significant
+// bits and is exact in f32, so fmaf(w, u, acc) = round(acc + w u) =
+// acc + round(w u).  That holds for u = 0 and wherever the product does
+// not underflow: for the taps of alpha = 0.35 (smallest 5.4e-4) for every
+// |u| > 2.35e-38, and a u made from int16 PCM by the downmix, or a tail
+// carried from one, is zero or some twenty orders of magnitude above that
+// (tests/test_torch_frontend_window.py holds both statements).  It does
+// NOT hold for f32 taps or f32 samples: not in the downmix, the halo's
+// un-rotation, the fold's rotation, or anywhere in frontend_full.
+// ROW_MAJOR writes out[row][c][p][s], else out[c][p][row][s].
+template <typename OutT, bool ROW_MAJOR>
+__device__ __forceinline__ void window_sums(const PremixSmem& sm,
+                                            OutT* __restrict__ out,
+                                            long long N, long long row,
+                                            int tid) {
+  if (tid >= WIN_TASKS) return;
+  const int p = tid / WIN_TASKS_PLANE;
+  const int j = tid - p * WIN_TASKS_PLANE;
+  float w[W_PAD];
+#pragma unroll
+  for (int k = 0; k < W_PAD; k += 4)           // broadcast loads
+    load4(&sm.w[k], &w[k]);
+  const float* up = &sm.u[p][WIN_T * j];
+  float acc[WIN_T];
+#pragma unroll
+  for (int i = 0; i < WIN_T; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int m0 = 0; m0 < WIN_LEN; m0 += WIN_VEC) {
+    float v[WIN_VEC];
+    load4(up + m0, v);
+#pragma unroll
+    for (int e = 0; e < WIN_VEC; ++e) {
+#pragma unroll
+      for (int i = 0; i < WIN_T; ++i) {
+        const int k = m0 + e - i;
+        if (k >= 0 && k < SC_FE_TAPS) acc[i] = __fmaf_rn(w[k], v[e], acc[i]);
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < CYC; ++c) {
+    const int cp = 2 * c + p;
+    const long long o =
+        (ROW_MAJOR ? (row * (2 * CYC) + cp) : ((long long)cp * N + row)) *
+            N_SYM + WIN_SYMS * j;
+    float v[WIN_SYMS];
+#pragma unroll
+    for (int s = 0; s < WIN_SYMS; ++s) v[s] = acc[CYC * s + c];
+    store_syms(out + o, v);
+  }
+}
+
+// Both kernels are persistent: block i takes rows i, i + gridDim.x, ..
+// and, between the barrier that ends a row's staging and the row's sums,
+// sends for the next row's operands, so device-memory latency hides
+// behind the multiply-adds.
+
+template <typename OutT>
+__global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
+    frontend_decim_kernel(
+        const int16_t* __restrict__ pcm, const float* __restrict__ p0r,
+        const float* __restrict__ p0i, const float* __restrict__ tail0_r,
+        const float* __restrict__ tail0_i, const float* __restrict__ adv,
+        const float* __restrict__ tab, const float* __restrict__ taps,
+        OutT* __restrict__ out, int B, int C, float inv_scale) {
+  __shared__ PremixSmem sm;
+  const long long N = (long long)B * C;
+  const int tid = threadIdx.x;
+  const bool vec = aligned16(pcm, tail0_r, tail0_i, tab);
+  if (tid < W_PAD) sm.w[tid] = tid < NTAPS ? taps[tid] : 0.f;
+
+  // operands of row n: its PCM; its halo (block 0: the carried tail;
+  // else row n - C's raw tail); p0[ch], adv^b and adv^(b-1)
+  auto fetch_row = [&](long long row) {
+    const int b = (int)(row / C);
+    const int ch = (int)(row - (long long)b * C);
+    fetch(sm.x, pcm + row * N_SAMP, N_SAMP, vec, tid, 0);
+    if (b == 0) {
+      fetch(sm.tail[0], tail0_r + ch * HALO, HALO, vec, tid, 0);
+      fetch(sm.tail[1], tail0_i + ch * HALO, HALO, vec, tid, 32);
+    } else {
+      fetch(sm.xh, pcm + (row - C) * N_SAMP + N_SAMP - HALO, HALO, vec, tid,
+            32);
+    }
+    if (tid >= 64 && tid < 70) {
+      const int i = tid - 64, bm = b > 0 ? b - 1 : 0;
+      const float* src = i < 2 ? (i == 0 ? p0r : p0i) + ch
+                               : adv + (i & 1) * B + (i < 4 ? b : bm);
+      __pipeline_memcpy_async(&sm.ph[i], src, 4);
+    }
+    __pipeline_commit();
+  };
+
+  long long row = blockIdx.x;
+  if (row < N) fetch_row(row);
+  for (; row < N; row += gridDim.x) {
+    __pipeline_wait_prior(0);
+    __syncthreads();        // the row's operands are in; sm.u is free
+    // mixer phase entering block b: p0 * adv^b
+    const float q_r = sm.ph[0], q_i = sm.ph[1];
+    const float pr = q_r * sm.ph[2] - q_i * sm.ph[3];
+    const float pi = q_r * sm.ph[3] + q_i * sm.ph[2];
+    stage_block(sm, tab, vec, pr, pi, inv_scale, tid);
+    const int m = tid - (WIN_THREADS - HALO);
+    if (m >= 0) {
+      if (row < C) {
+        sm.u[0][m] = bf16_round(sm.tail[0][m]);
+        sm.u[1][m] = bf16_round(sm.tail[1][m]);
+      } else {
+        // the halo of a row with b > 0: the same products the previous
+        // block's row formed, with the phase p0 * adv^(b-1)
+        const float sr = q_r * sm.ph[4] - q_i * sm.ph[5];
+        const float si = q_r * sm.ph[5] + q_i * sm.ph[4];
+        downmix(sm.xh, tab, N_SAMP - HALO + m, m, sr, si, inv_scale,
+                sm.u[0][m], sm.u[1][m]);
+      }
+    }
+    __syncthreads();        // sm.u is whole; the raw operands are used up
+    if (row + gridDim.x < N) fetch_row(row + gridDim.x);
+    window_sums<OutT, false>(sm, out, N, row, tid);
+  }
 }
 
 template <typename OutT, bool ROW_MAJOR>
-__global__ void __launch_bounds__(FE_THREADS) frontend_rows_kernel(
-    const int16_t* __restrict__ pcm, const float* __restrict__ ph_r,
-    const float* __restrict__ ph_i, const float* __restrict__ tail_r,
-    const float* __restrict__ tail_i, const float* __restrict__ tab,
-    const float* __restrict__ taps, OutT* __restrict__ out, long long N,
-    float inv_scale) {
-  __shared__ float u[2][HALO + N_SAMP];
-  __shared__ float w[NTAPS];
-  const long long row = blockIdx.x;
+__global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
+    frontend_rows_kernel(
+        const int16_t* __restrict__ pcm, const float* __restrict__ ph_r,
+        const float* __restrict__ ph_i, const float* __restrict__ tail_r,
+        const float* __restrict__ tail_i, const float* __restrict__ tab,
+        const float* __restrict__ taps, OutT* __restrict__ out, long long N,
+        float inv_scale) {
+  __shared__ PremixSmem sm;
   const int tid = threadIdx.x;
-  if (tid < NTAPS) w[tid] = taps[tid];
-  stage_block(u, pcm + row * N_SAMP, tab, ph_r[row], ph_i[row], inv_scale,
-              tid);
-  if (tid < HALO) {
-    u[0][tid] = bf16_round(tail_r[row * HALO + tid]);
-    u[1][tid] = bf16_round(tail_i[row * HALO + tid]);
+  const bool vec = aligned16(pcm, tail_r, tail_i, tab);
+  if (tid < W_PAD) sm.w[tid] = tid < NTAPS ? taps[tid] : 0.f;
+
+  auto fetch_row = [&](long long row) {
+    fetch(sm.x, pcm + row * N_SAMP, N_SAMP, vec, tid, 0);
+    fetch(sm.tail[0], tail_r + row * HALO, HALO, vec, tid, 0);
+    fetch(sm.tail[1], tail_i + row * HALO, HALO, vec, tid, 32);
+    if (tid >= 64 && tid < 66)
+      __pipeline_memcpy_async(&sm.ph[tid - 64],
+                              (tid == 64 ? ph_r : ph_i) + row, 4);
+    __pipeline_commit();
+  };
+
+  long long row = blockIdx.x;
+  if (row < N) fetch_row(row);
+  for (; row < N; row += gridDim.x) {
+    __pipeline_wait_prior(0);
+    __syncthreads();        // the row's operands are in; sm.u is free
+    stage_block(sm, tab, vec, sm.ph[0], sm.ph[1], inv_scale, tid);
+    const int m = tid - (WIN_THREADS - HALO);
+    if (m >= 0) {
+      sm.u[0][m] = bf16_round(sm.tail[0][m]);
+      sm.u[1][m] = bf16_round(sm.tail[1][m]);
+    }
+    __syncthreads();        // sm.u is whole; the raw operands are used up
+    if (row + gridDim.x < N) fetch_row(row + gridDim.x);
+    window_sums<OutT, ROW_MAJOR>(sm, out, N, row, tid);
   }
-  __syncthreads();
-  decim_sums<OutT, ROW_MAJOR>(u, w, out, N, row, tid);
 }
 
 // ---------------------------------------------------------- mixer fold
@@ -317,6 +554,16 @@ __global__ void __launch_bounds__(FE_THREADS) frontend_full_kernel(
   }
 }
 
+// Blocks of a persistent premix kernel for N rows: as many as the card
+// holds at once, at most one a row.
+unsigned premix_grid(long long N) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long held = (long long)(sms > 0 ? sms : 1) * WIN_BLOCKS_SM;
+  return (unsigned)(N < held ? (N > 0 ? N : 1) : held);
+}
+
 }  // namespace
 
 extern "C" int sc_frontend_decim(const void* pcm, const void* p0r,
@@ -325,17 +572,17 @@ extern "C" int sc_frontend_decim(const void* pcm, const void* p0r,
                                  const void* tab, const void* taps, void* out,
                                  int B, int C, int out_bf16, float inv_scale,
                                  void* stream) {
-  const dim3 grid((unsigned)((long long)B * C));
+  const dim3 grid(premix_grid((long long)B * C));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_bf16) {
-    frontend_decim_kernel<__nv_bfloat16><<<grid, FE_THREADS, 0, st>>>(
+    frontend_decim_kernel<__nv_bfloat16><<<grid, WIN_THREADS, 0, st>>>(
         static_cast<const int16_t*>(pcm), static_cast<const float*>(p0r),
         static_cast<const float*>(p0i), static_cast<const float*>(tail0_r),
         static_cast<const float*>(tail0_i), static_cast<const float*>(adv),
         static_cast<const float*>(tab), static_cast<const float*>(taps),
         static_cast<__nv_bfloat16*>(out), B, C, inv_scale);
   } else {
-    frontend_decim_kernel<float><<<grid, FE_THREADS, 0, st>>>(
+    frontend_decim_kernel<float><<<grid, WIN_THREADS, 0, st>>>(
         static_cast<const int16_t*>(pcm), static_cast<const float*>(p0r),
         static_cast<const float*>(p0i), static_cast<const float*>(tail0_r),
         static_cast<const float*>(tail0_i), static_cast<const float*>(adv),
@@ -351,7 +598,7 @@ extern "C" int sc_frontend_rows(const void* pcm, const void* ph_r,
                                 const void* tail_i, const void* tab,
                                 const void* taps, void* out, int N,
                                 int layout, float inv_scale, void* stream) {
-  const dim3 grid((unsigned)N);
+  const dim3 grid(premix_grid(N));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int16_t* x = static_cast<const int16_t*>(pcm);
   const float* pr = static_cast<const float*>(ph_r);
@@ -361,15 +608,15 @@ extern "C" int sc_frontend_rows(const void* pcm, const void* ph_r,
   const float* tb = static_cast<const float*>(tab);
   const float* tp = static_cast<const float*>(taps);
   if (layout == 1) {
-    frontend_rows_kernel<__nv_bfloat16, false><<<grid, FE_THREADS, 0, st>>>(
+    frontend_rows_kernel<__nv_bfloat16, false><<<grid, WIN_THREADS, 0, st>>>(
         x, pr, pi, tr, ti, tb, tp, static_cast<__nv_bfloat16*>(out),
         (long long)N, inv_scale);
   } else if (layout == 2) {
-    frontend_rows_kernel<float, true><<<grid, FE_THREADS, 0, st>>>(
+    frontend_rows_kernel<float, true><<<grid, WIN_THREADS, 0, st>>>(
         x, pr, pi, tr, ti, tb, tp, static_cast<float*>(out), (long long)N,
         inv_scale);
   } else {
-    frontend_rows_kernel<float, false><<<grid, FE_THREADS, 0, st>>>(
+    frontend_rows_kernel<float, false><<<grid, WIN_THREADS, 0, st>>>(
         x, pr, pi, tr, ti, tb, tp, static_cast<float*>(out), (long long)N,
         inv_scale);
   }

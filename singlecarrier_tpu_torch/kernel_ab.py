@@ -7,20 +7,27 @@ Run from the root of a checkout::
 
 ``--other DIR`` names another ``csrc`` tree, for example a parent
 commit's (``git archive <commit> singlecarrier_tpu_torch/csrc | tar -x
--C build/parent``).  Both trees are compiled, and ``hunt``,
+-C build/parent``).  Both trees are compiled, and ``frontend_decim``,
+``frontend_rows`` (transposed and row-major), ``hunt``,
 ``extract_decode``, ``decode_extract`` and ``decode_packets`` run from
 each on ``chip_smoke.py``'s seeded operands (256 channels x 4 blocks and
-8192 x 4, golden packets among noise, at the library default and the
-bench operating point).  Reported per kernel: whether the outputs are
-equal to the bit; if not, on how many rows, the largest |dcfo| and
-|deq_error| and whether any valid row's dibits differ.  Then ``hunt``
-and ``extract_decode`` are timed at 8192 channels x ``--blocks`` blocks
-of noise in the order this, other, other, this.
+8192 x 4, golden packets among noise, at the library default, whose
+planes are f32, and the bench operating point, whose planes are bf16).
+Reported per kernel: whether the outputs are equal to the bit; if not, on
+how many rows, and for the decode kernels the largest |dcfo| and
+|deq_error| and whether any valid row's dibits differ.  Then
+``frontend_decim`` (both ``decim_dtype``s), ``frontend_rows`` (its three
+layouts), ``hunt`` and ``extract_decode`` are timed at 8192 channels x
+``--blocks`` blocks of noise in the order this, other, other, this.
 
 ``--stages`` compiles this tree once more with ``-DSC_STAGE_CLOCKS`` and
 prints where ``extract_decode`` spends its time: each stage's share of
 the warps' ``clock64()`` ticks, and that share of the kernel's time in
-the plain build.
+the plain build.  It also splits ``frontend_decim`` between its staging
+(with the stores) and its tap sums, in both trees: a build whose tap
+loop forms one term of the 49 (``-DSC_FE_TAPS=1``; in a tree that does
+not know the name, a patched copy of its ``frontend.cu``) is timed beside
+the whole kernel.
 
 Every line carries the card's name and power limit.  Needs a GPU.
 """
@@ -49,18 +56,20 @@ STAGES = ("extraction", "CFO DFT", "CFO peak", "derotation", "train",
 
 
 def _operands(cs, cfg, gen, tx, C, B, dev):
-    """The four kernels' operands from ``chip_smoke``'s seeded inputs."""
+    """The kernels' operands from ``chip_smoke``'s seeded inputs."""
     pcm, p0r, p0i, t0r, t0i, adv, dprev0 = cs._kernel_inputs(
         torch, np, gen, tx, cfg, C, B, dev)
-    dk = frontend_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv)
-    rows = cs._row_inputs(torch, cfg, pcm, p0r, p0i, t0r, t0i, adv)
+    batch = (pcm, p0r, p0i, t0r, t0i, adv)
+    dk = frontend_decim(cfg, *batch)
+    rows = cs._row_inputs(torch, cfg, *batch)
     drow = frontend_rows(cfg, *rows, transposed=False)
     wins, wl, wph, wpk = cs._hunt_windows(torch, cfg, drow, C)
     off = cfg.eq_length // 2
     pkt = _extract_packet_planes(
         cfg, wins[..., off:off + 2 * drow.shape[-1]].contiguous(), wl, wph)
-    return dict(dk=dk, dprev0=dprev0, wins=wins, wl=wl, wph=wph, wpk=wpk,
-                pkt_r=pkt[:, 0].contiguous(), pkt_i=pkt[:, 1].contiguous())
+    return dict(batch=batch, rows=rows, dk=dk, dprev0=dprev0, wins=wins,
+                wl=wl, wph=wph, wpk=wpk, pkt_r=pkt[:, 0].contiguous(),
+                pkt_i=pkt[:, 1].contiguous())
 
 
 def _run_all(cfg, op):
@@ -74,7 +83,15 @@ def _run_all(cfg, op):
                           dec["gated"].float()[:, None],
                           dec["energy"][:, None]], dim=1)
 
+    def by_row(planes):                       # [cyc, 2, N, n_sym] -> [N, .]
+        return planes.permute(2, 0, 1, 3).reshape(planes.shape[2], -1)
+
     out = {
+        "frontend_decim": by_row(frontend_decim(cfg, *op["batch"])),
+        "frontend_rows (transposed)": by_row(
+            frontend_rows(cfg, *op["rows"], transposed=True)),
+        "frontend_rows (row-major)": frontend_rows(
+            cfg, *op["rows"], transposed=False).flatten(1),
         "hunt": torch.stack([lag.float(), ph.float(), peak], 1),
         "extract_decode": extract_decode(cfg, op["dk"], op["dprev0"], lag,
                                          ph, peak)[:, :D + 5],
@@ -91,6 +108,10 @@ def _differences(cfg, name, a, b) -> str:
     if torch.equal(a, b):
         return f"equal to the bit on all {a.shape[0]} rows"
     rows = int((a != b).any(1).sum())
+    if name.startswith("frontend"):
+        return (f"DIFFER on {rows} of {a.shape[0]} rows, "
+                f"{int((a != b).sum())} of {a.numel()} plane values, max "
+                f"|difference| {float((a.float() - b.float()).abs().max()):.3e}")
     if name == "hunt":
         return (f"DIFFER on {rows} of {a.shape[0]} rows (lag "
                 f"{int((a[:, 0] != b[:, 0]).sum())}, phase "
@@ -105,6 +126,24 @@ def _differences(cfg, name, a, b) -> str:
             f"on {int((va != vb).sum())}, valid rows with other dibits "
             f"{bits}, max |dcfo| {float((a - b)[:, D + 2].abs().max()):.3e} "
             f"Hz, max |deq_error| {float((a - b)[:, D + 1].abs().max()):.3e}")
+
+
+def _one_tap_tree(csrc: Path) -> dict:
+    """Arguments of ``_build.build`` for ``csrc`` with the front-ends' tap
+    loops cut to one term: ``-DSC_FE_TAPS=1`` where ``frontend.cu`` knows
+    the name, else a copy of the tree with ``k < NTAPS`` patched."""
+    csrc = Path(csrc)
+    text = (csrc / "frontend.cu").read_text()
+    if "SC_FE_TAPS" in text:
+        return dict(csrc=csrc, defines=("SC_FE_TAPS=1",))
+    if "k < NTAPS" not in text:
+        raise RuntimeError(f"{csrc}/frontend.cu: no tap loop to cut")
+    copy = _build.BUILD_DIR / f"one_tap_{_build._digest(csrc, ())}"
+    copy.mkdir(parents=True, exist_ok=True)
+    for src in csrc.iterdir():
+        (copy / src.name).write_bytes(src.read_bytes())
+    (copy / "frontend.cu").write_text(text.replace("k < NTAPS", "k < 1"))
+    return dict(csrc=copy)
 
 
 def main(argv=None) -> int:
@@ -149,7 +188,8 @@ def main(argv=None) -> int:
                 with _build.using(other):
                     b = _run_all(cfg, op)
                 for name in a:
-                    print(f"[equal] {what}, {C} x {B}: {name} of this tree "
+                    print(f"[equal] {what} ({cfg.decim_dtype} planes), "
+                          f"{C} x {B}: {name} of this tree "
                           f"and of {args.other}: "
                           f"{_differences(cfg, name, a[name], b[name])}; "
                           f"{card}", flush=True)
@@ -163,10 +203,22 @@ def main(argv=None) -> int:
     advs = np.exp(-2j * np.pi * cfg.center / cfg.fs * n
                   * np.arange(args.blocks)).astype(np.complex64)
     adv = torch.from_numpy(np.stack([advs.real, advs.imag])).to(dev)
-    dk = frontend_decim(cfg, noise, p0r, p0i, t0r, t0i, adv)
-    del noise
+    batch = (noise, p0r, p0i, t0r, t0i, adv)
+    rows = cs._row_inputs(torch, cfg, *batch)
+    f32 = cfg.replace(decim_dtype="f32")
+    dk = frontend_decim(cfg, *batch)
     lag, ph, peak = hunt(cfg, dk, dprev0)
-    calls = {"hunt": lambda: hunt(cfg, dk, dprev0),
+    calls = {"frontend_decim (bf16 planes)":
+             lambda: frontend_decim(cfg, *batch),
+             "frontend_decim (f32 planes)":
+             lambda: frontend_decim(f32, *batch),
+             "frontend_rows (transposed bf16)":
+             lambda: frontend_rows(cfg, *rows, transposed=True),
+             "frontend_rows (transposed f32)":
+             lambda: frontend_rows(f32, *rows, transposed=True),
+             "frontend_rows (row-major f32)":
+             lambda: frontend_rows(cfg, *rows, transposed=False),
+             "hunt": lambda: hunt(cfg, dk, dprev0),
              "extract_decode": lambda: extract_decode(cfg, dk, dprev0, lag,
                                                       ph, peak)}
     order = [("this", mine)] + ([("other", other), ("other", other),
@@ -184,6 +236,22 @@ def main(argv=None) -> int:
         ms[name] = times[-1][1]                 # this tree's, last run
 
     if args.stages:
+        k1 = "frontend_decim (bf16 planes)"
+        trees = [("this", mine, _build.CSRC)] + (
+            [("other", other, args.other)] if other else [])
+        for tag, lib, csrc in trees:
+            one = _build.bind(_build.build(**_one_tap_tree(csrc))[0])
+            with _build.using(lib):
+                whole = cs._time_cuda(calls[k1], 3)
+            with _build.using(one):
+                staged = cs._time_cuda(calls[k1], 3)
+            print(f"[stages] {k1} of {tag} tree at {cs.C_MAIN * args.blocks} "
+                  f"rows: {whole:.3f} ms whole, {staged:.3f} ms with one "
+                  f"term of each tap sum (staging and stores), "
+                  f"{whole - staged:.3f} ms the other 48 terms; a kernel "
+                  f"that loads the next row during the sums has nothing to "
+                  f"hide those loads behind in the one-term build, which "
+                  f"then overstates the staging; {card}", flush=True)
         probe = _build.bind(_build.build(defines=("SC_STAGE_CLOCKS",))[0])
         ticks = (ctypes.c_uint64 * len(STAGES))()
         stream = torch.cuda.current_stream(dev).cuda_stream

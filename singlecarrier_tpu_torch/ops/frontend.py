@@ -238,6 +238,7 @@ def frontend_decim(cfg: ModemConfig, pcm, p0r, p0i, tail0_r, tail0_i,
         ref = frontend_decim_folded_ref if fold else frontend_decim_ref
         return ref(cfg, pcm, p0r, p0i, tail0_r, tail0_i, adv)
     _build.require_kernel_geometry(cfg)
+    _check_rows_config(cfg)
     B, C, _ = pcm.shape
     if pcm.dtype != torch.int16:
         raise TypeError(f"pcm must be int16, got {pcm.dtype}")
@@ -274,6 +275,9 @@ def _kernel_operands(cfg: ModemConfig, name: str, fold: bool, dev):
 # ------------------------------------------- per-row phases and halos
 
 def _check_rows_config(cfg: ModemConfig, debug_mode: str = "none"):
+    """The decimating kernels round u to bf16 whatever the config says,
+    and the premix pair's fused tap sums return the plain version's bits
+    only for bf16 samples and taps: every way into them passes here."""
     if cfg.frontend_dtype != "bf16":
         raise NotImplementedError(
             f"cfg.frontend_dtype={cfg.frontend_dtype!r} is not ported yet "
@@ -367,6 +371,7 @@ def frontend_rows(cfg: ModemConfig, pcm, phase_r, phase_i, tail_r, tail_i,
         return ref(cfg, pcm, phase_r, phase_i, tail_r, tail_i,
                    transposed=transposed)
     _build.require_kernel_geometry(cfg)
+    _check_rows_config(cfg)
     _check_row_operands(cfg, pcm, phase_r, phase_i, tail_r, tail_i)
     N = pcm.shape[0]
     dev = pcm.device

@@ -1,0 +1,360 @@
+"""What the premix front-end kernels' window form relies on, pinned on
+the CPU.
+
+No CUDA kernel runs here.  ``csrc/frontend.cu``'s ``window_sums`` gives a
+thread a task (a few consecutive symbols of one plane of one row), lets it
+load the task's inputs from shared memory once, and adds each input into
+every accumulator it belongs to with a hand-written fused multiply-add,
+under a build that otherwise forbids fusing (``-fmad=false``).  These
+tests hold, in numpy and against the port's plain versions:
+
+  * the exactness the fused form assumes: a tap (bf16 value) times a
+    sample (bf16 value) is exact in f32 for u = 0 and every |u| >= 2^-100,
+    for the premix taps at both roll-offs, and for the real and imaginary
+    folded taps for |u| >= 2^-80; and where it ends (products that
+    underflow);
+  * a counter-case with f32 operands (the taps x gain of the full-rate
+    front-end), where fused and unfused sums differ: the fused form must
+    not be carried over there;
+  * a model of the kernel's loop, task by task as the kernel deals them
+    (task -> row, plane, first output; the window slid through an array
+    that stands for the registers; ascending k; the output index of both
+    layouts; a persistent grid whose last round of rows is ragged), equal to
+    ``frontend_decim_ref`` / ``frontend_rows_ref`` to the bit;
+  * that the sources fuse nowhere else, and that every way into the two
+    kernels refuses ``frontend_dtype="f32"``.
+"""
+
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from singlecarrier_tpu_torch import DEFAULT_CONFIG
+from singlecarrier_tpu_torch.dsp.mixer import downmix_tail
+from singlecarrier_tpu_torch.ops import _build, frontend
+
+CPU = torch.device("cpu")
+N_SAMP, N_SYM, CYC, NTAPS, HALO = 1880, 376, 5, 49, 48
+SRC = (_build.CSRC / "frontend.cu").read_text()
+
+
+def _kernel_constant(name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", SRC).group(1))
+
+
+# (symbols a task, blocks of the persistent grid, threads a block): the
+# kernel's task size with a grid that leaves the last round of rows
+# ragged, then others the same loop must serve
+WIN_SYMS = _kernel_constant("WIN_SYMS")
+GEOMETRIES = sorted({(WIN_SYMS, 4, -(-2 * (N_SYM // WIN_SYMS) // 32) * 32),
+                     (2, 1, 384), (4, 7, 192), (2, 4, 256)})
+
+
+def _all_bf16():
+    """Every finite bf16 value, as f32."""
+    u = (np.arange(1 << 16, dtype=np.uint32) << 16).view(np.float32)
+    return u[np.isfinite(u)]
+
+
+def _taps(alpha: float, kind: str) -> np.ndarray:
+    cfg = DEFAULT_CONFIG.replace(alpha=alpha)
+    if kind == "premix":
+        return frontend.decim_taps(cfg).numpy()
+    ctaps = frontend._fold_tables(cfg, CPU)[0].numpy()
+    return ctaps[0 if kind == "folded real" else 1]
+
+
+def _inexact(w: np.ndarray, u: np.ndarray) -> np.ndarray:
+    """[len(w), len(u)] bool: the f32 product differs from the true one
+    (f64 holds a product of two f32 values exactly)."""
+    p32 = w[:, None] * u[None, :]
+    assert p32.dtype == np.float32
+    return p32.astype(np.float64) != w.astype(np.float64)[:, None] * u.astype(
+        np.float64)[None, :]
+
+
+@pytest.mark.parametrize("kind", ["premix", "folded real", "folded imag"])
+@pytest.mark.parametrize("alpha", [0.35, 0.50])
+def test_tap_times_bf16_sample_is_exact_in_f32(alpha, kind):
+    w = _taps(alpha, kind)
+    assert w.shape == (NTAPS,) and w.dtype == np.float32
+    # the taps are bf16 values themselves
+    assert np.array_equal(
+        w, torch.from_numpy(w).to(torch.bfloat16).float().numpy())
+    if kind == "premix":                        # none zero
+        assert np.abs(w).min() > (5e-4 if alpha == 0.35 else 6e-5)
+    # one folded tap is 1.5e-16, where the cosine crosses zero: there the
+    # product underflows sooner
+    floor = 2.0 ** (-100 if kind == "premix" else -80)
+    u = _all_bf16()
+    u = u[(u == 0) | (np.abs(u) >= floor)]
+    assert u.size > 52000
+    assert not _inexact(w, u).any()
+
+
+@pytest.mark.parametrize("alpha", [0.35, 0.50])
+def test_exactness_ends_where_the_product_underflows(alpha):
+    w = _taps(alpha, "premix")
+    u = _all_bf16()
+    bad = _inexact(w, u)
+    assert bad.any()
+    worst_u = np.abs(u)[bad.any(0)].max()
+    # 2^-125 at alpha = 0.35 (smallest tap 5.4e-4), 2^-122 at 0.50 (6.3e-5):
+    # some twenty orders of magnitude under any sample made from int16
+    # PCM (|x| >= 2^-14 times a unit phasor times a table value)
+    assert worst_u <= (2.36e-38 if alpha == 0.35 else 1.9e-37), worst_u
+    prod = np.abs(w.astype(np.float64)[:, None] * u.astype(np.float64)[None])
+    assert prod[bad].max() < 2.0 ** -126      # only subnormal products
+
+
+def _fma(w, u, acc):
+    """fmaf(w, u, acc) for f32 arrays: the product is exact in f64."""
+    return (np.float64(w) * u.astype(np.float64)
+            + acc.astype(np.float64)).astype(np.float32)
+
+
+def test_fused_sums_of_f32_operands_differ_from_unfused():
+    """The full-rate front-end multiplies f32 taps by f32 samples: there
+    the fused multiply-add returns other bits, so it stays unfused."""
+    cfg = DEFAULT_CONFIG
+    w = (frontend._full_taps(cfg, CPU)
+         * torch.tensor(cfg.fir_gain, dtype=torch.float32)).numpy()
+    rng = np.random.default_rng(5)
+    u = rng.uniform(-1, 1, (4096, NTAPS)).astype(np.float32)
+    assert _inexact(w, u[0]).any()
+    fused = np.zeros(4096, np.float32)
+    plain = np.zeros(4096, np.float32)
+    for k in range(NTAPS):
+        fused = _fma(w[k], u[:, k], fused)
+        plain = plain + w[k] * u[:, k]
+    assert plain.dtype == np.float32
+    n_diff = int((fused != plain).sum())
+    assert n_diff > 1000, n_diff
+    # while bf16 operands on the same windows agree on every one
+    wb = frontend.decim_taps(cfg).numpy()
+    ub = torch.from_numpy(u).to(torch.bfloat16).float().numpy()
+    fused = np.zeros(4096, np.float32)
+    plain = np.zeros(4096, np.float32)
+    for k in range(NTAPS):
+        fused = _fma(wb[k], ub[:, k], fused)
+        plain = plain + wb[k] * ub[:, k]
+    assert np.array_equal(fused, plain)
+
+
+# ------------------------------------------------- the kernel's loop
+
+def _pcm(kind: str, n_rows: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    if kind == "noise":                       # full scale: saturated inputs
+        return rng.integers(-32768, 32768, (n_rows, N_SAMP)).astype(np.int16)
+    tx = np.load("tests/golden/reference.npz")["tx_pcm"].astype(np.float64)
+    pcm = np.empty((n_rows, N_SAMP), np.int16)
+    for r in range(n_rows):
+        s = int(rng.integers(0, len(tx) - N_SAMP))
+        x = tx[s:s + N_SAMP] + rng.normal(0, 800.0, N_SAMP)
+        pcm[r] = np.clip(x, -32768, 32767).astype(np.int16)
+    return pcm
+
+
+def _state(n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    ph = rng.uniform(0, 2 * np.pi, n)
+    return (torch.from_numpy(np.cos(ph).astype(np.float32)),
+            torch.from_numpy(np.sin(ph).astype(np.float32)),
+            torch.from_numpy((rng.normal(size=(n, HALO)) * 0.3)
+                             .astype(np.float32)),
+            torch.from_numpy((rng.normal(size=(n, HALO)) * 0.3)
+                             .astype(np.float32)))
+
+
+def _downmix(cfg, x16, t, pr, pi):
+    """The kernels' downmix of samples ``x16`` at table indices ``t``
+    with phase (pr, pi): bf16(x * (p * table[t])), product by product."""
+    tr, ti = frontend._mixer_planes(cfg, CPU)
+    x = x16.float() * (1.0 / cfg.tx_amplitude)
+    zr = (x * (pr * tr[t] - pi * ti[t])).to(torch.bfloat16).float()
+    zi = (x * (pr * ti[t] + pi * tr[t])).to(torch.bfloat16).float()
+    return zr, zi
+
+
+def _stage_rows(cfg, pcm, ph_r, ph_i, tail_r, tail_i):
+    """u [N, 2, 1928] as ``frontend_rows_kernel`` stages it."""
+    t = torch.arange(N_SAMP)
+    zr, zi = _downmix(cfg, pcm, t, ph_r[:, None], ph_i[:, None])
+    return torch.stack([
+        torch.cat([tail_r.to(torch.bfloat16).float(), zr], -1),
+        torch.cat([tail_i.to(torch.bfloat16).float(), zi], -1)], 1).numpy()
+
+
+def _stage_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv):
+    """u [B*C, 2, 1928] as ``frontend_decim_kernel`` stages it: every row
+    on its own, the halo of a row with b > 0 recomputed from row n - C's
+    raw tail with the phase p0 * adv^(b-1)."""
+    B, C, _ = pcm.shape
+    u = np.zeros((B * C, 2, HALO + N_SAMP), np.float32)
+    t = torch.arange(N_SAMP)
+    for row in range(B * C):
+        b, ch = divmod(row, C)
+        pr = p0r[ch] * adv[0, b] - p0i[ch] * adv[1, b]
+        pi = p0r[ch] * adv[1, b] + p0i[ch] * adv[0, b]
+        zr, zi = _downmix(cfg, pcm[b, ch], t, pr, pi)
+        if row < C:
+            hr = t0r[row].to(torch.bfloat16).float()
+            hi = t0i[row].to(torch.bfloat16).float()
+        else:
+            sr = p0r[ch] * adv[0, b - 1] - p0i[ch] * adv[1, b - 1]
+            si = p0r[ch] * adv[1, b - 1] + p0i[ch] * adv[0, b - 1]
+            prev = pcm.reshape(B * C, N_SAMP)[row - C]
+            hr, hi = _downmix(cfg, prev[N_SAMP - HALO:], t[N_SAMP - HALO:],
+                              sr, si)
+        u[row, 0] = torch.cat([hr, zr]).numpy()
+        u[row, 1] = torch.cat([hi, zi]).numpy()
+    return u
+
+
+def _window_sums(cfg, u, row_major: bool, geometry):
+    """``window_sums`` of ``csrc/frontend.cu`` for staged rows ``u``
+    [N, 2, 1928]: block i of ``grid`` takes rows i, i + grid, ..; the
+    tasks of a row are dealt to ``threads`` threads round by round."""
+    syms, grid, threads = geometry
+    win_t, tasks_plane = CYC * syms, N_SYM // syms
+    win_len = win_t + HALO
+    assert N_SYM % syms == 0
+    w = frontend.decim_taps(cfg).numpy()
+    N = u.shape[0]
+    shape = (N, CYC, 2, N_SYM) if row_major else (CYC, 2, N, N_SYM)
+    out = np.full(shape, np.nan, np.float32)
+    stores = np.zeros(shape, np.int32)
+    n_task = 2 * tasks_plane
+    rows_of = [range(blk, N, grid) for blk in range(min(grid, N))]
+    for row in (r for rows in rows_of for r in rows):
+        for first in range(0, n_task, threads):      # one round of the loop
+            task = np.arange(first, min(first + threads, n_task))
+            p = task // tasks_plane
+            j = task - p * tasks_plane
+            # the registers: input m of every task of the round
+            win = u[row, p[:, None],
+                    win_t * j[:, None] + np.arange(win_len)[None]]
+            acc = np.zeros((task.size, win_t), np.float32)
+            for m in range(win_len):                 # each input once
+                for i in range(win_t):
+                    k = m - i
+                    if 0 <= k < NTAPS:
+                        acc[:, i] = _fma(w[k], win[:, m], acc[:, i])
+            for c in range(CYC):
+                for s in range(syms):
+                    sym = syms * j + s
+                    idx = ((row, c, p, sym) if row_major
+                           else (c, p, row, sym))
+                    out[idx] = acc[:, CYC * s + c]
+                    np.add.at(stores, idx, 1)
+    assert (stores == 1).all()                       # each output once
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("geometry", GEOMETRIES, ids=lambda g: "%dx%dx%d" % g)
+@pytest.mark.parametrize("pcm_kind", ["golden", "noise"])
+@pytest.mark.parametrize("decim_dtype", ["f32", "bf16"])
+def test_window_model_equals_frontend_decim_ref(decim_dtype, pcm_kind,
+                                                geometry):
+    cfg = DEFAULT_CONFIG.replace(decim_dtype=decim_dtype)
+    B, C = 3, 2                                      # 6 rows on 4 or 7 blocks
+    pcm = torch.from_numpy(_pcm(pcm_kind, B * C, 41)).reshape(B, C, N_SAMP)
+    p0r, p0i, t0r, t0i = _state(C, 42)
+    w_ = -2.0 * np.pi * cfg.center / cfg.fs
+    advs = np.exp(1j * w_ * N_SAMP * np.arange(B)).astype(np.complex64)
+    adv = torch.from_numpy(np.stack([advs.real, advs.imag]))
+    want = frontend.frontend_decim_ref(cfg, pcm, p0r, p0i, t0r, t0i, adv)
+    u = _stage_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv)
+    got = _window_sums(cfg, u, False, geometry).to(want.dtype)
+    assert want.dtype == frontend._DTYPES[decim_dtype]
+    assert torch.equal(got, want)
+    assert float(want.float().abs().max()) > 0.5
+
+
+@pytest.mark.parametrize("geometry", GEOMETRIES, ids=lambda g: "%dx%dx%d" % g)
+@pytest.mark.parametrize("pcm_kind", ["golden", "noise"])
+@pytest.mark.parametrize("layout", ["transposed f32", "transposed bf16",
+                                    "row-major f32"])
+def test_window_model_equals_frontend_rows_ref(layout, pcm_kind, geometry):
+    cfg = DEFAULT_CONFIG.replace(decim_dtype=layout.split()[1])
+    transposed = layout.startswith("transposed")
+    N = 5                                            # rows on 4 or 7 blocks
+    pcm = torch.from_numpy(_pcm(pcm_kind, N, 43))
+    rows = (pcm, *_state(N, 44))
+    want = frontend.frontend_rows_ref(cfg, *rows, transposed=transposed)
+    u = _stage_rows(cfg, *rows)
+    got = _window_sums(cfg, u, not transposed, geometry).to(want.dtype)
+    assert torch.equal(got, want)
+
+
+def test_rows_staged_with_the_batch_tails_equal_the_batch_staging():
+    """The two kernels stage the same u when the per-row phases and tails
+    are the ones ``prod_rx_batch`` derives: the recomputed halo is the
+    rounded downmixed tail."""
+    cfg = DEFAULT_CONFIG
+    B, C = 3, 2
+    pcm = torch.from_numpy(_pcm("noise", B * C, 45)).reshape(B, C, N_SAMP)
+    p0r, p0i, t0r, t0i = _state(C, 46)
+    w_ = -2.0 * np.pi * cfg.center / cfg.fs
+    advs = np.exp(1j * w_ * N_SAMP * np.arange(B)).astype(np.complex64)
+    adv = torch.from_numpy(np.stack([advs.real, advs.imag]))
+    ph_r = p0r[None] * adv[0][:, None] - p0i[None] * adv[1][:, None]
+    ph_i = p0r[None] * adv[1][:, None] + p0i[None] * adv[0][:, None]
+    x_t = pcm[:, :, N_SAMP - HALO:].float() * (1.0 / cfg.tx_amplitude)
+    tl_r, tl_i = downmix_tail(cfg.center, cfg.fs, N_SAMP, HALO, x_t,
+                              ph_r[..., None], ph_i[..., None])
+    u_rows = _stage_rows(
+        cfg, pcm.reshape(B * C, N_SAMP), ph_r.reshape(-1), ph_i.reshape(-1),
+        torch.cat([t0r[None], tl_r[:-1]]).reshape(B * C, HALO),
+        torch.cat([t0i[None], tl_i[:-1]]).reshape(B * C, HALO))
+    assert np.array_equal(u_rows,
+                          _stage_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv))
+
+
+# ------------------------------------------------- what the sources say
+
+def _code(text: str) -> str:
+    return re.sub(r"//[^\n]*", "", text)
+
+
+def test_the_kernel_geometry_is_consistent():
+    syms = WIN_SYMS
+    assert N_SYM % syms == 0 and syms % 2 == 0
+    vec = 4 if CYC * syms % 4 == 0 else 2            # floats a shared load
+    assert (CYC * syms + HALO) % vec == 0
+    # tasks CYC * syms floats apart: an odd number of load units, so the
+    # lanes that share a load phase fall into different banks
+    assert (CYC * syms // vec) % 2 == 1
+    # the last task's window ends with the row's last input
+    assert CYC * syms * (N_SYM // syms - 1) + CYC * syms + HALO \
+        == HALO + N_SAMP
+
+
+def test_only_the_premix_tap_loop_fuses():
+    assert "-fmad=false" in _build.NVCC_FLAGS
+    code = _code(SRC)
+    assert code.count("__fmaf_rn(") == 1
+    body = code[code.index("void window_sums("):
+                code.index("frontend_decim_kernel(")]
+    assert "__fmaf_rn(w[k], v[e], acc[i])" in body
+    for other in ("hunt.cu", "decode.cu", "common.cuh"):
+        text = _code((_build.CSRC / other).read_text())
+        assert "fmaf" not in text and "__fma" not in text, other
+
+
+@pytest.mark.parametrize("entry", ["frontend_decim", "frontend_rows",
+                                   "fused_frontend_decim"])
+def test_every_way_into_the_kernels_checks_the_operand_dtype(entry):
+    """The kernels round to bf16 whatever the config says and fuse only
+    because both operands are bf16 values: ``frontend_dtype="f32"`` must
+    raise before a launch."""
+    with pytest.raises(NotImplementedError):
+        frontend._check_rows_config(
+            DEFAULT_CONFIG.replace(frontend_dtype="f32"))
+    frontend._check_rows_config(DEFAULT_CONFIG)
+    import inspect
+    src = inspect.getsource(getattr(frontend, entry))
+    assert "_check_rows_config(cfg" in src
