@@ -11,10 +11,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  version on the card (C=256 channels x 4 blocks, golden
                  packets + noise), at the library default and the bench
                  operating point; the mixer-folded front-ends in all
-                 three output layouts; the gate stage against the full
-                 decode's gate column; the bench operating point again
-                 on 5 channels x 3 blocks (a row count no block size
-                 divides); the two premix front-ends on 8192 x 4 rows of
+                 three output layouts, equal to the bit; the gate stage
+                 against the full decode's gate column; the bench
+                 operating point again on 5 channels x 3 blocks (a row
+                 count no block size divides); the four decimating
+                 front-ends (premix and folded) on 8192 x 4 rows of
                  noise over the whole int16 range, both plane dtypes and
                  all three layouts, equal to the bit; then the hunt alone
                  on 8192 x 4 rows of full-scale noise at both operating points and with the
@@ -50,10 +51,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  ``frac_timing=True`` one block at a time (32 channels
                  against the plain path on the CPU, ``frac`` included);
   6. timing   -- chained dispatches of the main path (premix, then
-                 ``mixer_fold=True``), of (a) and of the gated RX
-                 (8192 x 128 blocks), (b) and (f) over 128 blocks, the
-                 batch paths' kernels at that dispatch size (the
-                 front-ends beside the SM clock they run at), and each
+                 ``mixer_fold=True``: (d1)), of the gated RX, of (a) and
+                 of (d2), (a) with ``mixer_fold=True`` (8192 x 128
+                 blocks), (b) and (f) over 128 blocks, the batch paths'
+                 kernels at that dispatch size (the front-ends beside
+                 the SM clock they run at and their FFMA floor), and each
                  kernel against its plain version at 8192 x 4 rows, each
                  beside its bound (``_kernel_bounds``), the hunt in both
                  operand modes.
@@ -475,36 +477,46 @@ def _compare_hunt(torch, cfg, dk, dprev0, what: str) -> dict:
     return {"max_abs_err": float((qk - qr).abs().max())}
 
 
-def _compare_premix_on_noise(torch, cfg, inputs, gen, what: str) -> None:
-    """The premix front-ends against their plain versions on rows of
-    full-scale noise (the whole int16 range: saturated inputs and bf16
-    ties), every layout: equal to the bit."""
+def _compare_decimating_on_noise(torch, cfg, inputs, gen, what: str):
+    """The four decimating front-ends (premix and folded) against their
+    plain versions on rows of full-scale noise (the whole int16 range:
+    saturated inputs and bf16 ties), every layout: equal to the bit."""
     from singlecarrier_tpu_torch.ops.frontend import (
-        frontend_decim, frontend_decim_ref, frontend_rows, frontend_rows_ref)
+        frontend_decim, frontend_decim_folded_ref, frontend_decim_ref,
+        frontend_rows, frontend_rows_folded_ref, frontend_rows_ref)
     pcm, p0r, p0i, t0r, t0i, adv, _ = inputs
     pcm = torch.randint(-32768, 32768, pcm.shape, generator=gen,
                         device=pcm.device, dtype=torch.int16)
-    dk = frontend_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv)
-    dr = frontend_decim_ref(cfg, pcm, p0r, p0i, t0r, t0i, adv)
-    _require(torch.equal(dk, dr), f"{what}: frontend_decim differs from its "
-             f"plain version on {int((dk != dr).sum())} values")
-    del dr
     rows = _row_inputs(torch, cfg, pcm, p0r, p0i, t0r, t0i, adv)
-    for transposed in (True, False):
-        fk = frontend_rows(cfg, *rows, transposed=transposed)
-        fr = frontend_rows_ref(cfg, *rows, transposed=transposed)
-        _require(torch.equal(fk, fr), f"{what}: frontend_rows (transposed="
-                 f"{transposed}) differs from its plain version on "
-                 f"{int((fk != fr).sum())} values")
-        if transposed:
-            _require(torch.equal(fk, dk), f"{what}: frontend_rows differs "
-                     f"from frontend_decim")
-        del fk, fr
-    torch.cuda.synchronize()
-    print(f"[kernels] {what}: frontend_decim and frontend_rows (transposed "
-          f"{cfg.decim_dtype}, row-major f32) vs plain on {dk.shape[2]} rows "
-          f"of full-scale noise: max |err| 0 (equal to the bit), and "
-          f"frontend_rows equal to frontend_decim", flush=True)
+    for fold, decim_ref, rows_ref in (
+            (False, frontend_decim_ref, frontend_rows_ref),
+            (True, frontend_decim_folded_ref, frontend_rows_folded_ref)):
+        name = "folded" if fold else "premix"
+        dk = frontend_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv,
+                            mixer_fold=fold)
+        dr = decim_ref(cfg, pcm, p0r, p0i, t0r, t0i, adv)
+        _require(torch.equal(dk, dr), f"{what}: {name} frontend_decim "
+                 f"differs from its plain version on "
+                 f"{int((dk != dr).sum())} values")
+        del dr
+        for transposed in (True, False):
+            fk = frontend_rows(cfg, *rows, transposed=transposed,
+                               mixer_fold=fold)
+            fr = rows_ref(cfg, *rows, transposed=transposed)
+            _require(torch.equal(fk, fr), f"{what}: {name} frontend_rows "
+                     f"(transposed={transposed}) differs from its plain "
+                     f"version on {int((fk != fr).sum())} values")
+            if transposed and not fold:
+                _require(torch.equal(fk, dk), f"{what}: frontend_rows "
+                         f"differs from frontend_decim")
+            del fk, fr
+        torch.cuda.synchronize()
+        print(f"[kernels] {what}: {name} frontend_decim and frontend_rows "
+              f"(transposed {cfg.decim_dtype}, row-major f32) vs plain on "
+              f"{dk.shape[2]} rows of full-scale noise: max |err| 0 (equal "
+              f"to the bit)" + ("" if fold else ", and frontend_rows equal "
+                                "to frontend_decim"), flush=True)
+        del dk
 
 
 def _compare_new_kernels(torch, cfg, inputs, rows, what: str, report: dict):
@@ -518,6 +530,19 @@ def _compare_new_kernels(torch, cfg, inputs, rows, what: str, report: dict):
         frontend_full_ref, frontend_rows, frontend_rows_folded_ref)
     ddt = torch.bfloat16 if cfg.decim_dtype == "bf16" else torch.float32
     pcm, p0r, p0i, t0r, t0i, adv, dprev0 = inputs
+
+    def _exact(name, got, want, dtype, note=""):
+        torch.cuda.synchronize()
+        _require(got.dtype == dtype, f"{what}: {name}{note} dtype "
+                 f"{got.dtype}, want {dtype}")
+        err = (got.float() - want.float()).abs()
+        _require(torch.equal(got, want), f"{what}: {name}{note} differs "
+                 f"from its plain version on {int((got != want).sum())} "
+                 f"values, max |err| {float(err.max())}")
+        print(f"[kernels] {what}: {name}{note} vs plain: max |err| "
+              f"{float(err.max()):.3e} (tolerance none: equal to the bit; "
+              f"same f32 sum order, exact products)", flush=True)
+        return float(err.max())
 
     def _planes(name, got, want, dtype, note=""):
         torch.cuda.synchronize()
@@ -536,7 +561,7 @@ def _compare_new_kernels(torch, cfg, inputs, rows, what: str, report: dict):
     # each folded kernel against ITS OWN plain version: the two take their
     # halos differently, so their planes are not the same to the bit
     dk = frontend_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv, mixer_fold=True)
-    report["frontend_decim_folded"] = {"max_abs_err": _planes(
+    report["frontend_decim_folded"] = {"max_abs_err": _exact(
         "frontend_decim_folded", dk,
         frontend_decim_folded_ref(cfg, pcm, p0r, p0i, t0r, t0i, adv), ddt)}
     worst = 0.0
@@ -544,7 +569,7 @@ def _compare_new_kernels(torch, cfg, inputs, rows, what: str, report: dict):
         c_ = cfg.replace(decim_dtype=dd)
         odt = torch.bfloat16 if dd == "bf16" else torch.float32
         fk = frontend_rows(c_, *rows, transposed=transposed, mixer_fold=True)
-        worst = max(worst, _planes(
+        worst = max(worst, _exact(
             "frontend_rows_folded", fk,
             frontend_rows_folded_ref(c_, *rows, transposed=transposed), odt,
             f" ({'transposed ' + dd if transposed else 'row-major f32'})"))
@@ -728,10 +753,10 @@ def main() -> int:
     # of its four warps live, the last decode block seven of eight
     _compare_kernels(torch, cfg, _inputs(cfg, 5, 3),
                      "bench operating point, 5 channels x 3 blocks")
-    # the premix front-ends on the whole int16 range, both plane dtypes
+    # the decimating front-ends on the whole int16 range, both plane dtypes
     for what, cfg_ in (("library default", default),
                        ("bench operating point", cfg)):
-        _compare_premix_on_noise(
+        _compare_decimating_on_noise(
             torch, cfg_, _inputs(cfg_, C_MAIN, B_KTIME), gen,
             f"{what}, {C_MAIN} x {B_KTIME}")
     # the hunt on full-scale noise, where a reordered sum or a tie-rule
@@ -1042,7 +1067,7 @@ def main() -> int:
     del state
     state = prod_rx_init_planes(fold, C_MAIN)
     state, _ = prod_rx_batch(fold, state, noise, fuse_frontend=True)
-    _rate(f"(d) main path with mixer_fold=True {C_MAIN} ch x {B_TIME} "
+    _rate(f"(d1) main path with mixer_fold=True {C_MAIN} ch x {B_TIME} "
           f"blocks x {ITERS} chained dispatches",
           lambda: _dispatches(state, fold, fuse_frontend=True),
           ITERS * B_TIME)
@@ -1073,6 +1098,12 @@ def main() -> int:
     _rate(f"(a) two-kernel batch path {C_MAIN} ch x {B_TIME} blocks x "
           f"{ITERS} chained dispatches", lambda: _dispatches(state),
           ITERS * B_TIME)
+    del state
+    state = prod_rx_init_planes(fold, C_MAIN)
+    state, _ = prod_rx_batch(fold, state, noise)                 # warm-up
+    _rate(f"(d2) two-kernel batch path with mixer_fold=True {C_MAIN} ch x "
+          f"{B_TIME} blocks x {ITERS} chained dispatches",
+          lambda: _dispatches(state, fold), ITERS * B_TIME)
     del state
     cstate = prod_rx_init(cfg, (C_MAIN,))
     cstate, _ = prod_rx_stream_pallas(cfg, cstate, noise[:2])    # warm-up
@@ -1149,23 +1180,29 @@ def main() -> int:
                                                  qk),
         "frontend_decim_folded": lambda: frontend_decim(
             cfg, noise, p0r, p0i, t0r, t0i, adv, mixer_fold=True),
+        "frontend_rows_folded": lambda: frontend_rows(
+            cfg, *rows, transposed=True, mixer_fold=True),
         "extract_gate": lambda: extract_gate(cfg, dk, dprev0, lk, pk_, qk),
     }
     bounds = _kernel_bounds(cfg, C_MAIN * B_TIME, C_MAIN)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = {}
+
+    def _ffma_floor(rows_, mhz):
+        """The least ms a front-end's 2 x 1880 x 49 multiply-adds a row
+        take at ``mhz``, one a lane a clock on 128 lanes an SM."""
+        return rows_ * 2 * n * cfg.ntaps / (sms * 128 * mhz * 1e6) * 1e3
+
     for name, kern in full.items():
         ms = _time_cuda(kern, 3)
         note = ""
         if name.startswith("frontend"):
-            # the clock the card holds under this kernel, and the least
-            # time its 2 x 1880 x 49 multiply-adds a row take at that
-            # clock, one a lane a clock on 128 lanes an SM
-            mhz = _sm_clock_under(torch, kern)
-            floor = (C_MAIN * B_TIME * 2 * n * cfg.ntaps
-                     / (sms * 128 * mhz * 1e6) * 1e3)
+            # the clock the card holds under this kernel
+            mhz = clock[name] = _sm_clock_under(torch, kern)
             note = (f"; SM clock under this kernel {mhz:.0f} MHz, at which "
-                    f"its multiply-adds alone take {floor:.3f} ms on "
-                    f"{sms} SMs")
+                    f"its multiply-adds alone take "
+                    f"{_ffma_floor(C_MAIN * B_TIME, mhz):.3f} ms on {sms} "
+                    f"SMs (FFMA floor)")
         print(f"[timing] {name} at {C_MAIN} ch x {B_TIME} blocks "
               f"({C_MAIN * B_TIME} rows): kernel {ms:.3f} ms, bound "
               f"{bounds[name][0]:.3f} ms ({bounds[name][1]}){note}; "
@@ -1232,10 +1269,15 @@ def main() -> int:
         report[name]["ms"] = _time_cuda(kern, 10)
         report[name]["plain_ms"] = _time_cuda(plain, 3)
         bound_ms, bound_by = bounds[name]
+        floor = ""
+        if name in clock:
+            floor = (f", FFMA floor "
+                     f"{_ffma_floor(C_MAIN * B_KTIME, clock[name]):.4f} ms "
+                     f"at {clock[name]:.0f} MHz")
         print(f"[timing] {name} at {C_MAIN} ch x {B_KTIME} blocks: kernel "
               f"{report[name]['ms']:.3f} ms, plain "
               f"{report[name]['plain_ms']:.3f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}), no single PyTorch call computes it; "
+              f"({bound_by}){floor}, no single PyTorch call computes it; "
               f"{smi_line}", flush=True)
 
     kernels = [{"name": name, "route": "cuda", "source": src,

@@ -1,6 +1,6 @@
 // The front-end kernels: int16 PCM -> decim planes; a CUDA block works on
-// one row at a time (the premix pair's blocks are persistent and take
-// many rows in turn).
+// one row at a time (the blocks of the four decimating kernels are
+// persistent and take many rows in turn).
 //
 // K1 frontend_decim_kernel replaces the front-end stage of the Pallas
 // kernel singlecarrier_tpu/ops/fused_rx.py::_fused_rx_kernel_premix
@@ -28,7 +28,9 @@
 // f32 halo back to raw samples; the batch form takes the halo of a row
 // with b > 0 straight from the previous row's raw PCM tail (what the
 // Pallas ring holds) and un-rotates only block 0's carried seed.  They
-// share stage_raw, unrotate and folded_sums.
+// do the premix pair's multiply-adds (two sums over one plane where the
+// premix pair does one over each of two) and are laid out the same way,
+// below: stage_raw, unrotate and folded_window_sums.
 //
 // frontend_full_kernel replaces frontend_pallas.py::_kernel (:45): the
 // downmix and the full-rate 49-tap FIR, all in f32 with no bf16 rounding
@@ -41,7 +43,9 @@
 // window_sums: per row, u = [halo | z] (2 planes x 1928 f32 holding bf16
 // values) sits in shared memory, then every output y[c][p][s] = sum_k
 // w[k] * u[p][5s + c + k] in ascending k, in f32, rounded to the output
-// dtype: the plain PyTorch version's exact sequence.
+// dtype: the plain PyTorch version's exact sequence.  All four
+// decimating kernels take their sums from tap_sums and store with
+// store_task.
 //
 // Bound on the card: bytes (3.76 KB of PCM in and 7.5 KB (bf16) or 15 KB
 // (f32) out per row), but tap-order f32 sums on the CUDA cores cannot
@@ -67,7 +71,7 @@
 //     keeps a sliding part of the 49 in registers (56 registers a thread,
 //     six blocks an SM).
 //   * one instruction a multiply-add.  The build keeps -fmad=false, and
-//     the tap loop, and only it, fuses by hand (see window_sums for why
+//     the tap loop, and only it, fuses by hand (see tap_sums for why
 //     that moves no bit).
 //   * persistent blocks that send for the next row's operands (cp.async,
 //     16 bytes a thread) before they start a row's sums, so device-memory
@@ -89,16 +93,7 @@ using namespace sc;
 
 namespace {
 
-constexpr int FE_THREADS = 256;
-
-template <typename OutT>
-__device__ __forceinline__ OutT to_out(float v);
-template <>
-__device__ __forceinline__ float to_out<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 to_out<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+constexpr int FE_THREADS = 256;           // frontend_full
 
 // z = bf16(x * (p * table[t])) for the raw sample x_row[i], i = t unless
 // said otherwise, of a block entered with mixer phase (pr, pi).
@@ -138,8 +133,9 @@ constexpr int STAGE_VEC = 8;                          // samples per 16 B of PCM
 static_assert(N_SYM % WIN_SYMS == 0 && WIN_SYMS == 4 &&
               WIN_T % WIN_VEC == 0 && U_LEN % 4 == 0 &&
               N_SAMP % STAGE_VEC == 0 && HALO % STAGE_VEC == 0 &&
-              WIN_THREADS >= 2 * HALO && WIN_THREADS >= W_PAD,
-              "premix front-end geometry");
+              WIN_THREADS >= 2 * HALO && WIN_THREADS >= 2 * W_PAD &&
+              WIN_TASKS % 2 == 0,
+              "window front-end geometry");
 
 // What a block keeps in shared memory: u of the row in work, and the raw
 // operands of the row after it, which arrive while the sums run.
@@ -232,39 +228,36 @@ __device__ __forceinline__ void stage_block(PremixSmem& sm,
   }
 }
 
-// The 49-tap sums of the row in sm.u, a task a thread.  The thread slides
-// its task's window through registers: input m = 0 .. WIN_LEN - 1 is
-// loaded once and added into accumulator i with tap k = m - i wherever
-// 0 <= k < 49, so every accumulator starts from 0.f and takes its 49
-// terms in ascending k, as the plain version does.
+// acc[i] = sum_k ws[k] * up[i + k], i < WIN_T: the 49-tap sums of one
+// task, the window in shared memory at up, the taps at ws (both pairs of
+// front-ends).  The thread slides the window through registers: input
+// m = 0 .. WIN_LEN - 1 is loaded once and added into accumulator i with
+// tap k = m - i wherever 0 <= k < 49, so every accumulator starts from
+// 0.f and takes its 49 terms in ascending k, as the plain versions do.
 //
 // The multiply-add is fused by hand (-fmad=false stays the build's flag)
 // and returns the bits of the unfused one BECAUSE BOTH OPERANDS ARE bf16
-// VALUES: w[k] = bf16(2.2 taps[k]) and every u was rounded to bf16 on
-// its way into shared memory.  Their product has at most 16 significant
-// bits and is exact in f32, so fmaf(w, u, acc) = round(acc + w u) =
-// acc + round(w u).  That holds for u = 0 and wherever the product does
-// not underflow: for the taps of alpha = 0.35 (smallest 5.4e-4) for every
-// |u| > 2.35e-38, and a u made from int16 PCM by the downmix, or a tail
-// carried from one, is zero or some twenty orders of magnitude above that
-// (tests/test_torch_frontend_window.py holds both statements).  It does
-// NOT hold for f32 taps or f32 samples: not in the downmix, the halo's
-// un-rotation, the fold's rotation, or anywhere in frontend_full.
-// ROW_MAJOR writes out[row][c][p][s], else out[c][p][row][s].
-template <typename OutT, bool ROW_MAJOR>
-__device__ __forceinline__ void window_sums(const PremixSmem& sm,
-                                            OutT* __restrict__ out,
-                                            long long N, long long row,
-                                            int tid) {
-  if (tid >= WIN_TASKS) return;
-  const int p = tid / WIN_TASKS_PLANE;
-  const int j = tid - p * WIN_TASKS_PLANE;
+// VALUES: the taps are rounded to bf16 (w[k] = bf16(2.2 taps[k]), or the
+// real or imaginary part of a folded tap) and every u was rounded to
+// bf16 on its way into shared memory.  Their product has at most 16
+// significant bits and is exact in f32, so fmaf(w, u, acc) =
+// round(acc + w u) = acc + round(w u).  That holds for u = 0 and wherever
+// the product does not underflow: for the premix taps of alpha = 0.35
+// (smallest 5.4e-4) for every |u| > 2.35e-38, and a u made from int16
+// PCM by the downmix, or a tail carried from one, is zero or some twenty
+// orders of magnitude above that; for the folded taps (one is 1.5e-16)
+// for |u| >= 2^-80, and a raw sample, or a carried tail un-rotated, is
+// zero or at least 2^-15 (tests/test_torch_frontend_window.py holds
+// each statement).  It does NOT hold for f32 taps or f32 samples: not in
+// the downmix, the halo's un-rotation, the fold's rotation, or anywhere
+// in frontend_full.
+__device__ __forceinline__ void tap_sums(const float* __restrict__ ws,
+                                         const float* __restrict__ up,
+                                         float (&acc)[WIN_T]) {
   float w[W_PAD];
 #pragma unroll
   for (int k = 0; k < W_PAD; k += 4)           // broadcast loads
-    load4(&sm.w[k], &w[k]);
-  const float* up = &sm.u[p][WIN_T * j];
-  float acc[WIN_T];
+    load4(ws + k, &w[k]);
 #pragma unroll
   for (int i = 0; i < WIN_T; ++i) acc[i] = 0.f;
 #pragma unroll
@@ -280,6 +273,16 @@ __device__ __forceinline__ void window_sums(const PremixSmem& sm,
       }
     }
   }
+}
+
+// Task j's WIN_SYMS symbols of plane p in every phase c, from its WIN_T
+// full-rate outputs y: ROW_MAJOR writes out[row][c][p][s], else
+// out[c][p][row][s].
+template <typename OutT, bool ROW_MAJOR>
+__device__ __forceinline__ void store_task(OutT* __restrict__ out,
+                                           const float (&y)[WIN_T], int p,
+                                           int j, long long N,
+                                           long long row) {
 #pragma unroll
   for (int c = 0; c < CYC; ++c) {
     const int cp = 2 * c + p;
@@ -288,9 +291,24 @@ __device__ __forceinline__ void window_sums(const PremixSmem& sm,
             N_SYM + WIN_SYMS * j;
     float v[WIN_SYMS];
 #pragma unroll
-    for (int s = 0; s < WIN_SYMS; ++s) v[s] = acc[CYC * s + c];
+    for (int s = 0; s < WIN_SYMS; ++s) v[s] = y[CYC * s + c];
     store_syms(out + o, v);
   }
+}
+
+// The premix sums of the row in sm.u, a task (plane p, symbols 4j ..
+// 4j + 3) a thread.
+template <typename OutT, bool ROW_MAJOR>
+__device__ __forceinline__ void window_sums(const PremixSmem& sm,
+                                            OutT* __restrict__ out,
+                                            long long N, long long row,
+                                            int tid) {
+  if (tid >= WIN_TASKS) return;
+  const int p = tid / WIN_TASKS_PLANE;
+  const int j = tid - p * WIN_TASKS_PLANE;
+  float acc[WIN_T];
+  tap_sums(sm.w, &sm.u[p][WIN_T * j], acc);
+  store_task<OutT, ROW_MAJOR>(out, acc, p, j, N, row);
 }
 
 // Both kernels are persistent: block i takes rows i, i + gridDim.x, ..
@@ -406,16 +424,51 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
 
 // ---------------------------------------------------------- mixer fold
 
-// u[HALO + t] = bf16(x[t]): the raw block of this row.
-__device__ __forceinline__ void stage_raw(float (&u)[HALO + N_SAMP],
-                                          const int16_t* __restrict__ x_row,
-                                          float inv_scale, int tid) {
-  for (int t = tid; t < N_SAMP; t += FE_THREADS)
-    u[HALO + t] = bf16_round((float)x_row[t] * inv_scale);
+// What a folded block keeps in shared memory: the raw plane of the row in
+// work, the two tap sets and the halo un-rotation, and the raw operands
+// of the row after it.
+struct __align__(16) FoldSmem {
+  float u[U_LEN];           // [halo | bf16(x)], bf16 values
+  float w[2][W_PAD];        // real, imaginary parts of the folded taps
+  float eu[2][HALO];        // halo un-rotation: cos, sin of w(m - HALO + 1)
+  int16_t x[N_SAMP];        // PCM of the next row
+  int16_t xh[HALO];         // batch form: raw tail of row n - C
+  float tail[2][HALO];      // downmixed halo as given (rows; block 0)
+  float ph[4];              // rows: phase; batch: p0, adv^b
+};
+
+__device__ __forceinline__ void load_fold_tables(
+    FoldSmem& sm, const float* __restrict__ ctaps,
+    const float* __restrict__ unrot, int tid) {
+  if (tid < 2 * W_PAD) {
+    const int q = tid / W_PAD, k = tid - q * W_PAD;
+    sm.w[q][k] = k < NTAPS ? ctaps[q * NTAPS + k] : 0.f;
+  }
+  if (tid < 2 * HALO) sm.eu[tid / HALO][tid % HALO] = unrot[tid];
+}
+
+// sm.u[HALO + t] = bf16(x[t]): the raw block of the row whose PCM is in
+// sm.x, 8 samples a thread and step.
+__device__ __forceinline__ void stage_raw(FoldSmem& sm, float inv_scale,
+                                          int tid) {
+  for (int t = STAGE_VEC * tid; t < N_SAMP; t += STAGE_VEC * WIN_THREADS) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(&sm.x[t]);
+    const unsigned word[4] = {raw.x, raw.y, raw.z, raw.w};
+    float z[STAGE_VEC];
+#pragma unroll
+    for (int e = 0; e < STAGE_VEC; ++e)
+      z[e] = bf16_round((float)(short)(word[e >> 1] >> (16 * (e & 1))) *
+                        inv_scale);
+#pragma unroll
+    for (int e = 0; e < STAGE_VEC; e += 4)
+      *reinterpret_cast<float4*>(&sm.u[HALO + t + e]) =
+          make_float4(z[e], z[e + 1], z[e + 2], z[e + 3]);
+  }
 }
 
 // Raw sample m of a downmixed halo (t_r, t_i) carried with phase (pr, pi):
-// Re[tail * conj(phase) * e^{-jw(m - HALO + 1)}], rounded to bf16.
+// Re[tail * conj(phase) * e^{-jw(m - HALO + 1)}], rounded to bf16.  Every
+// product and sum rounded on its own: the operands are f32.
 __device__ __forceinline__ float unrotate(float t_r, float t_i, float pr,
                                           float pi, float eur, float eui) {
   const float a = t_r * pr + t_i * pi;
@@ -423,98 +476,149 @@ __device__ __forceinline__ float unrotate(float t_r, float t_i, float pr,
   return bf16_round(a * eur + b * eui);
 }
 
-// The folded decimating sums of one row: A + jB = sum_k c_k u[5s + c + k]
-// in tap order, rotated by (pr + j pi) * table[5s + c].  Output index as
-// decim_sums.
+// The folded sums of the row in sm.u.  Lanes 2j and 2j + 1 share task j
+// (WIN_SYMS symbols of the one raw plane): both slide the same window,
+// so their shared-memory loads are broadcasts, lane q against tap set q
+// (A = sum_k Re c_k u, B = sum_k Im c_k u; tap_sums).  A shuffle a
+// sum hands each lane its partner's, and each lane forms its part of the
+// rotation by (mr + j mi) = (pr + j pi) * table[t]: the even lane yr =
+// mr A - mi B, the odd lane yi = mr B + mi A, each product and sum
+// rounded on its own as the plain version rounds them (written as
+// mr own + (-/+ mi) other: a - b is a + (-b) in IEEE arithmetic).  Each
+// lane then stores its phase planes (p = q).
 template <typename OutT, bool ROW_MAJOR>
-__device__ __forceinline__ void folded_sums(
-    const float (&u)[HALO + N_SAMP], const float (&wre)[NTAPS],
-    const float (&wim)[NTAPS], const float* __restrict__ tab, float pr,
+__device__ __forceinline__ void folded_window_sums(
+    const FoldSmem& sm, const float* __restrict__ tab, bool vec, float pr,
     float pi, OutT* __restrict__ out, long long N, long long row, int tid) {
-  for (int idx = tid; idx < CYC * N_SYM; idx += FE_THREADS) {
-    const int c = idx / N_SYM;
-    const int s = idx - c * N_SYM;
-    const int t0 = CYC * s + c;
-    const float* up = u + t0;
-    float A = 0.f, B = 0.f;
+  const unsigned pairs = __ballot_sync(0xffffffffu, tid < WIN_TASKS);
+  if (tid >= WIN_TASKS) return;
+  const int j = tid >> 1, q = tid & 1;
+  float acc[WIN_T];
+  tap_sums(sm.w[q], &sm.u[WIN_T * j], acc);
+  const float* ta = tab + WIN_T * j;
 #pragma unroll
-    for (int k = 0; k < NTAPS; ++k) {
-      A = A + wre[k] * up[k];
-      B = B + wim[k] * up[k];
+  for (int i0 = 0; i0 < WIN_T; i0 += 4) {
+    float tr[4], ti[4];
+    if (vec) {
+      load4(ta + i0, tr);
+      load4(ta + N_SAMP + i0, ti);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        tr[e] = ta[i0 + e], ti[e] = ta[N_SAMP + i0 + e];
     }
-    const float ta = tab[t0], tb = tab[N_SAMP + t0];
-    const float mr = pr * ta - pi * tb;
-    const float mi = pr * tb + pi * ta;
-    const float yr = mr * A - mi * B;
-    const float yi = mr * B + mi * A;
-    const long long o =
-        ROW_MAJOR ? (row * (2 * CYC) + 2 * c) * N_SYM + s
-                  : ((long long)(2 * c) * N + row) * N_SYM + s;
-    const long long plane = ROW_MAJOR ? (long long)N_SYM : N * N_SYM;
-    out[o] = to_out<OutT>(yr);
-    out[o + plane] = to_out<OutT>(yi);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float other = __shfl_xor_sync(pairs, acc[i0 + e], 1);
+      const float mr = pr * tr[e] - pi * ti[e];
+      const float mi = pr * ti[e] + pi * tr[e];
+      acc[i0 + e] = mr * acc[i0 + e] + (q ? mi : -mi) * other;
+    }
   }
+  store_task<OutT, ROW_MAJOR>(out, acc, q, j, N, row);
 }
+
+// Both kernels are persistent, as the premix pair: the next row's
+// operands arrive while a row's sums run.
 
 template <typename OutT>
-__global__ void __launch_bounds__(FE_THREADS) frontend_decim_folded_kernel(
-    const int16_t* __restrict__ pcm, const float* __restrict__ p0r,
-    const float* __restrict__ p0i, const float* __restrict__ tail0_r,
-    const float* __restrict__ tail0_i, const float* __restrict__ adv,
-    const float* __restrict__ tab, const float* __restrict__ ctaps,
-    const float* __restrict__ unrot, OutT* __restrict__ out, int B, int C,
-    float inv_scale) {
-  __shared__ float u[HALO + N_SAMP];
-  __shared__ float wre[NTAPS], wim[NTAPS];
-  const long long row = blockIdx.x;
+__global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
+    frontend_decim_folded_kernel(
+        const int16_t* __restrict__ pcm, const float* __restrict__ p0r,
+        const float* __restrict__ p0i, const float* __restrict__ tail0_r,
+        const float* __restrict__ tail0_i, const float* __restrict__ adv,
+        const float* __restrict__ tab, const float* __restrict__ ctaps,
+        const float* __restrict__ unrot, OutT* __restrict__ out, int B,
+        int C, float inv_scale) {
+  __shared__ FoldSmem sm;
   const long long N = (long long)B * C;
-  const int b = (int)(row / C);
-  const int ch = (int)(row - (long long)b * C);
   const int tid = threadIdx.x;
-  if (tid < NTAPS) {
-    wre[tid] = ctaps[tid];
-    wim[tid] = ctaps[NTAPS + tid];
-  }
-  const float q_r = p0r[ch], q_i = p0i[ch];
-  const float a_r = adv[b], a_i = adv[B + b];
-  const float pr = q_r * a_r - q_i * a_i;
-  const float pi = q_r * a_i + q_i * a_r;
-  stage_raw(u, pcm + row * N_SAMP, inv_scale, tid);
-  if (tid < HALO) {
+  const bool vec = aligned16(pcm, tail0_r, tail0_i, tab);
+  load_fold_tables(sm, ctaps, unrot, tid);
+
+  // operands of row n: its PCM; its halo's source (block 0: the carried
+  // tail; else row n - C's raw tail); p0[ch] and adv^b
+  auto fetch_row = [&](long long row) {
+    const int b = (int)(row / C);
+    const int ch = (int)(row - (long long)b * C);
+    fetch(sm.x, pcm + row * N_SAMP, N_SAMP, vec, tid, 0);
     if (b == 0) {
-      u[tid] = unrotate(tail0_r[ch * HALO + tid], tail0_i[ch * HALO + tid],
-                        pr, pi, unrot[tid], unrot[HALO + tid]);
+      fetch(sm.tail[0], tail0_r + ch * HALO, HALO, vec, tid, 0);
+      fetch(sm.tail[1], tail0_i + ch * HALO, HALO, vec, tid, 32);
     } else {
-      u[tid] = bf16_round(
-          (float)pcm[(row - C) * N_SAMP + N_SAMP - HALO + tid] * inv_scale);
+      fetch(sm.xh, pcm + (row - C) * N_SAMP + N_SAMP - HALO, HALO, vec, tid,
+            32);
     }
+    if (tid >= 64 && tid < 68) {
+      const int i = tid - 64;
+      const float* src =
+          i < 2 ? (i == 0 ? p0r : p0i) + ch : adv + (i & 1) * B + b;
+      __pipeline_memcpy_async(&sm.ph[i], src, 4);
+    }
+    __pipeline_commit();
+  };
+
+  long long row = blockIdx.x;
+  if (row < N) fetch_row(row);
+  for (; row < N; row += gridDim.x) {
+    __pipeline_wait_prior(0);
+    __syncthreads();        // the row's operands are in; sm.u is free
+    // mixer phase entering block b: p0 * adv^b
+    const float q_r = sm.ph[0], q_i = sm.ph[1];
+    const float pr = q_r * sm.ph[2] - q_i * sm.ph[3];
+    const float pi = q_r * sm.ph[3] + q_i * sm.ph[2];
+    stage_raw(sm, inv_scale, tid);
+    const int m = tid - (WIN_THREADS - HALO);
+    if (m >= 0) {
+      sm.u[m] = row < C ? unrotate(sm.tail[0][m], sm.tail[1][m], pr, pi,
+                                   sm.eu[0][m], sm.eu[1][m])
+                        : bf16_round((float)sm.xh[m] * inv_scale);
+    }
+    __syncthreads();        // sm.u is whole; the raw operands are used up
+    if (row + gridDim.x < N) fetch_row(row + gridDim.x);
+    folded_window_sums<OutT, false>(sm, tab, vec, pr, pi, out, N, row, tid);
   }
-  __syncthreads();
-  folded_sums<OutT, false>(u, wre, wim, tab, pr, pi, out, N, row, tid);
 }
 
 template <typename OutT, bool ROW_MAJOR>
-__global__ void __launch_bounds__(FE_THREADS) frontend_rows_folded_kernel(
-    const int16_t* __restrict__ pcm, const float* __restrict__ ph_r,
-    const float* __restrict__ ph_i, const float* __restrict__ tail_r,
-    const float* __restrict__ tail_i, const float* __restrict__ tab,
-    const float* __restrict__ ctaps, const float* __restrict__ unrot,
-    OutT* __restrict__ out, long long N, float inv_scale) {
-  __shared__ float u[HALO + N_SAMP];
-  __shared__ float wre[NTAPS], wim[NTAPS];
-  const long long row = blockIdx.x;
+__global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
+    frontend_rows_folded_kernel(
+        const int16_t* __restrict__ pcm, const float* __restrict__ ph_r,
+        const float* __restrict__ ph_i, const float* __restrict__ tail_r,
+        const float* __restrict__ tail_i, const float* __restrict__ tab,
+        const float* __restrict__ ctaps, const float* __restrict__ unrot,
+        OutT* __restrict__ out, long long N, float inv_scale) {
+  __shared__ FoldSmem sm;
   const int tid = threadIdx.x;
-  if (tid < NTAPS) {
-    wre[tid] = ctaps[tid];
-    wim[tid] = ctaps[NTAPS + tid];
+  const bool vec = aligned16(pcm, tail_r, tail_i, tab);
+  load_fold_tables(sm, ctaps, unrot, tid);
+
+  auto fetch_row = [&](long long row) {
+    fetch(sm.x, pcm + row * N_SAMP, N_SAMP, vec, tid, 0);
+    fetch(sm.tail[0], tail_r + row * HALO, HALO, vec, tid, 0);
+    fetch(sm.tail[1], tail_i + row * HALO, HALO, vec, tid, 32);
+    if (tid >= 64 && tid < 66)
+      __pipeline_memcpy_async(&sm.ph[tid - 64],
+                              (tid == 64 ? ph_r : ph_i) + row, 4);
+    __pipeline_commit();
+  };
+
+  long long row = blockIdx.x;
+  if (row < N) fetch_row(row);
+  for (; row < N; row += gridDim.x) {
+    __pipeline_wait_prior(0);
+    __syncthreads();        // the row's operands are in; sm.u is free
+    const float pr = sm.ph[0], pi = sm.ph[1];
+    stage_raw(sm, inv_scale, tid);
+    const int m = tid - (WIN_THREADS - HALO);
+    if (m >= 0)
+      sm.u[m] = unrotate(sm.tail[0][m], sm.tail[1][m], pr, pi, sm.eu[0][m],
+                         sm.eu[1][m]);
+    __syncthreads();        // sm.u is whole; the raw operands are used up
+    if (row + gridDim.x < N) fetch_row(row + gridDim.x);
+    folded_window_sums<OutT, ROW_MAJOR>(sm, tab, vec, pr, pi, out, N, row,
+                                        tid);
   }
-  const float pr = ph_r[row], pi = ph_i[row];
-  stage_raw(u, pcm + row * N_SAMP, inv_scale, tid);
-  if (tid < HALO)
-    u[tid] = unrotate(tail_r[row * HALO + tid], tail_i[row * HALO + tid], pr,
-                      pi, unrot[tid], unrot[HALO + tid]);
-  __syncthreads();
-  folded_sums<OutT, ROW_MAJOR>(u, wre, wim, tab, pr, pi, out, N, row, tid);
 }
 
 // ------------------------------------------------- full-rate front-end
@@ -554,9 +658,9 @@ __global__ void __launch_bounds__(FE_THREADS) frontend_full_kernel(
   }
 }
 
-// Blocks of a persistent premix kernel for N rows: as many as the card
-// holds at once, at most one a row.
-unsigned premix_grid(long long N) {
+// Blocks of a persistent front-end kernel (premix or folded) for N rows:
+// as many as the card holds at once, at most one a row.
+unsigned persistent_grid(long long N) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -572,7 +676,7 @@ extern "C" int sc_frontend_decim(const void* pcm, const void* p0r,
                                  const void* tab, const void* taps, void* out,
                                  int B, int C, int out_bf16, float inv_scale,
                                  void* stream) {
-  const dim3 grid(premix_grid((long long)B * C));
+  const dim3 grid(persistent_grid((long long)B * C));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_bf16) {
     frontend_decim_kernel<__nv_bfloat16><<<grid, WIN_THREADS, 0, st>>>(
@@ -598,7 +702,7 @@ extern "C" int sc_frontend_rows(const void* pcm, const void* ph_r,
                                 const void* tail_i, const void* tab,
                                 const void* taps, void* out, int N,
                                 int layout, float inv_scale, void* stream) {
-  const dim3 grid(premix_grid(N));
+  const dim3 grid(persistent_grid(N));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int16_t* x = static_cast<const int16_t*>(pcm);
   const float* pr = static_cast<const float*>(ph_r);
@@ -628,7 +732,7 @@ extern "C" int sc_frontend_decim_folded(
     const void* tail0_i, const void* adv, const void* tab, const void* ctaps,
     const void* unrot, void* out, int B, int C, int out_bf16,
     float inv_scale, void* stream) {
-  const dim3 grid((unsigned)((long long)B * C));
+  const dim3 grid(persistent_grid((long long)B * C));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int16_t* x = static_cast<const int16_t*>(pcm);
   const float* pr = static_cast<const float*>(p0r);
@@ -640,11 +744,11 @@ extern "C" int sc_frontend_decim_folded(
   const float* ct = static_cast<const float*>(ctaps);
   const float* un = static_cast<const float*>(unrot);
   if (out_bf16) {
-    frontend_decim_folded_kernel<__nv_bfloat16><<<grid, FE_THREADS, 0, st>>>(
+    frontend_decim_folded_kernel<__nv_bfloat16><<<grid, WIN_THREADS, 0, st>>>(
         x, pr, pi, tr, ti, av, tb, ct, un, static_cast<__nv_bfloat16*>(out),
         B, C, inv_scale);
   } else {
-    frontend_decim_folded_kernel<float><<<grid, FE_THREADS, 0, st>>>(
+    frontend_decim_folded_kernel<float><<<grid, WIN_THREADS, 0, st>>>(
         x, pr, pi, tr, ti, av, tb, ct, un, static_cast<float*>(out), B, C,
         inv_scale);
   }
@@ -657,7 +761,7 @@ extern "C" int sc_frontend_rows_folded(
     const void* tail_i, const void* tab, const void* ctaps,
     const void* unrot, void* out, int N, int layout, float inv_scale,
     void* stream) {
-  const dim3 grid((unsigned)N);
+  const dim3 grid(persistent_grid(N));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int16_t* x = static_cast<const int16_t*>(pcm);
   const float* pr = static_cast<const float*>(ph_r);
@@ -669,15 +773,15 @@ extern "C" int sc_frontend_rows_folded(
   const float* un = static_cast<const float*>(unrot);
   if (layout == 1) {
     frontend_rows_folded_kernel<__nv_bfloat16, false>
-        <<<grid, FE_THREADS, 0, st>>>(x, pr, pi, tr, ti, tb, ct, un,
-                                      static_cast<__nv_bfloat16*>(out),
-                                      (long long)N, inv_scale);
+        <<<grid, WIN_THREADS, 0, st>>>(x, pr, pi, tr, ti, tb, ct, un,
+                                       static_cast<__nv_bfloat16*>(out),
+                                       (long long)N, inv_scale);
   } else if (layout == 2) {
-    frontend_rows_folded_kernel<float, true><<<grid, FE_THREADS, 0, st>>>(
+    frontend_rows_folded_kernel<float, true><<<grid, WIN_THREADS, 0, st>>>(
         x, pr, pi, tr, ti, tb, ct, un, static_cast<float*>(out),
         (long long)N, inv_scale);
   } else {
-    frontend_rows_folded_kernel<float, false><<<grid, FE_THREADS, 0, st>>>(
+    frontend_rows_folded_kernel<float, false><<<grid, WIN_THREADS, 0, st>>>(
         x, pr, pi, tr, ti, tb, ct, un, static_cast<float*>(out),
         (long long)N, inv_scale);
   }

@@ -8,26 +8,29 @@ Run from the root of a checkout::
 ``--other DIR`` names another ``csrc`` tree, for example a parent
 commit's (``git archive <commit> singlecarrier_tpu_torch/csrc | tar -x
 -C build/parent``).  Both trees are compiled, and ``frontend_decim``,
-``frontend_rows`` (transposed and row-major), ``hunt``,
-``extract_decode``, ``decode_extract`` and ``decode_packets`` run from
-each on ``chip_smoke.py``'s seeded operands (256 channels x 4 blocks and
-8192 x 4, golden packets among noise, at the library default, whose
-planes are f32, and the bench operating point, whose planes are bf16).
-Reported per kernel: whether the outputs are equal to the bit; if not, on
-how many rows, and for the decode kernels the largest |dcfo| and
-|deq_error| and whether any valid row's dibits differ.  Then
-``frontend_decim`` (both ``decim_dtype``s), ``frontend_rows`` (its three
-layouts), ``hunt`` and ``extract_decode`` are timed at 8192 channels x
-``--blocks`` blocks of noise in the order this, other, other, this.
+``frontend_rows`` (transposed and row-major), their mixer-folded forms
+``frontend_decim_folded`` and ``frontend_rows_folded`` (the same
+layouts), ``hunt``, ``extract_decode``, ``decode_extract`` and
+``decode_packets`` run from each on ``chip_smoke.py``'s seeded operands
+(256 channels x 4 blocks and 8192 x 4, golden packets among noise, at
+the library default, whose planes are f32, and the bench operating
+point, whose planes are bf16).  Reported per kernel: whether the outputs
+are equal to the bit; if not, on how many rows, and for the decode
+kernels the largest |dcfo| and |deq_error| and whether any valid row's
+dibits differ.  Then ``frontend_decim`` and ``frontend_decim_folded``
+(both ``decim_dtype``s), ``frontend_rows`` and ``frontend_rows_folded``
+(their three layouts), ``hunt`` and ``extract_decode`` are timed at 8192
+channels x ``--blocks`` blocks of noise in the order this, other, other,
+this.
 
 ``--stages`` compiles this tree once more with ``-DSC_STAGE_CLOCKS`` and
 prints where ``extract_decode`` spends its time: each stage's share of
 the warps' ``clock64()`` ticks, and that share of the kernel's time in
-the plain build.  It also splits ``frontend_decim`` between its staging
-(with the stores) and its tap sums, in both trees: a build whose tap
-loop forms one term of the 49 (``-DSC_FE_TAPS=1``; in a tree that does
-not know the name, a patched copy of its ``frontend.cu``) is timed beside
-the whole kernel.
+the plain build.  It also splits ``frontend_decim`` and
+``frontend_decim_folded`` between their staging (with the stores) and
+their tap sums, in both trees: a build whose tap loops form one term of
+the 49 (``-DSC_FE_TAPS=1``; in a tree that does not know the name, a
+patched copy of its ``frontend.cu``) is timed beside the whole kernel.
 
 Every line carries the card's name and power limit.  Needs a GPU.
 """
@@ -92,6 +95,12 @@ def _run_all(cfg, op):
             frontend_rows(cfg, *op["rows"], transposed=True)),
         "frontend_rows (row-major)": frontend_rows(
             cfg, *op["rows"], transposed=False).flatten(1),
+        "frontend_decim_folded": by_row(frontend_decim(
+            cfg, *op["batch"], mixer_fold=True)),
+        "frontend_rows_folded (transposed)": by_row(frontend_rows(
+            cfg, *op["rows"], transposed=True, mixer_fold=True)),
+        "frontend_rows_folded (row-major)": frontend_rows(
+            cfg, *op["rows"], transposed=False, mixer_fold=True).flatten(1),
         "hunt": torch.stack([lag.float(), ph.float(), peak], 1),
         "extract_decode": extract_decode(cfg, op["dk"], op["dprev0"], lag,
                                          ph, peak)[:, :D + 5],
@@ -130,20 +139,21 @@ def _differences(cfg, name, a, b) -> str:
 
 def _one_tap_tree(csrc: Path) -> dict:
     """Arguments of ``_build.build`` for ``csrc`` with the front-ends' tap
-    loops cut to one term: ``-DSC_FE_TAPS=1`` where ``frontend.cu`` knows
-    the name, else a copy of the tree with ``k < NTAPS`` patched."""
+    loops cut to one term: ``-DSC_FE_TAPS=1`` for a loop that knows the
+    name, and a copy of the tree in which every one-output tap loop
+    (``for (int k = 0; k < NTAPS; ++k)``, an older tree's) runs once."""
     csrc = Path(csrc)
     text = (csrc / "frontend.cu").read_text()
-    if "SC_FE_TAPS" in text:
-        return dict(csrc=csrc, defines=("SC_FE_TAPS=1",))
-    if "k < NTAPS" not in text:
+    loop = "for (int k = 0; k < NTAPS; ++k)"
+    if "SC_FE_TAPS" not in text and loop not in text:
         raise RuntimeError(f"{csrc}/frontend.cu: no tap loop to cut")
     copy = _build.BUILD_DIR / f"one_tap_{_build._digest(csrc, ())}"
     copy.mkdir(parents=True, exist_ok=True)
     for src in csrc.iterdir():
         (copy / src.name).write_bytes(src.read_bytes())
-    (copy / "frontend.cu").write_text(text.replace("k < NTAPS", "k < 1"))
-    return dict(csrc=copy)
+    (copy / "frontend.cu").write_text(
+        text.replace(loop, "for (int k = 0; k < 1; ++k)"))
+    return dict(csrc=copy, defines=("SC_FE_TAPS=1",))
 
 
 def main(argv=None) -> int:
@@ -218,6 +228,19 @@ def main(argv=None) -> int:
              lambda: frontend_rows(f32, *rows, transposed=True),
              "frontend_rows (row-major f32)":
              lambda: frontend_rows(cfg, *rows, transposed=False),
+             "frontend_decim_folded (bf16 planes)":
+             lambda: frontend_decim(cfg, *batch, mixer_fold=True),
+             "frontend_decim_folded (f32 planes)":
+             lambda: frontend_decim(f32, *batch, mixer_fold=True),
+             "frontend_rows_folded (transposed bf16)":
+             lambda: frontend_rows(cfg, *rows, transposed=True,
+                                   mixer_fold=True),
+             "frontend_rows_folded (transposed f32)":
+             lambda: frontend_rows(f32, *rows, transposed=True,
+                                   mixer_fold=True),
+             "frontend_rows_folded (row-major f32)":
+             lambda: frontend_rows(cfg, *rows, transposed=False,
+                                   mixer_fold=True),
              "hunt": lambda: hunt(cfg, dk, dprev0),
              "extract_decode": lambda: extract_decode(cfg, dk, dprev0, lag,
                                                       ph, peak)}
@@ -236,22 +259,24 @@ def main(argv=None) -> int:
         ms[name] = times[-1][1]                 # this tree's, last run
 
     if args.stages:
-        k1 = "frontend_decim (bf16 planes)"
         trees = [("this", mine, _build.CSRC)] + (
             [("other", other, args.other)] if other else [])
         for tag, lib, csrc in trees:
             one = _build.bind(_build.build(**_one_tap_tree(csrc))[0])
-            with _build.using(lib):
-                whole = cs._time_cuda(calls[k1], 3)
-            with _build.using(one):
-                staged = cs._time_cuda(calls[k1], 3)
-            print(f"[stages] {k1} of {tag} tree at {cs.C_MAIN * args.blocks} "
-                  f"rows: {whole:.3f} ms whole, {staged:.3f} ms with one "
-                  f"term of each tap sum (staging and stores), "
-                  f"{whole - staged:.3f} ms the other 48 terms; a kernel "
-                  f"that loads the next row during the sums has nothing to "
-                  f"hide those loads behind in the one-term build, which "
-                  f"then overstates the staging; {card}", flush=True)
+            for kern in ("frontend_decim (bf16 planes)",
+                         "frontend_decim_folded (bf16 planes)"):
+                with _build.using(lib):
+                    whole = cs._time_cuda(calls[kern], 3)
+                with _build.using(one):
+                    staged = cs._time_cuda(calls[kern], 3)
+                print(f"[stages] {kern} of {tag} tree at "
+                      f"{cs.C_MAIN * args.blocks} rows: {whole:.3f} ms "
+                      f"whole, {staged:.3f} ms with one term of each tap "
+                      f"sum (staging and stores), {whole - staged:.3f} ms "
+                      f"the other 48 terms; a kernel that loads the next "
+                      f"row during the sums has nothing to hide those "
+                      f"loads behind in the one-term build, which then "
+                      f"overstates the staging; {card}", flush=True)
         probe = _build.bind(_build.build(defines=("SC_STAGE_CLOCKS",))[0])
         ticks = (ctypes.c_uint64 * len(STAGES))()
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -31,7 +31,7 @@ from ..dsp.mixer import downmix_tail
 from ..ops.decode import (fused_decode, fused_decode_extract,
                           fused_hunt_decode_decim)
 from ..ops.frontend import fused_frontend, fused_frontend_decim
-from ..ops.fused_rx import check_supported, fused_rx_block
+from ..ops.fused_rx import _advances, check_supported, fused_rx_block
 
 _F32 = torch.float32
 
@@ -278,10 +278,14 @@ def _hunt_planes(cfg: ModemConfig, windows, *, col_offset: int = 0,
 
 def _hunt(cfg: ModemConfig, windows):
     """Find the (phase, lag) correlation peak of complex windows
-    [N, cyc, 2*n_sym] for the fractional-timing path (the integer paths
-    hunt planes).  Returns (lag, phase_idx, peak, frac)."""
+    [N, cyc, 2*n_sym] (the batch paths hunt planes).  Returns (lag,
+    phase_idx, peak, frac): ``frac`` is the parabolic sub-sample offset
+    with ``cfg.frac_timing``, else zero, as in the JAX package."""
     planes = torch.view_as_real(windows).permute(0, 1, 3, 2)
-    return _hunt_planes(cfg, planes, frac=True)
+    if cfg.frac_timing:
+        return _hunt_planes(cfg, planes, frac=True)
+    lag, phase_idx, peak = _hunt_planes(cfg, planes)
+    return lag, phase_idx, peak, torch.zeros_like(peak)
 
 
 def _extract_packet(cfg: ModemConfig, windows, lag, phase_idx, frac):
@@ -291,9 +295,10 @@ def _extract_packet(cfg: ModemConfig, windows, lag, phase_idx, frac):
     A (lag, phase) pair addresses absolute sample
     t0 = (lag - L//2)*cyc + phase of the time-ordered filtered stream
     s2[n*cyc + c] = windows[c, n]; the packet is the stride-``cyc`` comb
-    from t0, zero outside the stream.  Each comb sample is blended with
-    its neighbour one sample later (frac >= 0) or earlier by |frac|: a
-    2-tap fractional delay (the integer paths extract planes).
+    from t0, zero outside the stream.  With ``cfg.frac_timing`` each comb
+    sample is blended with its neighbour one sample later (frac >= 0) or
+    earlier by |frac|: a 2-tap fractional delay; without, the comb is the
+    packet (the batch paths extract planes).
     """
     cyc, off = cfg.cycles, cfg.eq_length // 2
     N = windows.shape[0]
@@ -308,6 +313,8 @@ def _extract_packet(cfg: ModemConfig, windows, lag, phase_idx, frac):
         return torch.where((idx >= 0) & (idx < T), vals, 0.0)
 
     grid = comb(0)
+    if not cfg.frac_timing:
+        return grid
     af = frac.abs().to(_F32)[:, None]
     nb = torch.where((frac >= 0)[:, None], comb(1), comb(-1))
     return grid * (1.0 - af) + nb * af
@@ -451,14 +458,11 @@ def prod_rx_batch(cfg: ModemConfig, state, pcm_frames, *,
                            fir_tail=torch.complex(ftr, fti),
                            decim_prev=_complex_planes(dlast)), out
 
-    dev = pcm_frames.device
-    # adv^b for b in [0, B]: float64 phase -> exactly-unit complex64
-    w = -2.0 * np.pi * cfg.center / cfg.fs
-    advs = np.exp(1j * w * n * np.arange(B + 1)).astype(np.complex64)
+    # adv^b for b in [0, B], uploaded once per (config, B, device)
+    advs, adv = _advances(cfg, B, pcm_frames.device)
 
     # phases[b] = phase_0 * adv^b  (planes [B, C])
-    ar = torch.from_numpy(advs.real[:B, None].copy()).to(dev)
-    ai = torch.from_numpy(advs.imag[:B, None].copy()).to(dev)
+    ar, ai = adv[0][:, None], adv[1][:, None]
     ph_r = p0r[None, :] * ar - p0i[None, :] * ai
     ph_i = p0r[None, :] * ai + p0i[None, :] * ar
 

@@ -24,7 +24,8 @@ Counterparts of ``singlecarrier_tpu/ops/decode_pallas.py``:
     packets.
 
 Each wrapper launches its CUDA kernel (``csrc/hunt.cu``,
-``csrc/decode.cu``) for tensors on the card; ``hunt_ref``,
+``csrc/decode.cu``) for tensors on the card, and refuses a numerology the
+kernels are not compiled for on either device; ``hunt_ref``,
 ``extract_decode_ref``, ``extract_gate_ref``,
 ``fused_decode_extract_ref`` and ``fused_decode_ref`` are the plain
 versions, used for CPU tensors and
@@ -169,9 +170,9 @@ def hunt(cfg: ModemConfig, decim, dprev0):
 
     Returns (lag i32 [N], phase i32 [N], peak f32 [N]).
     """
+    _build.require_kernel_geometry(cfg)
     if decim.device.type == "cpu":
         return hunt_ref(cfg, decim, dprev0)
-    _build.require_kernel_geometry(cfg)
     _check_planes(cfg, decim, dprev0)
     N, C = decim.shape[2], dprev0.shape[2]
     dev = decim.device
@@ -530,7 +531,6 @@ def extract_gate_ref(cfg: ModemConfig, decim, dprev0, lag, phase, peak):
 
 def _extract_operands(cfg: ModemConfig, decim, dprev0, lag, phase, peak):
     """Check the operands the extraction kernels share; return (N, C, out)."""
-    _build.require_kernel_geometry(cfg)
     _check_planes(cfg, decim, dprev0)
     N, C = decim.shape[2], dprev0.shape[2]
     _check_row_stats(N, lag, phase, peak)
@@ -546,6 +546,7 @@ def extract_decode(cfg: ModemConfig, decim, dprev0, lag, phase, peak, *,
     [N, frame_symbols + 8] f32 stats: descrambled dibits, matches,
     eq_error, cfo_hz, gated, energy, lag, phase, peak.
     """
+    _build.require_kernel_geometry(cfg)
     if decim.device.type == "cpu":
         return extract_decode_ref(cfg, decim, dprev0, lag, phase, peak,
                                   descramble=descramble)
@@ -568,6 +569,7 @@ def extract_gate(cfg: ModemConfig, decim, dprev0, lag, phase, peak):
     extraction and energy gate without its decode tail.  Returns the
     packed [N, frame_symbols + 8] rows, zero except gated (slot D+3),
     energy (D+4) and lag, phase, peak (D+5..D+7)."""
+    _build.require_kernel_geometry(cfg)
     if decim.device.type == "cpu":
         return extract_gate_ref(cfg, decim, dprev0, lag, phase, peak)
     dev = decim.device
@@ -713,11 +715,11 @@ def fused_decode_extract(cfg: ModemConfig, windows, lag, phase_idx, peak,
         raise TypeError(f"windows must be f32, got {windows.dtype}")
     lag, phase_idx = lag.to(torch.int32), phase_idx.to(torch.int32)
     _check_row_stats(N, lag, phase_idx, peak)
+    _build.require_kernel_geometry(cfg)
     if windows.device.type == "cpu":
         out = fused_decode_extract_ref(cfg, windows, lag, phase_idx, peak,
                                        descramble=descramble)
         return stat_dict(cfg, out, hunt=False)
-    _build.require_kernel_geometry(cfg)
     dev = windows.device
     out = torch.empty((N, cfg.frame_symbols + 8), dtype=_F32, device=dev)
     ptrs = _build.cuda_args(windows, lag, phase_idx, peak,
@@ -760,11 +762,11 @@ def fused_decode(cfg: ModemConfig, pkt_r, pkt_i, peak, *,
             raise ValueError(f"expected f32 [{N}, {cfg.pkt_window}], got "
                              f"{t.dtype} {tuple(t.shape)}")
     _check_row_stats(N, None, None, peak)
+    _build.require_kernel_geometry(cfg)
     if pkt_r.device.type == "cpu":
         out = fused_decode_ref(cfg, pkt_r, pkt_i, peak,
                                descramble=descramble)
         return stat_dict(cfg, out, hunt=False)
-    _build.require_kernel_geometry(cfg)
     dev = pkt_r.device
     out = torch.empty((N, cfg.frame_symbols + 8), dtype=_F32, device=dev)
     ptrs = _build.cuda_args(pkt_r, pkt_i, peak,

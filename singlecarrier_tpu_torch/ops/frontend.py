@@ -41,7 +41,8 @@ full-rate 49-tap filter in f32 with no bf16 rounding, [C, frame_size]
 real and imaginary outputs; its kernel wrapper is :func:`frontend_full`.
 
 Each wrapper launches its CUDA kernel (``csrc/frontend.cu``) for
-tensors on the card; ``frontend_decim_ref``, ``frontend_rows_ref``,
+tensors on the card and refuses, on either device, a config the kernel
+does not take; ``frontend_decim_ref``, ``frontend_rows_ref``,
 ``frontend_decim_folded_ref``, ``frontend_rows_folded_ref`` and
 ``frontend_full_ref`` (``fused_frontend_decim_ref`` and
 ``fused_frontend_ref`` with the state out) are the plain versions, used
@@ -231,14 +232,19 @@ def frontend_decim(cfg: ModemConfig, pcm, p0r, p0i, tail0_r, tail0_i,
 
     Returns the decim planes [cycles, 2, B*C, n_sym] in
     ``cfg.decim_dtype``; row n = b*C + ch.  ``mixer_fold`` (default
-    ``cfg.mixer_fold``) runs the mixer-folded kernel.
+    ``cfg.mixer_fold``) runs the mixer-folded kernel; its halo of block 0
+    is ``tail0`` un-rotated, and a carried tail whose un-rotated samples
+    fall below 2^-80 without being 0 is outside the kernel's contract
+    (see :func:`frontend_rows`).
+
+    A config the kernels refuse raises here for tensors on either device.
     """
     fold = cfg.mixer_fold if mixer_fold is None else mixer_fold
+    _build.require_kernel_geometry(cfg)
+    _check_rows_config(cfg)
     if pcm.device.type == "cpu":
         ref = frontend_decim_folded_ref if fold else frontend_decim_ref
         return ref(cfg, pcm, p0r, p0i, tail0_r, tail0_i, adv)
-    _build.require_kernel_geometry(cfg)
-    _check_rows_config(cfg)
     B, C, _ = pcm.shape
     if pcm.dtype != torch.int16:
         raise TypeError(f"pcm must be int16, got {pcm.dtype}")
@@ -364,14 +370,26 @@ def frontend_rows(cfg: ModemConfig, pcm, phase_r, phase_i, tail_r, tail_i,
     :func:`fused_frontend_decim`, whose arguments these are).  Returns
     the decim planes: [N, cycles, 2, n_sym] f32, or with ``transposed``
     [cycles, 2, N, n_sym] in ``cfg.decim_dtype``.  ``mixer_fold``
-    (default ``cfg.mixer_fold``) runs the mixer-folded kernel."""
+    (default ``cfg.mixer_fold``) runs the mixer-folded kernel.
+
+    The kernels fuse their tap sums (``csrc/frontend.cu::tap_sums``),
+    which returns the plain version's bits while every tap times sample
+    is exact in f32.  For the folded kernel's smallest tap that needs
+    each un-rotated halo sample to be 0 or at least 2^-80 in magnitude:
+    a tail carried from int16 PCM (``_frontend_state_out``,
+    ``downmix_tail``) and un-rotated with the phase that follows it
+    always is; a tail made otherwise that breaks the bound is outside the
+    contract, and the planes may then differ from the plain version's.
+
+    A config the kernels refuse raises here for tensors on either device.
+    """
     fold = cfg.mixer_fold if mixer_fold is None else mixer_fold
+    _build.require_kernel_geometry(cfg)
+    _check_rows_config(cfg)
     if pcm.device.type == "cpu":
         ref = frontend_rows_folded_ref if fold else frontend_rows_ref
         return ref(cfg, pcm, phase_r, phase_i, tail_r, tail_i,
                    transposed=transposed)
-    _build.require_kernel_geometry(cfg)
-    _check_rows_config(cfg)
     _check_row_operands(cfg, pcm, phase_r, phase_i, tail_r, tail_i)
     N = pcm.shape[0]
     dev = pcm.device
@@ -460,10 +478,11 @@ def frontend_full(cfg: ModemConfig, pcm, phase_r, phase_i, tail_r, tail_i):
     """Downmix + full-rate RRC matched filter of C rows, all in f32:
     y[p][t] = sum_k (taps[k] * gain) * u[p][t + k] in ascending k over
     u = [tail | downmixed block].  Returns [C, 2, frame_size] f32 (the
-    kernel of :func:`fused_frontend`, whose arguments these are)."""
+    kernel of :func:`fused_frontend`, whose arguments these are).  A
+    numerology the kernel is not compiled for raises on either device."""
+    _build.require_kernel_geometry(cfg)
     if pcm.device.type == "cpu":
         return frontend_full_ref(cfg, pcm, phase_r, phase_i, tail_r, tail_i)
-    _build.require_kernel_geometry(cfg)
     _check_row_operands(cfg, pcm, phase_r, phase_i, tail_r, tail_i)
     C, dev = pcm.shape[0], pcm.device
     out = torch.empty((C, 2, cfg.frame_size), dtype=torch.float32,

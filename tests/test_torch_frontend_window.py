@@ -21,6 +21,12 @@ tests hold, in numpy and against the port's plain versions:
     that stands for the registers; ascending k; the output index of both
     layouts; a persistent grid whose last round of rows is ragged), equal to
     ``frontend_decim_ref`` / ``frontend_rows_ref`` to the bit;
+  * the same for the mixer-folded pair (``folded_window_sums``): lanes 2j
+    and 2j + 1 share a window and sum it against the real and the
+    imaginary folded taps, swap their sums (the shuffle) and form yr and
+    yi unfused, equal to ``frontend_decim_folded_ref`` /
+    ``frontend_rows_folded_ref`` to the bit; and that an un-rotated halo
+    carried from int16 PCM is 0 or far above the folded taps' 2^-80;
   * that the sources fuse nowhere else, and that every way into the two
     kernels refuses ``frontend_dtype="f32"``.
 """
@@ -34,6 +40,7 @@ import torch
 from singlecarrier_tpu_torch import DEFAULT_CONFIG
 from singlecarrier_tpu_torch.dsp.mixer import downmix_tail
 from singlecarrier_tpu_torch.ops import _build, frontend
+from singlecarrier_tpu_torch.ops.fused_rx import _advances
 
 CPU = torch.device("cpu")
 N_SAMP, N_SYM, CYC, NTAPS, HALO = 1880, 376, 5, 49, 48
@@ -314,6 +321,188 @@ def test_rows_staged_with_the_batch_tails_equal_the_batch_staging():
                           _stage_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv))
 
 
+# ------------------------------------------------- the folded pair's loop
+
+def _bf16(x) -> np.ndarray:
+    return torch.as_tensor(x).to(torch.bfloat16).float().numpy()
+
+
+def _unrotate(cfg, tail_r, tail_i, pr, pi) -> np.ndarray:
+    """``unrotate`` of ``csrc/frontend.cu``, product by product in f32:
+    bf16(a eur + b eui), a = tr pr + ti pi, b = ti pr - tr pi."""
+    eur, eui = frontend._fold_tables(cfg, CPU)[1].numpy()
+    tr, ti = np.asarray(tail_r, np.float32), np.asarray(tail_i, np.float32)
+    pr, pi = np.float32(pr), np.float32(pi)
+    a = tr * pr + ti * pi
+    b = ti * pr - tr * pi
+    return _bf16(a * eur + b * eui)
+
+
+def _raw(cfg, x16) -> np.ndarray:
+    return _bf16(np.asarray(x16, np.float32)
+                 * np.float32(1.0 / cfg.tx_amplitude))
+
+
+def _stage_fold_rows(cfg, pcm, ph_r, ph_i, tail_r, tail_i):
+    """u [N, 1928] as ``frontend_rows_folded_kernel`` stages it."""
+    return np.stack([np.concatenate([
+        _unrotate(cfg, tail_r[r].numpy(), tail_i[r].numpy(), ph_r[r],
+                  ph_i[r]), _raw(cfg, pcm[r].numpy())])
+        for r in range(pcm.shape[0])])
+
+
+def _stage_fold_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv):
+    """(u [B*C, 1928], phase_r [B*C], phase_i [B*C]) as
+    ``frontend_decim_folded_kernel`` stages them: the phase p0 * adv^b,
+    the halo of block 0 the carried tail un-rotated, of a row with b > 0
+    row n - C's raw tail."""
+    B, C, _ = pcm.shape
+    u = np.zeros((B * C, HALO + N_SAMP), np.float32)
+    ph = np.zeros((2, B * C), np.float32)
+    for row in range(B * C):
+        b, ch = divmod(row, C)
+        pr = float(p0r[ch] * adv[0, b] - p0i[ch] * adv[1, b])
+        pi = float(p0r[ch] * adv[1, b] + p0i[ch] * adv[0, b])
+        halo = (_unrotate(cfg, t0r[ch].numpy(), t0i[ch].numpy(), pr, pi)
+                if b == 0 else _raw(cfg, pcm[b - 1, ch, N_SAMP - HALO:]))
+        u[row] = np.concatenate([halo, _raw(cfg, pcm[b, ch])])
+        ph[:, row] = pr, pi
+    return u, ph[0], ph[1]
+
+
+def _fold_window_sums(cfg, u, ph_r, ph_i, row_major: bool, geometry):
+    """``folded_window_sums`` of ``csrc/frontend.cu`` for staged rows
+    ``u`` [N, 1928] with phases ``ph_*`` [N]: block i of ``grid`` takes
+    rows i, i + grid, ..; lane l of a round takes window l // 2 against
+    tap set l % 2 and swaps sums with lane l ^ 1."""
+    syms, grid, threads = geometry
+    win_t, n_win = CYC * syms, N_SYM // syms
+    win_len = win_t + HALO
+    assert threads % 2 == 0
+    taps = frontend._fold_tables(cfg, CPU)[0].numpy()          # [2, 49]
+    tab = frontend._mixer_planes(cfg, CPU).numpy()             # [2, 1880]
+    N = u.shape[0]
+    shape = (N, CYC, 2, N_SYM) if row_major else (CYC, 2, N, N_SYM)
+    out = np.full(shape, np.nan, np.float32)
+    stores = np.zeros(shape, np.int32)
+    n_lane = 2 * n_win
+    rows_of = [range(blk, N, grid) for blk in range(min(grid, N))]
+    for row in (r for rows in rows_of for r in rows):
+        pr, pi = np.float32(ph_r[row]), np.float32(ph_i[row])
+        for first in range(0, n_lane, threads):      # one round of the loop
+            lane = np.arange(first, min(first + threads, n_lane))
+            j, q = lane // 2, lane % 2
+            w = taps[q].astype(np.float64)           # each lane its tap set
+            win = u[row, win_t * j[:, None] + np.arange(win_len)[None]]
+            acc = np.zeros((lane.size, win_t), np.float32)
+            for m in range(win_len):                 # each input once
+                for i in range(win_t):
+                    k = m - i
+                    if 0 <= k < NTAPS:
+                        acc[:, i] = (w[:, k] * win[:, m].astype(np.float64)
+                                     + acc[:, i]).astype(np.float32)
+            other = acc[np.arange(lane.size) ^ 1]    # the shuffle
+            t = win_t * j[:, None] + np.arange(win_t)[None]
+            mr = pr * tab[0][t] - pi * tab[1][t]
+            mi = pr * tab[1][t] + pi * tab[0][t]
+            y = mr * acc + np.where(q[:, None] == 1, mi, -mi) * other
+            assert y.dtype == np.float32
+            for c in range(CYC):
+                for s_ in range(syms):
+                    sym = syms * j + s_
+                    idx = ((row, c, q, sym) if row_major
+                           else (c, q, row, sym))
+                    out[idx] = y[:, CYC * s_ + c]
+                    np.add.at(stores, idx, 1)
+    assert (stores == 1).all()                       # each output once
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("geometry", GEOMETRIES, ids=lambda g: "%dx%dx%d" % g)
+@pytest.mark.parametrize("pcm_kind", ["golden", "noise"])
+@pytest.mark.parametrize("decim_dtype", ["f32", "bf16"])
+def test_fold_window_model_equals_frontend_decim_folded_ref(
+        decim_dtype, pcm_kind, geometry):
+    cfg = DEFAULT_CONFIG.replace(decim_dtype=decim_dtype)
+    B, C = 3, 2                                      # 6 rows on 4 or 7 blocks
+    pcm = torch.from_numpy(_pcm(pcm_kind, B * C, 51)).reshape(B, C, N_SAMP)
+    p0r, p0i, t0r, t0i = _state(C, 52)
+    w_ = -2.0 * np.pi * cfg.center / cfg.fs
+    advs = np.exp(1j * w_ * N_SAMP * np.arange(B)).astype(np.complex64)
+    adv = torch.from_numpy(np.stack([advs.real, advs.imag]))
+    want = frontend.frontend_decim_folded_ref(cfg, pcm, p0r, p0i, t0r, t0i,
+                                              adv)
+    u, ph_r, ph_i = _stage_fold_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv)
+    got = _fold_window_sums(cfg, u, ph_r, ph_i, False, geometry)
+    assert want.dtype == frontend._DTYPES[decim_dtype]
+    assert torch.equal(got.to(want.dtype), want)
+    assert float(want.float().abs().max()) > 0.5
+
+
+@pytest.mark.parametrize("geometry", GEOMETRIES, ids=lambda g: "%dx%dx%d" % g)
+@pytest.mark.parametrize("pcm_kind", ["golden", "noise"])
+@pytest.mark.parametrize("layout", ["transposed f32", "transposed bf16",
+                                    "row-major f32"])
+def test_fold_window_model_equals_frontend_rows_folded_ref(layout, pcm_kind,
+                                                           geometry):
+    cfg = DEFAULT_CONFIG.replace(decim_dtype=layout.split()[1])
+    transposed = layout.startswith("transposed")
+    N = 5                                            # rows on 4 or 7 blocks
+    pcm = torch.from_numpy(_pcm(pcm_kind, N, 53))
+    rows = (pcm, *_state(N, 54))
+    want = frontend.frontend_rows_folded_ref(cfg, *rows,
+                                             transposed=transposed)
+    u = _stage_fold_rows(cfg, *rows)
+    got = _fold_window_sums(cfg, u, rows[1].numpy(), rows[2].numpy(),
+                            not transposed, geometry)
+    assert torch.equal(got.to(want.dtype), want)
+
+
+@pytest.mark.parametrize("carry", ["state_out", "batch"])
+def test_unrotated_carried_halo_is_zero_or_far_above_the_fold_bound(carry):
+    """Every int16 value at every halo position, carried as a downmixed
+    tail the way the paths carry it and un-rotated with the phase that
+    follows it: the halo sample is 0 exactly where the PCM is, and else
+    at least 2^-15, so the fused folded sums (exact for |u| >= 2^-80)
+    return the plain version's bits over it.  ``state_out``: the per-row
+    front-end's new tail and normalised phase (``_frontend_state_out``,
+    the streaming paths and the one-kernel path's carried seed);
+    ``batch``: ``prod_rx_batch``'s tails of row n - C (``downmix_tail``
+    with p0 adv^(b-1)), un-rotated with p0 adv^b."""
+    cfg = DEFAULT_CONFIG
+    v = np.arange(-32768, 32768, dtype=np.int32)
+    x16 = v[(np.arange(v.size)[:, None] + 1361 * np.arange(HALO)[None])
+            % v.size].astype(np.int16)               # each column all values
+    assert all(np.unique(x16[:, m]).size == v.size for m in (0, 47))
+    x16 = torch.from_numpy(x16)
+    rng = np.random.default_rng(61)
+    lo = np.inf
+    for _ in range(3):
+        th = rng.uniform(0, 2 * np.pi, v.size)
+        p_r = torch.from_numpy(np.cos(th).astype(np.float32))
+        p_i = torch.from_numpy(np.sin(th).astype(np.float32))
+        if carry == "state_out":
+            pcm = torch.zeros((v.size, N_SAMP), dtype=torch.int16)
+            pcm[:, N_SAMP - HALO:] = x16
+            _, t_r, t_i, n_r, n_i = frontend._frontend_state_out(
+                cfg, None, pcm, p_r, p_i)
+        else:
+            a_r, a_i = _advances(cfg, 4096, CPU)[1]
+            b = torch.from_numpy(rng.integers(1, 4096, v.size))
+            s_r = p_r * a_r[b - 1] - p_i * a_i[b - 1]
+            s_i = p_r * a_i[b - 1] + p_i * a_r[b - 1]
+            n_r = p_r * a_r[b] - p_i * a_i[b]
+            n_i = p_r * a_i[b] + p_i * a_r[b]
+            x_t = x16.float() * (1.0 / cfg.tx_amplitude)
+            t_r, t_i = downmix_tail(cfg.center, cfg.fs, N_SAMP, HALO, x_t,
+                                    s_r[:, None], s_i[:, None])
+        h = frontend._unrotate(cfg, t_r, t_i, n_r[:, None], n_i[:, None])
+        h = h.float().numpy()
+        assert np.array_equal(h == 0, x16.numpy() == 0)
+        lo = min(lo, float(np.abs(h[h != 0]).min()))
+    assert lo >= 2.0 ** -15, lo
+
+
 # ------------------------------------------------- what the sources say
 
 def _code(text: str) -> str:
@@ -334,12 +523,23 @@ def test_the_kernel_geometry_is_consistent():
 
 
 def test_only_the_premix_tap_loop_fuses():
+    """The one fused multiply-add is the tap loop ``tap_sums``, and its
+    only callers are the premix pair's ``window_sums`` and the folded
+    pair's ``folded_window_sums``: never ``frontend_full``."""
     assert "-fmad=false" in _build.NVCC_FLAGS
     code = _code(SRC)
     assert code.count("__fmaf_rn(") == 1
-    body = code[code.index("void window_sums("):
-                code.index("frontend_decim_kernel(")]
+    body = code[code.index("void tap_sums("):code.index("void store_task(")]
     assert "__fmaf_rn(w[k], v[e], acc[i])" in body
+    assert len(re.findall(r"\btap_sums\(", code)) == 3     # 1 + 2 callers
+    premix = code[code.index("void window_sums("):
+                  code.index("frontend_decim_kernel(")]
+    assert "tap_sums(sm.w, &sm.u[p][WIN_T * j], acc);" in premix
+    folded = code[code.index("void folded_window_sums("):
+                  code.index("frontend_decim_folded_kernel(")]
+    assert "tap_sums(sm.w[q], &sm.u[WIN_T * j], acc);" in folded
+    full = code[code.index("frontend_full_kernel("):]
+    assert "tap_sums" not in full and "fma" not in full
     for other in ("hunt.cu", "decode.cu", "common.cuh"):
         text = _code((_build.CSRC / other).read_text())
         assert "fmaf" not in text and "__fma" not in text, other

@@ -312,6 +312,66 @@ def test_unported_paths_raise():
         _build.require_kernel_geometry(cfg)
 
 
+def _wrapper_calls():
+    """Every kernel wrapper with CPU operands of the reference shapes
+    (N = 2 rows, one block of C = 2 channels)."""
+    from singlecarrier_tpu_torch.ops import decode, frontend
+    n, halo, cyc, n_sym = 1880, 48, 5, 376
+    f32 = dict(dtype=torch.float32)
+    pcm = torch.zeros((2, n), dtype=torch.int16)
+    ph, tail = torch.ones((2,), **f32), torch.zeros((2, halo), **f32)
+    adv = torch.tensor([[1.0], [0.0]])
+    planes = torch.zeros((cyc, 2, 2, n_sym), **f32)
+    lag = torch.zeros((2,), dtype=torch.int32)
+    peak = torch.ones((2,), **f32)
+    wins = torch.zeros((2, cyc, 2, 768), **f32)
+    pkt = torch.zeros((2, 384), **f32)
+    rows = (pcm, ph, ph, tail, tail)
+    batch = (pcm[None], ph, ph, tail, tail, adv)
+    return {
+        "frontend_decim": lambda c: frontend.frontend_decim(c, *batch),
+        "frontend_decim folded": lambda c: frontend.frontend_decim(
+            c, *batch, mixer_fold=True),
+        "frontend_rows": lambda c: frontend.frontend_rows(c, *rows),
+        "frontend_rows folded": lambda c: frontend.frontend_rows(
+            c, *rows, mixer_fold=True),
+        "frontend_full": lambda c: frontend.frontend_full(c, *rows),
+        "hunt": lambda c: decode.hunt(c, planes, planes),
+        "extract_decode": lambda c: decode.extract_decode(
+            c, planes, planes, lag, lag, peak),
+        "extract_gate": lambda c: decode.extract_gate(
+            c, planes, planes, lag, lag, peak),
+        "fused_decode_extract": lambda c: decode.fused_decode_extract(
+            c, wins, lag, lag, peak),
+        "fused_decode": lambda c: decode.fused_decode(c, pkt, pkt, peak),
+    }
+
+
+_DECIMATING = ("frontend_decim", "frontend_decim folded", "frontend_rows",
+               "frontend_rows folded")
+
+
+@pytest.mark.parametrize("wrapper,refused", [
+    *((w, "frontend_dtype=f32") for w in _DECIMATING),
+    *((w, "corr_segments=4") for w in (*_DECIMATING, "frontend_full", "hunt",
+                                       "extract_decode", "extract_gate",
+                                       "fused_decode_extract",
+                                       "fused_decode")),
+])
+def test_wrappers_refuse_on_the_cpu_what_the_card_refuses(wrapper, refused):
+    """A config the kernel refuses raises for CPU tensors too, before
+    the plain version runs: ``frontend_dtype="f32"`` (the decimating
+    kernels round to bf16 and fuse their tap sums) and a numerology the
+    kernels are not compiled for."""
+    knob, value = refused.split("=")
+    cfg = TCFG.replace(**{knob: value if knob == "frontend_dtype"
+                          else int(value)})
+    call = _wrapper_calls()[wrapper]
+    call(TCFG)                                   # the operands are right
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        call(cfg)
+
+
 def test_cpu_tensors_take_the_plain_path():
     """CPU tensors go through the plain versions: no kernel is built or
     launched, and the counters stay at 0."""

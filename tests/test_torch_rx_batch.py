@@ -27,7 +27,8 @@ from singlecarrier_tpu.modem import tx_stream
 from singlecarrier_tpu.modem import rx_production as jrx
 from singlecarrier_tpu_torch.interop import (config_from_dict,
                                              planes_from_numpy)
-from singlecarrier_tpu_torch.modem import prod_rx_batch
+from singlecarrier_tpu_torch.modem import prod_rx_batch, prod_rx_init_planes
+from singlecarrier_tpu_torch.ops.fused_rx import _advances
 
 BENCH = CFG.replace(decim_dtype="bf16", hunt_dtype="int8",
                     ls_refit_symbols=128)
@@ -139,3 +140,29 @@ def test_noisy_random_stream_matches_jax_and_decodes(cfg):
     sent = bits.reshape(3, CFG.bits_per_frame)
     for c in range(C):
         assert np.array_equal(got[:, c][valid[:, c]], sent)
+
+
+def test_two_kernel_path_takes_the_cached_advances():
+    """``prod_rx_batch(fuse_frontend=False)`` takes its adv^b planes from
+    ``ops.fused_rx._advances`` (uploaded once per config, B and device),
+    not from a table built and copied per call, and its outputs and state
+    are the one-kernel path's on the same frames."""
+    tcfg = config_from_dict(dataclasses.asdict(BENCH))
+    rng = np.random.default_rng(23)
+    frames = torch.from_numpy(rng.integers(-16384, 16384, (3, 2,
+                                                           CFG.frame_size),
+                                           dtype=np.int16))
+    frames[1, 0, 400:400 + 600] = 0                 # some silence too
+    _advances.cache_clear()
+    st = prod_rx_init_planes(tcfg, 2, "cpu")
+    outs = []
+    for _ in range(2):
+        st, out = prod_rx_batch(tcfg, st, frames)
+        outs.append((st, out))
+    info = _advances.cache_info()
+    assert info.misses == 1 and info.hits >= 1
+    st = prod_rx_init_planes(tcfg, 2, "cpu")
+    for st_two, out_two in outs:
+        st, out = prod_rx_batch(tcfg, st, frames, fuse_frontend=True)
+        for a, b in zip((*st_two, *out_two), (*st, *out)):
+            assert torch.equal(a, b)

@@ -148,6 +148,47 @@ def test_hunt_and_blended_extraction_match_jax_on_the_same_windows():
     assert torch.equal(torch.view_as_real(grid).permute(0, 2, 1), want)
 
 
+@pytest.mark.parametrize("frac_timing", [False, True])
+def test_hunt_and_extraction_follow_frac_timing_as_jax(frac_timing):
+    """``_hunt`` returns a zero ``frac`` and ``_extract_packet`` the plain
+    comb when ``cfg.frac_timing`` is off, as the JAX functions do; with
+    it on, the parabola and the blend."""
+    frames, _ = _frames(seed=14, n_packets=1)
+    wins = _windows(frames).reshape(-1, CFG.cycles,
+                                    2 * CFG.symbols_per_block)
+    cfg = CFG.replace(frac_timing=frac_timing)
+    tcfg = interop.config_from_dict(dataclasses.asdict(cfg))
+    lag_j, ph_j, peak_j, frac_j = (np.array(a) for a in
+                                   jrx._hunt(cfg, jnp.asarray(wins)))
+    lag_t, ph_t, peak_t, frac_t = trx._hunt(tcfg, torch.from_numpy(wins))
+    det = peak_j > 0.5 * peak_j.max()            # rows holding a preamble
+    assert det.sum() >= C
+    assert np.array_equal(lag_t.numpy()[det], lag_j[det])
+    assert np.array_equal(ph_t.numpy()[det], ph_j[det])
+    assert frac_t.dtype == torch.float32 and frac_t.shape == peak_t.shape
+    if frac_timing:
+        assert np.abs(frac_t.numpy()[det] - frac_j[det]).max() < 1e-3
+        assert np.abs(frac_j[det]).max() > 0.05
+    else:
+        assert not frac_j.any() and not frac_t.any()
+    pkt_j = np.asarray(jax.vmap(
+        lambda w, l, p, f: jrx._extract_packet(cfg, w, l, p, f))(
+            jnp.asarray(wins), jnp.asarray(lag_j), jnp.asarray(ph_j),
+            jnp.asarray(frac_j)))
+    pkt_t = trx._extract_packet(
+        tcfg, torch.from_numpy(wins), torch.from_numpy(lag_j),
+        torch.from_numpy(ph_j), torch.from_numpy(frac_j)).numpy()
+    if frac_timing:
+        assert np.abs(pkt_t - pkt_j).max() < 1e-6
+    else:
+        assert np.array_equal(pkt_t, pkt_j)
+        # the comb only: a frac handed in is not blended in
+        assert np.array_equal(trx._extract_packet(
+            tcfg, torch.from_numpy(wins), torch.from_numpy(lag_j),
+            torch.from_numpy(ph_j), torch.full_like(frac_t, 0.4)).numpy(),
+            pkt_j)
+
+
 def test_unfused_decode_still_raises():
     tcfg = interop.config_from_dict(dataclasses.asdict(FRAC))
     with pytest.raises(NotImplementedError, match="fuse_decode"):
