@@ -37,14 +37,16 @@
 // anywhere, y[p][t] = sum_k (taps[k] * gain) * u[p][t + k] in ascending k
 // -> [N][2][N_SAMP] f32.  3.76 KB in and 15 KB out per row against
 // 49 x 3760 f32 multiply-adds: on paper the byte and the operation terms
-// of its bound nearly meet.
+// of its bound nearly meet.  It is laid out as the premix pair below, with
+// the premix pair's operands, but nothing is rounded and nothing fuses
+// (see its own comment).
 //
 // The premix pair shares stage_block (downmix into shared memory) and
 // window_sums: per row, u = [halo | z] (2 planes x 1928 f32 holding bf16
 // values) sits in shared memory, then every output y[c][p][s] = sum_k
 // w[k] * u[p][5s + c + k] in ascending k, in f32, rounded to the output
 // dtype: the plain PyTorch version's exact sequence.  All four
-// decimating kernels take their sums from tap_sums and store with
+// decimating kernels take their sums from tap_sums<true> and store with
 // store_task.
 //
 // Bound on the card: bytes (3.76 KB of PCM in and 7.5 KB (bf16) or 15 KB
@@ -71,8 +73,8 @@
 //     keeps a sliding part of the 49 in registers (56 registers a thread,
 //     six blocks an SM).
 //   * one instruction a multiply-add.  The build keeps -fmad=false, and
-//     the tap loop, and only it, fuses by hand (see tap_sums for why
-//     that moves no bit).
+//     the decimating tap loop, and only it, fuses by hand (see tap_sums
+//     for why that moves no bit).
 //   * persistent blocks that send for the next row's operands (cp.async,
 //     16 bytes a thread) before they start a row's sums, so device-memory
 //     latency hides behind the multiply-adds; staging from 16 bytes of
@@ -92,8 +94,6 @@
 using namespace sc;
 
 namespace {
-
-constexpr int FE_THREADS = 256;           // frontend_full
 
 // z = bf16(x * (p * table[t])) for the raw sample x_row[i], i = t unless
 // said otherwise, of a block entered with mixer phase (pr, pi).
@@ -140,8 +140,8 @@ static_assert(N_SYM % WIN_SYMS == 0 && WIN_SYMS == 4 &&
 // What a block keeps in shared memory: u of the row in work, and the raw
 // operands of the row after it, which arrive while the sums run.
 struct __align__(16) PremixSmem {
-  float u[2][U_LEN];        // [halo | z], bf16 values
-  float w[W_PAD];           // taps
+  float u[2][U_LEN];        // [halo | z], bf16 values (frontend_full: f32)
+  float w[W_PAD];           // taps (frontend_full: times the gain)
   int16_t x[N_SAMP];        // PCM of the next row
   int16_t xh[HALO];         // batch form: raw tail of row n - C
   float tail[2][HALO];      // downmixed halo as given (rows; block 0)
@@ -191,7 +191,9 @@ __device__ __forceinline__ void fetch(T* dst, const T* __restrict__ src,
 }
 
 // sm.u[.][HALO + t] = downmixed block of the row whose PCM is in sm.x,
-// entered with mixer phase (pr, pi): 8 samples a thread and step.
+// entered with mixer phase (pr, pi), rounded to bf16 (ROUND: the premix
+// pair) or left in f32 (frontend_full): 8 samples a thread and step.
+template <bool ROUND>
 __device__ __forceinline__ void stage_block(PremixSmem& sm,
                                             const float* __restrict__ tab,
                                             bool vec, float pr, float pi,
@@ -215,8 +217,12 @@ __device__ __forceinline__ void stage_block(PremixSmem& sm,
     for (int e = 0; e < STAGE_VEC; ++e) {
       const short s = (short)(word[e >> 1] >> (16 * (e & 1)));
       const float x = (float)s * inv_scale;
-      zr[e] = bf16_round(x * (pr * tr[e] - pi * ti[e]));
-      zi[e] = bf16_round(x * (pr * ti[e] + pi * tr[e]));
+      zr[e] = x * (pr * tr[e] - pi * ti[e]);
+      zi[e] = x * (pr * ti[e] + pi * tr[e]);
+      if constexpr (ROUND) {
+        zr[e] = bf16_round(zr[e]);
+        zi[e] = bf16_round(zi[e]);
+      }
     }
 #pragma unroll
     for (int e = 0; e < STAGE_VEC; e += 4) {
@@ -229,28 +235,32 @@ __device__ __forceinline__ void stage_block(PremixSmem& sm,
 }
 
 // acc[i] = sum_k ws[k] * up[i + k], i < WIN_T: the 49-tap sums of one
-// task, the window in shared memory at up, the taps at ws (both pairs of
-// front-ends).  The thread slides the window through registers: input
+// task, the window in shared memory at up, the taps at ws (every
+// front-end).  The thread slides the window through registers: input
 // m = 0 .. WIN_LEN - 1 is loaded once and added into accumulator i with
 // tap k = m - i wherever 0 <= k < 49, so every accumulator starts from
 // 0.f and takes its 49 terms in ascending k, as the plain versions do.
 //
-// The multiply-add is fused by hand (-fmad=false stays the build's flag)
-// and returns the bits of the unfused one BECAUSE BOTH OPERANDS ARE bf16
-// VALUES: the taps are rounded to bf16 (w[k] = bf16(2.2 taps[k]), or the
-// real or imaginary part of a folded tap) and every u was rounded to
-// bf16 on its way into shared memory.  Their product has at most 16
-// significant bits and is exact in f32, so fmaf(w, u, acc) =
-// round(acc + w u) = acc + round(w u).  That holds for u = 0 and wherever
-// the product does not underflow: for the premix taps of alpha = 0.35
-// (smallest 5.4e-4) for every |u| > 2.35e-38, and a u made from int16
-// PCM by the downmix, or a tail carried from one, is zero or some twenty
-// orders of magnitude above that; for the folded taps (one is 1.5e-16)
-// for |u| >= 2^-80, and a raw sample, or a carried tail un-rotated, is
-// zero or at least 2^-15 (tests/test_torch_frontend_window.py holds
-// each statement).  It does NOT hold for f32 taps or f32 samples: not in
-// the downmix, the halo's un-rotation, the fold's rotation, or anywhere
-// in frontend_full.
+// FUSED (the four decimating front-ends): the multiply-add is fused by
+// hand (-fmad=false stays the build's flag) and returns the bits of the
+// unfused one BECAUSE BOTH OPERANDS ARE bf16 VALUES: the taps are rounded
+// to bf16 (w[k] = bf16(2.2 taps[k]), or the real or imaginary part of a
+// folded tap) and every u was rounded to bf16 on its way into shared
+// memory.  Their product has at most 16 significant bits and is exact in
+// f32, so fmaf(w, u, acc) = round(acc + w u) = acc + round(w u).  That
+// holds for u = 0 and wherever the product does not underflow: for the
+// premix taps of alpha = 0.35 (smallest 5.4e-4) for every |u| > 2.35e-38,
+// and a u made from int16 PCM by the downmix, or a tail carried from one,
+// is zero or some twenty orders of magnitude above that; for the folded
+// taps (one is 1.5e-16) for |u| >= 2^-80, and a raw sample, or a carried
+// tail un-rotated, is zero or at least 2^-15
+// (tests/test_torch_frontend_window.py holds each statement).  It does
+// NOT hold for f32 taps or f32 samples: not in the downmix, the halo's
+// un-rotation, the fold's rotation, or in frontend_full, which takes the
+// loop unfused (FUSED false): each product and each sum rounded on its
+// own by __fmul_rn and __fadd_rn, which no build flag contracts, so two
+// FP32 instructions a term where the fused loop issues one.
+template <bool FUSED>
 __device__ __forceinline__ void tap_sums(const float* __restrict__ ws,
                                          const float* __restrict__ up,
                                          float (&acc)[WIN_T]) {
@@ -269,7 +279,12 @@ __device__ __forceinline__ void tap_sums(const float* __restrict__ ws,
 #pragma unroll
       for (int i = 0; i < WIN_T; ++i) {
         const int k = m0 + e - i;
-        if (k >= 0 && k < SC_FE_TAPS) acc[i] = __fmaf_rn(w[k], v[e], acc[i]);
+        if (k >= 0 && k < SC_FE_TAPS) {
+          if constexpr (FUSED)
+            acc[i] = __fmaf_rn(w[k], v[e], acc[i]);
+          else
+            acc[i] = __fadd_rn(acc[i], __fmul_rn(w[k], v[e]));
+        }
       }
     }
   }
@@ -307,7 +322,7 @@ __device__ __forceinline__ void window_sums(const PremixSmem& sm,
   const int p = tid / WIN_TASKS_PLANE;
   const int j = tid - p * WIN_TASKS_PLANE;
   float acc[WIN_T];
-  tap_sums(sm.w, &sm.u[p][WIN_T * j], acc);
+  tap_sums<true>(sm.w, &sm.u[p][WIN_T * j], acc);
   store_task<OutT, ROW_MAJOR>(out, acc, p, j, N, row);
 }
 
@@ -361,7 +376,7 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
     const float q_r = sm.ph[0], q_i = sm.ph[1];
     const float pr = q_r * sm.ph[2] - q_i * sm.ph[3];
     const float pi = q_r * sm.ph[3] + q_i * sm.ph[2];
-    stage_block(sm, tab, vec, pr, pi, inv_scale, tid);
+    stage_block<true>(sm, tab, vec, pr, pi, inv_scale, tid);
     const int m = tid - (WIN_THREADS - HALO);
     if (m >= 0) {
       if (row < C) {
@@ -410,7 +425,7 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
   for (; row < N; row += gridDim.x) {
     __pipeline_wait_prior(0);
     __syncthreads();        // the row's operands are in; sm.u is free
-    stage_block(sm, tab, vec, sm.ph[0], sm.ph[1], inv_scale, tid);
+    stage_block<true>(sm, tab, vec, sm.ph[0], sm.ph[1], inv_scale, tid);
     const int m = tid - (WIN_THREADS - HALO);
     if (m >= 0) {
       sm.u[0][m] = bf16_round(sm.tail[0][m]);
@@ -494,7 +509,7 @@ __device__ __forceinline__ void folded_window_sums(
   if (tid >= WIN_TASKS) return;
   const int j = tid >> 1, q = tid & 1;
   float acc[WIN_T];
-  tap_sums(sm.w[q], &sm.u[WIN_T * j], acc);
+  tap_sums<true>(sm.w[q], &sm.u[WIN_T * j], acc);
   const float* ta = tab + WIN_T * j;
 #pragma unroll
   for (int i0 = 0; i0 < WIN_T; i0 += 4) {
@@ -623,42 +638,113 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
 
 // ------------------------------------------------- full-rate front-end
 
-__global__ void __launch_bounds__(FE_THREADS) frontend_full_kernel(
-    const int16_t* __restrict__ pcm, const float* __restrict__ ph_r,
-    const float* __restrict__ ph_i, const float* __restrict__ tail_r,
-    const float* __restrict__ tail_i, const float* __restrict__ tab,
-    const float* __restrict__ taps, float* __restrict__ out,
-    float inv_scale, float gain) {
-  __shared__ float u[2][HALO + N_SAMP];
-  __shared__ float w[NTAPS];
-  const long long row = blockIdx.x;
-  const int tid = threadIdx.x;
-  if (tid < NTAPS) w[tid] = taps[tid] * gain;
-  const float pr = ph_r[row], pi = ph_i[row];
-  const int16_t* x_row = pcm + row * N_SAMP;
-  for (int t = tid; t < N_SAMP; t += FE_THREADS) {
-    const float x = (float)x_row[t] * inv_scale;
-    const float tr = tab[t], ti = tab[N_SAMP + t];
-    u[0][HALO + t] = x * (pr * tr - pi * ti);
-    u[1][HALO + t] = x * (pr * ti + pi * tr);
-  }
-  if (tid < HALO) {
-    u[0][tid] = tail_r[row * HALO + tid];
-    u[1][tid] = tail_i[row * HALO + tid];
-  }
-  __syncthreads();
-  for (int idx = tid; idx < 2 * N_SAMP; idx += FE_THREADS) {
-    const int p = idx / N_SAMP;
-    const int t = idx - p * N_SAMP;
-    const float* up = u[p] + t;
-    float acc = 0.f;
+// frontend_full_kernel is laid out as the premix pair, and its function
+// is theirs without a rounding: f32 samples, f32 taps, f32 sums.
+//
+//   * Bound: 3.76 KB in and 15 KB out a row (bytes 0.1877 ms at 32,768
+//     rows) and 184,240 multiply-adds a row.  Unfused they are 368,480
+//     FP32 instructions, FMUL and FADD, which 132 SMs x 128 lanes issue
+//     in 0.361 ms at 32,768 rows at 1.98 GHz: twice the decimating four's
+//     FFMA floor, and what binds.
+//   * Persistent blocks of WIN_THREADS threads, WIN_BLOCKS_SM an SM
+//     (persistent_grid); after the barrier that ends a row's staging the
+//     block sends for the next row's PCM, halo and phase with cp.async,
+//     as frontend_rows_kernel (frontend.cu:400-438) does with the same
+//     operands.
+//   * Staging unrounded: stage_block<false> (frontend.cu:196-235), 16
+//     bytes of PCM and 2 x 32 bytes of mixer table a thread, into
+//     u[2][1928] f32 in shared memory; the halo copied as given.
+//   * The taps w_k = taps[k] * gain formed once a block in shared memory,
+//     not rounded.
+//   * The window in registers, unfused: a thread a task of WIN_SYMS
+//     symbols = WIN_T consecutive full-rate outputs of one plane from
+//     WIN_LEN inputs, 188 tasks a row on 192 threads, through
+//     tap_sums<false> (frontend.cu:263-291): each product and each sum
+//     rounded on its own, from 0.f in ascending k.  The f32 products are
+//     not exact, so a fused multiply-add would return other bits
+//     (tests/test_torch_frontend_window.py holds the counter-case).
+//   * Stores through shared memory.  A task's WIN_T outputs go to a row
+//     buffer y in shared memory (five float4 writes, tasks 20 floats
+//     apart: no bank conflict); after a barrier the block writes the
+//     row's 15,040 contiguous bytes of the row-major [N][2][N_SAMP]
+//     output 16 bytes a thread, a warp's 512 bytes together, with __stcg
+//     (plain stores took the row-major f32 planes of frontend_rows twice
+//     the time).  Five float4 stores straight from the registers, 80
+//     bytes apart across a warp, doubled the staging-and-stores time of
+//     kernel_ab --stages and cost the whole kernel some 2%.
+//   * Six blocks an SM: 53 registers a thread and 34,944 bytes of shared
+//     memory a block (ptxas -v), under the 56 and the 227 KB / 6 that
+//     allows; no spill.
+
+// What a full-rate block keeps in shared memory: the premix pair's
+// operands, and the row's outputs on their way to device memory.
+struct __align__(16) FullSmem {
+  PremixSmem in;
+  float y[2 * N_SAMP];      // [p][t] of the row in work
+};
+
+// The sums of the row in sm.in.u, a task (plane p, outputs WIN_T j ..
+// WIN_T j + WIN_T - 1) a thread, into sm.y: task tid's outputs are
+// floats WIN_T tid .. of the row, 20 floats apart a thread, so the
+// float4 writes of a quarter warp take every bank once.
+__device__ __forceinline__ void full_window_sums(FullSmem& sm, int tid) {
+  if (tid >= WIN_TASKS) return;
+  const int p = tid / WIN_TASKS_PLANE;
+  const int j = tid - p * WIN_TASKS_PLANE;
+  float acc[WIN_T];
+  tap_sums<false>(sm.in.w, &sm.in.u[p][WIN_T * j], acc);
+  float* y = sm.y + WIN_T * tid;
 #pragma unroll
-    for (int k = 0; k < NTAPS; ++k) acc = acc + w[k] * up[k];
-    out[row * (2 * N_SAMP) + idx] = acc;
+  for (int i = 0; i < WIN_T; i += 4)
+    *reinterpret_cast<float4*>(y + i) =
+        make_float4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]);
+}
+
+__global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
+    frontend_full_kernel(
+        const int16_t* __restrict__ pcm, const float* __restrict__ ph_r,
+        const float* __restrict__ ph_i, const float* __restrict__ tail_r,
+        const float* __restrict__ tail_i, const float* __restrict__ tab,
+        const float* __restrict__ taps, float* __restrict__ out,
+        long long N, float inv_scale, float gain) {
+  __shared__ FullSmem sm;
+  PremixSmem& in = sm.in;
+  const int tid = threadIdx.x;
+  const bool vec = aligned16(pcm, tail_r, tail_i, tab);
+  if (tid < W_PAD) in.w[tid] = tid < NTAPS ? taps[tid] * gain : 0.f;
+
+  auto fetch_row = [&](long long row) {
+    fetch(in.x, pcm + row * N_SAMP, N_SAMP, vec, tid, 0);
+    fetch(in.tail[0], tail_r + row * HALO, HALO, vec, tid, 0);
+    fetch(in.tail[1], tail_i + row * HALO, HALO, vec, tid, 32);
+    if (tid >= 64 && tid < 66)
+      __pipeline_memcpy_async(&in.ph[tid - 64],
+                              (tid == 64 ? ph_r : ph_i) + row, 4);
+    __pipeline_commit();
+  };
+
+  long long row = blockIdx.x;
+  if (row < N) fetch_row(row);
+  for (; row < N; row += gridDim.x) {
+    __pipeline_wait_prior(0);
+    __syncthreads();        // the row's operands are in; u and y are free
+    stage_block<false>(in, tab, vec, in.ph[0], in.ph[1], inv_scale, tid);
+    const int m = tid - (WIN_THREADS - HALO);
+    if (m >= 0) {
+      in.u[0][m] = in.tail[0][m];
+      in.u[1][m] = in.tail[1][m];
+    }
+    __syncthreads();        // u is whole; the raw operands are used up
+    if (row + gridDim.x < N) fetch_row(row + gridDim.x);
+    full_window_sums(sm, tid);
+    __syncthreads();        // y is whole
+    float4* o = reinterpret_cast<float4*>(out + row * (2 * N_SAMP));
+    const float4* y = reinterpret_cast<const float4*>(sm.y);
+    for (int q = tid; q < 2 * N_SAMP / 4; q += WIN_THREADS) __stcg(o + q, y[q]);
   }
 }
 
-// Blocks of a persistent front-end kernel (premix or folded) for N rows:
+// Blocks of a persistent front-end kernel for N rows:
 // as many as the card holds at once, at most one a row.
 unsigned persistent_grid(long long N) {
   int dev = 0, sms = 0;
@@ -793,12 +879,12 @@ extern "C" int sc_frontend_full(const void* pcm, const void* ph_r,
                                 const void* tail_i, const void* tab,
                                 const void* taps, void* out, int N,
                                 float inv_scale, float gain, void* stream) {
-  frontend_full_kernel<<<dim3((unsigned)N), FE_THREADS, 0,
+  frontend_full_kernel<<<persistent_grid(N), WIN_THREADS, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(pcm), static_cast<const float*>(ph_r),
       static_cast<const float*>(ph_i), static_cast<const float*>(tail_r),
       static_cast<const float*>(tail_i), static_cast<const float*>(tab),
-      static_cast<const float*>(taps), static_cast<float*>(out), inv_scale,
-      gain);
+      static_cast<const float*>(taps), static_cast<float*>(out),
+      (long long)N, inv_scale, gain);
   return (int)cudaGetLastError();
 }

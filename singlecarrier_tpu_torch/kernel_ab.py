@@ -10,27 +10,31 @@ commit's (``git archive <commit> singlecarrier_tpu_torch/csrc | tar -x
 -C build/parent``).  Both trees are compiled, and ``frontend_decim``,
 ``frontend_rows`` (transposed and row-major), their mixer-folded forms
 ``frontend_decim_folded`` and ``frontend_rows_folded`` (the same
-layouts), ``hunt``, ``extract_decode``, ``decode_extract`` and
-``decode_packets`` run from each on ``chip_smoke.py``'s seeded operands
-(256 channels x 4 blocks and 8192 x 4, golden packets among noise, at
+layouts), ``frontend_full``, ``hunt``, ``extract_decode``,
+``decode_extract`` and ``decode_packets`` run from each on
+``chip_smoke.py``'s seeded operands (256 channels x 4 blocks and 8192
+x 4, golden packets among noise, at
 the library default, whose planes are f32, and the bench operating
 point, whose planes are bf16).  Reported per kernel: whether the outputs
 are equal to the bit; if not, on how many rows, and for the decode
 kernels the largest |dcfo| and |deq_error| and whether any valid row's
 dibits differ.  Then ``frontend_decim`` and ``frontend_decim_folded``
 (both ``decim_dtype``s), ``frontend_rows`` and ``frontend_rows_folded``
-(their three layouts), ``hunt`` and ``extract_decode`` are timed at 8192
-channels x ``--blocks`` blocks of noise in the order this, other, other,
-this.
+(their three layouts), ``frontend_full``, ``hunt`` and
+``extract_decode`` are timed at 8192 channels x ``--blocks`` blocks of
+noise in the order this, other, other, this, and ``frontend_full`` also
+at 8192 x 4 rows, beside its FMUL + FADD floor at the SM clock read
+under it.
 
 ``--stages`` compiles this tree once more with ``-DSC_STAGE_CLOCKS`` and
 prints where ``extract_decode`` spends its time: each stage's share of
 the warps' ``clock64()`` ticks, and that share of the kernel's time in
-the plain build.  It also splits ``frontend_decim`` and
-``frontend_decim_folded`` between their staging (with the stores) and
-their tap sums, in both trees: a build whose tap loops form one term of
-the 49 (``-DSC_FE_TAPS=1``; in a tree that does not know the name, a
-patched copy of its ``frontend.cu``) is timed beside the whole kernel.
+the plain build.  It also splits ``frontend_decim``,
+``frontend_decim_folded`` and ``frontend_full`` between their staging
+(with the stores) and their tap sums, in both trees: a build whose tap
+loops form one term of the 49 (``-DSC_FE_TAPS=1``; a one-output tap
+loop, which does not know the name, cut in a patched copy of the tree's
+``frontend.cu``) is timed beside the whole kernel.
 
 Every line carries the card's name and power limit.  Needs a GPU.
 """
@@ -52,7 +56,7 @@ from .modem.rx_production import _extract_packet_planes
 from .ops import _build
 from .ops.decode import (extract_decode, fused_decode, fused_decode_extract,
                          hunt)
-from .ops.frontend import frontend_decim, frontend_rows
+from .ops.frontend import frontend_decim, frontend_full, frontend_rows
 
 STAGES = ("extraction", "CFO DFT", "CFO peak", "derotation", "train",
           "refit", "refine", "descramble + output")
@@ -101,6 +105,7 @@ def _run_all(cfg, op):
             cfg, *op["rows"], transposed=True, mixer_fold=True)),
         "frontend_rows_folded (row-major)": frontend_rows(
             cfg, *op["rows"], transposed=False, mixer_fold=True).flatten(1),
+        "frontend_full": frontend_full(cfg, *op["rows"]).flatten(1),
         "hunt": torch.stack([lag.float(), ph.float(), peak], 1),
         "extract_decode": extract_decode(cfg, op["dk"], op["dprev0"], lag,
                                          ph, peak)[:, :D + 5],
@@ -215,6 +220,8 @@ def main(argv=None) -> int:
     adv = torch.from_numpy(np.stack([advs.real, advs.imag])).to(dev)
     batch = (noise, p0r, p0i, t0r, t0i, adv)
     rows = cs._row_inputs(torch, cfg, *batch)
+    n_small = cs.C_MAIN * cs.B_KTIME
+    small = [t[:n_small] for t in rows]
     f32 = cfg.replace(decim_dtype="f32")
     dk = frontend_decim(cfg, *batch)
     lag, ph, peak = hunt(cfg, dk, dprev0)
@@ -241,21 +248,31 @@ def main(argv=None) -> int:
              "frontend_rows_folded (row-major f32)":
              lambda: frontend_rows(cfg, *rows, transposed=False,
                                    mixer_fold=True),
+             "frontend_full": lambda: frontend_full(cfg, *rows),
+             f"frontend_full ({n_small} rows)":
+             lambda: frontend_full(cfg, *small),
              "hunt": lambda: hunt(cfg, dk, dprev0),
              "extract_decode": lambda: extract_decode(cfg, dk, dprev0, lag,
                                                       ph, peak)}
     order = [("this", mine)] + ([("other", other), ("other", other),
                                  ("this", mine)] if other else [])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     ms = {}
     for name, fn in calls.items():
         times = []
         for tag, lib in order:
             with _build.using(lib):
                 times.append((tag, cs._time_cuda(fn, 3)))
-        print(f"[timing] {name} at {cs.C_MAIN} x {args.blocks} "
-              f"({cs.C_MAIN * args.blocks} rows), ms in the order run: "
+        n_rows = n_small if name.endswith("rows)") else rows[0].shape[0]
+        note = ""
+        if name.startswith("frontend_full"):
+            mhz = cs._sm_clock_under(torch, fn)
+            floor, what = cs._fp32_floor(cfg, name, n_rows, mhz, sms)
+            note = (f"; {what} {floor:.4f} ms at the {mhz:.0f} MHz read "
+                    f"under this tree's kernel")
+        print(f"[timing] {name} at {n_rows} rows, ms in the order run: "
               + ", ".join(f"{tag} {t:.3f}" for tag, t in times)
-              + f"; {card}", flush=True)
+              + f"{note}; {card}", flush=True)
         ms[name] = times[-1][1]                 # this tree's, last run
 
     if args.stages:
@@ -264,7 +281,8 @@ def main(argv=None) -> int:
         for tag, lib, csrc in trees:
             one = _build.bind(_build.build(**_one_tap_tree(csrc))[0])
             for kern in ("frontend_decim (bf16 planes)",
-                         "frontend_decim_folded (bf16 planes)"):
+                         "frontend_decim_folded (bf16 planes)",
+                         "frontend_full"):
                 with _build.using(lib):
                     whole = cs._time_cuda(calls[kern], 3)
                 with _build.using(one):

@@ -13,6 +13,7 @@ relative) besides.  Descrambling on and off.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +40,20 @@ def _tcfg(cfg):
     return TorchConfig(**dataclasses.asdict(cfg))
 
 
+def _copies(fn):
+    """``fn`` run once per module for each set of arguments (a JAX run in
+    interpret mode that several cases share); each call returns copies of
+    its arrays."""
+    once = functools.lru_cache(maxsize=None)(fn)
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kw):
+        return tuple(a.copy() if isinstance(a, np.ndarray) else a
+                     for a in once(*args, **kw))
+    return wrapper
+
+
+@_copies
 def _planes(cfg, seed, transposed):
     """Decim planes of a noisy 3-packet stream, C channels with distinct
     delays, rows in (block, channel) order."""
@@ -66,6 +81,7 @@ def _planes(cfg, seed, transposed):
     return np.asarray(dec), nb
 
 
+@_copies
 def _hunted_windows(cfg, seed):
     """(padded windows [N, cyc, 2, 768], lag, phase, peak) as the
     ``fuse_hunt=False`` path of ``prod_rx_batch`` builds them."""

@@ -27,8 +27,12 @@ tests hold, in numpy and against the port's plain versions:
     yi unfused, equal to ``frontend_decim_folded_ref`` /
     ``frontend_rows_folded_ref`` to the bit; and that an un-rotated halo
     carried from int16 PCM is 0 or far above the folded taps' 2^-80;
-  * that the sources fuse nowhere else, and that every way into the two
-    kernels refuses ``frontend_dtype="f32"``.
+  * that the sources fuse nowhere else (``frontend_full``, whose operands
+    are f32, takes the same loop unfused), and that every way into the
+    two kernels refuses ``frontend_dtype="f32"``.
+
+``tests/test_torch_frontend_full_window.py`` models ``frontend_full``'s
+unfused loop.
 """
 
 import re
@@ -523,23 +527,50 @@ def test_the_kernel_geometry_is_consistent():
 
 
 def test_only_the_premix_tap_loop_fuses():
-    """The one fused multiply-add is the tap loop ``tap_sums``, and its
-    only callers are the premix pair's ``window_sums`` and the folded
-    pair's ``folded_window_sums``: never ``frontend_full``."""
+    """The one fused multiply-add is the FUSED branch of the tap loop
+    ``tap_sums``, and its only callers are the premix pair's
+    ``window_sums`` and the folded pair's ``folded_window_sums``, which
+    only the four decimating kernels reach.  ``frontend_full``'s loop is
+    the other branch, each product and sum rounded on its own by
+    ``__fmul_rn`` and ``__fadd_rn``, and its code names no fma."""
     assert "-fmad=false" in _build.NVCC_FLAGS
     code = _code(SRC)
-    assert code.count("__fmaf_rn(") == 1
-    body = code[code.index("void tap_sums("):code.index("void store_task(")]
-    assert "__fmaf_rn(w[k], v[e], acc[i])" in body
-    assert len(re.findall(r"\btap_sums\(", code)) == 3     # 1 + 2 callers
+    assert code.count("__fmaf_rn(") == 1 and code.count("fma") == 1
+    body = code[code.index("template <bool FUSED>"):
+                code.index("void store_task(")]
+    assert "void tap_sums(" in body
+    assert re.search(
+        r"if constexpr \(FUSED\)\s*acc\[i\] = __fmaf_rn\(w\[k\], v\[e\], "
+        r"acc\[i\]\);\s*else\s*acc\[i\] = __fadd_rn\(acc\[i\], "
+        r"__fmul_rn\(w\[k\], v\[e\]\)\);", body)
+    # the definition, two fused callers and one unfused
+    assert len(re.findall(r"\btap_sums\b", code)) == 4
+    assert len(re.findall(r"\btap_sums<true>\(", code)) == 2
+    assert len(re.findall(r"\btap_sums<false>\(", code)) == 1
     premix = code[code.index("void window_sums("):
                   code.index("frontend_decim_kernel(")]
-    assert "tap_sums(sm.w, &sm.u[p][WIN_T * j], acc);" in premix
+    assert "tap_sums<true>(sm.w, &sm.u[p][WIN_T * j], acc);" in premix
     folded = code[code.index("void folded_window_sums("):
                   code.index("frontend_decim_folded_kernel(")]
-    assert "tap_sums(sm.w[q], &sm.u[WIN_T * j], acc);" in folded
-    full = code[code.index("frontend_full_kernel("):]
-    assert "tap_sums" not in full and "fma" not in full
+    assert "tap_sums<true>(sm.w[q], &sm.u[WIN_T * j], acc);" in folded
+    # the fused callers' callers: the four decimating kernels, once each
+    for callee, kernels in (
+            ("window_sums<", ("frontend_decim_kernel(",
+                              "frontend_rows_kernel(")),
+            ("folded_window_sums<", ("frontend_decim_folded_kernel(",
+                                     "frontend_rows_folded_kernel("))):
+        calls = [m.start() for m in re.finditer(
+            r"(?<![\w])" + re.escape(callee), code)]
+        assert len(calls) == 2, callee
+        starts = sorted(code.index(k) for k in kernels)
+        assert starts[0] < calls[0] < starts[1] < calls[1], callee
+    full = code[code.index("void full_window_sums("):
+                code.index("unsigned persistent_grid(")]
+    assert "tap_sums<false>(sm.in.w, &sm.in.u[p][WIN_T * j], acc);" in full
+    assert "frontend_full_kernel(" in full
+    assert "full_window_sums(sm, tid);" in full
+    assert "fma" not in full and "tap_sums<true>" not in full
+    assert "window_sums<" not in full.replace("full_window_sums", "")
     for other in ("hunt.cu", "decode.cu", "common.cuh"):
         text = _code((_build.CSRC / other).read_text())
         assert "fmaf" not in text and "__fma" not in text, other
