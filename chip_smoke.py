@@ -53,6 +53,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  overflow), (f) ``prod_rx_stream_pallas`` with
                  ``frac_timing=True`` one block at a time (32 channels
                  against the plain path on the CPU, ``frac`` included);
+                 (g) loopback parity, the counterpart of
+                 ``tools/tpu_parity.py`` and its ``PARITY_TPU*.json``
+                 records: the port's TX and channel (128 channels x 6
+                 packets, 12 dB, 15 Hz) through the XLA path
+                 ``prod_rx_stream`` (plain PyTorch, the oracle) and every
+                 kernel path the config allows, each held to it by the
+                 North star's criterion and to the truth (768/768
+                 packets, 0 bit errors, 0 false detects), for the six
+                 pinned configs the port runs (the bf16 CFO one is
+                 reported skipped); (h) BER: ``ber_run`` at 2, 4 and 6 dB,
+                 317,440 bits a point, one noisy stream through the XLA
+                 path and both kernel batch paths: every packet found,
+                 no false detect; the kernel paths' errors equal and
+                 their Wilson interval overlapping ``BER_PALLAS.jsonl``'s
+                 at that SNR (a record of the one-kernel path); the XLA
+                 path's overlapping theirs, its overlap with the record
+                 reported;
   6. timing   -- chained dispatches of the main path (premix, then
                  ``mixer_fold=True``: (d1)), of the gated RX, of (a) and
                  of (d2), (a) with ``mixer_fold=True`` (8192 x 128
@@ -63,7 +80,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  FMUL + FADD floor and what ptxas says of it), and each
                  kernel against its plain version at 8192 x 4 rows, each
                  beside its bound (``_kernel_bounds``), the hunt in both
-                 operand modes.
+                 operand modes; the XLA path at 8192 x 8 blocks and
+                 ``python -m singlecarrier_tpu_torch loopback``.
 
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
 line and, last, ``{"ok": true, "device": {...}}``.  Any failing phase
@@ -719,6 +737,244 @@ def _hunt_windows(torch, cfg, drow, C):
     return wins.contiguous(), lag, ph, peak
 
 
+# ---- (g) loopback parity and (h) BER: the port's XLA path as the oracle
+
+PARITY_C, PARITY_PACKETS = 128, 6        # tools/tpu_parity.py's defaults
+PARITY_SNR_DB, PARITY_CFO_HZ = 12.0, 15.0
+BER_SNRS = (2.0, 4.0, 6.0)
+BER_PACKETS, BER_TRIALS = 10, 64         # 317,440 payload bits a point
+BER_RECORD = "BER_PALLAS.jsonl"
+B_XLA = 8                                # timed XLA path: C_MAIN x B_XLA
+
+
+def _parity_configs(default):
+    """(name, record, config) of the seven pinned ``PARITY_TPU*.json``
+    configs; a config the kernels refuse is reported skipped."""
+    int8 = default.replace(decim_dtype="bf16", hunt_dtype="int8")
+    return [
+        ("default", "PARITY_TPU.json", default),
+        ("decim bf16", "PARITY_TPU_BF16.json",
+         default.replace(decim_dtype="bf16")),
+        ("alpha 0.50", "PARITY_TPU_WIDE.json", default.replace(alpha=0.50)),
+        ("frac timing", "PARITY_TPU_FRAC.json",
+         default.replace(frac_timing=True)),
+        ("hunt int8", "PARITY_TPU_INT8.json", int8),
+        ("refit 128", "PARITY_TPU_R128.json",
+         int8.replace(ls_refit_symbols=128)),
+        ("cfo bf16", "PARITY_TPU_CFO16.json", int8.replace(cfo_dtype="bf16")),
+    ]
+
+
+def _parity_stream(torch, cfg, bits, seed: int, dev):
+    """The records' stream: scrambled packets with the flushed gap, each
+    channel through ``channel`` at PARITY_SNR_DB and PARITY_CFO_HZ (its
+    own signal power, as the records' per-channel ``vmap`` measures it),
+    cast to int16 as XLA casts.  Returns frames [B, C, frame_size]."""
+    from singlecarrier_tpu_torch.channel import channel
+    from singlecarrier_tpu_torch.device import to_int16
+    from singlecarrier_tpu_torch.modem.tx import tx_stream
+    n = cfg.frame_size
+    pcm = tx_stream(cfg, bits, flush_gap=True, scramble=True, device=dev)
+    n_blocks = -(-pcm.shape[-1] // n) + 1
+    x = torch.zeros((pcm.shape[0], n_blocks * n), device=dev)
+    x[:, :pcm.shape[-1]] = pcm.float()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x = torch.stack([channel(gen, row, snr_db=PARITY_SNR_DB,
+                             freq_hz=PARITY_CFO_HZ, fs=cfg.fs, device=dev)
+                     for row in x])
+    return to_int16(x).reshape(-1, n_blocks, n).transpose(0, 1).contiguous()
+
+
+def _truth(cfg, out, ref):
+    """Bit errors, bits counted, false detects and the set of (channel,
+    block) true-packet detections of [C, B] numpy outputs against the
+    sent payloads ``ref`` [C, packets, bits], matched by stream position
+    (``ber.assign_detections``, the records' semantics)."""
+    from singlecarrier_tpu_torch.ber import assign_detections
+    err = total = false = 0
+    hits = set()
+    for c in range(out.valid.shape[0]):
+        assigned, f = assign_detections(cfg, out.valid[c], out.lag[c],
+                                        out.timing_phase[c], ref.shape[1])
+        false += f
+        for p, (_, fr) in assigned.items():
+            hits.add((c, fr))
+            err += int((out.bits[c, fr] != ref[c, p]).sum())
+            total += ref.shape[2]
+    return err, total, false, hits
+
+
+def _parity_check(cfg, out_p, out_x, truth_p, truth_x, expected: int):
+    """``tools/tpu_parity.py``'s fields and the North star's criterion of
+    one path against the XLA path, with that tool's one allowance: under
+    the int8 hunt, valid flags may flip on blocks that are a true packet
+    in neither path (round() puts noise blocks on a knife edge of the
+    energy gate), at most one in 1000 blocks.  Against the truth every
+    packet is found once, with no bit error and no false detect."""
+    import numpy as np
+    both = out_x.valid & out_p.valid
+    diff = out_p.bits[both] != out_x.bits[both]
+    flips = [tuple(map(int, cb)) for cb in
+             np.argwhere(out_p.valid != out_x.valid)]
+    true_miss = any(f in truth_p[3] or f in truth_x[3] for f in flips)
+    v_eq = not flips
+    v_ok = v_eq or (cfg.hunt_dtype == "int8" and not true_miss
+                    and len(flips) <= max(1, out_x.valid.size // 1000))
+    cfo_d = float(np.abs(out_p.cfo_hz[both] - out_x.cfo_hz[both]).max(
+        initial=0.0))
+    eq_d = float(np.abs(out_p.eq_error[both] - out_x.eq_error[both]).max(
+        initial=0.0))
+    rep = {
+        "valid_identical": v_eq, "valid_diff_blocks": flips[:16],
+        "valid_diffs_all_gate_marginal_noise": not true_miss,
+        "bits_identical_on_valid": not bool(diff.any()),
+        "bit_diffs_vs_xla": int(diff.sum()),
+        "blocks_differing_vs_xla": int(diff.any(-1).sum()),
+        "bit_errors_vs_truth": [truth_p[0], truth_p[1]],
+        "false_detects": truth_p[2],
+        "lag_identical_on_valid": bool(np.array_equal(out_p.lag[both],
+                                                      out_x.lag[both])),
+        "phase_identical_on_valid": bool(np.array_equal(
+            out_p.timing_phase[both], out_x.timing_phase[both])),
+        "max_cfo_delta_hz": cfo_d, "max_eq_error_delta": eq_d,
+        "packets_detected": int(out_p.valid.sum()),
+    }
+    rep["ok"] = bool(
+        v_ok and rep["bits_identical_on_valid"]
+        and rep["lag_identical_on_valid"] and rep["phase_identical_on_valid"]
+        and cfo_d < 0.5 and eq_d < 2e-3 and truth_p[0] == 0
+        and truth_p[1] == expected * cfg.bits_per_frame and truth_p[2] == 0)
+    return rep
+
+
+def _report(tag: str, line: dict) -> None:
+    print(f"[{tag}] {json.dumps(line)}", flush=True)
+
+
+def _parity_phase(torch, default, drive, dev, seed: int) -> None:
+    """(g): the records' stream through the XLA path (the oracle) and every
+    path the config allows, each held to it; one ``[parity]`` line each."""
+    import numpy as np
+    from singlecarrier_tpu_torch.modem import (
+        ProdRxOut, prod_rx_batch, prod_rx_init, prod_rx_stream,
+        prod_rx_stream_pallas)
+    from singlecarrier_tpu_torch.ops.fused_rx import check_supported
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    bits = torch.randint(0, 2, (PARITY_C, PARITY_PACKETS, default.ns,
+                                2 * default.data_symbols), generator=gen,
+                         device=dev, dtype=torch.uint8)
+    ref = bits.reshape(PARITY_C, PARITY_PACKETS, -1).cpu().numpy()
+    expected = PARITY_C * PARITY_PACKETS
+    streams = {}
+
+    def host(out):                                  # [B, C] -> numpy [C, B]
+        return ProdRxOut(*(v.transpose(0, 1).cpu().numpy() for v in out))
+
+    for name, record, cfg in _parity_configs(default):
+        head = {"config": name, "record": record}
+        try:
+            if not cfg.frac_timing:
+                check_supported(cfg)
+        except NotImplementedError as e:
+            _report("parity", {**head, "skipped": str(e)})
+            continue
+        if cfg.alpha not in streams:
+            streams[cfg.alpha] = _parity_stream(torch, cfg, bits, seed + 1,
+                                                dev)
+        frames = streams[cfg.alpha]
+        C = frames.shape[1]
+        out_x = host(drive(f"parity {name}: xla", lambda: prod_rx_stream(
+            cfg, prod_rx_init(cfg, (C,), dev), frames)[1], ()))
+        truth_x = _truth(cfg, out_x, ref)
+        xla_ok = (truth_x[0] == 0 and truth_x[2] == 0
+                  and truth_x[1] == expected * cfg.bits_per_frame)
+        line = {**head, "path": "xla", "blocks": frames.shape[0],
+                "packets_detected": int(out_x.valid.sum()),
+                "expected_packets": expected,
+                "bit_errors_vs_truth": [truth_x[0], truth_x[1]],
+                "false_detects": truth_x[2], "ok": xla_ok}
+        _report("parity", line)
+        _require(xla_ok, f"parity {name}: the XLA path against the truth: "
+                 f"{line}")
+        rows = ("frontend_rows", "hunt", "extract_decode")
+        paths = {} if cfg.frac_timing else {
+            "batch_pallas": (lambda: prod_rx_batch(
+                cfg, prod_rx_init(cfg, (C,), dev), frames)[1], rows),
+            "fused_rx": (lambda: prod_rx_batch(
+                cfg, prod_rx_init(cfg, (C,), dev), frames,
+                fuse_frontend=True)[1],
+                ("frontend_decim", "hunt", "extract_decode"))}
+        paths["scan_pallas"] = (lambda: prod_rx_stream_pallas(
+            cfg, prod_rx_init(cfg, (C,), dev), frames)[1],
+            ("frontend_full", "decode_packets") if cfg.frac_timing else rows)
+        paths["pallas_fe_xla_decode"] = (lambda: prod_rx_stream_pallas(
+            cfg, prod_rx_init(cfg, (C,), dev), frames, fuse_decode=False)[1],
+            ("frontend_full",))
+        for path, (fn, expect) in paths.items():
+            out_p = host(drive(f"parity {name}: {path}", fn, expect))
+            rep = _parity_check(cfg, out_p, out_x, _truth(cfg, out_p, ref),
+                                truth_x, expected)
+            _report("parity", {**head, "path": path, **rep})
+            _require(rep["ok"], f"parity {name}: {path} against the XLA "
+                     f"path: {rep}")
+
+
+def _ber_record(path: str) -> dict:
+    with open(path) as f:
+        return {r["snr_db"]: r for r in map(json.loads, f) if r}
+
+
+def _overlap(a, b) -> bool:
+    return a[0] <= b[1] and b[0] <= a[1]
+
+
+def _ber_phase(torch, cfg, drive, dev, seed: int, record: dict) -> None:
+    """(h): ``ber_run`` at BER_SNRS on the same noisy stream (the generator
+    reseeded alike) through the three paths.  Gates: every packet found
+    with no false detect on every path; the two kernel paths' errors
+    equal and their Wilson interval overlapping the record's (the record
+    is of the one-kernel path); the XLA path's interval overlapping the
+    kernel paths'.  The XLA path rounds nowhere the kernels round (f32
+    front-end, float PCM), so its errors on the same stream are another
+    draw of the same statistic: its overlap with the record is reported
+    beside it, not gated."""
+    from singlecarrier_tpu_torch.ber import PATHS, ber_run
+    expect = {"xla": (),
+              "batch_pallas": ("frontend_rows", "hunt", "extract_decode"),
+              "fused_rx": ("frontend_decim", "hunt", "extract_decode")}
+    for i, snr in enumerate(BER_SNRS):
+        res = {}
+        for path in PATHS:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed + i)
+            res[path] = drive(f"ber {snr} dB: {path}", lambda: ber_run(
+                cfg, gen, snr_db=snr, n_packets=BER_PACKETS,
+                n_trials=BER_TRIALS, path=path, device=dev), expect[path])
+        rec = record[snr]
+        for path, r in res.items():
+            _report("ber", {"path": path, **r, "record_ci95": rec["ber_ci95"],
+                            "overlaps_record": _overlap(r["ber_ci95"],
+                                                        rec["ber_ci95"])})
+            _require(r["detection_rate"] == 1.0 and r["false_detects"] == 0,
+                     f"ber {snr} dB, {path}: detection "
+                     f"{r['detection_rate']}, {r['false_detects']} false")
+        kern = res["fused_rx"]
+        _require(res["batch_pallas"]["err_bits"] == kern["err_bits"],
+                 f"ber {snr} dB: the kernel paths count "
+                 f"{res['batch_pallas']['err_bits']} and {kern['err_bits']} "
+                 f"errors on the same stream")
+        _require(_overlap(kern["ber_ci95"], rec["ber_ci95"]),
+                 f"ber {snr} dB: the kernel paths' interval "
+                 f"{kern['ber_ci95']} misses {BER_RECORD}'s "
+                 f"{rec['ber_ci95']}")
+        _require(_overlap(res["xla"]["ber_ci95"], kern["ber_ci95"]),
+                 f"ber {snr} dB: the XLA path's interval "
+                 f"{res['xla']['ber_ci95']} misses the kernels' "
+                 f"{kern['ber_ci95']}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -733,10 +989,11 @@ def main() -> int:
         from singlecarrier_tpu_torch.modem import (
             ProdRxOut, dibits_to_bits, prod_rx_batch, prod_rx_batch_gated,
             prod_rx_gated_init, prod_rx_init, prod_rx_init_planes,
-            prod_rx_stream_pallas)
+            prod_rx_stream, prod_rx_stream_pallas)
         from singlecarrier_tpu_torch.modem.rx_gated import _pair_operands
         from singlecarrier_tpu_torch.modem.rx_production import (
-            _extract_packet, _extract_packet_planes, _hunt)
+            _extract_packet, _extract_packet_planes, _hunt,
+            _train_and_decode, prod_rx_frame)
         from singlecarrier_tpu_torch.ops import _build
         from singlecarrier_tpu_torch.ops.decode import (
             extract_decode, extract_decode_ref, extract_gate,
@@ -749,6 +1006,7 @@ def main() -> int:
         from singlecarrier_tpu_torch.ops.fused_rx import fused_rx_block
         golden = np.load(os.path.join(here, "tests", "golden",
                                       "reference.npz"))
+        _ber_record(os.path.join(here, BER_RECORD))
     except (ImportError, OSError) as e:
         print(f"chip_smoke: the repository is incomplete: {e}",
               file=sys.stderr)
@@ -1076,6 +1334,16 @@ def main() -> int:
           f"(tolerance 1e-3)", flush=True)
     del st_f, out_f, ref_f, sub, sub_st, wins, dcur
 
+    # ---- (g) loopback parity, (h) BER: the XLA path as the oracle ----
+    t0 = time.perf_counter()
+    _parity_phase(torch, default, _drive, dev, SEED)
+    t_g = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _ber_phase(torch, cfg, _drive, dev, SEED,
+               _ber_record(os.path.join(here, BER_RECORD)))
+    print(f"[paths] (g) parity {t_g:.1f} s, (h) BER "
+          f"{time.perf_counter() - t0:.1f} s; {smi_line}", flush=True)
+
     _require(all(path_launches.get(k, 0) > 0 for k in KERNELS),
              f"a kernel was launched on no path: {path_launches}")
     print(f"[paths] launches over the driven paths: {path_launches}",
@@ -1164,6 +1432,42 @@ def main() -> int:
     _rate(f"(f) frac streaming path {C_MAIN} ch x {B_TIME} blocks one at a "
           f"time", lambda: prod_rx_stream_pallas(fcfg, cstate, noise),
           B_TIME)
+    # the XLA path (plain PyTorch, no kernel) and the CLI's loopback
+    xstate = prod_rx_init(cfg, (C_MAIN,))
+    xstate, _ = prod_rx_stream(cfg, xstate, noise[:1])            # warm-up
+    _rate(f"XLA path prod_rx_stream {C_MAIN} ch x {B_XLA} blocks one at a "
+          f"time", lambda: prod_rx_stream(cfg, xstate, noise[:B_XLA]),
+          B_XLA)
+    dprev = xstate.decim_prev
+    wins = torch.cat([dprev, dprev], -1)
+    hl, hp, hq, hf = _hunt(cfg, wins)
+    pkt = _extract_packet(cfg, wins, hl, hp, hf)
+    stages = {
+        "prod_rx_frame (all of a block)":
+            lambda: prod_rx_frame(cfg, xstate, noise[0]),
+        "plain hunt (torch.matmul)": lambda: _hunt(cfg, wins),
+        "_train_and_decode (LS fit, refits, refinement)":
+            lambda: _train_and_decode(cfg, pkt),
+    }
+    print(f"[timing] XLA path stages on one {C_MAIN}-row block (CUDA events "
+          f"around the host's issue): " + ", ".join(
+              f"{k} {_time_cuda(fn, 3):.3f} ms" for k, fn in stages.items())
+          + f"; {smi_line}", flush=True)
+    del xstate, dprev, wins, pkt, stages
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "singlecarrier_tpu_torch",
+                          "loopback"], cwd=here, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    _require(res.returncode == 0, f"cli loopback: rc {res.returncode}: "
+             f"{res.stderr[-2000:]}")
+    lb = json.loads(res.stdout.strip().splitlines()[-1])
+    _require(lb["packets_detected"] == lb["packets_sent"] == 10
+             and lb["ber"] == 0.0, f"cli loopback: {lb}")
+    print(f"[timing] python -m singlecarrier_tpu_torch loopback: {wall:.2f} s "
+          f"wall (a new process: start-up, CUDA context, 10 packets through "
+          f"TX and the XLA path); {json.dumps(lb)}; {smi_line}", flush=True)
+
     # (f)'s stages on one 8192-row block
     planes_f = [t.contiguous() for t in (
         cstate.phase.real, cstate.phase.imag, cstate.fir_tail.real,

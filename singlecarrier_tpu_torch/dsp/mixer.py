@@ -2,7 +2,8 @@
 
 Counterpart of ``singlecarrier_tpu/dsp/mixer.py``: the per-block ramp
 table is computed once in float64 on the host, so the mixer is one
-complex multiply per sample against a constant table.
+complex multiply per sample against a constant table; the carried state
+is one unit phasor per stream, renormalized per block.
 """
 
 from __future__ import annotations
@@ -11,6 +12,15 @@ import functools
 
 import numpy as np
 import torch
+
+from ..device import on_device, resolve_device
+
+
+def mixer_init_phase(batch_shape=(), device=None) -> torch.Tensor:
+    """Initial unit phasor 1+0j (qpsk.c:375, 427), complex64, on the card
+    unless ``device`` says otherwise."""
+    return torch.ones(tuple(batch_shape), dtype=torch.complex64,
+                      device=resolve_device(device))
 
 
 @functools.lru_cache(maxsize=32)
@@ -48,3 +58,20 @@ def tail_table(center: float, fs: float, n: int, halo: int, device):
     table = mixer_table(-center, fs, n)
     return (torch.from_numpy(table.real[n - halo:].copy()).to(device),
             torch.from_numpy(table.imag[n - halo:].copy()).to(device))
+
+
+def mix_block(x: torch.Tensor, phase: torch.Tensor, freq_hz: float,
+              fs: float):
+    """Mix a block; returns ``(y, new_phase)``.
+
+    ``x``: [..., n] real (PCM already scaled) or complex block;
+    ``phase``: [...] carried unit phasor; ``freq_hz`` negative to
+    downmix.  ``y = x * (phase * table)`` and the phase advanced by the
+    table's last entry, renormalized (qpsk.c:139-147, 301-306).
+    """
+    n = x.shape[-1]
+    table = on_device(mixer_table, (float(freq_hz), float(fs), int(n)),
+                      x.device)
+    y = x * (phase[..., None] * table)
+    new_phase = phase * table[n - 1]
+    return y, new_phase / new_phase.abs()

@@ -1,14 +1,22 @@
-"""Production RX: the block-parallel batch path and the streaming paths.
+"""Production RX: the XLA path, the block-parallel batch path and the
+streaming paths.
 
-Counterpart of ``singlecarrier_tpu/modem/rx_production.py`` for
-``prod_rx_batch`` (every flag combination, ``cfg.mixer_fold`` included),
-``prod_rx_stream_pallas`` (its plane-typed body and, with
-``cfg.frac_timing``, its fractional-timing body) and
-``prod_rx_stream_superstep``.  Every carried quantity of the production
-RX is a closed-form function of the raw input (mixer phase = phase0 *
-adv^b, FIR halo = downmixed tail of the previous raw block, hunt window
-= the previous block's decim planes), so all B*C (block, channel) rows
-of a dispatch run at once.
+Counterpart of ``singlecarrier_tpu/modem/rx_production.py``:
+
+  * the XLA path (``prod_rx_frame``, ``prod_rx_stream``,
+    ``prod_rx_backend``): plain PyTorch, no kernel -- the mixer and the
+    banded FIR (``dsp/``), the plain hunt, the bf16 CFO DFT, the LS fit
+    and the atan2 refinement (``adaptive/ls_equalizer``).  It is the
+    oracle the kernel paths are held to;
+  * ``prod_rx_batch`` (every flag combination, ``cfg.mixer_fold``
+    included): every carried quantity is a closed-form function of the
+    raw input (mixer phase = phase0 * adv^b, FIR halo = downmixed tail
+    of the previous raw block, hunt window = the previous block's decim
+    planes), so all B*C (block, channel) rows of a dispatch run at once;
+  * ``prod_rx_stream_pallas`` (its plane-typed body; the full-rate
+    front-end followed by the fused decode under ``cfg.frac_timing``, or
+    by ``prod_rx_backend`` with ``fuse_decode=False``) and
+    ``prod_rx_stream_superstep``.
 
 State is either the plane tuple of :func:`prod_rx_init_planes` or the
 public complex :class:`ProdRxState`; the same type comes back.  Every
@@ -24,10 +32,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..adaptive.ls_equalizer import (ls_decode, ls_refit, ls_train,
+                                     phase_refine, window_matrix)
 from ..config import ModemConfig
-from ..constants import PREAMBLE_VALUES
-from ..device import resolve_device
-from ..dsp.mixer import downmix_tail
+from ..constants import PREAMBLE_VALUES, rrc_taps
+from ..device import on_device, require_true_f32, resolve_device
+from ..dsp.fftops import estimate_cfo
+from ..dsp.fir import fir_block
+from ..dsp.mixer import downmix_tail, mix_block
+from ..scramble import scramble_dibits
 from ..ops.decode import (fused_decode, fused_decode_extract,
                           fused_hunt_decode_decim)
 from ..ops.frontend import fused_frontend, fused_frontend_decim
@@ -152,18 +165,6 @@ def _energy_band_matrix(n_lags: int, p: int):
     return b
 
 
-@functools.lru_cache(maxsize=8)
-def _on_device(fn, args, dev) -> torch.Tensor:
-    """``fn(*args)`` (a cached numpy table) as a tensor on ``dev``."""
-    return torch.from_numpy(fn(*args)).to(dev)
-
-
-def _require_true_f32(t: torch.Tensor) -> None:
-    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("the plain hunt needs true f32 matmuls: set "
-                           "torch.backends.cuda.matmul.allow_tf32 = False")
-
-
 def _hunt_corr(cfg: ModemConfig, planes, mat):
     """Correlation product in ``cfg.hunt_dtype``: ``planes``
     [..., rows, win] f32 against the +/-1/0 chip matrix ``mat`` (f32).
@@ -173,7 +174,7 @@ def _hunt_corr(cfg: ModemConfig, planes, mat):
     computes: the products against +/-1/0 are exact, and the int8 sums
     (16 terms of at most 127) are exact integers.
     """
-    _require_true_f32(planes)
+    require_true_f32(planes)
     if cfg.hunt_dtype == "int8":
         q = torch.clamp(torch.round(planes.float() * cfg.hunt_int8_scale),
                         -127.0, 127.0)
@@ -203,8 +204,8 @@ def _hunt_metric(cfg: ModemConfig, power, sq):
         raise NotImplementedError(
             f"cfg.hunt_norm={cfg.hunt_norm!r} is not ported yet (only "
             "'espan'); ROADMAP: hunt_norm energy/none")
-    _require_true_f32(sq)
-    eband = _on_device(_energy_band_matrix,
+    require_true_f32(sq)
+    eband = on_device(_energy_band_matrix,
                        (cfg.symbols_per_block, cfg.preamble_length),
                        sq.device)
     sq = sq.float()
@@ -220,7 +221,7 @@ def _hunt_planes_rows(cfg: ModemConfig, windows, col_offset: int,
     n_lags, p = cfg.symbols_per_block, cfg.preamble_length
     n_seg = cfg.corr_segments
     dev = windows.device
-    mat = _on_device(_segment_band_matrix, (n_lags, n_seg, p), dev)
+    mat = on_device(_segment_band_matrix, (n_lags, n_seg, p), dev)
     N, cyc = windows.shape[0], windows.shape[1]
     w = windows[..., col_offset:col_offset + n_lags + p - 1]
     corr = _hunt_corr(cfg, w.reshape(N, cyc * 2, -1), mat)
@@ -337,6 +338,115 @@ def _extract_packet_planes(cfg: ModemConfig, windows, lag, phase_idx):
     sp = torch.nn.functional.pad(sel, (off, rpad))
     idx = lag.long()[:, None] + torch.arange(pkt_len, device=dev)
     return torch.gather(sp, 2, idx[:, None].expand(N, 2, pkt_len))
+
+
+# ------------------------------------------------------- the XLA path
+
+def _preamble_f32() -> np.ndarray:
+    return PREAMBLE_VALUES.astype(np.float32)
+
+
+def _train_and_decode(cfg: ModemConfig, pkt):
+    """Closed-form equalizer fit and one-shot decode of aligned packets
+    ``pkt`` [N, pkt_window] (first preamble chip at index L//2): the LS
+    fit on the preamble, ``cfg.ls_refit_iters`` decision-directed refits
+    each kept only if it matches the known chips at least as often,
+    the frozen filter on the data, the phase refinement.  Returns
+    ``(matches, dibits, eq_error)``."""
+    off = cfg.eq_length // 2
+    pre = on_device(_preamble_f32, (), pkt.device)
+    coeff, matches = ls_train(pkt, off, pre, cfg.eq_length, cfg.ls_reg,
+                              offtap_reg=cfg.ls_offtap_reg)
+    start = off + cfg.preamble_length
+    c_pre = window_matrix(pkt, off, cfg.preamble_length, cfg.eq_length)
+
+    def chip_matches(c):
+        val = torch.matmul(c_pre, c[..., None])[..., 0]
+        return ((val.real * pre) > 0).sum(-1)
+
+    for _ in range(cfg.ls_refit_iters):
+        cand = ls_refit(pkt, start, coeff, cfg.frame_symbols,
+                        offtap_reg=cfg.ls_offtap_reg_refit,
+                        n_fit=cfg.ls_refit_symbols)
+        keep = chip_matches(cand) >= chip_matches(coeff)
+        coeff = torch.where(keep[..., None], cand, coeff)
+    raw = ls_decode(pkt, start, coeff, cfg.frame_symbols)
+    _, dibits, err = phase_refine(raw, iterations=cfg.phase_refine_iters)
+    return matches, dibits, err
+
+
+def prod_rx_backend(cfg: ModemConfig, decim_prev, filtered, *,
+                    descramble: bool = True):
+    """Post-filter demodulation: decimate -> hunt -> CFO -> equalize.
+
+    ``filtered``: [..., frame_size] complex matched-filter output;
+    ``decim_prev``: [..., cycles, n_sym] the previous block's decimated
+    phases.  Returns ``(decim_cur, ProdRxOut)`` with [...] leaves.  Plain
+    PyTorch throughout: the plain hunt (``cfg.hunt_dtype`` operands,
+    true f32 sums), the extraction (blended with ``cfg.frac_timing``),
+    the energy gate, the bf16 CFO DFT (``estimate_cfo``), de-rotation,
+    ``_train_and_decode`` and the per-packet descramble.
+    """
+    n_sym, cyc = cfg.symbols_per_block, cfg.cycles
+    off, P = cfg.eq_length // 2, cfg.preamble_length
+    lead = filtered.shape[:-1]
+    decim_cur = filtered.reshape(*lead, n_sym, cyc).transpose(-1, -2)
+    windows = torch.cat([decim_prev, decim_cur], dim=-1).reshape(
+        -1, cyc, 2 * n_sym)
+    lag, phase_idx, peak, frac = _hunt(cfg, windows)
+    pkt = _extract_packet(cfg, windows, lag, phase_idx, frac)
+
+    # energy gate on the window energy at the peak
+    chips = pkt[:, off:off + P]
+    energy = (chips.real ** 2 + chips.imag ** 2).sum(-1)
+    gated = peak > energy * cfg.effective_peak_gate
+    pre = on_device(_preamble_f32, (), pkt.device)
+    cfo_hz, _ = estimate_cfo(chips, pre, cfg.rs, nfft=cfg.cfo_nfft)
+    cfo_hz = torch.where(gated, cfo_hz, 0.0)
+
+    # de-rotation anchored at the preamble start (index off)
+    k = torch.arange(cfg.pkt_window, dtype=_F32, device=pkt.device) - off
+    ang = (cfo_hz * (-2.0 * np.pi / cfg.rs))[:, None] * k
+    pkt = pkt * torch.complex(torch.cos(ang), torch.sin(ang))
+
+    matches, dibits, eq_error = _train_and_decode(cfg, pkt)
+    if descramble:                      # per-packet keystream reset
+        dibits, _ = scramble_dibits(dibits, 0)
+    out = ProdRxOut(
+        valid=gated & (matches > cfg.match_threshold),
+        bits=dibits_to_bits(dibits), matches=matches, lag=lag,
+        timing_phase=phase_idx, peak=peak, energy=energy, cfo_hz=cfo_hz,
+        eq_error=eq_error)
+    return (decim_cur.contiguous(),
+            ProdRxOut(*(x.reshape((*lead, *x.shape[1:])) for x in out)))
+
+
+def prod_rx_frame(cfg: ModemConfig, state: ProdRxState, pcm, *,
+                  descramble: bool = True):
+    """Demodulate one frame_size block on the XLA path: ``pcm``
+    [..., frame_size] (int16 or float PCM) with ``state`` of leading
+    shape [...].  Returns ``(state, ProdRxOut)``; runs on the state's
+    device."""
+    taps = rrc_taps(cfg.alpha, cfg.ntaps)
+    x = _frames_on(state, pcm).float() / cfg.tx_amplitude
+    raw, phase = mix_block(x, state.phase, -cfg.center, cfg.fs)
+    filtered, fir_tail = fir_block(taps, cfg.fir_gain, state.fir_tail, raw)
+    decim_cur, out = prod_rx_backend(cfg, state.decim_prev, filtered,
+                                     descramble=descramble)
+    return ProdRxState(phase=phase, fir_tail=fir_tail,
+                       decim_prev=decim_cur), out
+
+
+def prod_rx_stream(cfg: ModemConfig, state: ProdRxState, pcm_frames, *,
+                   descramble: bool = True):
+    """Stream demod on the XLA path over ``pcm_frames`` [n_frames, ...,
+    frame_size], one block at a time (``lax.scan`` in the JAX package).
+    Returns ``(state, ProdRxOut)`` with [n_frames, ...] leaves."""
+    outs = []
+    for pcm in pcm_frames:
+        state, out = prod_rx_frame(cfg, state, pcm, descramble=descramble)
+        outs.append(out)
+    return state, ProdRxOut(*(torch.stack(xs) for xs in zip(*outs)))
 
 
 # ------------------------------------------------------ entry points
@@ -561,24 +671,26 @@ def prod_rx_stream_pallas(cfg: ModemConfig, state: ProdRxState,
     becomes a ProdRxState again once at the end.  Returns
     ``(state, ProdRxOut)`` with [n_frames, C, ...] leaves.
 
-    With ``cfg.frac_timing`` the body is the reference-structured one:
-    the full-rate front-end (``fused_frontend``), the plain hunt with its
-    parabolic sub-sample offset, the blended extraction and
-    ``fused_decode``, carrying the complex state.
+    With ``fuse_decode=False`` or ``cfg.frac_timing`` the body is the
+    reference-structured one, carrying the complex state: the full-rate
+    front-end (``fused_frontend``) and then either the XLA back end
+    (``prod_rx_backend``, ``fuse_decode=False``) or the plain hunt with
+    its parabolic sub-sample offset, the blended extraction and
+    ``fused_decode``.
 
     ``block_channels``, ``decode_block_channels`` and ``interpret`` only
     size the TPU kernels; accepted and ignored.
     """
-    if not fuse_decode:
-        raise NotImplementedError(
-            "prod_rx_stream_pallas(fuse_decode=False) is not ported yet; "
-            "ROADMAP: XLA production path (prod_rx_backend)")
-    check_supported(cfg)
     if not isinstance(state, ProdRxState):
         raise TypeError("prod_rx_stream_pallas takes a ProdRxState")
     pcm_frames = _frames_on(state, pcm_frames)
+    if not fuse_decode:
+        return _stream_full_rate(cfg, state, pcm_frames, functools.partial(
+            prod_rx_backend, cfg, descramble=descramble))
+    check_supported(cfg)
     if cfg.frac_timing:
-        return _stream_frac(cfg, state, pcm_frames, descramble)
+        return _stream_full_rate(cfg, state, pcm_frames, functools.partial(
+            _fused_decode_backend, cfg, descramble=descramble))
     C = pcm_frames.shape[1]
     pr, pi_, tr, ti, dprev_t = state_to_planes(cfg, state)
     outs = []
@@ -594,14 +706,29 @@ def prod_rx_stream_pallas(cfg: ModemConfig, state: ProdRxState,
     return planes_to_state((pr, pi_, tr, ti, dprev_t)), outs
 
 
-def _stream_frac(cfg: ModemConfig, state: ProdRxState, pcm_frames,
-                 descramble: bool):
-    """The fractional-timing body of :func:`prod_rx_stream_pallas`
-    (``rx_production.py:565-601`` of the JAX package with
-    ``fuse_decode``).  Every per-block intermediate (the [C, 2, n] filter
-    output, the complex windows, the time-ordered stream) dies with its
-    iteration; only the previous block's phases are carried."""
+def _fused_decode_backend(cfg: ModemConfig, dprev, filtered, *,
+                          descramble: bool):
+    """The fractional-timing back end of :func:`prod_rx_stream_pallas`
+    (``rx_production.py:578-593`` of the JAX package): the plain hunt
+    with its sub-sample offset, the blended extraction and
+    ``fused_decode``.  Returns ``(decim_cur, ProdRxOut)``."""
     n_sym, cyc = cfg.symbols_per_block, cfg.cycles
+    dcur = filtered.reshape(-1, n_sym, cyc).transpose(-1, -2)
+    windows = torch.cat([dprev, dcur], dim=-1)
+    lag, phase_idx, peak, frac = _hunt(cfg, windows)
+    pkt = _extract_packet(cfg, windows, lag, phase_idx, frac)
+    dec = fused_decode(cfg, pkt.real.contiguous(), pkt.imag.contiguous(),
+                       peak, descramble=descramble)
+    return dcur.contiguous(), _decode_out(cfg, dec, lag, phase_idx, peak)
+
+
+def _stream_full_rate(cfg: ModemConfig, state: ProdRxState, pcm_frames,
+                      backend):
+    """The complex-carry body of :func:`prod_rx_stream_pallas`
+    (``rx_production.py:565-601`` of the JAX package): per block the
+    full-rate front-end, then ``backend(decim_prev, filtered) ->
+    (decim_cur, ProdRxOut)``.  Every per-block intermediate dies with its
+    iteration; only the previous block's phases are carried."""
     ph_r, ph_i, tl_r, tl_i = (
         t.contiguous() for t in (state.phase.real, state.phase.imag,
                                  state.fir_tail.real, state.fir_tail.imag))
@@ -610,18 +737,12 @@ def _stream_frac(cfg: ModemConfig, state: ProdRxState, pcm_frames,
     for pcm in pcm_frames:
         fr, fi, tl_r, tl_i, ph_r, ph_i = fused_frontend(
             cfg, pcm, ph_r, ph_i, tl_r, tl_i)
-        dcur = torch.complex(fr, fi).reshape(-1, n_sym, cyc).transpose(-1, -2)
-        windows = torch.cat([dprev, dcur], dim=-1)
-        lag, phase_idx, peak, frac = _hunt(cfg, windows)
-        pkt = _extract_packet(cfg, windows, lag, phase_idx, frac)
-        dec = fused_decode(cfg, pkt.real.contiguous(), pkt.imag.contiguous(),
-                           peak, descramble=descramble)
-        outs.append(_decode_out(cfg, dec, lag, phase_idx, peak))
-        dprev = dcur
+        dprev, out = backend(dprev, torch.complex(fr, fi))
+        outs.append(out)
     outs = ProdRxOut(*(torch.stack(xs) for xs in zip(*outs)))
     return ProdRxState(phase=torch.complex(ph_r, ph_i),
                        fir_tail=torch.complex(tl_r, tl_i),
-                       decim_prev=dprev.contiguous()), outs
+                       decim_prev=dprev), outs
 
 
 def prod_rx_stream_superstep(cfg: ModemConfig, state, pcm_frames, *,
@@ -659,15 +780,24 @@ def prod_rx_stream_superstep(cfg: ModemConfig, state, pcm_frames, *,
 
 def make_prod_rx_fn(cfg: ModemConfig, *, descramble: bool = True,
                     batched: bool = False, pallas: bool = False):
-    """``fn(state, pcm_frames)`` for the streaming RX.  Only
-    ``pallas=True`` (:func:`prod_rx_stream_pallas`) is ported; PyTorch
-    runs eagerly, so there is nothing to jit."""
-    if not pallas:
-        raise NotImplementedError(
-            "make_prod_rx_fn(pallas=False) is not ported yet; ROADMAP: "
-            "XLA production path (prod_rx_stream)")
+    """``fn(state, pcm_frames) -> (state, ProdRxOut)`` for the streaming
+    RX.  ``pallas=True``: :func:`prod_rx_stream_pallas`.  Else the XLA
+    path :func:`prod_rx_stream` on ``pcm_frames`` [n_frames, frame_size]
+    and an unbatched state, or with ``batched`` (``vmap`` in the JAX
+    package) a state of leading shape [C] and ``pcm_frames`` [C,
+    n_frames, frame_size], outputs [C, n_frames, ...].  PyTorch runs
+    eagerly, so there is nothing to jit."""
+    if pallas:
+        def fn(state, pcm_frames):
+            return prod_rx_stream_pallas(cfg, state, pcm_frames,
+                                         descramble=descramble)
+        return fn
 
     def fn(state, pcm_frames):
-        return prod_rx_stream_pallas(cfg, state, pcm_frames,
-                                     descramble=descramble)
+        if not batched:
+            return prod_rx_stream(cfg, state, pcm_frames,
+                                  descramble=descramble)
+        state, out = prod_rx_stream(cfg, state, pcm_frames.transpose(0, 1),
+                                    descramble=descramble)
+        return state, ProdRxOut(*(x.transpose(0, 1) for x in out))
     return fn

@@ -8,6 +8,7 @@ import re
 import subprocess
 import sys
 
+import jax
 import ml_dtypes
 import numpy as np
 import pytest
@@ -198,9 +199,20 @@ def test_the_card_is_the_default_device():
         assert prod_rx_init(TCFG, (2,)).phase.is_cuda
         return
     z = np.zeros(2, np.float32)
+    from singlecarrier_tpu_torch.ber import ber_run, ber_sweep
+    from singlecarrier_tpu_torch.channel import channel
+    from singlecarrier_tpu_torch.cli import main as cli_main
+    from singlecarrier_tpu_torch.modem.tx import tx_init, tx_stream
+    bits = np.zeros((1, TCFG.ns, 2 * TCFG.data_symbols), np.uint8)
     for make in (lambda: prod_rx_init_planes(TCFG, 2),
                  lambda: prod_rx_init(TCFG, (2,)),
                  lambda: prod_rx_gated_init(TCFG, 2),
+                 lambda: tx_init(TCFG, (2,)),
+                 lambda: tx_stream(TCFG, bits),
+                 lambda: channel(None, np.zeros(8, np.float32)),
+                 lambda: ber_run(TCFG, None),
+                 lambda: ber_sweep(TCFG, [4.0]),
+                 lambda: cli_main(["loopback", "--packets", "1"]),
                  lambda: interop.planes_from_numpy([z]),
                  lambda: interop.state_from_numpy([z]),
                  lambda: interop.gated_state_from_numpy(([z], z, z))):
@@ -217,7 +229,15 @@ def test_package_imports_without_jax():
     code = ("import sys; import singlecarrier_tpu_torch, "
             "singlecarrier_tpu_torch.modem, singlecarrier_tpu_torch.interop, "
             "singlecarrier_tpu_torch.ops.fused_rx, "
-            "singlecarrier_tpu_torch.ops._build; "
+            "singlecarrier_tpu_torch.ops._build, "
+            "singlecarrier_tpu_torch.modem.tx, singlecarrier_tpu_torch.ber, "
+            "singlecarrier_tpu_torch.channel, singlecarrier_tpu_torch.cli, "
+            "singlecarrier_tpu_torch.__main__, "
+            "singlecarrier_tpu_torch.scramble, "
+            "singlecarrier_tpu_torch.adaptive.ls_equalizer, "
+            "singlecarrier_tpu_torch.dsp.fir, "
+            "singlecarrier_tpu_torch.dsp.fftops, "
+            "singlecarrier_tpu_torch.utils.linalg; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'singlecarrier_tpu' or "
             "m.startswith('singlecarrier_tpu.')); assert not bad, bad; "
@@ -231,7 +251,7 @@ def test_no_jax_import_in_package_sources():
     pat = re.compile(r"^\s*(import jax|from jax|import singlecarrier_tpu\b"
                      r"(?!_torch)|from singlecarrier_tpu(\.|\s))", re.M)
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 14
+    assert len(files) >= 26
     for f in files:
         assert not pat.search(f.read_text()), f
     assert pat.search("from singlecarrier_tpu.config import X")
@@ -292,14 +312,6 @@ def test_unported_paths_raise():
     # the stage probes of the TPU kernel (only "full" and "gate" run)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fused_rx_block(TCFG, pcm, *state, stage="hunt")
-    # the streaming body that waits for the XLA back end
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prod_rx_stream_pallas(TCFG, cstate, pcm, fuse_decode=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prod_rx_stream_pallas(TCFG.replace(frac_timing=True), cstate, pcm,
-                              fuse_decode=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_prod_rx_fn(TCFG)
     z = torch.zeros((2,))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fused_frontend_decim(TCFG, pcm[0], z, z, z, z,
@@ -310,6 +322,59 @@ def test_unported_paths_raise():
     cfg = TCFG.replace(eq_length=7)
     with pytest.raises(NotImplementedError, match="numerolog"):
         _build.require_kernel_geometry(cfg)
+
+
+@pytest.mark.parametrize("frac_timing", [False, True],
+                         ids=["integer", "frac"])
+def test_unfused_stream_and_xla_fn_match_jax(golden, frac_timing):
+    """The paths that raised until the XLA back end was ported:
+    ``prod_rx_stream_pallas(fuse_decode=False)`` (JAX in interpret mode)
+    and, with integer timing, ``make_prod_rx_fn(cfg)``, on the golden
+    stream over 3 channels at other delays, two calls carrying the
+    state; held to the ROADMAP criterion (valid, bits, lag and phase
+    identical; |dcfo| < 0.5 Hz, |deq_error| < 2e-3)."""
+    cfg = CFG.replace(frac_timing=frac_timing)
+    tcfg = interop.config_from_dict(dataclasses.asdict(cfg))
+    n = CFG.frame_size
+    tx = golden["tx_pcm"].astype(np.int16)
+    x = np.zeros((3, 17 * n), np.int16)
+    for c, d in enumerate((0, 611, 1500)):
+        x[c, d:d + len(tx)] = tx
+    frames = x.reshape(3, 17, n)
+
+    def agree(o_t, o_j):
+        o_t = [t.numpy() for t in o_t]
+        o_j = jax.tree.map(np.asarray, o_j)
+        v = o_j.valid
+        assert int(v.sum()) >= 10
+        assert np.array_equal(o_t[0], v)
+        for k, name in ((1, "bits"), (3, "lag"), (4, "timing_phase")):
+            assert np.array_equal(o_t[k][v], getattr(o_j, name)[v])
+        assert np.abs(o_t[7][v] - o_j.cfo_hz[v]).max() < 0.5
+        assert np.abs(o_t[8][v] - o_j.eq_error[v]).max() < 2e-3
+
+    fr = np.ascontiguousarray(frames.transpose(1, 0, 2))
+    _, o_j = jrx.prod_rx_stream_pallas(
+        cfg, jrx.prod_rx_init(cfg, (3,)), fr, descramble=False,
+        block_channels=3, fuse_decode=False, interpret=True)
+    st = prod_rx_init(tcfg, (3,), "cpu")
+    outs = []
+    for part in (fr[:9], fr[9:]):
+        st, o = prod_rx_stream_pallas(tcfg, st, torch.from_numpy(part),
+                                      descramble=False, fuse_decode=False)
+        outs.append(o)
+    agree([torch.cat(v) for v in zip(*outs)], o_j)
+    if frac_timing:
+        return
+    _, o_j = jrx.make_prod_rx_fn(cfg, batched=True)(
+        jrx.prod_rx_init(cfg, (3,)), frames)
+    _, o_t = make_prod_rx_fn(tcfg, batched=True)(
+        prod_rx_init(tcfg, (3,), "cpu"), torch.from_numpy(frames))
+    agree(o_t, o_j)
+    _, o_j = jrx.make_prod_rx_fn(cfg)(jrx.prod_rx_init(cfg), frames[1])
+    _, o_t = make_prod_rx_fn(tcfg)(prod_rx_init(tcfg, (), "cpu"),
+                                   torch.from_numpy(frames[1]))
+    agree(o_t, o_j)
 
 
 def _wrapper_calls():

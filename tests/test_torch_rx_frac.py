@@ -190,9 +190,32 @@ def test_hunt_and_extraction_follow_frac_timing_as_jax(frac_timing):
 
 
 def test_unfused_decode_still_raises():
+    """Once a raise, now a parity case: ``prod_rx_stream_pallas(
+    fuse_decode=False)`` under ``frac_timing`` (the full-rate front-end,
+    then the XLA back end ``prod_rx_backend``) on the fractionally
+    delayed streams, against the JAX function in interpret mode, by the
+    criterion above; every packet decodes, the state within 1e-6."""
+    frames, bits = _frames()
     tcfg = interop.config_from_dict(dataclasses.asdict(FRAC))
-    with pytest.raises(NotImplementedError, match="fuse_decode"):
-        prod_rx_stream_pallas(
-            tcfg, prod_rx_init(tcfg, (C,), device="cpu"),
-            torch.zeros((1, C, CFG.frame_size), dtype=torch.int16),
-            fuse_decode=False)
+    st_j, o_j = jrx.prod_rx_stream_pallas(
+        FRAC, jrx.prod_rx_init(FRAC, (C,)), jnp.asarray(frames),
+        descramble=False, block_channels=C, fuse_decode=False,
+        interpret=True)
+    o_j = jax.tree.map(np.asarray, o_j)
+    st_t, o_t = prod_rx_stream_pallas(
+        tcfg, prod_rx_init(tcfg, (C,), device="cpu"),
+        torch.from_numpy(frames), descramble=False, fuse_decode=False)
+    v = o_j.valid
+    assert np.array_equal(o_t.valid.numpy(), v)
+    assert np.array_equal(o_t.bits.numpy()[v], o_j.bits[v])
+    assert np.array_equal(o_t.lag.numpy()[v], o_j.lag[v])
+    assert np.array_equal(o_t.timing_phase.numpy()[v], o_j.timing_phase[v])
+    assert np.array_equal(o_t.matches.numpy()[v], o_j.matches[v])
+    assert np.abs(o_t.cfo_hz.numpy()[v] - o_j.cfo_hz[v]).max() < 0.5
+    assert np.abs(o_t.eq_error.numpy()[v] - o_j.eq_error[v]).max() < 2e-3
+    sent = bits.reshape(-1, CFG.bits_per_frame)
+    for c in range(C):
+        assert np.array_equal(o_t.bits.numpy()[:, c][v[:, c]], sent)
+    for a, b in zip(interop.state_to_numpy(st_t),
+                    jax.tree.map(np.asarray, st_j)):
+        assert np.abs(a - b).max() <= 1e-6
