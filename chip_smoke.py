@@ -20,11 +20,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  noise over the whole int16 range, both plane dtypes and
                  all three layouts, and the full-rate front-end on such
                  rows and on a second block carrying their state, equal
-                 to the bit; then the hunt alone
-                 on 8192 x 4 rows of full-scale noise at both operating points and with the
-                 int8 operand on f32 planes (lag and phase equal on every
-                 row; in int8 mode the peak equal to the bit, here as
-                 above);
+                 to the bit; then the hunt alone on 8192 x 4 rows of
+                 full-scale noise at both operating points and with the
+                 int8 operand on f32 planes (lag, phase and peak equal
+                 on every row);
   4. main     -- ``prod_rx_batch(fuse_frontend=True)`` at the bench
                  operating point, 8192 channels, two chained dispatches
                  of 10 blocks carrying the state, on the golden stream
@@ -60,16 +59,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  ``prod_rx_stream`` (plain PyTorch, the oracle) and every
                  kernel path the config allows, each held to it by the
                  North star's criterion and to the truth (768/768
-                 packets, 0 bit errors, 0 false detects), for the six
-                 pinned configs the port runs (the bf16 CFO one is
-                 reported skipped); (h) BER: ``ber_run`` at 2, 4 and 6 dB,
+                 packets, 0 bit errors, 0 false detects), for the seven
+                 pinned configs and the library default under each of
+                 the six other knob values; (h) BER: ``ber_run`` at 2, 4
+                 and 6 dB,
                  317,440 bits a point, one noisy stream through the XLA
                  path and both kernel batch paths: every packet found,
                  no false detect; the kernel paths' errors equal and
                  their Wilson interval overlapping ``BER_PALLAS.jsonl``'s
                  at that SNR (a record of the one-kernel path); the XLA
                  path's overlapping theirs, its overlap with the record
-                 reported;
+                 reported; (i) the knob variants: each of the seven
+                 configuration values the kernels take as template
+                 parameters (``KNOB_VALUES``) at both operating points,
+                 phase 3's comparison of the ten kernels under it on
+                 golden rows, then the kernels it changes on 8192 x 4
+                 rows of full-scale noise (front-ends equal to the bit,
+                 the hunt's lag, phase and peak equal, the decode's gated
+                 and valid flags equal);
   6. timing   -- chained dispatches of the main path (premix, then
                  ``mixer_fold=True``: (d1)), of the gated RX, of (a) and
                  of (d2), (a) with ``mixer_fold=True`` (8192 x 128
@@ -80,11 +87,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  FMUL + FADD floor and what ptxas says of it), and each
                  kernel against its plain version at 8192 x 4 rows, each
                  beside its bound (``_kernel_bounds``), the hunt in both
-                 operand modes; the XLA path at 8192 x 8 blocks and
-                 ``python -m singlecarrier_tpu_torch loopback``.
+                 operand modes, then each knob variant at 8192 x 4 rows
+                 beside its bound and the default instantiation; the main
+                 path at 8192 x 128 under each knob value (samples/s
+                 beside the operating point's, peak memory, launches, the
+                 three kernels' split); the XLA path at 8192 x 8 blocks
+                 and ``python -m singlecarrier_tpu_torch loopback``.
 
-Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power
-line and, last, ``{"ok": true, "device": {...}}``.  Any failing phase
+Prints one ``{"kernels": [...]}`` line (each kernel with its knob
+variants under "variants"), the ``nvidia-smi`` name/power line and,
+last, ``{"ok": true, "device": {...}}``.  Any failing phase
 exits non-zero before the last line.
 """
 
@@ -176,27 +188,44 @@ def _bound(nbytes: float, ops: dict):
                                        else "operations")
 
 
+def _ops(*terms) -> dict:
+    """{operand type: operations} summed over (type, count) terms."""
+    out = {}
+    for kind, n in terms:
+        out[kind] = out.get(kind, 0) + n
+    return out
+
+
 def _kernel_bounds(cfg, N: int, C: int) -> dict:
     """Bounds of every kernel for N rows of C channels at ``cfg``: each
     input read once, each output written once; operations counted from
-    the shapes (multiply-add = 2)."""
+    the shapes (multiply-add = 2), at the rate of the operand type the
+    config gives them (the knobs: front-end, hunt and CFO DFT operands;
+    the hunt's energy sums; the Gram)."""
     n, cyc, n_sym = cfg.frame_size, cfg.cycles, cfg.symbols_per_block
     halo, P, D = cfg.ntaps - 1, cfg.preamble_length, cfg.frame_symbols
     L, pkt = cfg.eq_length, cfg.pkt_window
+    R = cfg.ls_refit_symbols or D
     plane_b = 2 if cfg.decim_dtype == "bf16" else 4
     planes = cyc * 2 * n_sym                       # values per row
     out_row = 4 * (D + 8)
-    fir = {"bf16": N * 2 * n * cfg.ntaps * 2,      # bf16 operands, f32 sum
-           "f32": N * n * 14}                      # scale + complex downmix
-    hunt_ops = {cfg.hunt_dtype: N * cyc * 2 * n_sym * P * 2,
-                "f32": N * (2 * planes * 2 + n_sym * P       # squares, energy
-                            + cyc * n_sym * (4 * cfg.corr_segments + 2))}
-    decode_ops = {"f32": N * (
-        P * cfg.cfo_nfft * 4 * 2 + cfg.cfo_nfft * 3           # CFO DFT, power
-        + pkt * 8 + 2 * P * 2                                 # derotate, gate
-        + (P + (cfg.ls_refit_symbols or D)) * (L * 8 + L * 8)  # Gram, b-vec
-        + (P * 2 + (cfg.ls_refit_symbols or D) + D) * L * 8   # apply x4
-        + (1 + cfg.phase_refine_iters) * D * 40)}             # refine passes
+    fir = _ops((cfg.frontend_dtype, N * 2 * n * cfg.ntaps * 2),  # f32 sums
+               ("f32", N * n * 14))                # scale + complex downmix
+    energy = {"espan": 2 * planes * 2 + n_sym * P,          # squares, sums
+              "energy": 2 * planes * 2 + cyc * n_sym * P,
+              "none": 0}[cfg.hunt_norm]
+    hunt_ops = _ops((cfg.hunt_dtype, N * cyc * 2 * n_sym * P * 2),
+                    ("f32", N * (energy + cyc * n_sym
+                                 * (4 * cfg.corr_segments + 2))))
+    gram = L * (L + 1) // 2 if cfg.ls_gram == "direct" else L
+    decode_ops = _ops(
+        (cfg.cfo_dtype, N * P * cfg.cfo_nfft * 4 * 2),        # CFO DFT
+        ("f32", N * (
+            cfg.cfo_nfft * 3                                  # power
+            + pkt * 8 + 2 * P * 2                             # derotate, gate
+            + (P + R) * (gram * 8 + L * 8)                    # Gram, b-vec
+            + (P * 2 + R + D) * L * 8                         # apply x4
+            + (1 + cfg.phase_refine_iters) * D * 40)))        # refine passes
     k1_bytes = N * n * 2 + C * (2 + 2 * halo) * 4 + N * planes * plane_b
     rows_in = N * n * 2 + N * (2 + 2 * halo) * 4
     return {
@@ -402,8 +431,6 @@ def _kernel_inputs(torch, np, gen, tx, cfg, C, B, dev):
 def _compare_kernels(torch, cfg, inputs, what: str) -> dict:
     """Each kernel against its plain version on the same operands; returns
     {name: {"max_abs_err": x}}."""
-    from singlecarrier_tpu_torch.modem.rx_production import (
-        _extract_packet_planes)
     from singlecarrier_tpu_torch.ops.decode import (
         extract_decode, extract_decode_ref, fused_decode,
         fused_decode_extract, fused_decode_extract_ref, fused_decode_ref,
@@ -423,8 +450,7 @@ def _compare_kernels(torch, cfg, inputs, what: str) -> dict:
              f"{int((dk != dr).sum())} values, max |err| {float(err1.max())}")
     print(f"[kernels] {what}: frontend_decim vs plain: max |err| "
           f"{float(err1.max()):.3e} (tolerance none: equal to the bit in "
-          f"{cfg.decim_dtype}; same f32 sum order, exact products)",
-          flush=True)
+          f"{cfg.decim_dtype}; {_fe_why(cfg)})", flush=True)
 
     report["hunt"] = _compare_hunt(torch, cfg, dk, dprev0, what)
     lk, pk_, qk = hunt(cfg, dk, dprev0)
@@ -466,21 +492,10 @@ def _compare_kernels(torch, cfg, inputs, what: str) -> dict:
     report["frontend_rows"] = {"max_abs_err": worst}
 
     # ---- the decode variants, on windows of the row-major planes ----
-    wins, lag, ph, peak = _hunt_windows(torch, cfg, drow, C)
-    off = cfg.eq_length // 2
-    pkt = _extract_packet_planes(
-        cfg, wins[..., off:off + 2 * drow.shape[-1]].contiguous(), lag, ph)
-    pkt_r, pkt_i = pkt[:, 0].contiguous(), pkt[:, 1].contiguous()
-
-    def _rows_of(dec):
-        return torch.cat([dec["dibits"], dec["matches"].float()[:, None],
-                          dec["eq_error"][:, None], dec["cfo_hz"][:, None],
-                          dec["gated"].float()[:, None],
-                          dec["energy"][:, None]], dim=1)
-
-    ek = _rows_of(fused_decode_extract(cfg, wins, lag, ph, peak))
+    wins, lag, ph, peak, pkt_r, pkt_i = _hunt_windows(torch, cfg, drow, C)
+    ek = _decode_rows(torch, fused_decode_extract(cfg, wins, lag, ph, peak))
     er = fused_decode_extract_ref(cfg, wins, lag, ph, peak)
-    pk = _rows_of(fused_decode(cfg, pkt_r, pkt_i, peak))
+    pk = _decode_rows(torch, fused_decode(cfg, pkt_r, pkt_i, peak))
     pr = fused_decode_ref(cfg, pkt_r, pkt_i, peak)
     torch.cuda.synchronize()
     report["decode_extract"] = _compare_decode(torch, cfg, ek, er, what,
@@ -495,9 +510,10 @@ def _compare_kernels(torch, cfg, inputs, what: str) -> dict:
 
 def _compare_hunt(torch, cfg, dk, dprev0, what: str) -> dict:
     """The hunt against its plain version on planes ``dk``: lag and phase
-    equal on every row; the peak equal to the bit in int8 mode (the
-    integer correlation is exact and the f32 sums keep the plain order),
-    within 1e-5 relative in the bf16 mode."""
+    equal on every row, and the peak equal to the bit: in int8 mode the
+    integer correlation is exact, in the bf16 and f32 modes the segment
+    sums run in the plain version's ascending k, and every f32 sum after
+    them keeps the plain order."""
     from singlecarrier_tpu_torch.ops.decode import hunt, hunt_ref
     lk, pk_, qk = hunt(cfg, dk, dprev0)
     lr, pr_, qr = hunt_ref(cfg, dk, dprev0)
@@ -506,29 +522,28 @@ def _compare_hunt(torch, cfg, dk, dprev0, what: str) -> dict:
     _require(torch.equal(lk, lr) and torch.equal(pk_, pr_),
              f"{what}: hunt lag/phase differ on {int((lk != lr).sum())}/"
              f"{int((pk_ != pr_).sum())} rows")
-    if cfg.hunt_dtype == "int8":
-        _require(torch.equal(qk, qr), f"{what}: hunt peak differs on "
-                 f"{int((qk != qr).sum())} rows (rel err {rel})")
-        tol = "equal to the bit"
-    else:
-        _require(rel <= 1e-5, f"{what}: hunt peak rel err {rel}")
-        tol = f"max rel err {rel:.3e} (tolerance 1e-5)"
-    print(f"[kernels] {what}: hunt ({cfg.hunt_dtype} operand) vs plain: "
-          f"lag and phase identical on {lk.numel()} rows, peak {tol}",
-          flush=True)
+    _require(torch.equal(qk, qr), f"{what}: hunt peak differs on "
+             f"{int((qk != qr).sum())} rows (rel err {rel})")
+    print(f"[kernels] {what}: hunt ({cfg.hunt_dtype} operand, hunt_norm "
+          f"{cfg.hunt_norm}) vs plain: lag and phase identical on "
+          f"{lk.numel()} rows, peak equal to the bit", flush=True)
     return {"max_abs_err": float((qk - qr).abs().max())}
 
 
-def _compare_decimating_on_noise(torch, cfg, inputs, gen, what: str):
+def _compare_decimating(torch, cfg, inputs, what: str, gen=None):
     """The four decimating front-ends (premix and folded) against their
-    plain versions on rows of full-scale noise (the whole int16 range:
-    saturated inputs and bf16 ties), every layout: equal to the bit."""
+    plain versions, every layout: equal to the bit.  With ``gen`` the
+    rows are full-scale noise (the whole int16 range: saturated inputs
+    and bf16 ties) in place of ``inputs``' PCM."""
     from singlecarrier_tpu_torch.ops.frontend import (
         frontend_decim, frontend_decim_folded_ref, frontend_decim_ref,
         frontend_rows, frontend_rows_folded_ref, frontend_rows_ref)
     pcm, p0r, p0i, t0r, t0i, adv, _ = inputs
-    pcm = torch.randint(-32768, 32768, pcm.shape, generator=gen,
-                        device=pcm.device, dtype=torch.int16)
+    rows_of = "golden rows among noise"
+    if gen is not None:
+        pcm = torch.randint(-32768, 32768, pcm.shape, generator=gen,
+                            device=pcm.device, dtype=torch.int16)
+        rows_of = "rows of full-scale noise"
     rows = _row_inputs(torch, cfg, pcm, p0r, p0i, t0r, t0i, adv)
     for fold, decim_ref, rows_ref in (
             (False, frontend_decim_ref, frontend_rows_ref),
@@ -554,8 +569,9 @@ def _compare_decimating_on_noise(torch, cfg, inputs, gen, what: str):
             del fk, fr
         torch.cuda.synchronize()
         print(f"[kernels] {what}: {name} frontend_decim and frontend_rows "
-              f"(transposed {cfg.decim_dtype}, row-major f32) vs plain on "
-              f"{dk.shape[2]} rows of full-scale noise: max |err| 0 (equal "
+              f"({cfg.frontend_dtype} operands; transposed "
+              f"{cfg.decim_dtype}, row-major f32) vs plain on "
+              f"{dk.shape[2]} {rows_of}: max |err| 0 (equal "
               f"to the bit)" + ("" if fold else ", and frontend_rows equal "
                                 "to frontend_decim"), flush=True)
         del dk
@@ -596,6 +612,13 @@ def _compare_full_on_noise(torch, cfg, inputs, gen, what: str):
           flush=True)
 
 
+def _fe_why(cfg) -> str:
+    """Why a decimating front-end returns its plain version's bits."""
+    if cfg.frontend_dtype == "bf16":
+        return "same f32 sum order, exact products"
+    return "same f32 sum order, each product and sum rounded on its own"
+
+
 def _compare_new_kernels(torch, cfg, inputs, rows, what: str, report: dict):
     """The mixer-folded front-ends, the gate stage and the full-rate
     front-end against their plain versions; adds their entries to
@@ -608,8 +631,7 @@ def _compare_new_kernels(torch, cfg, inputs, rows, what: str, report: dict):
     ddt = torch.bfloat16 if cfg.decim_dtype == "bf16" else torch.float32
     pcm, p0r, p0i, t0r, t0i, adv, dprev0 = inputs
 
-    def _exact(name, got, want, dtype, note="",
-               why="same f32 sum order, exact products"):
+    def _exact(name, got, want, dtype, note="", why=_fe_why(cfg)):
         torch.cuda.synchronize()
         _require(got.dtype == dtype, f"{what}: {name}{note} dtype "
                  f"{got.dtype}, want {dtype}")
@@ -725,8 +747,11 @@ def _row_inputs(torch, cfg, pcm, p0r, p0i, t0r, t0i, adv):
 def _hunt_windows(torch, cfg, drow, C):
     """Padded hunt windows [N, cyc, 2, 768] of row-major planes
     ``drow`` [N, cyc, 2, n_sym] (row n's previous block is row n - C;
-    zeros before block 0), and the plain hunt's (lag, phase, peak)."""
-    from singlecarrier_tpu_torch.modem.rx_production import _hunt_planes
+    zeros before block 0), the plain hunt's (lag, phase, peak), and the
+    packet planes [N, pkt_window] (real, imaginary) at that lag and
+    phase."""
+    from singlecarrier_tpu_torch.modem.rx_production import (
+        _extract_packet_planes, _hunt_planes)
     off = cfg.eq_length // 2
     n_sym = drow.shape[-1]
     prev = torch.cat([torch.zeros_like(drow[:C]), drow[:-C]])
@@ -734,7 +759,316 @@ def _hunt_windows(torch, cfg, drow, C):
     wins = torch.nn.functional.pad(torch.cat([prev, drow], -1),
                                    (off, wp - off - 2 * n_sym))
     lag, ph, peak = _hunt_planes(cfg, wins, col_offset=off)
-    return wins.contiguous(), lag, ph, peak
+    pkt = _extract_packet_planes(
+        cfg, wins[..., off:off + 2 * n_sym].contiguous(), lag, ph)
+    return (wins.contiguous(), lag, ph, peak, pkt[:, 0].contiguous(),
+            pkt[:, 1].contiguous())
+
+
+def _decode_rows(torch, dec):
+    """A decode launcher's stat dict as packed [N, D + 5] rows."""
+    return torch.cat([dec["dibits"], dec["matches"].float()[:, None],
+                      dec["eq_error"][:, None], dec["cfo_hz"][:, None],
+                      dec["gated"].float()[:, None], dec["energy"][:, None]],
+                     dim=1)
+
+
+# ---- (i) the knob variants: the kernels' other instantiations
+
+_DECODES = ("extract_decode", "decode_extract", "decode_packets")
+# The seven configuration values of the JAX kernels that the CUDA kernels
+# take as template parameters, each with the kernels whose code it changes.
+KNOB_VALUES = (
+    ("hunt_norm", "energy", ("hunt",)),
+    ("hunt_norm", "none", ("hunt",)),
+    ("hunt_dtype", "f32", ("hunt",)),
+    ("ls_gram", "direct", _DECODES),
+    ("ls_bvec", "matmul", _DECODES),
+    ("cfo_dtype", "bf16", _DECODES),
+    ("frontend_dtype", "f32", ("frontend_decim", "frontend_rows",
+                               "frontend_decim_folded",
+                               "frontend_rows_folded")),
+)
+
+
+# A decision of the decode kernel may differ from its plain version's
+# only on a knife edge: a symbol whose plain soft value lies within this
+# fraction of its magnitude of the slicer's boundary.  The kernel's f32
+# sums run in another order than the plain version's (lane-strided,
+# then a butterfly), which moves a soft symbol by some 1e-7 of itself;
+# ``python3 -m singlecarrier_tpu_torch.kernel_ab --knife-edges N``
+# counts the symbols that differ on N draws of phase 3's inputs and
+# prints their margins.
+KNIFE_EDGE = 1e-5
+
+
+def _compare_decode_soft(torch, cfg, out_k, pkt_r, pkt_i, peak, what: str,
+                         name: str) -> dict:
+    """A decode kernel variant's packed rows against its plain version on
+    the same packets: valid identical; on valid rows the descrambled
+    dibits identical but at knife edges (``KNIFE_EDGE``; each one
+    printed); |dcfo| < 0.5 Hz, |deq_error| < 2e-3."""
+    from singlecarrier_tpu_torch.ops import decode
+    D = cfg.frame_symbols
+    mask = torch.from_numpy(decode._mask_np(D, True)).to(pkt_r.device)
+    out_r, ar, ai = decode._decode_core(cfg, pkt_r, pkt_i, peak[:, None],
+                                        mask, soft=True)
+    torch.cuda.synchronize()
+    vk = (out_k[:, D + 3] > 0.5) & (out_k[:, D] > cfg.match_threshold)
+    vr = (out_r[:, D + 3] > 0.5) & (out_r[:, D] > cfg.match_threshold)
+    _require(torch.equal(vk, vr), f"{what}: {name} valid differs on "
+             f"{int((vk != vr).sum())} rows")
+    _require(bool(vk.any()), f"{what}: {name}: no packet decoded")
+    diff = (out_k[:, :D] != out_r[:, :D]) & vk[:, None]
+    margin = (torch.minimum((ar - ai).abs(), (ar + ai).abs())
+              / torch.sqrt(ar * ar + ai * ai).clamp_min(1e-30))
+    edges = margin[diff]
+    _require(bool((edges < KNIFE_EDGE).all()),
+             f"{what}: {name} dibits differ on valid rows off a knife edge "
+             f"(plain margins {edges.tolist()[:8]})")
+    stat_err = (out_k[vk, D:D + 5] - out_r[vr, D:D + 5]).abs()
+    dcfo, deq = float(stat_err[:, 2].max()), float(stat_err[:, 1].max())
+    _require(dcfo < 0.5 and deq < 2e-3,
+             f"{what}: {name} |dcfo| {dcfo}, |deq| {deq}")
+    print(f"[knobs] {what}: {name} vs plain: valid identical "
+          f"({int(vk.sum())}/{vk.numel()} rows valid), dibits identical on "
+          f"{int(vk.sum()) * D - edges.numel()} of {int(vk.sum()) * D} valid "
+          f"symbols, {edges.numel()} on a knife edge (plain margins "
+          f"{[f'{x:.1e}' for x in edges.tolist()]}, allowed under "
+          f"{KNIFE_EDGE:.0e}), |dcfo| {dcfo:.3e} Hz, |deq_error| {deq:.3e}"
+          f" (tolerances 0.5 Hz, 2e-3)", flush=True)
+    return {"max_abs_err": float(stat_err.max())}
+
+
+def _compare_decode_variants(torch, cfg, inputs, what: str) -> dict:
+    """The three decode kernels under ``cfg`` against their plain
+    versions (``_compare_decode_soft``) on the golden rows of
+    ``inputs``: extract_decode on the front-end's planes at the hunt's
+    lag and phase, decode_extract and decode_packets on the windows and
+    packets the plain hunt finds in the row-major planes."""
+    from singlecarrier_tpu_torch.ops.decode import (
+        _extract_from_planes, extract_decode, fused_decode,
+        fused_decode_extract, hunt)
+    from singlecarrier_tpu_torch.ops.frontend import (frontend_decim,
+                                                      frontend_rows)
+    pcm, p0r, p0i, t0r, t0i, adv, dprev0 = inputs
+    dk = frontend_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv)
+    lk, pk_, qk = hunt(cfg, dk, dprev0)
+    pkt = _extract_from_planes(cfg, dk, dprev0, lk, pk_)
+    D = cfg.frame_symbols
+    rep = {"extract_decode": _compare_decode_soft(
+        torch, cfg, extract_decode(cfg, dk, dprev0, lk, pk_, qk)[:, :D + 5],
+        pkt[:, 0].contiguous(), pkt[:, 1].contiguous(), qk, what,
+        "extract_decode")}
+    rows = _row_inputs(torch, cfg, pcm, p0r, p0i, t0r, t0i, adv)
+    wins, wl, wph, wpk, pkt_r, pkt_i = _hunt_windows(
+        torch, cfg, frontend_rows(cfg, *rows), pcm.shape[1])
+    ek = _decode_rows(torch, fused_decode_extract(cfg, wins, wl, wph, wpk))
+    dp = _decode_rows(torch, fused_decode(cfg, pkt_r, pkt_i, wpk))
+    rep["decode_extract"] = _compare_decode_soft(
+        torch, cfg, ek, pkt_r, pkt_i, wpk, what, "decode_extract")
+    rep["decode_packets"] = _compare_decode_soft(
+        torch, cfg, dp, pkt_r, pkt_i, wpk, what, "decode_packets")
+    _require(torch.equal(ek, dp), f"{what}: decode_extract and "
+             f"decode_packets disagree on the same packets")
+    return rep
+
+
+def _compare_decode_on_noise(torch, cfg, dk, dprev0, what: str) -> dict:
+    """extract_decode against its plain version on planes of full-scale
+    noise: valid and gated identical on every row.  No packet is there to
+    hold the stats to; the largest |dcfo| and |deq_error| of the rows
+    that pass the energy gate are reported."""
+    from singlecarrier_tpu_torch.ops.decode import (
+        extract_decode, extract_decode_ref, hunt)
+    D = cfg.frame_symbols
+    lag, ph, peak = hunt(cfg, dk, dprev0)
+    ok_ = extract_decode(cfg, dk, dprev0, lag, ph, peak)
+    or_ = extract_decode_ref(cfg, dk, dprev0, lag, ph, peak)
+    torch.cuda.synchronize()
+    gk, gr = ok_[:, D + 3] > 0.5, or_[:, D + 3] > 0.5
+    vk = gk & (ok_[:, D] > cfg.match_threshold)
+    vr = gr & (or_[:, D] > cfg.match_threshold)
+    _require(torch.equal(gk, gr) and torch.equal(vk, vr),
+             f"{what}: extract_decode gated/valid differ from the plain "
+             f"version on {int((gk != gr).sum())}/{int((vk != vr).sum())} "
+             f"rows")
+    err = (ok_[gk, D:D + 3] - or_[gk, D:D + 3]).abs()
+    dcfo = float(err[:, 2].max()) if err.numel() else 0.0
+    deq = float(err[:, 1].max()) if err.numel() else 0.0
+    print(f"[knobs] {what}: extract_decode vs plain on {dk.shape[2]} rows "
+          f"of full-scale noise: gated ({int(gk.sum())} rows) and valid "
+          f"({int(vk.sum())}) identical; on the gated rows |dcfo| "
+          f"{dcfo:.3e} Hz, |deq_error| {deq:.3e} (reported)", flush=True)
+
+
+def _knob_phase(torch, gen, inputs_fn, default, bench) -> dict:
+    """(i): each knob value at both operating points, the kernels it
+    changes against their plain versions (the others run their default
+    instantiation, which phase 3 holds): on golden rows among noise
+    (C_CMP x B_CMP), then on C_MAIN x B_KTIME rows of full-scale noise.
+    The front-ends equal to the bit in every layout; the hunt's lag,
+    phase and peak equal to the bit; the decode by decisions, knife edges
+    aside (``_compare_decode_soft``), and on noise its gated and valid
+    flags.  Returns {knob: {kernel: largest max |err|}}."""
+    from singlecarrier_tpu_torch.ops.frontend import frontend_decim
+    errs = {}
+    for knob, value, kernels in KNOB_VALUES:
+        name = f"{knob}={value}"
+        worst = errs[name] = {k: 0.0 for k in kernels}
+        for what, base in (("library default", default),
+                           ("bench operating point", bench)):
+            cfg = base.replace(**{knob: value})
+            tag = f"{name} at the {what}"
+            golden = inputs_fn(cfg, C_CMP, B_CMP)
+            noisy = inputs_fn(cfg, C_MAIN, B_KTIME)
+            if knob == "frontend_dtype":
+                for inputs, g in ((golden, None), (noisy, gen)):
+                    _compare_decimating(torch, cfg, inputs, tag, g)
+                continue
+            pcm, p0r, p0i, t0r, t0i, adv, dprev0 = noisy
+            pcm = torch.randint(-16384, 16384, pcm.shape, generator=gen,
+                                device=pcm.device, dtype=torch.int16)
+            dk = frontend_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv)
+            rows = f"{tag}, {C_MAIN} x {B_KTIME} rows of noise"
+            if knob.startswith("hunt"):
+                gk = frontend_decim(cfg, *golden[:6])
+                _compare_hunt(torch, cfg, gk, golden[6], f"{tag}, golden")
+                _compare_hunt(torch, cfg, dk, dprev0, rows)
+                continue
+            for k, r in _compare_decode_variants(torch, cfg, golden,
+                                                 tag).items():
+                worst[k] = max(worst[k], r["max_abs_err"])
+            _compare_decode_on_noise(torch, cfg, dk, dprev0, rows)
+            del golden, noisy, pcm, dk
+    return errs
+
+
+def _knob_main_paths(torch, np, cfg, noise, rate, dispatches, main_rate,
+                     smi_line: str) -> dict:
+    """The main path at the full dispatch under each knob value, the rest
+    of ``cfg`` (the bench operating point) unchanged: samples/s over
+    ITERS chained dispatches of ``noise`` beside ``main_rate`` (the
+    operating point's own reading), peak memory, the launches of the run
+    and the three kernels' split of a dispatch.  Then the batch paths
+    that launch the knob's other kernels (the two-kernel and folded ones
+    for the front-end knob, the two unfused ones for the decode knobs),
+    one dispatch of B_UNFUSED blocks each.  Returns {knob: {kernel:
+    launches over those runs}}."""
+    from singlecarrier_tpu_torch.modem import (prod_rx_batch, prod_rx_init,
+                                               prod_rx_init_planes)
+    from singlecarrier_tpu_torch.ops import _build
+    from singlecarrier_tpu_torch.ops.decode import extract_decode, hunt
+    from singlecarrier_tpu_torch.ops.frontend import frontend_decim
+    n, B = cfg.frame_size, noise.shape[0]
+    advs = np.exp(-2j * np.pi * cfg.center / cfg.fs * n
+                  * np.arange(B)).astype(np.complex64)
+    adv = torch.from_numpy(np.stack([advs.real, advs.imag])).to(noise.device)
+    main = ("frontend_decim", "hunt", "extract_decode")
+    launches = {}
+    for knob, value, _ in KNOB_VALUES:
+        kcfg, key = cfg.replace(**{knob: value}), f"{knob}={value}"
+        state = prod_rx_init_planes(kcfg, C_MAIN)
+        state, _ = prod_rx_batch(kcfg, state, noise, fuse_frontend=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        r = rate(f"main path with {key} {C_MAIN} ch x {B} blocks x {ITERS} "
+                 f"chained dispatches",
+                 lambda: dispatches(state, kcfg, fuse_frontend=True),
+                 ITERS * B)
+        counts = launches[key] = dict(_build.LAUNCHES)
+        _require(all(counts[k] == ITERS for k in main)
+                 and sum(counts.values()) == ITERS * len(main),
+                 f"main path with {key}: launches {counts}")
+        p0r, p0i, t0r, t0i, dprev0 = prod_rx_init_planes(kcfg, C_MAIN)
+        dk = frontend_decim(kcfg, noise, p0r, p0i, t0r, t0i, adv)
+        lk, pk_, qk = hunt(kcfg, dk, dprev0)
+        split = {
+            "frontend_decim": lambda: frontend_decim(kcfg, noise, p0r, p0i,
+                                                     t0r, t0i, adv),
+            "hunt": lambda: hunt(kcfg, dk, dprev0),
+            "extract_decode": lambda: extract_decode(kcfg, dk, dprev0, lk,
+                                                     pk_, qk)}
+        print(f"[timing] main path with {key}: {r:.4e} samples/s, "
+              f"{r / main_rate:.4f} of the operating point's {main_rate:.4e}"
+              f"; launches {counts}; kernels of one {C_MAIN} x {B} "
+              f"dispatch: " + ", ".join(
+                  f"{k} {_time_cuda(fn, 3):.3f} ms" for k, fn in split.items())
+              + f"; {smi_line}", flush=True)
+        del state, dk, lk, pk_, qk, split
+        fold = kcfg.replace(mixer_fold=True)
+        runs = {"frontend_dtype": ((fold, {"fuse_frontend": True}),
+                                   (fold, {}), (kcfg, {}))}.get(
+            knob, () if knob.startswith("hunt") else (
+                (kcfg, {"fuse_hunt": False}),
+                (kcfg, {"fuse_hunt": False, "fuse_extract": False})))
+        for rcfg, flags in runs:
+            st = (prod_rx_init(rcfg, (C_MAIN,)) if "fuse_hunt" in flags
+                  else prod_rx_init_planes(rcfg, C_MAIN))
+            _build.reset_launches()
+            prod_rx_batch(rcfg, st, noise[:B_UNFUSED], **flags)
+            torch.cuda.synchronize()
+            for k, v in _build.LAUNCHES.items():
+                counts[k] += v
+        if runs:
+            print(f"[timing] {key}: launches over the main path's run and "
+                  f"one {C_MAIN} x {B_UNFUSED} dispatch of each other batch "
+                  f"path that launches its kernels: {counts}", flush=True)
+    return launches
+
+
+def _kernel_calls(torch, cfg, inputs, C: int) -> dict:
+    """{kernel: (kernel call, plain call)} of the ten kernels on the
+    operands of ``inputs`` ([B, C] rows from ``_kernel_inputs``) at
+    ``cfg``: the calls the timing runs."""
+    from singlecarrier_tpu_torch.ops.decode import (
+        extract_decode, extract_decode_ref, extract_gate, extract_gate_ref,
+        fused_decode, fused_decode_extract, fused_decode_extract_ref,
+        fused_decode_ref, hunt, hunt_ref)
+    from singlecarrier_tpu_torch.ops.frontend import (
+        frontend_decim, frontend_decim_folded_ref, frontend_decim_ref,
+        frontend_full, frontend_full_ref, frontend_rows,
+        frontend_rows_folded_ref, frontend_rows_ref)
+    pcm, p0r, p0i, t0r, t0i, adv, dprev0 = inputs
+    dk = frontend_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv)
+    lk, pk_, qk = hunt(cfg, dk, dprev0)
+    rows = _row_inputs(torch, cfg, pcm, p0r, p0i, t0r, t0i, adv)
+    wins, wl, wph, wpk, pkt_r, pkt_i = _hunt_windows(
+        torch, cfg, frontend_rows(cfg, *rows), C)
+    return {
+        "frontend_decim": (
+            lambda: frontend_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv),
+            lambda: frontend_decim_ref(cfg, pcm, p0r, p0i, t0r, t0i, adv)),
+        "frontend_rows": (
+            lambda: frontend_rows(cfg, *rows, transposed=True),
+            lambda: frontend_rows_ref(cfg, *rows, transposed=True)),
+        "hunt": (lambda: hunt(cfg, dk, dprev0),
+                 lambda: hunt_ref(cfg, dk, dprev0)),
+        "extract_decode": (
+            lambda: extract_decode(cfg, dk, dprev0, lk, pk_, qk),
+            lambda: extract_decode_ref(cfg, dk, dprev0, lk, pk_, qk)),
+        "decode_extract": (
+            lambda: fused_decode_extract(cfg, wins, wl, wph, wpk),
+            lambda: fused_decode_extract_ref(cfg, wins, wl, wph, wpk)),
+        "decode_packets": (
+            lambda: fused_decode(cfg, pkt_r, pkt_i, wpk),
+            lambda: fused_decode_ref(cfg, pkt_r, pkt_i, wpk)),
+        "frontend_decim_folded": (
+            lambda: frontend_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv,
+                                   mixer_fold=True),
+            lambda: frontend_decim_folded_ref(cfg, pcm, p0r, p0i, t0r, t0i,
+                                              adv)),
+        "frontend_rows_folded": (
+            lambda: frontend_rows(cfg, *rows, transposed=True,
+                                  mixer_fold=True),
+            lambda: frontend_rows_folded_ref(cfg, *rows, transposed=True)),
+        "extract_gate": (
+            lambda: extract_gate(cfg, dk, dprev0, lk, pk_, qk),
+            lambda: extract_gate_ref(cfg, dk, dprev0, lk, pk_, qk)),
+        "frontend_full": (lambda: frontend_full(cfg, *rows),
+                          lambda: frontend_full_ref(cfg, *rows)),
+    }
 
 
 # ---- (g) loopback parity and (h) BER: the port's XLA path as the oracle
@@ -749,8 +1083,11 @@ B_XLA = 8                                # timed XLA path: C_MAIN x B_XLA
 
 def _parity_configs(default):
     """(name, record, config) of the seven pinned ``PARITY_TPU*.json``
-    configs; a config the kernels refuse is reported skipped."""
+    configs, then the library default under each of the six other knob
+    values (no record: held to the XLA path and the truth alike)."""
     int8 = default.replace(decim_dtype="bf16", hunt_dtype="int8")
+    knobs = [(f"{knob}={value}", None, default.replace(**{knob: value}))
+             for knob, value, _ in KNOB_VALUES if knob != "cfo_dtype"]
     return [
         ("default", "PARITY_TPU.json", default),
         ("decim bf16", "PARITY_TPU_BF16.json",
@@ -762,7 +1099,7 @@ def _parity_configs(default):
         ("refit 128", "PARITY_TPU_R128.json",
          int8.replace(ls_refit_symbols=128)),
         ("cfo bf16", "PARITY_TPU_CFO16.json", int8.replace(cfo_dtype="bf16")),
-    ]
+    ] + knobs
 
 
 def _parity_stream(torch, cfg, bits, seed: int, dev):
@@ -852,14 +1189,15 @@ def _report(tag: str, line: dict) -> None:
     print(f"[{tag}] {json.dumps(line)}", flush=True)
 
 
-def _parity_phase(torch, default, drive, dev, seed: int) -> None:
+def _parity_phase(torch, default, drive, dev, seed: int) -> dict:
     """(g): the records' stream through the XLA path (the oracle) and every
-    path the config allows, each held to it; one ``[parity]`` line each."""
+    path the config allows, each held to it; one ``[parity]`` line each.
+    Returns {config: {kernel: launches over its kernel paths}}."""
     import numpy as np
     from singlecarrier_tpu_torch.modem import (
         ProdRxOut, prod_rx_batch, prod_rx_init, prod_rx_stream,
         prod_rx_stream_pallas)
-    from singlecarrier_tpu_torch.ops.fused_rx import check_supported
+    from singlecarrier_tpu_torch.ops import _build
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     bits = torch.randint(0, 2, (PARITY_C, PARITY_PACKETS, default.ns,
@@ -867,19 +1205,14 @@ def _parity_phase(torch, default, drive, dev, seed: int) -> None:
                          device=dev, dtype=torch.uint8)
     ref = bits.reshape(PARITY_C, PARITY_PACKETS, -1).cpu().numpy()
     expected = PARITY_C * PARITY_PACKETS
-    streams = {}
+    streams, launches = {}, {}
 
     def host(out):                                  # [B, C] -> numpy [C, B]
         return ProdRxOut(*(v.transpose(0, 1).cpu().numpy() for v in out))
 
     for name, record, cfg in _parity_configs(default):
         head = {"config": name, "record": record}
-        try:
-            if not cfg.frac_timing:
-                check_supported(cfg)
-        except NotImplementedError as e:
-            _report("parity", {**head, "skipped": str(e)})
-            continue
+        counts = launches[name] = {}
         if cfg.alpha not in streams:
             streams[cfg.alpha] = _parity_stream(torch, cfg, bits, seed + 1,
                                                 dev)
@@ -914,11 +1247,14 @@ def _parity_phase(torch, default, drive, dev, seed: int) -> None:
             ("frontend_full",))
         for path, (fn, expect) in paths.items():
             out_p = host(drive(f"parity {name}: {path}", fn, expect))
+            for k, v in _build.LAUNCHES.items():
+                counts[k] = counts.get(k, 0) + v
             rep = _parity_check(cfg, out_p, out_x, _truth(cfg, out_p, ref),
                                 truth_x, expected)
             _report("parity", {**head, "path": path, **rep})
             _require(rep["ok"], f"parity {name}: {path} against the XLA "
                      f"path: {rep}")
+    return launches
 
 
 def _ber_record(path: str) -> dict:
@@ -992,17 +1328,12 @@ def main() -> int:
             prod_rx_stream, prod_rx_stream_pallas)
         from singlecarrier_tpu_torch.modem.rx_gated import _pair_operands
         from singlecarrier_tpu_torch.modem.rx_production import (
-            _extract_packet, _extract_packet_planes, _hunt,
-            _train_and_decode, prod_rx_frame)
+            _extract_packet, _hunt, _train_and_decode, prod_rx_frame)
         from singlecarrier_tpu_torch.ops import _build
         from singlecarrier_tpu_torch.ops.decode import (
-            extract_decode, extract_decode_ref, extract_gate,
-            extract_gate_ref, fused_decode, fused_decode_extract,
-            fused_decode_extract_ref, fused_decode_ref, hunt, hunt_ref)
+            extract_decode, extract_gate, fused_decode, hunt)
         from singlecarrier_tpu_torch.ops.frontend import (
-            frontend_decim, frontend_decim_folded_ref, frontend_decim_ref,
-            frontend_full, frontend_full_ref, frontend_rows,
-            frontend_rows_folded_ref, frontend_rows_ref, fused_frontend)
+            frontend_decim, frontend_full, frontend_rows, fused_frontend)
         from singlecarrier_tpu_torch.ops.fused_rx import fused_rx_block
         golden = np.load(os.path.join(here, "tests", "golden",
                                       "reference.npz"))
@@ -1062,8 +1393,8 @@ def main() -> int:
     for what, cfg_ in (("library default", default),
                        ("bench operating point", cfg)):
         inputs = _inputs(cfg_, C_MAIN, B_KTIME)
-        _compare_decimating_on_noise(torch, cfg_, inputs, gen,
-                                     f"{what}, {C_MAIN} x {B_KTIME}")
+        _compare_decimating(torch, cfg_, inputs, f"{what}, {C_MAIN} x "
+                            f"{B_KTIME}", gen)
         _compare_full_on_noise(torch, cfg_, inputs, gen,
                                f"{what}, {C_MAIN} x {B_KTIME}")
         del inputs
@@ -1336,13 +1667,19 @@ def main() -> int:
 
     # ---- (g) loopback parity, (h) BER: the XLA path as the oracle ----
     t0 = time.perf_counter()
-    _parity_phase(torch, default, _drive, dev, SEED)
+    parity_launches = _parity_phase(torch, default, _drive, dev, SEED)
     t_g = time.perf_counter() - t0
     t0 = time.perf_counter()
     _ber_phase(torch, cfg, _drive, dev, SEED,
                _ber_record(os.path.join(here, BER_RECORD)))
     print(f"[paths] (g) parity {t_g:.1f} s, (h) BER "
           f"{time.perf_counter() - t0:.1f} s; {smi_line}", flush=True)
+    # ---- (i) every knob value's kernels against their plain versions ----
+    t0 = time.perf_counter()
+    knob_errs = _knob_phase(torch, gen, _inputs, default, cfg)
+    print(f"[knobs] (i) {len(KNOB_VALUES)} knob values x 2 operating "
+          f"points: {time.perf_counter() - t0:.1f} s; {smi_line}",
+          flush=True)
 
     _require(all(path_launches.get(k, 0) > 0 for k in KERNELS),
              f"a kernel was launched on no path: {path_launches}")
@@ -1374,14 +1711,16 @@ def main() -> int:
               f"{rate / cfg.fs:.1f} real-time channels; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
               f"{smi_line}", flush=True)
+        return rate
 
     def _dispatches(state, cfg_=cfg, **kw):
         for _ in range(ITERS):
             state, _ = prod_rx_batch(cfg_, state, noise, **kw)
 
-    _rate(f"main path {C_MAIN} ch x {B_TIME} blocks x {ITERS} chained "
-          f"dispatches", lambda: _dispatches(state, fuse_frontend=True),
-          ITERS * B_TIME)
+    main_rate = _rate(f"main path {C_MAIN} ch x {B_TIME} blocks x {ITERS} "
+                      f"chained dispatches",
+                      lambda: _dispatches(state, fuse_frontend=True),
+                      ITERS * B_TIME)
     del state
     state = prod_rx_init_planes(fold, C_MAIN)
     state, _ = prod_rx_batch(fold, state, noise, fuse_frontend=True)
@@ -1559,52 +1898,16 @@ def main() -> int:
               f"({C_MAIN * B_TIME} rows): kernel {ms:.3f} ms, bound "
               f"{bounds[name][0]:.3f} ms ({bounds[name][1]}){note}; "
               f"{smi_line}", flush=True)
-    del noise, rows, dk, lk, pk_, qk, full
+    del rows, dk, lk, pk_, qk, full
+    # the main path under each knob value (peak memory counted from here)
+    knob_launches = _knob_main_paths(torch, np, cfg, noise, _rate,
+                                     _dispatches, main_rate, smi_line)
+    del noise
 
-    pcm, p0r, p0i, t0r, t0i, adv, dprev0 = _inputs(cfg, C_MAIN, B_KTIME)
-    dk = frontend_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv)
-    lk, pk_, qk = hunt(cfg, dk, dprev0)
-    rows = _row_inputs(torch, cfg, pcm, p0r, p0i, t0r, t0i, adv)
-    drow = frontend_rows(cfg, *rows)
-    wins, wl, wph, wpk = _hunt_windows(torch, cfg, drow, C_MAIN)
-    off = cfg.eq_length // 2
-    pkt = _extract_packet_planes(
-        cfg, wins[..., off:off + 2 * drow.shape[-1]].contiguous(), wl, wph)
-    pkt_r, pkt_i = pkt[:, 0].contiguous(), pkt[:, 1].contiguous()
-    del drow, pkt
-    calls = {
-        "frontend_decim": (
-            lambda: frontend_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv),
-            lambda: frontend_decim_ref(cfg, pcm, p0r, p0i, t0r, t0i, adv)),
-        "frontend_rows": (
-            lambda: frontend_rows(cfg, *rows, transposed=True),
-            lambda: frontend_rows_ref(cfg, *rows, transposed=True)),
-        "hunt": (lambda: hunt(cfg, dk, dprev0),
-                 lambda: hunt_ref(cfg, dk, dprev0)),
-        "extract_decode": (
-            lambda: extract_decode(cfg, dk, dprev0, lk, pk_, qk),
-            lambda: extract_decode_ref(cfg, dk, dprev0, lk, pk_, qk)),
-        "decode_extract": (
-            lambda: fused_decode_extract(cfg, wins, wl, wph, wpk),
-            lambda: fused_decode_extract_ref(cfg, wins, wl, wph, wpk)),
-        "decode_packets": (
-            lambda: fused_decode(cfg, pkt_r, pkt_i, wpk),
-            lambda: fused_decode_ref(cfg, pkt_r, pkt_i, wpk)),
-        "frontend_decim_folded": (
-            lambda: frontend_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv,
-                                   mixer_fold=True),
-            lambda: frontend_decim_folded_ref(cfg, pcm, p0r, p0i, t0r, t0i,
-                                              adv)),
-        "frontend_rows_folded": (
-            lambda: frontend_rows(cfg, *rows, transposed=True,
-                                  mixer_fold=True),
-            lambda: frontend_rows_folded_ref(cfg, *rows, transposed=True)),
-        "extract_gate": (
-            lambda: extract_gate(cfg, dk, dprev0, lk, pk_, qk),
-            lambda: extract_gate_ref(cfg, dk, dprev0, lk, pk_, qk)),
-        "frontend_full": (lambda: frontend_full(cfg, *rows),
-                          lambda: frontend_full_ref(cfg, *rows)),
-    }
+    kinputs = _inputs(cfg, C_MAIN, B_KTIME)
+    _, _, _, _, _, _, dprev0 = kinputs
+    dk = frontend_decim(cfg, *kinputs[:6])
+    calls = _kernel_calls(torch, cfg, kinputs, C_MAIN)
     dk32 = dk.float()
     dprev32 = dprev0.float()
     for what, cfg_ in (("bf16 operand, f32 planes (the library default)",
@@ -1634,6 +1937,30 @@ def main() -> int:
               f"({bound_by}){floor}, no single PyTorch call computes it; "
               f"{smi_line}", flush=True)
 
+    variants = {name: [] for name in KERNELS}
+    for knob, value, names in KNOB_VALUES:
+        kcfg = cfg.replace(**{knob: value})
+        kcalls = _kernel_calls(torch, kcfg, kinputs, C_MAIN)
+        kbounds = _kernel_bounds(kcfg, C_MAIN * B_KTIME, C_MAIN)
+        key = f"{knob}={value}"
+        # (g) runs the CFO knob as its pinned record's config
+        gkey = "cfo bf16" if knob == "cfo_dtype" else key
+        for name in names:
+            kern, plain = kcalls[name]
+            v = {"knob": key, "max_abs_err": knob_errs[key][name],
+                 "ms": _time_cuda(kern, 10), "plain_ms": _time_cuda(plain, 3),
+                 "bound_ms": kbounds[name][0], "bound_by": kbounds[name][1],
+                 "launches": knob_launches[key].get(name, 0),
+                 "launches_parity": parity_launches[gkey].get(name, 0)}
+            variants[name].append(v)
+            print(f"[timing] {name} with {key} at {C_MAIN} ch x {B_KTIME} "
+                  f"blocks: kernel {v['ms']:.3f} ms (the default "
+                  f"instantiation {report[name]['ms']:.3f} ms above), plain "
+                  f"{v['plain_ms']:.3f} ms, bound {v['bound_ms']:.4f} ms "
+                  f"({v['bound_by']}); launches {v['launches']} on the runs "
+                  f"of the paths under the knob, {v['launches_parity']} on "
+                  f"its (g) run; {smi_line}", flush=True)
+        del kcalls
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "stands_for": note,
                 "launches": path_launches[name],
@@ -1641,7 +1968,7 @@ def main() -> int:
                 "ms": report[name]["ms"],
                 "plain_ms": report[name]["plain_ms"],
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-                "library_ms": None}
+                "library_ms": None, "variants": variants[name]}
                for name, (src, rep, note) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

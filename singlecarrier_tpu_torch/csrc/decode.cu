@@ -8,8 +8,26 @@
 // refit over the first R data symbols, decode, three guarded
 // phase/frequency refines (Taylor cos/sin, small-angle ratio) and the
 // descramble XOR, into slots 0..D+4 of the packed [N, 256] f32 row of
-// fused_rx.py:551-561.  Three entry points differ only in how they fill
-// the warp's packet:
+// fused_rx.py:551-561.
+//
+// Three configuration knobs of the JAX kernel are template parameters
+// of every decode kernel (KNOBS, a bit each), chosen by the entry point:
+//
+//   * KNOB_CFO16, cfg.cfo_dtype "bf16" (decode_pallas.py:429-437): the
+//     DFT's operands chips * pn and the table are bf16 values (the
+//     wrapper rounds the table); their products are exact in f32, so
+//     the sums keep the f32 DFT's order and bits with one fused
+//     multiply-add a term where the f32 DFT needs two instructions
+//     (mac);
+//   * KNOB_DIRECT, cfg.ls_gram "direct" (_gram_direct :206-221): the
+//     Gram of both fits as L(L+1)/2 product-and-reduce pairs, in place
+//     of the lag products and their prefix corrections;
+//   * KNOB_BVMAT, cfg.ls_bvec "matmul" (_pn_bvec_band :140-155, _fit
+//     :294-300): the train fit's b-vector b[i] = sum_u w[u] pn[u - i]
+//     summed in ascending u, a lane a sum (JAX's band matmul without its
+//     zero terms), in place of the lane-strided reduce.
+//
+// Three entry points differ only in how they fill the warp's packet:
 //
 //   * K3 extract_decode_kernel -- from the decim planes at the hunt's
 //     (phase, lag): the phase select + barrel shift of
@@ -77,6 +95,12 @@ constexpr int NCHUNK = P / KC;
 constexpr int TILE_F = KC * NFFT;          // floats of one plane's tile
 constexpr int N_STAGES = 8;                // stage clocks
 constexpr unsigned FULL = 0xffffffffu;
+
+// the decode kernels' knob bits (the KNOBS template parameter)
+constexpr int KNOB_CFO16 = 1;              // cfo_dtype "bf16"
+constexpr int KNOB_DIRECT = 2;             // ls_gram "direct"
+constexpr int KNOB_BVMAT = 4;              // ls_bvec "matmul"
+constexpr int GRAM_N = L * (L + 1) / 2;    // lower-triangle Gram entries
 
 static_assert(NFFT % DEC_THREADS == 0 && P % KC == 0, "DFT tiling");
 static_assert(DEC_ROWS % 2 == 0, "operand table read two rows a load");
@@ -177,64 +201,122 @@ __device__ void solve_chol(float (&Ar)[L][L], float (&Ai)[L][L],
   }
 }
 
-// decode_pallas._fit (sliding Gram, reduce b-vector): LS fit of
-// sum_i coeff_i w[t+i] ~ target[t] over t < count, for the window planes
-// (wr, wi) of length count + L - 1 in shared memory.  REAL: the target is
-// pns[t] (the preamble); else (tr_, ti_)[j] for t = lane + 32 j.
-template <bool REAL>
+// decode_pallas._fit: LS fit of sum_i coeff_i w[t+i] ~ target[t] over
+// t < count, for the window planes (wr, wi) of length count + L - 1 in
+// shared memory.  REAL: the target is pns[t] (the preamble); else
+// (tr_, ti_)[j] for t = lane + 32 j.  The Gram is the sliding one (lag
+// products g_d summed once, then corrected at the window's ends) or,
+// DIRECT, every entry of the lower triangle summed on its own.  The
+// b-vector is the reduce one (products summed a lane a stride, then
+// across the warp) or, BVMAT (train fit: REAL), b[i] = sum_k w[i + k]
+// pn[k] in ascending k, lane i (real) and lane L + i (imaginary, of
+// -w_i) a sum, handed to every lane by a shuffle.
+template <bool REAL, bool DIRECT, bool BVMAT>
 __device__ void fit(const float* wr, const float* wi, int count,
                     const float* pns, const float (&tr_)[MAXJ],
                     const float (&ti_)[MAXJ], float reg, float offtap,
                     int lane, Coef& out) {
+  static_assert(REAL || !BVMAT, "the matmul b-vector is the train fit's");
   float gr[L], gi[L], br[L], bi[L];
+  float gd_r[GRAM_N], gd_i[GRAM_N];     // DIRECT: entry (i, j), j <= i
 #pragma unroll
   for (int d = 0; d < L; ++d) gr[d] = gi[d] = br[d] = bi[d] = 0.f;
+  if constexpr (DIRECT) {
+#pragma unroll
+    for (int e = 0; e < GRAM_N; ++e) gd_r[e] = gd_i[e] = 0.f;
+  }
 #pragma unroll
   for (int j = 0; j < MAXJ; ++j) {
     const int u = lane + 32 * j;
     if (u < count) {
-      const float a_r = wr[u], a_i = wi[u];
+      if constexpr (DIRECT) {
+        float s_r[L], s_i[L];
 #pragma unroll
-      for (int d = 0; d < L; ++d) {
-        const float b_r = wr[u + d], b_i = wi[u + d];
-        gr[d] = gr[d] + (a_r * b_r + a_i * b_i);
-        gi[d] = gi[d] + (a_r * b_i - a_i * b_r);
+        for (int i = 0; i < L; ++i) s_r[i] = wr[u + i], s_i[i] = wi[u + i];
+#pragma unroll
+        for (int i = 0, e = 0; i < L; ++i)
+#pragma unroll
+          for (int k = 0; k <= i; ++k, ++e) {
+            gd_r[e] = gd_r[e] + (s_r[i] * s_r[k] + s_i[i] * s_i[k]);
+            if (k < i)        // the diagonal's imaginary part is 0
+              gd_i[e] = gd_i[e] + (s_r[i] * s_i[k] - s_i[i] * s_r[k]);
+          }
+      } else {
+        const float a_r = wr[u], a_i = wi[u];
+#pragma unroll
+        for (int d = 0; d < L; ++d) {
+          const float b_r = wr[u + d], b_i = wi[u + d];
+          gr[d] = gr[d] + (a_r * b_r + a_i * b_i);
+          gi[d] = gi[d] + (a_r * b_i - a_i * b_r);
+        }
       }
+      if constexpr (!BVMAT) {
 #pragma unroll
-      for (int i = 0; i < L; ++i) {
-        const float s_r = wr[u + i], s_i = wi[u + i];
-        if (REAL) {
-          const float t = pns[u];
-          br[i] = br[i] + s_r * t;
-          bi[i] = bi[i] + (-(s_i * t));
-        } else {
-          br[i] = br[i] + (s_r * tr_[j] + s_i * ti_[j]);
-          bi[i] = bi[i] + (s_r * ti_[j] - s_i * tr_[j]);
+        for (int i = 0; i < L; ++i) {
+          const float s_r = wr[u + i], s_i = wi[u + i];
+          if (REAL) {
+            const float t = pns[u];
+            br[i] = br[i] + s_r * t;
+            bi[i] = bi[i] + (-(s_i * t));
+          } else {
+            br[i] = br[i] + (s_r * tr_[j] + s_i * ti_[j]);
+            bi[i] = bi[i] + (s_r * ti_[j] - s_i * tr_[j]);
+          }
         }
       }
     }
   }
   float Ar[L][L], Ai[L][L], b_r[L], b_i[L];
+  if constexpr (DIRECT) {
+#pragma unroll
+    for (int i = 0, e = 0; i < L; ++i)
+#pragma unroll
+      for (int k = 0; k <= i; ++k, ++e) {
+        Ar[i][k] = warp_sum(gd_r[e]);
+        Ai[i][k] = k < i ? warp_sum(gd_i[e]) : 0.f;
+      }
+  }
 #pragma unroll
   for (int d = 0; d < L; ++d) {
-    float s_r = warp_sum(gr[d]);
-    float s_i = warp_sum(gi[d]);
-    b_r[d] = warp_sum(br[d]);
-    b_i[d] = warp_sum(bi[d]);
-    Ar[d][0] = s_r;
-    Ai[d][0] = -s_i;
+    float s_r = 0.f, s_i = 0.f;
+    if constexpr (!DIRECT) {
+      s_r = warp_sum(gr[d]);
+      s_i = warp_sum(gi[d]);
+    }
+    if constexpr (!BVMAT) {
+      b_r[d] = warp_sum(br[d]);
+      b_i[d] = warp_sum(bi[d]);
+    }
+    if constexpr (!DIRECT) {
+      Ar[d][0] = s_r;
+      Ai[d][0] = -s_i;
 #pragma unroll
-    for (int j = 1; j < L - d; ++j) {
-      // g_d[u] = conj(w[u]) w[u+d] at u = j-1 (leaving) and count+j-1
-      const int u0 = j - 1, u1 = count + j - 1;
-      const float g0 = wr[u0] * wr[u0 + d] + wi[u0] * wi[u0 + d];
-      const float g1 = wr[u1] * wr[u1 + d] + wi[u1] * wi[u1 + d];
-      s_r = (s_r - g0) + g1;
-      Ar[d + j][j] = s_r;
-      const float h0 = wr[u0] * wi[u0 + d] - wi[u0] * wr[u0 + d];
-      const float h1 = wr[u1] * wi[u1 + d] - wi[u1] * wr[u1 + d];
-      s_i = (s_i - h0) + h1;
-      Ai[d + j][j] = -s_i;
+      for (int j = 1; j < L - d; ++j) {
+        // g_d[u] = conj(w[u]) w[u+d] at u = j-1 (leaving) and count+j-1
+        const int u0 = j - 1, u1 = count + j - 1;
+        const float g0 = wr[u0] * wr[u0 + d] + wi[u0] * wi[u0 + d];
+        const float g1 = wr[u1] * wr[u1 + d] + wi[u1] * wi[u1 + d];
+        s_r = (s_r - g0) + g1;
+        Ar[d + j][j] = s_r;
+        const float h0 = wr[u0] * wi[u0 + d] - wi[u0] * wr[u0 + d];
+        const float h1 = wr[u1] * wi[u1 + d] - wi[u1] * wr[u1 + d];
+        s_i = (s_i - h0) + h1;
+        Ai[d + j][j] = -s_i;
+      }
+    }
+  }
+  if constexpr (BVMAT) {
+    float acc = 0.f;
+    if (lane < 2 * L) {
+      const int i = lane < L ? lane : lane - L;
+      const float* w = lane < L ? wr : wi;
+      const float sgn = lane < L ? 1.f : -1.f;
+      for (int k = 0; k < P; ++k) acc = acc + (sgn * w[i + k]) * pns[k];
+    }
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      b_r[i] = __shfl_sync(FULL, acc, i);
+      b_i[i] = __shfl_sync(FULL, acc, L + i);
     }
   }
   float tr_mean = Ar[0][0];
@@ -328,6 +410,18 @@ __device__ float derr(const float (&xr)[MAXJ], const float (&xi)[MAXJ],
   return warp_sum(e);
 }
 
+// s + a b, the DFT's multiply-add.  Fused only where both operands are
+// bf16 values (EXACT: cfg.cfo_dtype "bf16"): their product has at most 16
+// significant bits and is exact in f32, so fmaf(a, b, s) = round(s + a b)
+// = s + round(a b), the unfused sum's bits in one instruction.  The f32
+// DFT's products are not exact: there each is rounded before its sum
+// (-fmad=false), as the plain version rounds them.
+template <bool EXACT>
+__device__ __forceinline__ float mac(float s, float a, float b) {
+  if constexpr (EXACT) return __fmaf_rn(a, b, s);
+  return s + a * b;
+}
+
 // The block's dynamic shared memory (every member 16-byte aligned).
 struct BlockSmem {
   float pns[P];
@@ -356,6 +450,9 @@ __device__ __forceinline__ void load_tile(BlockSmem& sm, int buf, int chunk,
 // |(chips * pn) x DFT|^2 of every (row, bin) into sm.tile (as
 // [DEC_ROWS][NFFT]).  Every warp has filled its packet (zeros for a row
 // past the last); on return the power is visible to the whole block.
+// CFO16: the operands chips * pn are rounded to bf16 (the table arrives
+// rounded), so every product is exact and the sums are the f32 DFT's.
+template <bool CFO16>
 __device__ __forceinline__ void cfo_dft_block(
     BlockSmem& sm, const float* __restrict__ dft_r,
     const float* __restrict__ dft_i) {
@@ -363,9 +460,14 @@ __device__ __forceinline__ void cfo_dft_block(
   load_tile(sm, 0, 0, dft_r, dft_i);
   const float* pr = sm.pkt[warp][0];
   const float* pi = sm.pkt[warp][1];
-  for (int k = lane; k < P; k += 32)
-    sm.ttab[k][warp] = make_float2(pr[OFF + k] * sm.pns[k],
-                                   pi[OFF + k] * sm.pns[k]);
+  for (int k = lane; k < P; k += 32) {
+    float tr = pr[OFF + k] * sm.pns[k], ti = pi[OFF + k] * sm.pns[k];
+    if constexpr (CFO16) {
+      tr = bf16_round(tr);
+      ti = bf16_round(ti);
+    }
+    sm.ttab[k][warp] = make_float2(tr, ti);
+  }
   float s1[DEC_ROWS][BPT], s2[DEC_ROWS][BPT], s3[DEC_ROWS][BPT],
       s4[DEC_ROWS][BPT];
 #pragma unroll
@@ -397,14 +499,14 @@ __device__ __forceinline__ void cfo_dft_block(
         const float4 t = t4[rp];       // rows 2 rp and 2 rp + 1: (re, im)
 #pragma unroll
         for (int b = 0; b < BPT; ++b) {
-          s1[2 * rp][b] = s1[2 * rp][b] + t.x * r[b];
-          s2[2 * rp][b] = s2[2 * rp][b] + t.y * m[b];
-          s3[2 * rp][b] = s3[2 * rp][b] + t.x * m[b];
-          s4[2 * rp][b] = s4[2 * rp][b] + t.y * r[b];
-          s1[2 * rp + 1][b] = s1[2 * rp + 1][b] + t.z * r[b];
-          s2[2 * rp + 1][b] = s2[2 * rp + 1][b] + t.w * m[b];
-          s3[2 * rp + 1][b] = s3[2 * rp + 1][b] + t.z * m[b];
-          s4[2 * rp + 1][b] = s4[2 * rp + 1][b] + t.w * r[b];
+          s1[2 * rp][b] = mac<CFO16>(s1[2 * rp][b], t.x, r[b]);
+          s2[2 * rp][b] = mac<CFO16>(s2[2 * rp][b], t.y, m[b]);
+          s3[2 * rp][b] = mac<CFO16>(s3[2 * rp][b], t.x, m[b]);
+          s4[2 * rp][b] = mac<CFO16>(s4[2 * rp][b], t.y, r[b]);
+          s1[2 * rp + 1][b] = mac<CFO16>(s1[2 * rp + 1][b], t.z, r[b]);
+          s2[2 * rp + 1][b] = mac<CFO16>(s2[2 * rp + 1][b], t.w, m[b]);
+          s3[2 * rp + 1][b] = mac<CFO16>(s3[2 * rp + 1][b], t.z, m[b]);
+          s4[2 * rp + 1][b] = mac<CFO16>(s4[2 * rp + 1][b], t.w, r[b]);
         }
       }
     }
@@ -424,6 +526,7 @@ __device__ __forceinline__ void cfo_dft_block(
 // _decode_core on the warp's packet after the block's CFO DFT (pr, pi:
 // PKT f32 each in shared memory, first chip at OFF; pwf: the row's NFFT
 // DFT powers).  Writes slots 0..D+4 of the output row o.
+template <int KNOBS>
 __device__ __forceinline__ void decode_packet(
     float* pr, float* pi, const float* pwf, const float* pns,
     const float* msk, float peak, const Params& prm, int lane, float* o,
@@ -484,8 +587,9 @@ __device__ __forceinline__ void decode_packet(
   // ---- LS train on the preamble ----
   const float zero[MAXJ] = {};
   Coef cf;
-  fit<true>(pr, pi, P, pns, zero, zero, prm.ls_reg, prm.ls_offtap, lane,
-            cf);
+  constexpr bool DIRECT = (KNOBS & KNOB_DIRECT) != 0;
+  fit<true, DIRECT, (KNOBS & KNOB_BVMAT) != 0>(
+      pr, pi, P, pns, zero, zero, prm.ls_reg, prm.ls_offtap, lane, cf);
   const float matches = matches_of(pr, pi, cf, pns, lane);
   clk.stamp(4);
 
@@ -514,8 +618,8 @@ __device__ __forceinline__ void decode_packet(
       hh[j] = hh[j] * scale;
     }
     Coef c2;
-    fit<false>(dr, di, R, pns, hr, hh, 1e-3f, prm.ls_offtap_refit, lane,
-               c2);
+    fit<false, DIRECT, false>(dr, di, R, pns, hr, hh, 1e-3f,
+                              prm.ls_offtap_refit, lane, c2);
     const float m2 = matches_of(pr, pi, c2, pns, lane);
     const float keep = m2 >= matches ? 1.f : 0.f;
 #pragma unroll
@@ -661,12 +765,12 @@ __device__ __forceinline__ void decode_packet(
 #define SC_DECODE_BODY(peak)                                              \
   __syncthreads();              /* the tables and every row's packet */   \
   clk.stamp(0);                                                           \
-  cfo_dft_block(sm, dft_r, dft_i);                                        \
+  cfo_dft_block<(KNOBS & KNOB_CFO16) != 0>(sm, dft_r, dft_i);            \
   clk.stamp(1);                                                           \
   if (!live) return;                                                      \
   float* o = out + n * N_OUT;                                             \
-  decode_packet(pr, pi, &sm.tile[0][0][0] + warp * NFFT, sm.pns, sm.msk,  \
-                peak, prm, lane, o, clk)
+  decode_packet<KNOBS>(pr, pi, &sm.tile[0][0][0] + warp * NFFT, sm.pns,   \
+                       sm.msk, peak, prm, lane, o, clk)
 
 __device__ __forceinline__ void write_tail(float* o, int lane, float lag,
                                            float ph, float peak) {
@@ -677,6 +781,7 @@ __device__ __forceinline__ void write_tail(float* o, int lane, float lag,
   }
 }
 
+template <int KNOBS>
 __global__ void __launch_bounds__(DEC_THREADS) extract_decode_kernel(
     const void* __restrict__ decim, const void* __restrict__ dprev0,
     int in_bf16, const int* __restrict__ lag_in,
@@ -744,6 +849,7 @@ __global__ void __launch_bounds__(GATE_WARPS * 32) extract_gate_kernel(
   write_tail(o, lane, (float)lag, (float)ph, peak);
 }
 
+template <int KNOBS>
 __global__ void __launch_bounds__(DEC_THREADS) decode_extract_kernel(
     const float* __restrict__ windows, int wp,
     const int* __restrict__ lag_in, const int* __restrict__ ph_in,
@@ -767,6 +873,7 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_extract_kernel(
   write_tail(o, lane, 0.f, 0.f, 0.f);
 }
 
+template <int KNOBS>
 __global__ void __launch_bounds__(DEC_THREADS) decode_packets_kernel(
     const float* __restrict__ pkt_r, const float* __restrict__ pkt_i,
     const float* __restrict__ peak_in, const float* __restrict__ dft_r,
@@ -792,32 +899,116 @@ unsigned decode_blocks(int N) {
 const float* f32p(const void* p) { return static_cast<const float*>(p); }
 const int* i32p(const void* p) { return static_cast<const int*>(p); }
 
-// BlockSmem is past the 48 KB a kernel gets unasked
+// BlockSmem is past the 48 KB a kernel gets unasked: each instantiation
+// asks once
 template <class Kernel>
 cudaError_t allow_block_smem(Kernel kernel) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)sizeof(BlockSmem));
 }
+
+// The KNOBS bits of the entry points' knob arguments.
+int knob_bits(int cfo_bf16, int gram_direct, int bvec_matmul) {
+  return (cfo_bf16 ? KNOB_CFO16 : 0) | (gram_direct ? KNOB_DIRECT : 0) |
+         (bvec_matmul ? KNOB_BVMAT : 0);
+}
+
+// Calls F::template run<KNOBS>() for the runtime knob bits.
+template <class F>
+cudaError_t with_knobs(int knobs, F f) {
+  switch (knobs) {
+    case 0: return f.template run<0>();
+    case 1: return f.template run<1>();
+    case 2: return f.template run<2>();
+    case 3: return f.template run<3>();
+    case 4: return f.template run<4>();
+    case 5: return f.template run<5>();
+    case 6: return f.template run<6>();
+    default: return f.template run<7>();
+  }
+}
+
+struct ExtractDecode {
+  const void *decim, *dprev0, *lag, *phase, *peak, *dft_r, *dft_i, *pn,
+      *mask;
+  void* out;
+  int N, C, in_bf16;
+  Params prm;
+  cudaStream_t st;
+  template <int KNOBS>
+  cudaError_t run() const {
+    static const cudaError_t ready =
+        allow_block_smem(extract_decode_kernel<KNOBS>);
+    if (ready != cudaSuccess) return ready;
+    extract_decode_kernel<KNOBS>
+        <<<decode_blocks(N), DEC_THREADS, sizeof(BlockSmem), st>>>(
+            decim, dprev0, in_bf16, i32p(lag), i32p(phase), f32p(peak),
+            f32p(dft_r), f32p(dft_i), f32p(pn), f32p(mask),
+            static_cast<float*>(out), (long long)N, C, prm);
+    return cudaGetLastError();
+  }
+};
+
+struct DecodeExtract {
+  const void *windows, *lag, *phase, *peak, *dft_r, *dft_i, *pn, *mask;
+  void* out;
+  int N, wp;
+  Params prm;
+  cudaStream_t st;
+  template <int KNOBS>
+  cudaError_t run() const {
+    static const cudaError_t ready =
+        allow_block_smem(decode_extract_kernel<KNOBS>);
+    if (ready != cudaSuccess) return ready;
+    decode_extract_kernel<KNOBS>
+        <<<decode_blocks(N), DEC_THREADS, sizeof(BlockSmem), st>>>(
+            f32p(windows), wp, i32p(lag), i32p(phase), f32p(peak),
+            f32p(dft_r), f32p(dft_i), f32p(pn), f32p(mask),
+            static_cast<float*>(out), (long long)N, prm);
+    return cudaGetLastError();
+  }
+};
+
+struct DecodePackets {
+  const void *pkt_r, *pkt_i, *peak, *dft_r, *dft_i, *pn, *mask;
+  void* out;
+  int N;
+  Params prm;
+  cudaStream_t st;
+  template <int KNOBS>
+  cudaError_t run() const {
+    static const cudaError_t ready =
+        allow_block_smem(decode_packets_kernel<KNOBS>);
+    if (ready != cudaSuccess) return ready;
+    decode_packets_kernel<KNOBS>
+        <<<decode_blocks(N), DEC_THREADS, sizeof(BlockSmem), st>>>(
+            f32p(pkt_r), f32p(pkt_i), f32p(peak), f32p(dft_r), f32p(dft_i),
+            f32p(pn), f32p(mask), static_cast<float*>(out), (long long)N,
+            prm);
+    return cudaGetLastError();
+  }
+};
 }  // namespace
 
+// The decode entry points' last three ints before the stream are the
+// knobs: cfo_bf16 (cfg.cfo_dtype "bf16"), gram_direct (cfg.ls_gram
+// "direct"), bvec_matmul (cfg.ls_bvec "matmul").
 extern "C" int sc_extract_decode(
     const void* decim, const void* dprev0, const void* lag,
     const void* phase, const void* peak, const void* dft_r,
     const void* dft_i, const void* pn, const void* mask, void* out, int N,
     int C, int in_bf16, int refit_sym, int refit_iters, int refine_iters,
     float peak_gate, float ls_reg, float ls_offtap, float ls_offtap_refit,
-    float cfo_scale, float derot_k, void* stream) {
+    float cfo_scale, float derot_k, int cfo_bf16, int gram_direct,
+    int bvec_matmul, void* stream) {
   const Params prm{refit_sym, refit_iters, refine_iters, peak_gate,
                    ls_reg, ls_offtap, ls_offtap_refit, cfo_scale, derot_k};
-  static const cudaError_t ready = allow_block_smem(extract_decode_kernel);
-  if (ready != cudaSuccess) return (int)ready;
-  extract_decode_kernel<<<decode_blocks(N), DEC_THREADS, sizeof(BlockSmem),
-                          static_cast<cudaStream_t>(stream)>>>(
-      decim, dprev0, in_bf16, i32p(lag), i32p(phase), f32p(peak),
-      f32p(dft_r), f32p(dft_i), f32p(pn), f32p(mask),
-      static_cast<float*>(out), (long long)N, C, prm);
-  return (int)cudaGetLastError();
+  return (int)with_knobs(
+      knob_bits(cfo_bf16, gram_direct, bvec_matmul),
+      ExtractDecode{decim, dprev0, lag, phase, peak, dft_r, dft_i, pn, mask,
+                    out, N, C, in_bf16, prm,
+                    static_cast<cudaStream_t>(stream)});
 }
 
 // The gate stage of sc_extract_decode: the same planes, hunt results and
@@ -840,17 +1031,13 @@ extern "C" int sc_decode_extract(
     const void* mask, void* out, int N, int wp, int refit_sym,
     int refit_iters, int refine_iters, float peak_gate, float ls_reg,
     float ls_offtap, float ls_offtap_refit, float cfo_scale, float derot_k,
-    void* stream) {
+    int cfo_bf16, int gram_direct, int bvec_matmul, void* stream) {
   const Params prm{refit_sym, refit_iters, refine_iters, peak_gate,
                    ls_reg, ls_offtap, ls_offtap_refit, cfo_scale, derot_k};
-  static const cudaError_t ready = allow_block_smem(decode_extract_kernel);
-  if (ready != cudaSuccess) return (int)ready;
-  decode_extract_kernel<<<decode_blocks(N), DEC_THREADS, sizeof(BlockSmem),
-                          static_cast<cudaStream_t>(stream)>>>(
-      f32p(windows), wp, i32p(lag), i32p(phase), f32p(peak), f32p(dft_r),
-      f32p(dft_i), f32p(pn), f32p(mask), static_cast<float*>(out),
-      (long long)N, prm);
-  return (int)cudaGetLastError();
+  return (int)with_knobs(
+      knob_bits(cfo_bf16, gram_direct, bvec_matmul),
+      DecodeExtract{windows, lag, phase, peak, dft_r, dft_i, pn, mask, out,
+                    N, wp, prm, static_cast<cudaStream_t>(stream)});
 }
 
 extern "C" int sc_decode_packets(
@@ -858,16 +1045,14 @@ extern "C" int sc_decode_packets(
     const void* dft_r, const void* dft_i, const void* pn, const void* mask,
     void* out, int N, int refit_sym, int refit_iters, int refine_iters,
     float peak_gate, float ls_reg, float ls_offtap, float ls_offtap_refit,
-    float cfo_scale, float derot_k, void* stream) {
+    float cfo_scale, float derot_k, int cfo_bf16, int gram_direct,
+    int bvec_matmul, void* stream) {
   const Params prm{refit_sym, refit_iters, refine_iters, peak_gate,
                    ls_reg, ls_offtap, ls_offtap_refit, cfo_scale, derot_k};
-  static const cudaError_t ready = allow_block_smem(decode_packets_kernel);
-  if (ready != cudaSuccess) return (int)ready;
-  decode_packets_kernel<<<decode_blocks(N), DEC_THREADS, sizeof(BlockSmem),
-                          static_cast<cudaStream_t>(stream)>>>(
-      f32p(pkt_r), f32p(pkt_i), f32p(peak), f32p(dft_r), f32p(dft_i),
-      f32p(pn), f32p(mask), static_cast<float*>(out), (long long)N, prm);
-  return (int)cudaGetLastError();
+  return (int)with_knobs(
+      knob_bits(cfo_bf16, gram_direct, bvec_matmul),
+      DecodePackets{pkt_r, pkt_i, peak, dft_r, dft_i, pn, mask, out, N,
+                    prm, static_cast<cudaStream_t>(stream)});
 }
 
 // Copies the stage clocks (N_STAGES 64-bit tick sums, zero unless built

@@ -46,8 +46,17 @@
 // values) sits in shared memory, then every output y[c][p][s] = sum_k
 // w[k] * u[p][5s + c + k] in ascending k, in f32, rounded to the output
 // dtype: the plain PyTorch version's exact sequence.  All four
-// decimating kernels take their sums from tap_sums<true> and store with
+// decimating kernels take their sums from tap_sums and store with
 // store_task.
+//
+// cfg.frontend_dtype is a template parameter of the four decimating
+// kernels (ROUND: "bf16", the default; fused_rx.py:378, :495-528,
+// frontend_pallas.py:469).  With "f32" the samples (z, the raw plane,
+// the halos) are staged unrounded and the taps arrive unrounded, so the
+// products are not exact and the tap sums run unfused, tap_sums<false>,
+// two FP32 instructions a term as in frontend_full; the fold's rotation
+// is f32 in both.  The planes are still rounded to cfg.decim_dtype when
+// they are stored.
 //
 // Bound on the card: bytes (3.76 KB of PCM in and 7.5 KB (bf16) or 15 KB
 // (f32) out per row), but tap-order f32 sums on the CUDA cores cannot
@@ -95,8 +104,18 @@ using namespace sc;
 
 namespace {
 
-// z = bf16(x * (p * table[t])) for the raw sample x_row[i], i = t unless
-// said otherwise, of a block entered with mixer phase (pr, pi).
+// A front-end operand: rounded to bf16 (ROUND: cfg.frontend_dtype
+// "bf16"), else left in f32.
+template <bool ROUND>
+__device__ __forceinline__ float fe_operand(float x) {
+  if constexpr (ROUND) return bf16_round(x);
+  return x;
+}
+
+// z = bf16(x * (p * table[t])) (ROUND; else unrounded) for the raw sample
+// x_row[i], i = t unless said otherwise, of a block entered with mixer
+// phase (pr, pi).
+template <bool ROUND>
 __device__ __forceinline__ void downmix(const int16_t* __restrict__ x_row,
                                         const float* __restrict__ tab, int t,
                                         int i, float pr, float pi,
@@ -104,8 +123,8 @@ __device__ __forceinline__ void downmix(const int16_t* __restrict__ x_row,
                                         float& zi) {
   const float x = (float)x_row[i] * inv_scale;
   const float tr = tab[t], ti = tab[N_SAMP + t];
-  zr = bf16_round(x * (pr * tr - pi * ti));
-  zi = bf16_round(x * (pr * ti + pi * tr));
+  zr = fe_operand<ROUND>(x * (pr * tr - pi * ti));
+  zi = fe_operand<ROUND>(x * (pr * ti + pi * tr));
 }
 
 // ------------------------------------------------------ the premix pair
@@ -140,7 +159,7 @@ static_assert(N_SYM % WIN_SYMS == 0 && WIN_SYMS == 4 &&
 // What a block keeps in shared memory: u of the row in work, and the raw
 // operands of the row after it, which arrive while the sums run.
 struct __align__(16) PremixSmem {
-  float u[2][U_LEN];        // [halo | z], bf16 values (frontend_full: f32)
+  float u[2][U_LEN];        // [halo | z], bf16 values (or f32: ROUND false)
   float w[W_PAD];           // taps (frontend_full: times the gain)
   int16_t x[N_SAMP];        // PCM of the next row
   int16_t xh[HALO];         // batch form: raw tail of row n - C
@@ -192,7 +211,8 @@ __device__ __forceinline__ void fetch(T* dst, const T* __restrict__ src,
 
 // sm.u[.][HALO + t] = downmixed block of the row whose PCM is in sm.x,
 // entered with mixer phase (pr, pi), rounded to bf16 (ROUND: the premix
-// pair) or left in f32 (frontend_full): 8 samples a thread and step.
+// pair with bf16 operands) or left in f32 (frontend_full, and the premix
+// pair with f32 operands): 8 samples a thread and step.
 template <bool ROUND>
 __device__ __forceinline__ void stage_block(PremixSmem& sm,
                                             const float* __restrict__ tab,
@@ -241,13 +261,14 @@ __device__ __forceinline__ void stage_block(PremixSmem& sm,
 // tap k = m - i wherever 0 <= k < 49, so every accumulator starts from
 // 0.f and takes its 49 terms in ascending k, as the plain versions do.
 //
-// FUSED (the four decimating front-ends): the multiply-add is fused by
-// hand (-fmad=false stays the build's flag) and returns the bits of the
-// unfused one BECAUSE BOTH OPERANDS ARE bf16 VALUES: the taps are rounded
-// to bf16 (w[k] = bf16(2.2 taps[k]), or the real or imaginary part of a
-// folded tap) and every u was rounded to bf16 on its way into shared
-// memory.  Their product has at most 16 significant bits and is exact in
-// f32, so fmaf(w, u, acc) = round(acc + w u) = acc + round(w u).  That
+// FUSED (the four decimating front-ends with bf16 operands, ROUND): the
+// multiply-add is fused by hand (-fmad=false stays the build's flag) and
+// returns the bits of the unfused one BECAUSE BOTH OPERANDS ARE bf16
+// VALUES: the taps are rounded to bf16 (w[k] = bf16(2.2 taps[k]), or the
+// real or imaginary part of a folded tap) and every u was rounded to bf16
+// on its way into shared memory.  Their product has at most 16
+// significant bits and is exact in f32, so fmaf(w, u, acc) = round(acc +
+// w u) = acc + round(w u).  That
 // holds for u = 0 and wherever the product does not underflow: for the
 // premix taps of alpha = 0.35 (smallest 5.4e-4) for every |u| > 2.35e-38,
 // and a u made from int16 PCM by the downmix, or a tail carried from one,
@@ -256,10 +277,11 @@ __device__ __forceinline__ void stage_block(PremixSmem& sm,
 // tail un-rotated, is zero or at least 2^-15
 // (tests/test_torch_frontend_window.py holds each statement).  It does
 // NOT hold for f32 taps or f32 samples: not in the downmix, the halo's
-// un-rotation, the fold's rotation, or in frontend_full, which takes the
-// loop unfused (FUSED false): each product and each sum rounded on its
-// own by __fmul_rn and __fadd_rn, which no build flag contracts, so two
-// FP32 instructions a term where the fused loop issues one.
+// un-rotation, the fold's rotation, in frontend_full or in the decimating
+// four with cfg.frontend_dtype "f32", which take the loop unfused (FUSED
+// false): each product and each sum rounded on its own by __fmul_rn and
+// __fadd_rn, which no build flag contracts, so two FP32 instructions a
+// term where the fused loop needs one.
 template <bool FUSED>
 __device__ __forceinline__ void tap_sums(const float* __restrict__ ws,
                                          const float* __restrict__ up,
@@ -312,8 +334,8 @@ __device__ __forceinline__ void store_task(OutT* __restrict__ out,
 }
 
 // The premix sums of the row in sm.u, a task (plane p, symbols 4j ..
-// 4j + 3) a thread.
-template <typename OutT, bool ROW_MAJOR>
+// 4j + 3) a thread, fused where the operands are bf16 values (ROUND).
+template <typename OutT, bool ROW_MAJOR, bool ROUND>
 __device__ __forceinline__ void window_sums(const PremixSmem& sm,
                                             OutT* __restrict__ out,
                                             long long N, long long row,
@@ -322,7 +344,7 @@ __device__ __forceinline__ void window_sums(const PremixSmem& sm,
   const int p = tid / WIN_TASKS_PLANE;
   const int j = tid - p * WIN_TASKS_PLANE;
   float acc[WIN_T];
-  tap_sums<true>(sm.w, &sm.u[p][WIN_T * j], acc);
+  tap_sums<ROUND>(sm.w, &sm.u[p][WIN_T * j], acc);
   store_task<OutT, ROW_MAJOR>(out, acc, p, j, N, row);
 }
 
@@ -331,7 +353,7 @@ __device__ __forceinline__ void window_sums(const PremixSmem& sm,
 // sends for the next row's operands, so device-memory latency hides
 // behind the multiply-adds.
 
-template <typename OutT>
+template <typename OutT, bool ROUND>
 __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
     frontend_decim_kernel(
         const int16_t* __restrict__ pcm, const float* __restrict__ p0r,
@@ -376,28 +398,28 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
     const float q_r = sm.ph[0], q_i = sm.ph[1];
     const float pr = q_r * sm.ph[2] - q_i * sm.ph[3];
     const float pi = q_r * sm.ph[3] + q_i * sm.ph[2];
-    stage_block<true>(sm, tab, vec, pr, pi, inv_scale, tid);
+    stage_block<ROUND>(sm, tab, vec, pr, pi, inv_scale, tid);
     const int m = tid - (WIN_THREADS - HALO);
     if (m >= 0) {
       if (row < C) {
-        sm.u[0][m] = bf16_round(sm.tail[0][m]);
-        sm.u[1][m] = bf16_round(sm.tail[1][m]);
+        sm.u[0][m] = fe_operand<ROUND>(sm.tail[0][m]);
+        sm.u[1][m] = fe_operand<ROUND>(sm.tail[1][m]);
       } else {
         // the halo of a row with b > 0: the same products the previous
         // block's row formed, with the phase p0 * adv^(b-1)
         const float sr = q_r * sm.ph[4] - q_i * sm.ph[5];
         const float si = q_r * sm.ph[5] + q_i * sm.ph[4];
-        downmix(sm.xh, tab, N_SAMP - HALO + m, m, sr, si, inv_scale,
-                sm.u[0][m], sm.u[1][m]);
+        downmix<ROUND>(sm.xh, tab, N_SAMP - HALO + m, m, sr, si, inv_scale,
+                       sm.u[0][m], sm.u[1][m]);
       }
     }
     __syncthreads();        // sm.u is whole; the raw operands are used up
     if (row + gridDim.x < N) fetch_row(row + gridDim.x);
-    window_sums<OutT, false>(sm, out, N, row, tid);
+    window_sums<OutT, false, ROUND>(sm, out, N, row, tid);
   }
 }
 
-template <typename OutT, bool ROW_MAJOR>
+template <typename OutT, bool ROW_MAJOR, bool ROUND>
 __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
     frontend_rows_kernel(
         const int16_t* __restrict__ pcm, const float* __restrict__ ph_r,
@@ -425,15 +447,15 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
   for (; row < N; row += gridDim.x) {
     __pipeline_wait_prior(0);
     __syncthreads();        // the row's operands are in; sm.u is free
-    stage_block<true>(sm, tab, vec, sm.ph[0], sm.ph[1], inv_scale, tid);
+    stage_block<ROUND>(sm, tab, vec, sm.ph[0], sm.ph[1], inv_scale, tid);
     const int m = tid - (WIN_THREADS - HALO);
     if (m >= 0) {
-      sm.u[0][m] = bf16_round(sm.tail[0][m]);
-      sm.u[1][m] = bf16_round(sm.tail[1][m]);
+      sm.u[0][m] = fe_operand<ROUND>(sm.tail[0][m]);
+      sm.u[1][m] = fe_operand<ROUND>(sm.tail[1][m]);
     }
     __syncthreads();        // sm.u is whole; the raw operands are used up
     if (row + gridDim.x < N) fetch_row(row + gridDim.x);
-    window_sums<OutT, ROW_MAJOR>(sm, out, N, row, tid);
+    window_sums<OutT, ROW_MAJOR, ROUND>(sm, out, N, row, tid);
   }
 }
 
@@ -443,7 +465,7 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
 // work, the two tap sets and the halo un-rotation, and the raw operands
 // of the row after it.
 struct __align__(16) FoldSmem {
-  float u[U_LEN];           // [halo | bf16(x)], bf16 values
+  float u[U_LEN];           // [halo | bf16(x)], bf16 values (or f32)
   float w[2][W_PAD];        // real, imaginary parts of the folded taps
   float eu[2][HALO];        // halo un-rotation: cos, sin of w(m - HALO + 1)
   int16_t x[N_SAMP];        // PCM of the next row
@@ -462,8 +484,9 @@ __device__ __forceinline__ void load_fold_tables(
   if (tid < 2 * HALO) sm.eu[tid / HALO][tid % HALO] = unrot[tid];
 }
 
-// sm.u[HALO + t] = bf16(x[t]): the raw block of the row whose PCM is in
-// sm.x, 8 samples a thread and step.
+// sm.u[HALO + t] = bf16(x[t]) (ROUND; else x[t]): the raw block of the
+// row whose PCM is in sm.x, 8 samples a thread and step.
+template <bool ROUND>
 __device__ __forceinline__ void stage_raw(FoldSmem& sm, float inv_scale,
                                           int tid) {
   for (int t = STAGE_VEC * tid; t < N_SAMP; t += STAGE_VEC * WIN_THREADS) {
@@ -472,8 +495,8 @@ __device__ __forceinline__ void stage_raw(FoldSmem& sm, float inv_scale,
     float z[STAGE_VEC];
 #pragma unroll
     for (int e = 0; e < STAGE_VEC; ++e)
-      z[e] = bf16_round((float)(short)(word[e >> 1] >> (16 * (e & 1))) *
-                        inv_scale);
+      z[e] = fe_operand<ROUND>(
+          (float)(short)(word[e >> 1] >> (16 * (e & 1))) * inv_scale);
 #pragma unroll
     for (int e = 0; e < STAGE_VEC; e += 4)
       *reinterpret_cast<float4*>(&sm.u[HALO + t + e]) =
@@ -482,13 +505,14 @@ __device__ __forceinline__ void stage_raw(FoldSmem& sm, float inv_scale,
 }
 
 // Raw sample m of a downmixed halo (t_r, t_i) carried with phase (pr, pi):
-// Re[tail * conj(phase) * e^{-jw(m - HALO + 1)}], rounded to bf16.  Every
-// product and sum rounded on its own: the operands are f32.
+// Re[tail * conj(phase) * e^{-jw(m - HALO + 1)}], rounded to bf16 (ROUND).
+// Every product and sum rounded on its own: the operands are f32.
+template <bool ROUND>
 __device__ __forceinline__ float unrotate(float t_r, float t_i, float pr,
                                           float pi, float eur, float eui) {
   const float a = t_r * pr + t_i * pi;
   const float b = t_i * pr - t_r * pi;
-  return bf16_round(a * eur + b * eui);
+  return fe_operand<ROUND>(a * eur + b * eui);
 }
 
 // The folded sums of the row in sm.u.  Lanes 2j and 2j + 1 share task j
@@ -501,7 +525,7 @@ __device__ __forceinline__ float unrotate(float t_r, float t_i, float pr,
 // rounded on its own as the plain version rounds them (written as
 // mr own + (-/+ mi) other: a - b is a + (-b) in IEEE arithmetic).  Each
 // lane then stores its phase planes (p = q).
-template <typename OutT, bool ROW_MAJOR>
+template <typename OutT, bool ROW_MAJOR, bool ROUND>
 __device__ __forceinline__ void folded_window_sums(
     const FoldSmem& sm, const float* __restrict__ tab, bool vec, float pr,
     float pi, OutT* __restrict__ out, long long N, long long row, int tid) {
@@ -509,7 +533,7 @@ __device__ __forceinline__ void folded_window_sums(
   if (tid >= WIN_TASKS) return;
   const int j = tid >> 1, q = tid & 1;
   float acc[WIN_T];
-  tap_sums<true>(sm.w[q], &sm.u[WIN_T * j], acc);
+  tap_sums<ROUND>(sm.w[q], &sm.u[WIN_T * j], acc);
   const float* ta = tab + WIN_T * j;
 #pragma unroll
   for (int i0 = 0; i0 < WIN_T; i0 += 4) {
@@ -536,7 +560,7 @@ __device__ __forceinline__ void folded_window_sums(
 // Both kernels are persistent, as the premix pair: the next row's
 // operands arrive while a row's sums run.
 
-template <typename OutT>
+template <typename OutT, bool ROUND>
 __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
     frontend_decim_folded_kernel(
         const int16_t* __restrict__ pcm, const float* __restrict__ p0r,
@@ -582,20 +606,21 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
     const float q_r = sm.ph[0], q_i = sm.ph[1];
     const float pr = q_r * sm.ph[2] - q_i * sm.ph[3];
     const float pi = q_r * sm.ph[3] + q_i * sm.ph[2];
-    stage_raw(sm, inv_scale, tid);
+    stage_raw<ROUND>(sm, inv_scale, tid);
     const int m = tid - (WIN_THREADS - HALO);
     if (m >= 0) {
-      sm.u[m] = row < C ? unrotate(sm.tail[0][m], sm.tail[1][m], pr, pi,
-                                   sm.eu[0][m], sm.eu[1][m])
-                        : bf16_round((float)sm.xh[m] * inv_scale);
+      sm.u[m] = row < C ? unrotate<ROUND>(sm.tail[0][m], sm.tail[1][m], pr,
+                                          pi, sm.eu[0][m], sm.eu[1][m])
+                        : fe_operand<ROUND>((float)sm.xh[m] * inv_scale);
     }
     __syncthreads();        // sm.u is whole; the raw operands are used up
     if (row + gridDim.x < N) fetch_row(row + gridDim.x);
-    folded_window_sums<OutT, false>(sm, tab, vec, pr, pi, out, N, row, tid);
+    folded_window_sums<OutT, false, ROUND>(sm, tab, vec, pr, pi, out, N,
+                                           row, tid);
   }
 }
 
-template <typename OutT, bool ROW_MAJOR>
+template <typename OutT, bool ROW_MAJOR, bool ROUND>
 __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
     frontend_rows_folded_kernel(
         const int16_t* __restrict__ pcm, const float* __restrict__ ph_r,
@@ -624,15 +649,15 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
     __pipeline_wait_prior(0);
     __syncthreads();        // the row's operands are in; sm.u is free
     const float pr = sm.ph[0], pi = sm.ph[1];
-    stage_raw(sm, inv_scale, tid);
+    stage_raw<ROUND>(sm, inv_scale, tid);
     const int m = tid - (WIN_THREADS - HALO);
     if (m >= 0)
-      sm.u[m] = unrotate(sm.tail[0][m], sm.tail[1][m], pr, pi, sm.eu[0][m],
-                         sm.eu[1][m]);
+      sm.u[m] = unrotate<ROUND>(sm.tail[0][m], sm.tail[1][m], pr, pi,
+                                sm.eu[0][m], sm.eu[1][m]);
     __syncthreads();        // sm.u is whole; the raw operands are used up
     if (row + gridDim.x < N) fetch_row(row + gridDim.x);
-    folded_window_sums<OutT, ROW_MAJOR>(sm, tab, vec, pr, pi, out, N, row,
-                                        tid);
+    folded_window_sums<OutT, ROW_MAJOR, ROUND>(sm, tab, vec, pr, pi, out, N,
+                                               row, tid);
   }
 }
 
@@ -754,31 +779,101 @@ unsigned persistent_grid(long long N) {
   return (unsigned)(N < held ? (N > 0 ? N : 1) : held);
 }
 
+template <bool ROUND>
+void launch_decim(const int16_t* x, const float* p0r, const float* p0i,
+                  const float* tr, const float* ti, const float* av,
+                  const float* tb, const float* tp, void* out, int B, int C,
+                  int out_bf16, float inv_scale, cudaStream_t st) {
+  const dim3 grid(persistent_grid((long long)B * C));
+  if (out_bf16)
+    frontend_decim_kernel<__nv_bfloat16, ROUND><<<grid, WIN_THREADS, 0, st>>>(
+        x, p0r, p0i, tr, ti, av, tb, tp, static_cast<__nv_bfloat16*>(out), B,
+        C, inv_scale);
+  else
+    frontend_decim_kernel<float, ROUND><<<grid, WIN_THREADS, 0, st>>>(
+        x, p0r, p0i, tr, ti, av, tb, tp, static_cast<float*>(out), B, C,
+        inv_scale);
+}
+
+template <bool ROUND>
+void launch_rows(const int16_t* x, const float* pr, const float* pi,
+                 const float* tr, const float* ti, const float* tb,
+                 const float* tp, void* out, int N, int layout,
+                 float inv_scale, cudaStream_t st) {
+  const dim3 grid(persistent_grid(N));
+  if (layout == 1)
+    frontend_rows_kernel<__nv_bfloat16, false, ROUND>
+        <<<grid, WIN_THREADS, 0, st>>>(x, pr, pi, tr, ti, tb, tp,
+                                       static_cast<__nv_bfloat16*>(out),
+                                       (long long)N, inv_scale);
+  else if (layout == 2)
+    frontend_rows_kernel<float, true, ROUND><<<grid, WIN_THREADS, 0, st>>>(
+        x, pr, pi, tr, ti, tb, tp, static_cast<float*>(out), (long long)N,
+        inv_scale);
+  else
+    frontend_rows_kernel<float, false, ROUND><<<grid, WIN_THREADS, 0, st>>>(
+        x, pr, pi, tr, ti, tb, tp, static_cast<float*>(out), (long long)N,
+        inv_scale);
+}
+
+template <bool ROUND>
+void launch_decim_folded(const int16_t* x, const float* p0r,
+                         const float* p0i, const float* tr, const float* ti,
+                         const float* av, const float* tb, const float* ct,
+                         const float* un, void* out, int B, int C,
+                         int out_bf16, float inv_scale, cudaStream_t st) {
+  const dim3 grid(persistent_grid((long long)B * C));
+  if (out_bf16)
+    frontend_decim_folded_kernel<__nv_bfloat16, ROUND>
+        <<<grid, WIN_THREADS, 0, st>>>(x, p0r, p0i, tr, ti, av, tb, ct, un,
+                                       static_cast<__nv_bfloat16*>(out), B,
+                                       C, inv_scale);
+  else
+    frontend_decim_folded_kernel<float, ROUND><<<grid, WIN_THREADS, 0, st>>>(
+        x, p0r, p0i, tr, ti, av, tb, ct, un, static_cast<float*>(out), B, C,
+        inv_scale);
+}
+
+template <bool ROUND>
+void launch_rows_folded(const int16_t* x, const float* pr, const float* pi,
+                        const float* tr, const float* ti, const float* tb,
+                        const float* ct, const float* un, void* out, int N,
+                        int layout, float inv_scale, cudaStream_t st) {
+  const dim3 grid(persistent_grid(N));
+  if (layout == 1)
+    frontend_rows_folded_kernel<__nv_bfloat16, false, ROUND>
+        <<<grid, WIN_THREADS, 0, st>>>(x, pr, pi, tr, ti, tb, ct, un,
+                                       static_cast<__nv_bfloat16*>(out),
+                                       (long long)N, inv_scale);
+  else if (layout == 2)
+    frontend_rows_folded_kernel<float, true, ROUND>
+        <<<grid, WIN_THREADS, 0, st>>>(x, pr, pi, tr, ti, tb, ct, un,
+                                       static_cast<float*>(out),
+                                       (long long)N, inv_scale);
+  else
+    frontend_rows_folded_kernel<float, false, ROUND>
+        <<<grid, WIN_THREADS, 0, st>>>(x, pr, pi, tr, ti, tb, ct, un,
+                                       static_cast<float*>(out),
+                                       (long long)N, inv_scale);
+}
+
+const int16_t* i16p(const void* p) { return static_cast<const int16_t*>(p); }
+const float* f32p(const void* p) { return static_cast<const float*>(p); }
+
 }  // namespace
 
+// The decimating front-ends' last int before the stream, f32_operands, is
+// cfg.frontend_dtype "f32": the ROUND false instantiation.
 extern "C" int sc_frontend_decim(const void* pcm, const void* p0r,
                                  const void* p0i, const void* tail0_r,
                                  const void* tail0_i, const void* adv,
                                  const void* tab, const void* taps, void* out,
                                  int B, int C, int out_bf16, float inv_scale,
-                                 void* stream) {
-  const dim3 grid(persistent_grid((long long)B * C));
+                                 int f32_operands, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (out_bf16) {
-    frontend_decim_kernel<__nv_bfloat16><<<grid, WIN_THREADS, 0, st>>>(
-        static_cast<const int16_t*>(pcm), static_cast<const float*>(p0r),
-        static_cast<const float*>(p0i), static_cast<const float*>(tail0_r),
-        static_cast<const float*>(tail0_i), static_cast<const float*>(adv),
-        static_cast<const float*>(tab), static_cast<const float*>(taps),
-        static_cast<__nv_bfloat16*>(out), B, C, inv_scale);
-  } else {
-    frontend_decim_kernel<float><<<grid, WIN_THREADS, 0, st>>>(
-        static_cast<const int16_t*>(pcm), static_cast<const float*>(p0r),
-        static_cast<const float*>(p0i), static_cast<const float*>(tail0_r),
-        static_cast<const float*>(tail0_i), static_cast<const float*>(adv),
-        static_cast<const float*>(tab), static_cast<const float*>(taps),
-        static_cast<float*>(out), B, C, inv_scale);
-  }
+  (f32_operands ? launch_decim<false> : launch_decim<true>)(
+      i16p(pcm), f32p(p0r), f32p(p0i), f32p(tail0_r), f32p(tail0_i),
+      f32p(adv), f32p(tab), f32p(taps), out, B, C, out_bf16, inv_scale, st);
   return (int)cudaGetLastError();
 }
 
@@ -787,29 +882,12 @@ extern "C" int sc_frontend_rows(const void* pcm, const void* ph_r,
                                 const void* ph_i, const void* tail_r,
                                 const void* tail_i, const void* tab,
                                 const void* taps, void* out, int N,
-                                int layout, float inv_scale, void* stream) {
-  const dim3 grid(persistent_grid(N));
+                                int layout, float inv_scale, int f32_operands,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int16_t* x = static_cast<const int16_t*>(pcm);
-  const float* pr = static_cast<const float*>(ph_r);
-  const float* pi = static_cast<const float*>(ph_i);
-  const float* tr = static_cast<const float*>(tail_r);
-  const float* ti = static_cast<const float*>(tail_i);
-  const float* tb = static_cast<const float*>(tab);
-  const float* tp = static_cast<const float*>(taps);
-  if (layout == 1) {
-    frontend_rows_kernel<__nv_bfloat16, false><<<grid, WIN_THREADS, 0, st>>>(
-        x, pr, pi, tr, ti, tb, tp, static_cast<__nv_bfloat16*>(out),
-        (long long)N, inv_scale);
-  } else if (layout == 2) {
-    frontend_rows_kernel<float, true><<<grid, WIN_THREADS, 0, st>>>(
-        x, pr, pi, tr, ti, tb, tp, static_cast<float*>(out), (long long)N,
-        inv_scale);
-  } else {
-    frontend_rows_kernel<float, false><<<grid, WIN_THREADS, 0, st>>>(
-        x, pr, pi, tr, ti, tb, tp, static_cast<float*>(out), (long long)N,
-        inv_scale);
-  }
+  (f32_operands ? launch_rows<false> : launch_rows<true>)(
+      i16p(pcm), f32p(ph_r), f32p(ph_i), f32p(tail_r), f32p(tail_i),
+      f32p(tab), f32p(taps), out, N, layout, inv_scale, st);
   return (int)cudaGetLastError();
 }
 
@@ -817,27 +895,12 @@ extern "C" int sc_frontend_decim_folded(
     const void* pcm, const void* p0r, const void* p0i, const void* tail0_r,
     const void* tail0_i, const void* adv, const void* tab, const void* ctaps,
     const void* unrot, void* out, int B, int C, int out_bf16,
-    float inv_scale, void* stream) {
-  const dim3 grid(persistent_grid((long long)B * C));
+    float inv_scale, int f32_operands, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int16_t* x = static_cast<const int16_t*>(pcm);
-  const float* pr = static_cast<const float*>(p0r);
-  const float* pi = static_cast<const float*>(p0i);
-  const float* tr = static_cast<const float*>(tail0_r);
-  const float* ti = static_cast<const float*>(tail0_i);
-  const float* av = static_cast<const float*>(adv);
-  const float* tb = static_cast<const float*>(tab);
-  const float* ct = static_cast<const float*>(ctaps);
-  const float* un = static_cast<const float*>(unrot);
-  if (out_bf16) {
-    frontend_decim_folded_kernel<__nv_bfloat16><<<grid, WIN_THREADS, 0, st>>>(
-        x, pr, pi, tr, ti, av, tb, ct, un, static_cast<__nv_bfloat16*>(out),
-        B, C, inv_scale);
-  } else {
-    frontend_decim_folded_kernel<float><<<grid, WIN_THREADS, 0, st>>>(
-        x, pr, pi, tr, ti, av, tb, ct, un, static_cast<float*>(out), B, C,
-        inv_scale);
-  }
+  (f32_operands ? launch_decim_folded<false> : launch_decim_folded<true>)(
+      i16p(pcm), f32p(p0r), f32p(p0i), f32p(tail0_r), f32p(tail0_i),
+      f32p(adv), f32p(tab), f32p(ctaps), f32p(unrot), out, B, C, out_bf16,
+      inv_scale, st);
   return (int)cudaGetLastError();
 }
 
@@ -846,31 +909,11 @@ extern "C" int sc_frontend_rows_folded(
     const void* pcm, const void* ph_r, const void* ph_i, const void* tail_r,
     const void* tail_i, const void* tab, const void* ctaps,
     const void* unrot, void* out, int N, int layout, float inv_scale,
-    void* stream) {
-  const dim3 grid(persistent_grid(N));
+    int f32_operands, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int16_t* x = static_cast<const int16_t*>(pcm);
-  const float* pr = static_cast<const float*>(ph_r);
-  const float* pi = static_cast<const float*>(ph_i);
-  const float* tr = static_cast<const float*>(tail_r);
-  const float* ti = static_cast<const float*>(tail_i);
-  const float* tb = static_cast<const float*>(tab);
-  const float* ct = static_cast<const float*>(ctaps);
-  const float* un = static_cast<const float*>(unrot);
-  if (layout == 1) {
-    frontend_rows_folded_kernel<__nv_bfloat16, false>
-        <<<grid, WIN_THREADS, 0, st>>>(x, pr, pi, tr, ti, tb, ct, un,
-                                       static_cast<__nv_bfloat16*>(out),
-                                       (long long)N, inv_scale);
-  } else if (layout == 2) {
-    frontend_rows_folded_kernel<float, true><<<grid, WIN_THREADS, 0, st>>>(
-        x, pr, pi, tr, ti, tb, ct, un, static_cast<float*>(out),
-        (long long)N, inv_scale);
-  } else {
-    frontend_rows_folded_kernel<float, false><<<grid, WIN_THREADS, 0, st>>>(
-        x, pr, pi, tr, ti, tb, ct, un, static_cast<float*>(out),
-        (long long)N, inv_scale);
-  }
+  (f32_operands ? launch_rows_folded<false> : launch_rows_folded<true>)(
+      i16p(pcm), f32p(ph_r), f32p(ph_i), f32p(tail_r), f32p(tail_i),
+      f32p(tab), f32p(ctaps), f32p(unrot), out, N, layout, inv_scale, st);
   return (int)cudaGetLastError();
 }
 

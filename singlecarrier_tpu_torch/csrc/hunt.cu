@@ -5,15 +5,25 @@
 // kernel ops/fused_rx.py::_fused_rx_kernel_premix.  Per decimation phase
 // c the window is turned into the hunt operand x (int8 mode:
 // clip(rint(16 w), +/-127), round half to even as fused_rx.py:89-91;
-// bf16 mode: bf16(w)); the 8 segment correlations of lag l are
-// sum_k x[2 + l + 16s + k] * pn[16s + k] (exact for int8, ascending k
-// for bf16) and pw[c][l] = sum_s (re^2 + im^2), added in f32 in
-// ascending s.  The espan denominator is the direct 128-term sum of the
-// phase-summed squared planes (ascending phases, decode_pallas.py:
-// 845-852) -- a direct sum, not a prefix-sum difference, whose
-// cancellation would move the noise-block knife edge.  stat = pw / (en +
-// 1e-12) in IEEE division; argmax takes the first maximum over lags and a
-// strict > across ascending phases (decode_pallas.py:856-876).
+// bf16 mode: bf16(w); f32 mode: w as it is); the 8 segment correlations
+// of lag l are sum_k x[2 + l + 16s + k] * pn[16s + k] (exact for int8,
+// ascending k otherwise) and pw[c][l] = sum_s (re^2 + im^2), added in f32
+// in ascending s.  The statistic is chosen by cfg.hunt_norm, a template
+// parameter of both bodies (decode_pallas.py:818-878):
+//
+//   * espan (the default): the denominator is the direct 128-term sum of
+//     the phase-summed squared planes (ascending phases, decode_pallas.py:
+//     845-852) -- a direct sum, not a prefix-sum difference, whose
+//     cancellation would move the noise-block knife edge;
+//   * energy: the same direct sum over each phase's own squared planes,
+//     en[c][l] = sum_k sq_c[l + k] in ascending k, cyc sums where espan
+//     forms one;
+//   * none: no denominator, the statistic is pw itself.
+//
+// stat = pw / (en + 1e-12) in IEEE division; argmax takes the first
+// maximum over lags and a strict > across ascending phases
+// (decode_pallas.py:856-876).  The peak is the raw power at the chosen
+// lag in every mode.
 //
 // Two bodies, chosen by the operand mode:
 //
@@ -37,14 +47,18 @@
 //     forms the espan sums of 13 adjacent lags in one sliding pass over
 //     the phase-summed squares (one load feeds 13 accumulators, each in
 //     ascending k).
+//     Under hunt_norm energy the pass over a phase's squares runs once a
+//     phase, before its tiles, on planes loaded again (they are in L2);
+//     under none it does not run.
 //   * bf16 / f32 operands (hunt_toeplitz_kernel): the same Toeplitz
-//     reuse on the CUDA cores, one block per row.  Thread t holds the 16
-//     operand values x[2 + t .. + 15] of both planes in registers and
-//     forms the 8 segment sums from them in ascending k, as the plain
-//     version rounds (a bf16 tensor-core product would not); the
-//     square-sums go through shared memory by (segment, lag), and thread
-//     l adds its lag's 8 in ascending s.  The espan sum is the direct
-//     128-term sum, one thread a lag.
+//     reuse on the CUDA cores, one block per row.  The operand is
+//     rounded to bf16 in bf16 mode (ROUND) and left as the planes hold it
+//     in f32 mode.  Thread t holds the 16 operand values x[2 + t .. + 15]
+//     of both planes in registers and forms the 8 segment sums from them
+//     in ascending k, as the plain version rounds (a bf16 tensor-core
+//     product would not); the square-sums go through shared memory by
+//     (segment, lag), and thread l adds its lag's 8 in ascending s.  The
+//     espan or energy sum is the direct 128-term sum, one thread a lag.
 //
 // Bound on the card: operations (the int8 multiply-adds at the tensor
 // cores' rate) by a little over the bytes of the planes.  What the int8
@@ -58,6 +72,11 @@ using namespace sc;
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
+
+// cfg.hunt_norm, the statistic's denominator (a template parameter)
+constexpr int NORM_ESPAN = 0;     // phase-summed window energy
+constexpr int NORM_ENERGY = 1;    // each phase's own window energy
+constexpr int NORM_NONE = 2;      // none: the raw power
 
 struct Best {
   float v;    // statistic
@@ -159,7 +178,81 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(b), "r"(0));
 }
 
+// Chunk q (window values x[OFF + 8q .. 8q + 7]) of phase c's two planes
+// of row n: the previous block's row, then this block's.
 template <bool BF16>
+__device__ __forceinline__ void load_chunk(const void* decim,
+                                           const void* dprev0, long long N,
+                                           int C, long long n, int c, int q,
+                                           float (&vr)[CHUNK],
+                                           float (&vi)[CHUNK]) {
+  if (q < PREV_CHUNKS) {
+    if (n < C) {
+      load8<BF16>(plane_row<BF16>(dprev0, (c * 2LL) * C + n), CHUNK * q, vr);
+      load8<BF16>(plane_row<BF16>(dprev0, (c * 2LL + 1) * C + n), CHUNK * q,
+                  vi);
+    } else {
+      load8<BF16>(plane_row<BF16>(decim, (c * 2LL) * N + n - C), CHUNK * q,
+                  vr);
+      load8<BF16>(plane_row<BF16>(decim, (c * 2LL + 1) * N + n - C),
+                  CHUNK * q, vi);
+    }
+  } else {
+    load8<BF16>(plane_row<BF16>(decim, (c * 2LL) * N + n),
+                CHUNK * (q - PREV_CHUNKS), vr);
+    load8<BF16>(plane_row<BF16>(decim, (c * 2LL + 1) * N + n),
+                CHUNK * (q - PREV_CHUNKS), vi);
+  }
+}
+
+// The window-energy sums of the warp's squares sq (chunks lane and
+// lane + 32): en[l] = sum_k sq[l + k], k ascending, NL lags a lane, into
+// sm.ssum (the squares' place) for l < EN_W.
+__device__ __forceinline__ void window_energy(MmaWarpSmem& sm,
+                                              const float (&sq)[2][CHUNK],
+                                              int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float4* dst = reinterpret_cast<float4*>(&sm.ssum[CHUNK * (lane + 32 * h)]);
+    dst[0] = make_float4(sq[h][0], sq[h][1], sq[h][2], sq[h][3]);
+    dst[1] = make_float4(sq[h][4], sq[h][5], sq[h][6], sq[h][7]);
+  }
+  __syncwarp();
+
+  float en[NL];
+#pragma unroll
+  for (int i = 0; i < NL; ++i) en[i] = 0.f;
+  const bool en_lane = lane * NL < N_SYM;
+  if (en_lane) {
+    const float* s = sm.ssum + lane * NL;
+#pragma unroll
+    for (int j = 0; j < NL - 1; ++j) {
+      const float v = s[j];
+#pragma unroll
+      for (int i = 0; i <= j; ++i) en[i] = en[i] + v;
+    }
+#pragma unroll 4
+    for (int j = NL - 1; j < P; ++j) {
+      const float v = s[j];
+#pragma unroll
+      for (int i = 0; i < NL; ++i) en[i] = en[i] + v;
+    }
+#pragma unroll
+    for (int j = P; j < P + NL - 1; ++j) {
+      const float v = s[j];
+#pragma unroll
+      for (int i = j - P + 1; i < NL; ++i) en[i] = en[i] + v;
+    }
+  }
+  __syncwarp();               // every lane has read its squares
+  float* en_s = sm.ssum;      // the energy sums take their place
+#pragma unroll
+  for (int i = 0; i < NL; ++i)
+    if (lane * NL + i < EN_W) en_s[lane * NL + i] = en[i];
+  __syncwarp();
+}
+
+template <bool BF16, int NORM>
 __global__ void __launch_bounds__(MMA_WARPS * 32) hunt_mma_kernel(
     const void* __restrict__ decim, const void* __restrict__ dprev0,
     const float* __restrict__ pn, int* __restrict__ lag_out,
@@ -191,73 +284,24 @@ __global__ void __launch_bounds__(MMA_WARPS * 32) hunt_mma_kernel(
     for (int h = 0; h < 2; ++h) {
       const int q = lane + 32 * h;           // chunk: x values 8q..8q+7
       float vr[CHUNK], vi[CHUNK];
-      if (q < PREV_CHUNKS) {
-        if (n < C) {
-          load8<BF16>(plane_row<BF16>(dprev0, (c * 2LL) * C + n), CHUNK * q,
-                      vr);
-          load8<BF16>(plane_row<BF16>(dprev0, (c * 2LL + 1) * C + n),
-                      CHUNK * q, vi);
-        } else {
-          load8<BF16>(plane_row<BF16>(decim, (c * 2LL) * N + n - C),
-                      CHUNK * q, vr);
-          load8<BF16>(plane_row<BF16>(decim, (c * 2LL + 1) * N + n - C),
-                      CHUNK * q, vi);
-        }
-      } else {
-        load8<BF16>(plane_row<BF16>(decim, (c * 2LL) * N + n),
-                    CHUNK * (q - PREV_CHUNKS), vr);
-        load8<BF16>(plane_row<BF16>(decim, (c * 2LL + 1) * N + n),
-                    CHUNK * (q - PREV_CHUNKS), vi);
-      }
+      load_chunk<BF16>(decim, dprev0, N, C, n, c, q, vr, vi);
+      if constexpr (NORM == NORM_ESPAN) {
 #pragma unroll
-      for (int e = 0; e < CHUNK; ++e)
-        ss[h][e] = ss[h][e] + (vr[e] * vr[e] + vi[e] * vi[e]);
+        for (int e = 0; e < CHUNK; ++e)
+          ss[h][e] = ss[h][e] + (vr[e] * vr[e] + vi[e] * vi[e]);
+      }
       *reinterpret_cast<uint2*>(&sm.x[c][0][2 * q]) =
           make_uint2(quant4(vr, hunt_scale), quant4(vr + 4, hunt_scale));
       *reinterpret_cast<uint2*>(&sm.x[c][1][2 * q]) =
           make_uint2(quant4(vi, hunt_scale), quant4(vi + 4, hunt_scale));
     }
   }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float4* dst = reinterpret_cast<float4*>(&sm.ssum[CHUNK * (lane + 32 * h)]);
-    dst[0] = make_float4(ss[h][0], ss[h][1], ss[h][2], ss[h][3]);
-    dst[1] = make_float4(ss[h][4], ss[h][5], ss[h][6], ss[h][7]);
-  }
-  __syncwarp();
-
   // ---- espan: en[l] = sum_k ssum[l + k], k ascending, NL lags a lane ----
-  float en[NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) en[i] = 0.f;
-  const bool en_lane = lane * NL < N_SYM;
-  if (en_lane) {
-    const float* s = sm.ssum + lane * NL;
-#pragma unroll
-    for (int j = 0; j < NL - 1; ++j) {
-      const float v = s[j];
-#pragma unroll
-      for (int i = 0; i <= j; ++i) en[i] = en[i] + v;
-    }
-#pragma unroll 4
-    for (int j = NL - 1; j < P; ++j) {
-      const float v = s[j];
-#pragma unroll
-      for (int i = 0; i < NL; ++i) en[i] = en[i] + v;
-    }
-#pragma unroll
-    for (int j = P; j < P + NL - 1; ++j) {
-      const float v = s[j];
-#pragma unroll
-      for (int i = j - P + 1; i < NL; ++i) en[i] = en[i] + v;
-    }
-  }
-  __syncwarp();               // every lane has read its squares
-  float* en_s = sm.ssum;      // the espan sums take their place
-#pragma unroll
-  for (int i = 0; i < NL; ++i)
-    if (lane * NL + i < EN_W) en_s[lane * NL + i] = en[i];
-  __syncwarp();
+  if constexpr (NORM == NORM_ESPAN)
+    window_energy(sm, ss, lane);
+  else
+    __syncwarp();             // the operand planes are whole
+  const float* en_s = sm.ssum;
 
   // ---- pass 2: Toeplitz mma, ascending-s sum along the quad, argmax ----
   Best best{-1.f, 0.f, 0, 0};
@@ -265,6 +309,20 @@ __global__ void __launch_bounds__(MMA_WARPS * 32) hunt_mma_kernel(
   const int sh = 8 * (g & 3);             // byte offset inside it
   const int lag0 = 16 * (tig >> 1) + g + 8 * (tig & 1);
   for (int c = 0; c < CYC; ++c) {
+    if constexpr (NORM == NORM_ENERGY) {
+      // this phase's own window energies, from its planes loaded again
+      float sq[2][CHUNK];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float vr[CHUNK], vi[CHUNK];
+        load_chunk<BF16>(decim, dprev0, N, C, n, c, lane + 32 * h, vr, vi);
+#pragma unroll
+        for (int e = 0; e < CHUNK; ++e)
+          sq[h][e] = vr[e] * vr[e] + vi[e] * vi[e];
+      }
+      __syncwarp();           // the last phase's sums are read
+      window_energy(sm, sq, lane);
+    }
     const uint32_t* xr = sm.x[c][0] + wbase;
     const uint32_t* xi = sm.x[c][1] + wbase;
     // rows g (A) and g + 8 (B) of the tile: the even column's square-sum
@@ -307,7 +365,8 @@ __global__ void __launch_bounds__(MMA_WARPS * 32) hunt_mma_kernel(
           const float pw = tig == 0 ? r0 : tig == 1 ? r1 : tig == 2 ? r2
                                                                     : accB;
           const int lag = 16 * (T - NSEG) + lag0;
-          const float v = pw / (en_s[lag] + 1e-12f);
+          float v = pw;
+          if constexpr (NORM != NORM_NONE) v = pw / (en_s[lag] + 1e-12f);
           if (lag < N_SYM && v > best.v) best = Best{v, pw, lag, c};
         }
       }
@@ -343,13 +402,22 @@ __device__ __forceinline__ float operand_at(const void* decim,
                : load_plane(decim, (cp * N + n - C) * N_SYM + j, bf16);
 }
 
+// The hunt operand of a window value: bf16(w) in bf16 mode (ROUND), else
+// w as the planes hold it.
+template <bool ROUND>
+__device__ __forceinline__ float hunt_operand(float w) {
+  if constexpr (ROUND) return bf16_round(w);
+  return w;
+}
+
+template <bool ROUND, int NORM>
 __global__ void __launch_bounds__(TOE_THREADS) hunt_toeplitz_kernel(
     const void* __restrict__ decim, const void* __restrict__ dprev0,
     int in_bf16, const float* __restrict__ pn, int* __restrict__ lag_out,
     int* __restrict__ ph_out, float* __restrict__ peak_out, long long N,
     int C, float peak_scale) {
-  __shared__ float xs[2][XN];              // bf16(w) as f32, x[OFF + j]
-  __shared__ float ssum[XN];
+  __shared__ float xs[2][XN];              // the operand, x[OFF + j]
+  __shared__ float ssum[XN];               // squares (summed over phases)
   __shared__ __align__(16) float pns[P];
   __shared__ float qs[NSEG][Q_STRIDE];     // re^2 + im^2 by (segment, lag)
   __shared__ Best wbest[TOE_WARPS];
@@ -359,15 +427,16 @@ __global__ void __launch_bounds__(TOE_THREADS) hunt_toeplitz_kernel(
   if (tid < P) pns[tid] = pn[tid];
   float sq = 0.f;                          // ssum[tid], summed over phases
 
-  float pw[CYC];
+  float pw[CYC], en[CYC];                  // en: energy only
   float vr = operand_at(decim, dprev0, in_bf16, N, C, n, 0, 0, tid);
   float vi = operand_at(decim, dprev0, in_bf16, N, C, n, 0, 1, tid);
 #pragma unroll
   for (int c = 0; c < CYC; ++c) {
     __syncthreads();   // the previous phase's operand and sums fully read
-    sq = sq + (vr * vr + vi * vi);
-    xs[0][tid] = bf16_round(vr);
-    xs[1][tid] = bf16_round(vi);
+    if constexpr (NORM == NORM_ESPAN) sq = sq + (vr * vr + vi * vi);
+    if constexpr (NORM == NORM_ENERGY) ssum[tid] = vr * vr + vi * vi;
+    xs[0][tid] = hunt_operand<ROUND>(vr);
+    xs[1][tid] = hunt_operand<ROUND>(vi);
     if (c + 1 < CYC) {   // the next phase's loads fly under this one's sums
       vr = operand_at(decim, dprev0, in_bf16, N, C, n, c + 1, 0, tid);
       vi = operand_at(decim, dprev0, in_bf16, N, C, n, c + 1, 1, tid);
@@ -399,6 +468,13 @@ __global__ void __launch_bounds__(TOE_THREADS) hunt_toeplitz_kernel(
         if (l >= 0 && l < N_SYM) qs[s][l] = re * re + im * im;
       }
     }
+    if constexpr (NORM == NORM_ENERGY) {
+      float e = 0.f;
+      if (tid < N_SYM) {
+        for (int k = 0; k < P; ++k) e = e + ssum[tid + k];
+      }
+      en[c] = e;
+    }
     __syncthreads();
     float acc = 0.f;
     if (tid < N_SYM) {
@@ -407,18 +483,22 @@ __global__ void __launch_bounds__(TOE_THREADS) hunt_toeplitz_kernel(
     }
     pw[c] = acc;
   }
-  ssum[tid] = sq;
-  __syncthreads();
-
-  float en = 0.f;
-  if (tid < N_SYM) {
-    for (int k = 0; k < P; ++k) en = en + ssum[tid + k];
+  if constexpr (NORM == NORM_ESPAN) {
+    ssum[tid] = sq;
+    __syncthreads();
+    float e = 0.f;
+    if (tid < N_SYM) {
+      for (int k = 0; k < P; ++k) e = e + ssum[tid + k];
+    }
+#pragma unroll
+    for (int c = 0; c < CYC; ++c) en[c] = e;
   }
   Best x{-1.f, 0.f, tid, 0};
   if (tid < N_SYM) {
 #pragma unroll
     for (int c = 0; c < CYC; ++c) {
-      const float v = pw[c] / (en + 1e-12f);
+      float v = pw[c];
+      if constexpr (NORM != NORM_NONE) v = pw[c] / (en[c] + 1e-12f);
       if (v > x.v) x = Best{v, pw[c], tid, c};
     }
   }
@@ -434,31 +514,58 @@ __global__ void __launch_bounds__(TOE_THREADS) hunt_toeplitz_kernel(
   }
 }
 
+template <int NORM>
+void launch_hunt(const void* decim, const void* dprev0, const float* pn,
+                 int* lg, int* ph, float* pk, int N, int C, int in_bf16,
+                 int int8_hunt, int f32_operand, float hunt_scale,
+                 float peak_scale, cudaStream_t st) {
+  if (int8_hunt) {
+    const dim3 grid((unsigned)((N + MMA_WARPS - 1) / MMA_WARPS));
+    if (in_bf16)
+      hunt_mma_kernel<true, NORM><<<grid, MMA_WARPS * 32, 0, st>>>(
+          decim, dprev0, pn, lg, ph, pk, (long long)N, C, hunt_scale,
+          peak_scale);
+    else
+      hunt_mma_kernel<false, NORM><<<grid, MMA_WARPS * 32, 0, st>>>(
+          decim, dprev0, pn, lg, ph, pk, (long long)N, C, hunt_scale,
+          peak_scale);
+  } else if (f32_operand) {
+    hunt_toeplitz_kernel<false, NORM><<<dim3((unsigned)N), TOE_THREADS, 0,
+                                        st>>>(
+        decim, dprev0, in_bf16, pn, lg, ph, pk, (long long)N, C, peak_scale);
+  } else {
+    hunt_toeplitz_kernel<true, NORM><<<dim3((unsigned)N), TOE_THREADS, 0,
+                                       st>>>(
+        decim, dprev0, in_bf16, pn, lg, ph, pk, (long long)N, C, peak_scale);
+  }
+}
+
 }  // namespace
 
+// f32_operand: hunt_dtype "f32" (the bf16/f32 body leaves the operand
+// unrounded; the int8 body ignores it); norm: NORM_ESPAN, NORM_ENERGY or
+// NORM_NONE.
 extern "C" int sc_hunt(const void* decim, const void* dprev0, const void* pn,
                        void* lag, void* phase, void* peak, int N, int C,
                        int in_bf16, int int8_hunt, float hunt_scale,
-                       float peak_scale, void* stream) {
+                       float peak_scale, int f32_operand, int norm,
+                       void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* pnf = static_cast<const float*>(pn);
   int* lg = static_cast<int*>(lag);
   int* ph = static_cast<int*>(phase);
   float* pk = static_cast<float*>(peak);
-  if (int8_hunt) {
-    const dim3 grid((unsigned)((N + MMA_WARPS - 1) / MMA_WARPS));
-    if (in_bf16)
-      hunt_mma_kernel<true><<<grid, MMA_WARPS * 32, 0, st>>>(
-          decim, dprev0, pnf, lg, ph, pk, (long long)N, C, hunt_scale,
-          peak_scale);
-    else
-      hunt_mma_kernel<false><<<grid, MMA_WARPS * 32, 0, st>>>(
-          decim, dprev0, pnf, lg, ph, pk, (long long)N, C, hunt_scale,
-          peak_scale);
-  } else {
-    hunt_toeplitz_kernel<<<dim3((unsigned)N), TOE_THREADS, 0, st>>>(
-        decim, dprev0, in_bf16, pnf, lg, ph, pk, (long long)N, C,
-        peak_scale);
-  }
+  if (norm == NORM_ENERGY)
+    launch_hunt<NORM_ENERGY>(decim, dprev0, pnf, lg, ph, pk, N, C, in_bf16,
+                             int8_hunt, f32_operand, hunt_scale, peak_scale,
+                             st);
+  else if (norm == NORM_NONE)
+    launch_hunt<NORM_NONE>(decim, dprev0, pnf, lg, ph, pk, N, C, in_bf16,
+                           int8_hunt, f32_operand, hunt_scale, peak_scale,
+                           st);
+  else
+    launch_hunt<NORM_ESPAN>(decim, dprev0, pnf, lg, ph, pk, N, C, in_bf16,
+                            int8_hunt, f32_operand, hunt_scale, peak_scale,
+                            st);
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,10 @@ Run from the root of a checkout::
 
 ``--other DIR`` names another ``csrc`` tree, for example a parent
 commit's (``git archive <commit> singlecarrier_tpu_torch/csrc | tar -x
--C build/parent``).  Both trees are compiled, and ``frontend_decim``,
+-C build/parent``).  An older tree whose entry points lack the knob
+arguments this tree's take (they stand just before the stream) is called
+without them: it runs the default configuration only, which is what is
+compared.  Both trees are compiled, and ``frontend_decim``,
 ``frontend_rows`` (transposed and row-major), their mixer-folded forms
 ``frontend_decim_folded`` and ``frontend_rows_folded`` (the same
 layouts), ``frontend_full``, ``hunt``, ``extract_decode``,
@@ -24,7 +27,9 @@ dibits differ.  Then ``frontend_decim`` and ``frontend_decim_folded``
 ``extract_decode`` are timed at 8192 channels x ``--blocks`` blocks of
 noise in the order this, other, other, this, and ``frontend_full`` also
 at 8192 x 4 rows, beside its FMUL + FADD floor at the SM clock read
-under it.
+under it; last, one dispatch of the main path
+``prod_rx_batch(fuse_frontend=True)`` at the bench operating point on
+those rows, the same Python around either tree's kernels.
 
 ``--stages`` compiles this tree once more with ``-DSC_STAGE_CLOCKS`` and
 prints where ``extract_decode`` spends its time: each stage's share of
@@ -36,6 +41,13 @@ loops form one term of the 49 (``-DSC_FE_TAPS=1``; a one-output tap
 loop, which does not know the name, cut in a patched copy of the tree's
 ``frontend.cu``) is timed beside the whole kernel.
 
+``--knife-edges N`` runs this tree's ``extract_decode`` against its
+plain version on N fresh draws of ``chip_smoke.py``'s kernel inputs
+(256 channels x 4 blocks, golden packets among noise) at both operating
+points and counts the valid rows' dibits that differ, each with its
+plain soft margin (distance to the slicer's boundary over the symbol's
+magnitude): the evidence for ``chip_smoke.KNIFE_EDGE``.
+
 Every line carries the card's name and power limit.  Needs a GPU.
 """
 
@@ -43,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -51,8 +64,7 @@ import numpy as np
 import torch
 
 from . import DEFAULT_CONFIG
-from .modem import prod_rx_init_planes
-from .modem.rx_production import _extract_packet_planes
+from .modem import prod_rx_batch, prod_rx_init_planes
 from .ops import _build
 from .ops.decode import (extract_decode, fused_decode, fused_decode_extract,
                          hunt)
@@ -69,14 +81,10 @@ def _operands(cs, cfg, gen, tx, C, B, dev):
     batch = (pcm, p0r, p0i, t0r, t0i, adv)
     dk = frontend_decim(cfg, *batch)
     rows = cs._row_inputs(torch, cfg, *batch)
-    drow = frontend_rows(cfg, *rows, transposed=False)
-    wins, wl, wph, wpk = cs._hunt_windows(torch, cfg, drow, C)
-    off = cfg.eq_length // 2
-    pkt = _extract_packet_planes(
-        cfg, wins[..., off:off + 2 * drow.shape[-1]].contiguous(), wl, wph)
+    wins, wl, wph, wpk, pkt_r, pkt_i = cs._hunt_windows(
+        torch, cfg, frontend_rows(cfg, *rows, transposed=False), C)
     return dict(batch=batch, rows=rows, dk=dk, dprev0=dprev0, wins=wins,
-                wl=wl, wph=wph, wpk=wpk, pkt_r=pkt[:, 0].contiguous(),
-                pkt_i=pkt[:, 1].contiguous())
+                wl=wl, wph=wph, wpk=wpk, pkt_r=pkt_r, pkt_i=pkt_i)
 
 
 def _run_all(cfg, op):
@@ -142,6 +150,54 @@ def _differences(cfg, name, a, b) -> str:
             f"Hz, max |deq_error| {float((a - b)[:, D + 1].abs().max()):.3e}")
 
 
+def _arity(csrc: Path) -> dict:
+    """{entry point: number of arguments} of the ``extern "C"`` functions
+    of a ``csrc`` tree."""
+    found = {}
+    for src in Path(csrc).glob("*.cu"):
+        text = re.sub(r"//[^\n]*", "", src.read_text())
+        for m in re.finditer(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)',
+                             text):
+            found[m.group(1)] = len(m.group(2).split(","))
+    return found
+
+
+class _Tree:
+    """A library of another ``csrc`` tree behind this tree's entry points.
+    Where an entry point of that tree has fewer arguments than this
+    tree's, the missing ones are the knob arguments just before the
+    stream: a call drops them after checking that they are 0, the
+    default configuration, which is all such a tree runs."""
+
+    def __init__(self, lib, csrc: Path):
+        self._lib, self._narrow = lib, {}
+        for name, n in _arity(csrc).items():
+            sig = _build._SIGNATURES.get(name, ())
+            if len(sig) > n:
+                fn = getattr(lib, name)
+                fn.argtypes = sig[:n - 1] + sig[-1:]
+                self._narrow[name] = (fn, n - 1, len(sig) - n)
+
+    def __getattr__(self, name):
+        if name not in self._narrow:
+            return getattr(self._lib, name)
+        fn, head, extra = self._narrow[name]
+
+        def call(*args):
+            if any(args[head:head + extra]):
+                raise ValueError(f"{name}: the other tree runs the default "
+                                 f"knobs only")
+            return fn(*args[:head], args[-1])
+        return call
+
+
+def _bind_tree(csrc: Path, **build_args):
+    """Build and bind ``csrc`` (with ``_build.build``'s other arguments);
+    another tree than this one behind this tree's entry points."""
+    lib = _build.bind(_build.build(csrc=csrc, **build_args)[0])
+    return lib if Path(csrc) == _build.CSRC else _Tree(lib, csrc)
+
+
 def _one_tap_tree(csrc: Path) -> dict:
     """Arguments of ``_build.build`` for ``csrc`` with the front-ends' tap
     loops cut to one term: ``-DSC_FE_TAPS=1`` for a loop that knows the
@@ -161,6 +217,42 @@ def _one_tap_tree(csrc: Path) -> dict:
     return dict(csrc=copy, defines=("SC_FE_TAPS=1",))
 
 
+def _knife_edges(cs, gen, tx, dev, draws: int, card: str) -> None:
+    """``extract_decode`` against its plain version on ``draws`` draws of
+    chip_smoke's kernel inputs at both operating points: the valid rows'
+    dibits that differ and their plain soft margins."""
+    from .ops import decode
+    bench = DEFAULT_CONFIG.replace(decim_dtype="bf16", hunt_dtype="int8",
+                                   ls_refit_symbols=128)
+    D = DEFAULT_CONFIG.frame_symbols
+    mask = torch.from_numpy(decode._mask_np(D, True)).to(dev)
+    valid = near = 0
+    margins = []
+    for _ in range(draws):
+        for cfg in (DEFAULT_CONFIG, bench):
+            pcm, p0r, p0i, t0r, t0i, adv, dprev0 = cs._kernel_inputs(
+                torch, np, gen, tx, cfg, cs.C_CMP, cs.B_CMP, dev)
+            dk = frontend_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv)
+            lag, ph, peak = hunt(cfg, dk, dprev0)
+            got = extract_decode(cfg, dk, dprev0, lag, ph, peak)
+            pkt = decode._extract_from_planes(cfg, dk, dprev0, lag, ph)
+            want, ar, ai = decode._decode_core(
+                cfg, pkt[:, 0], pkt[:, 1], peak[:, None], mask, soft=True)
+            v = ((got[:, D + 3] > 0.5) & (got[:, D] > cfg.match_threshold)
+                 & (want[:, D + 3] > 0.5) & (want[:, D] > cfg.match_threshold))
+            m = (torch.minimum((ar - ai).abs(), (ar + ai).abs())
+                 / torch.sqrt(ar * ar + ai * ai).clamp_min(1e-30))[v]
+            valid += int(v.sum())
+            near += int((m < cs.KNIFE_EDGE).sum())
+            margins += m[(got[v, :D] != want[v, :D])].tolist()
+    print(f"[knife] extract_decode of this tree vs plain on {draws} x 2 "
+          f"draws of {cs.C_CMP} x {cs.B_CMP} rows: {valid} valid rows, "
+          f"{valid * D} valid symbols, {near} of them within "
+          f"{cs.KNIFE_EDGE:.0e} of the slicer's boundary; {len(margins)} "
+          f"differ, at plain margins {[f'{x:.2e}' for x in margins]}; "
+          f"{card}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, help="another csrc tree")
@@ -168,6 +260,9 @@ def main(argv=None) -> int:
                     help="blocks of the timed 8192-channel dispatch")
     ap.add_argument("--stages", action="store_true",
                     help="stage split of extract_decode")
+    ap.add_argument("--knife-edges", type=int, default=0, metavar="N",
+                    help="the decode's decisions against the plain "
+                    "version's on N draws of chip_smoke's inputs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -185,14 +280,16 @@ def main(argv=None) -> int:
     print(f"[device] {card}; torch {torch.__version__}", flush=True)
 
     mine = _build.load()
-    other = _build.bind(_build.build(csrc=args.other)[0]) if args.other \
-        else None
+    other = _bind_tree(args.other) if args.other else None
     golden = np.load(root / "tests" / "golden" / "reference.npz")
     tx = torch.from_numpy(golden["tx_pcm"].astype(np.int16)).to(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(cs.SEED)
     bench = DEFAULT_CONFIG.replace(decim_dtype="bf16", hunt_dtype="int8",
                                    ls_refit_symbols=128)
+
+    if args.knife_edges:
+        _knife_edges(cs, gen, tx, dev, args.knife_edges, card)
 
     if other is not None:
         for what, cfg in (("library default", DEFAULT_CONFIG),
@@ -253,7 +350,10 @@ def main(argv=None) -> int:
              lambda: frontend_full(cfg, *small),
              "hunt": lambda: hunt(cfg, dk, dprev0),
              "extract_decode": lambda: extract_decode(cfg, dk, dprev0, lag,
-                                                      ph, peak)}
+                                                      ph, peak),
+             "main path (one dispatch)": lambda: prod_rx_batch(
+                 cfg, (p0r, p0i, t0r, t0i, dprev0), noise,
+                 fuse_frontend=True)}
     order = [("this", mine)] + ([("other", other), ("other", other),
                                  ("this", mine)] if other else [])
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -270,6 +370,9 @@ def main(argv=None) -> int:
             floor, what = cs._fp32_floor(cfg, name, n_rows, mhz, sms)
             note = (f"; {what} {floor:.4f} ms at the {mhz:.0f} MHz read "
                     f"under this tree's kernel")
+        if name.startswith("main path"):
+            note = "; samples/s " + ", ".join(
+                f"{tag} {n_rows * n / t * 1e3:.4e}" for tag, t in times)
         print(f"[timing] {name} at {n_rows} rows, ms in the order run: "
               + ", ".join(f"{tag} {t:.3f}" for tag, t in times)
               + f"{note}; {card}", flush=True)
@@ -279,7 +382,8 @@ def main(argv=None) -> int:
         trees = [("this", mine, _build.CSRC)] + (
             [("other", other, args.other)] if other else [])
         for tag, lib, csrc in trees:
-            one = _build.bind(_build.build(**_one_tap_tree(csrc))[0])
+            cut = _one_tap_tree(csrc)          # a copy: bound as a _Tree
+            one = _bind_tree(cut.pop("csrc"), **cut)
             for kern in ("frontend_decim (bf16 planes)",
                          "frontend_decim_folded (bf16 planes)",
                          "frontend_full"):

@@ -44,7 +44,7 @@ from ..scramble import scramble_dibits
 from ..ops.decode import (fused_decode, fused_decode_extract,
                           fused_hunt_decode_decim)
 from ..ops.frontend import fused_frontend, fused_frontend_decim
-from ..ops.fused_rx import _advances, check_supported, fused_rx_block
+from ..ops.fused_rx import _advances, fused_rx_block
 
 _F32 = torch.float32
 
@@ -198,17 +198,18 @@ def _hunt_metric(cfg: ModemConfig, power, sq):
     ``power``: [..., cyc, n_lags]; ``sq``: squared window magnitude
     [..., cyc, n_lags+p-1].  "espan": power over the span energy shared
     across the phases -- the squared planes summed in ascending phase
-    order, then one band product.
+    order, then one band product; "energy": power over each phase's own
+    window energy (a band product a phase); "none": the raw power.
     """
-    if cfg.hunt_norm != "espan":
-        raise NotImplementedError(
-            f"cfg.hunt_norm={cfg.hunt_norm!r} is not ported yet (only "
-            "'espan'); ROADMAP: hunt_norm energy/none")
+    if cfg.hunt_norm == "none":
+        return power
     require_true_f32(sq)
     eband = on_device(_energy_band_matrix,
                        (cfg.symbols_per_block, cfg.preamble_length),
                        sq.device)
     sq = sq.float()
+    if cfg.hunt_norm == "energy":
+        return power / (torch.matmul(sq, eband) + 1e-12)
     ssum = sq[..., 0, :]
     for c in range(1, sq.shape[-2]):
         ssum = ssum + sq[..., c, :]
@@ -527,7 +528,6 @@ def prod_rx_batch(cfg: ModemConfig, state, pcm_frames, *,
             "cfg.frac_timing=True is not supported by the fused batch "
             "paths (integer-timing extraction only); set "
             "frac_timing=False")
-    check_supported(cfg)
     plane_state = _is_plane_state(state)
     pcm_frames = _frames_on(state, pcm_frames)
     B, C = pcm_frames.shape[0], pcm_frames.shape[1]
@@ -687,7 +687,6 @@ def prod_rx_stream_pallas(cfg: ModemConfig, state: ProdRxState,
     if not fuse_decode:
         return _stream_full_rate(cfg, state, pcm_frames, functools.partial(
             prod_rx_backend, cfg, descramble=descramble))
-    check_supported(cfg)
     if cfg.frac_timing:
         return _stream_full_rate(cfg, state, pcm_frames, functools.partial(
             _fused_decode_backend, cfg, descramble=descramble))

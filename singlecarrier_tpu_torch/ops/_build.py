@@ -55,29 +55,30 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # pcm, p0r, p0i, tail0_r, tail0_i, adv, tab, taps, out,
-    # B, C, out_bf16, inv_scale, stream
-    "sc_frontend_decim": [_P] * 9 + [_I] * 3 + [_F, _P],
+    # B, C, out_bf16, inv_scale, f32_operands, stream
+    "sc_frontend_decim": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
     # decim, dprev0, pn, lag, phase, peak, N, C, in_bf16, int8_hunt,
-    # hunt_scale, peak_scale, stream
-    "sc_hunt": [_P] * 6 + [_I] * 4 + [_F] * 2 + [_P],
+    # hunt_scale, peak_scale, f32_operand, norm, stream
+    "sc_hunt": [_P] * 6 + [_I] * 4 + [_F] * 2 + [_I] * 2 + [_P],
     # decim, dprev0, lag, phase, peak, dft_r, dft_i, pn, mask, out,
     # N, C, in_bf16, refit_sym, refit_iters, refine_iters, peak_gate,
-    # ls_reg, ls_offtap, ls_offtap_refit, cfo_scale, derot_k, stream
-    "sc_extract_decode": [_P] * 10 + [_I] * 6 + [_F] * 6 + [_P],
+    # ls_reg, ls_offtap, ls_offtap_refit, cfo_scale, derot_k, cfo_bf16,
+    # gram_direct, bvec_matmul, stream
+    "sc_extract_decode": [_P] * 10 + [_I] * 6 + [_F] * 6 + [_I] * 3 + [_P],
     # pcm, ph_r, ph_i, tail_r, tail_i, tab, taps, out, N, layout,
-    # inv_scale, stream
-    "sc_frontend_rows": [_P] * 8 + [_I] * 2 + [_F, _P],
+    # inv_scale, f32_operands, stream
+    "sc_frontend_rows": [_P] * 8 + [_I] * 2 + [_F, _I, _P],
     # windows, lag, phase, peak, dft_r, dft_i, pn, mask, out, N, wp,
-    # refit_sym, refit_iters, refine_iters, then the six floats of
-    # sc_extract_decode, stream
-    "sc_decode_extract": [_P] * 9 + [_I] * 5 + [_F] * 6 + [_P],
+    # refit_sym, refit_iters, refine_iters, then the six floats and the
+    # three knobs of sc_extract_decode, stream
+    "sc_decode_extract": [_P] * 9 + [_I] * 5 + [_F] * 6 + [_I] * 3 + [_P],
     # pkt_r, pkt_i, peak, dft_r, dft_i, pn, mask, out, N, refit_sym,
-    # refit_iters, refine_iters, the six floats, stream
-    "sc_decode_packets": [_P] * 8 + [_I] * 4 + [_F] * 6 + [_P],
+    # refit_iters, refine_iters, the six floats, the three knobs, stream
+    "sc_decode_packets": [_P] * 8 + [_I] * 4 + [_F] * 6 + [_I] * 3 + [_P],
     # sc_frontend_decim's operands with (ctaps, unrot) for taps
-    "sc_frontend_decim_folded": [_P] * 10 + [_I] * 3 + [_F, _P],
+    "sc_frontend_decim_folded": [_P] * 10 + [_I] * 3 + [_F, _I, _P],
     # sc_frontend_rows's operands with (ctaps, unrot) for taps
-    "sc_frontend_rows_folded": [_P] * 9 + [_I] * 2 + [_F, _P],
+    "sc_frontend_rows_folded": [_P] * 9 + [_I] * 2 + [_F, _I, _P],
     # pcm, ph_r, ph_i, tail_r, tail_i, tab, taps, out, N, inv_scale,
     # gain, stream
     "sc_frontend_full": [_P] * 8 + [_I] + [_F] * 2 + [_P],
@@ -202,12 +203,15 @@ KERNEL_GEOMETRY = {"frame_size": 1880, "cycles": 5, "ntaps": 49,
 
 def decode_params(cfg) -> list:
     """The trailing scalar arguments every decode entry point takes
-    (``csrc/decode.cu`` ``Params``)."""
+    (``csrc/decode.cu`` ``Params``, then the three knobs that choose the
+    kernel's instantiation)."""
     return [cfg.ls_refit_symbols or cfg.frame_symbols, cfg.ls_refit_iters,
             cfg.phase_refine_iters, float(cfg.effective_peak_gate),
             float(cfg.ls_reg), float(cfg.ls_offtap_reg),
             float(cfg.ls_offtap_reg_refit), float(cfg.rs / cfg.cfo_nfft),
-            float(np.float32(-2.0 * np.pi / cfg.rs))]
+            float(np.float32(-2.0 * np.pi / cfg.rs)),
+            int(cfg.cfo_dtype == "bf16"), int(cfg.ls_gram == "direct"),
+            int(cfg.ls_bvec == "matmul")]
 
 
 def require_kernel_geometry(cfg) -> None:

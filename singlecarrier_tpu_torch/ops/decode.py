@@ -4,14 +4,15 @@ Counterparts of ``singlecarrier_tpu/ops/decode_pallas.py``:
 
   * :func:`hunt` -- the hunt of ``_hunt_decode_core`` (``:705-876``):
     the segmented PN correlation of the [2 zeros | prev | cur] window
-    of every decimation phase, the "espan" energy normalizer and the
-    argmax over (phase, lag);
+    of every decimation phase (``cfg.hunt_dtype`` operands), the
+    ``cfg.hunt_norm`` normalizer and the argmax over (phase, lag);
   * :func:`extract_decode` -- the packet extraction at the winning
     (phase, lag) (``:884-911``, a plain gather here) and
-    ``_decode_core`` (``:398-597``): energy gate, CFO DFT, derotation,
-    LS train, guarded refit, decode, guarded phase refine and
-    descramble, packed into the [N, 256] f32 layout of
-    ``fused_rx.py:551-561``;
+    ``_decode_core`` (``:398-597``): energy gate, CFO DFT (operands at
+    ``cfg.cfo_dtype``), derotation, LS train, guarded refit (Gram by
+    ``cfg.ls_gram``, the train b-vector by ``cfg.ls_bvec``), decode,
+    guarded phase refine and descramble, packed into the [N, 256] f32
+    layout of ``fused_rx.py:551-561``;
   * :func:`extract_gate` -- the same extraction, then ``_decode_core``
     truncated after its energy gate (``stage="gate"``, ``:417-427``):
     every slot zero but gated, energy and the hunt's three;
@@ -80,11 +81,28 @@ def _sum(x):
 
 def _hunt_operand(cfg: ModemConfig, wins):
     """The hunt operand of f32 windows: int8 mode clip(rint(s w), +/-127)
-    (integers held in f32), else bf16(w)."""
+    (integers held in f32), bf16 mode bf16(w), f32 mode w."""
     if cfg.hunt_dtype == "int8":
         return torch.clamp(torch.round(wins * cfg.hunt_int8_scale),
                            -127.0, 127.0)
-    return wins.to(torch.bfloat16).float()
+    if cfg.hunt_dtype == "bf16":
+        return wins.to(torch.bfloat16).float()
+    return wins
+
+
+# cfg.hunt_norm -> the hunt kernel's NORM_* (csrc/hunt.cu)
+_HUNT_NORMS = {"espan": 0, "energy": 1, "none": 2}
+
+
+def _window_energy(cfg: ModemConfig, sq):
+    """[N, n_lags] window energies sum_k sq[..., off + l + k], k < P, of
+    squared planes ``sq`` [N, wp], summed directly in ascending k."""
+    off, _, _ = _geometry(cfg)
+    n_lags = cfg.symbols_per_block
+    en = torch.zeros(sq.shape[:-1] + (n_lags,), dtype=_F32, device=sq.device)
+    for k in range(cfg.preamble_length):
+        en = en + sq[..., off + k:off + k + n_lags]
+    return en
 
 
 def _segment_corr(cfg: ModemConfig, x, pn, s: int):
@@ -106,15 +124,17 @@ def _hunt_core(cfg: ModemConfig, wins):
 
     ``wins``: [cyc, 2, N, wp] f32 windows.  The correlation of segment
     s at lag l is sum_k x[off + l + 16s + k] * pn[16s + k] over the
-    hunt operand x (int8: clip(rint(16 w), +/-127); bf16: bf16(w)),
-    summed in ascending k -- exact for int8, and the kernel's order for
-    bf16.  power = sum_s (re^2 + im^2), added in ascending s; the espan
-    energy is the direct 128-term sum of the phase-summed squared planes.
+    hunt operand x (int8: clip(rint(16 w), +/-127); bf16: bf16(w); f32:
+    w), summed in ascending k -- exact for int8, and the kernel's order
+    for bf16 and f32.  power = sum_s (re^2 + im^2), added in ascending s.
+    The statistic is power / (energy + 1e-12): under ``cfg.hunt_norm``
+    "espan" the energy is the direct 128-term sum of the phase-summed
+    squared planes, under "energy" that of each phase's own squares;
+    under "none" the statistic is the power.  The peak is the power at
+    the chosen (phase, lag) in every mode.
     """
     cyc, _, N, _ = wins.shape
-    P, n_seg = cfg.preamble_length, cfg.corr_segments
-    n_lags = cfg.symbols_per_block
-    off, _, _ = _geometry(cfg)
+    n_seg = cfg.corr_segments
     int8_hunt = cfg.hunt_dtype == "int8"
     x = _hunt_operand(cfg, wins)
     pn = torch.from_numpy(PREAMBLE_VALUES.astype(np.float32)).to(wins.device)
@@ -126,12 +146,15 @@ def _hunt_core(cfg: ModemConfig, wins):
         pw = blk if pw is None else pw + blk
 
     sq = wins[:, 0] * wins[:, 0] + wins[:, 1] * wins[:, 1]  # [cyc, N, wp]
-    ssum = sq[0]
-    for c in range(1, cyc):
-        ssum = ssum + sq[c]
-    en = torch.zeros((N, n_lags), dtype=_F32, device=wins.device)
-    for k in range(P):
-        en = en + ssum[:, off + k:off + k + n_lags]
+    if cfg.hunt_norm == "espan":
+        ssum = sq[0]
+        for c in range(1, cyc):
+            ssum = ssum + sq[c]
+        en = [_window_energy(cfg, ssum)] * cyc
+    elif cfg.hunt_norm == "energy":
+        en = [_window_energy(cfg, sq[c]) for c in range(cyc)]
+    else:
+        en = None
 
     # first max over lags; strict > across ascending phases
     best_m = torch.full((N,), -1.0, dtype=_F32, device=wins.device)
@@ -139,7 +162,7 @@ def _hunt_core(cfg: ModemConfig, wins):
     best_lag = torch.zeros((N,), dtype=torch.int32, device=wins.device)
     best_ph = torch.zeros((N,), dtype=torch.int32, device=wins.device)
     for c in range(cyc):
-        stat = pw[c] / (en + 1e-12)
+        stat = pw[c] if en is None else pw[c] / (en[c] + 1e-12)
         idx = torch.argmax(stat, dim=-1)
         mx = torch.gather(stat, 1, idx[:, None])[:, 0]
         pk = torch.gather(pw[c], 1, idx[:, None])[:, 0]
@@ -190,6 +213,7 @@ def hunt(cfg: ModemConfig, decim, dprev0):
     err = _build.load().sc_hunt(
         *ptrs, N, C, int(decim.dtype == torch.bfloat16),
         int(int8_hunt), float(cfg.hunt_int8_scale), peak_scale,
+        int(cfg.hunt_dtype == "f32"), _HUNT_NORMS[cfg.hunt_norm],
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "hunt")
     _build.LAUNCHES["hunt"] += 1
@@ -281,13 +305,47 @@ def _gram_sliding(pr, pi, L, count):
     return A_r, A_i
 
 
-def _fit(pr, pi, target_r, target_i, L, reg, count, offtap):
-    """LS fit of sum_i coeff_i * w[t+i] ~ target[t] over t < count
-    (``decode_pallas._fit`` with the sliding Gram and the reduce
-    b-vector); ``target_i`` None means a real target."""
+def _gram_direct(pr, pi, L, count):
+    """Gram as L(L+1)/2 independent products and reductions
+    (``decode_pallas._gram_direct``): A[i][j] = sum_t conj(w[t+i])
+    w[t+j] over t < count, lower triangle."""
     sl_r = [pr[:, i:i + count] for i in range(L)]
     sl_i = [pi[:, i:i + count] for i in range(L)]
-    A_r, A_i = _gram_sliding(pr, pi, L, count)
+    A_r, A_i = {}, {}
+    for i in range(L):
+        for j in range(i + 1):
+            A_r[(i, j)] = _sum(sl_r[i] * sl_r[j] + sl_i[i] * sl_i[j])
+            A_i[(i, j)] = _sum(sl_r[i] * sl_i[j] - sl_i[i] * sl_r[j])
+    return A_r, A_i
+
+
+def _pn_bvec(pr, pi, pn, L):
+    """The train fit's b-vector in its matmul form
+    (``decode_pallas._pn_bvec_band``): b[i] = sum_u conj(w[u]) pn[u - i],
+    the band's nonzero terms only, summed in ascending u as the kernel
+    sums them; pn is [1, P].  Returns the lists of [N, 1] planes."""
+    b_r = torch.zeros_like(pr[:, :L])
+    b_i = torch.zeros_like(b_r)
+    for k in range(pn.shape[-1]):
+        b_r = b_r + pr[:, k:k + L] * pn[:, k:k + 1]
+        b_i = b_i + (-pi[:, k:k + L]) * pn[:, k:k + 1]
+    return ([b_r[:, i:i + 1] for i in range(L)],
+            [b_i[:, i:i + 1] for i in range(L)])
+
+
+def _fit(pr, pi, target_r, target_i, L, reg, count, offtap, *,
+         gram: str = "sliding", pn_bvec: bool = False):
+    """LS fit of sum_i coeff_i * w[t+i] ~ target[t] over t < count
+    (``decode_pallas._fit``); ``target_i`` None means a real target.
+    ``gram`` is ``cfg.ls_gram``; ``pn_bvec`` takes the b-vector of a
+    real (PN) target in its matmul form (``cfg.ls_bvec="matmul"``), else
+    the reduce form."""
+    sl_r = [pr[:, i:i + count] for i in range(L)]
+    sl_i = [pi[:, i:i + count] for i in range(L)]
+    if gram == "direct":
+        A_r, A_i = _gram_direct(pr, pi, L, count)
+    else:
+        A_r, A_i = _gram_sliding(pr, pi, L, count)
     tr_mean = A_r[(0, 0)]
     for i in range(1, L):
         tr_mean = tr_mean + A_r[(i, i)]
@@ -295,6 +353,8 @@ def _fit(pr, pi, target_r, target_i, L, reg, count, offtap):
     ridge_o = offtap * tr_mean / L + 1e-12
     for i in range(L):
         A_r[(i, i)] = A_r[(i, i)] + (ridge_c if i == L // 2 else ridge_o)
+    if pn_bvec:
+        return _solve_chol(A_r, A_i, *_pn_bvec(pr, pi, target_r, L), L)
     b_r, b_i = [], []
     for i in range(L):
         if target_i is None:
@@ -348,12 +408,15 @@ def _slice_hard(ar, ai):
     return dib, hr, hh
 
 
-def _decode_core(cfg: ModemConfig, pr0, pi0, peak, mask):
+def _decode_core(cfg: ModemConfig, pr0, pi0, peak, mask, *,
+                 soft: bool = False):
     """``decode_pallas._decode_core`` on aligned packet planes.
 
     pr0/pi0: [N, pkt_window] (first chip at eq_length//2); peak: [N, 1];
     mask: [D] descramble dibit masks.  Returns the [N, D + 5] head of
-    the packed output (dibits, matches, eq_error, cfo, gated, energy).
+    the packed output (dibits, matches, eq_error, cfo, gated, energy);
+    with ``soft`` also the [N, D] real and imaginary soft symbols the
+    dibits were sliced from.
     """
     P, D, L = cfg.preamble_length, cfg.frame_symbols, cfg.eq_length
     off = L // 2
@@ -370,11 +433,12 @@ def _decode_core(cfg: ModemConfig, pr0, pi0, peak, mask):
     gated = peak > energy * cfg.effective_peak_gate
 
     # ---- CFO search: DFT matmul + parabolic peak ----
-    wm = dft_matrix(P, nfft)
-    wr = torch.from_numpy(wm.real.copy()).to(dev)
-    wi = torch.from_numpy(wm.imag.copy()).to(dev)
+    wr, wi = (t.to(dev) for t in _dft_table(cfg))
     tr = chips_r * pn
     ti = chips_i * pn
+    if cfg.cfo_dtype == "bf16":           # exact products, f32 sums
+        tr = tr.to(torch.bfloat16).float()
+        ti = ti.to(torch.bfloat16).float()
     sr = tr @ wr - ti @ wi
     si = tr @ wi + ti @ wr
     pw = sr * sr + si * si                                  # [N, nfft]
@@ -403,7 +467,8 @@ def _decode_core(cfg: ModemConfig, pr0, pi0, peak, mask):
     win_r = pr[:, :P + L - 1]
     win_i = pi_[:, :P + L - 1]
     cr, ci = _fit(win_r, win_i, pn, None, L, cfg.ls_reg, P,
-                  cfg.ls_offtap_reg)
+                  cfg.ls_offtap_reg, gram=cfg.ls_gram,
+                  pn_bvec=cfg.ls_bvec == "matmul")
     vr = _apply_real(win_r, win_i, cr, ci, L, P)
     matches = _sum((vr * pn > 0.0).to(_F32))
 
@@ -421,7 +486,7 @@ def _decode_core(cfg: ModemConfig, pr0, pi0, peak, mask):
         mag_h = _sum(torch.sqrt(hr * hr + hh * hh)) / R + 1e-12
         scale = mag_raw / mag_h
         cr2, ci2 = _fit(rdat_r, rdat_i, hr * scale, hh * scale, L,
-                        1e-3, R, cfg.ls_offtap_reg_refit)
+                        1e-3, R, cfg.ls_offtap_reg_refit, gram=cfg.ls_gram)
         vr2 = _apply_real(win_r, win_i, cr2, ci2, L, P)
         m2 = _sum((vr2 * pn > 0.0).to(_F32))
         keep = (m2 >= matches).to(_F32)
@@ -479,8 +544,9 @@ def _decode_core(cfg: ModemConfig, pr0, pi0, peak, mask):
     di = dib.to(torch.int32)
     mi = mask.to(torch.int32)[None]
     dscr = (((di // 2 + mi // 2) % 2) * 2 + (di % 2 + mi % 2) % 2).to(_F32)
-    return torch.cat([dscr, matches, eq_err, cfo, gated.to(_F32), energy],
+    head = torch.cat([dscr, matches, eq_err, cfo, gated.to(_F32), energy],
                      dim=1)
+    return (head, ar, ai) if soft else head
 
 
 @functools.lru_cache(maxsize=4)
@@ -591,15 +657,24 @@ def _pn(dev) -> torch.Tensor:
     return torch.from_numpy(PREAMBLE_VALUES.astype(np.float32)).to(dev)
 
 
+def _dft_table(cfg: ModemConfig):
+    """[P, nfft] f32 real and imaginary planes of the CFO DFT, rounded to
+    bf16 values under ``cfg.cfo_dtype="bf16"`` (``decode_pallas.
+    _dft_operands``)."""
+    wm = dft_matrix(cfg.preamble_length, cfg.cfo_nfft)
+    wr = torch.from_numpy(wm.real.copy())
+    wi = torch.from_numpy(wm.imag.copy())
+    if cfg.cfo_dtype == "bf16":
+        return wr.to(torch.bfloat16).float(), wi.to(torch.bfloat16).float()
+    return wr, wi
+
+
 @functools.lru_cache(maxsize=8)
 def _decode_tables(cfg: ModemConfig, descramble: bool, dev):
     """(dft_r, dft_i, pn, mask) operands of the decode kernels, uploaded
     once per (config, device)."""
-    P, D = cfg.preamble_length, cfg.frame_symbols
-    wm = dft_matrix(P, cfg.cfo_nfft)
-    return (torch.from_numpy(wm.real.copy()).to(dev),
-            torch.from_numpy(wm.imag.copy()).to(dev), _pn(dev),
-            torch.from_numpy(_mask_np(D, descramble)).to(dev))
+    return (*(t.to(dev) for t in _dft_table(cfg)), _pn(dev),
+            torch.from_numpy(_mask_np(cfg.frame_symbols, descramble)).to(dev))
 
 
 def stat_dict(cfg: ModemConfig, out, *, hunt: bool):

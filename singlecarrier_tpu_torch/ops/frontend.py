@@ -8,12 +8,14 @@ channel ch) row
 
   * mixer phase p_b = p0 * adv^b (``adv`` tabulated in float64);
   * z = bf16(x * (pr*tr - pi*ti)), bf16(x * (pr*ti + pi*tr)) with
-    x = pcm * 2^-14 and (tr, ti) the float64 mixer table;
+    x = pcm * 2^-14 and (tr, ti) the float64 mixer table (rounded to
+    ``cfg.frontend_dtype``: bf16 as here, or left in f32);
   * u = [halo(48) | z(1880)], the halo being the carried tail for
     b = 0 and the last 48 z values of block b-1 otherwise;
   * decim[c, p, n, s] = sum_{k<49} w_k * u[5s + c + k], in f32, then
-    rounded to ``cfg.decim_dtype``; w_k = bf16(2.2 * taps[k]) is the
-    band of ``_decim_tap_matrix_aligned``.
+    rounded to ``cfg.decim_dtype``; w_k = bf16(2.2 * taps[k]) (f32 under
+    ``cfg.frontend_dtype="f32"``) is the band of
+    ``_decim_tap_matrix_aligned``.
 
 :func:`fused_frontend_decim` is the counterpart of the stand-alone
 front-end ``ops/frontend_pallas.py::fused_frontend_decim`` (:438):
@@ -237,11 +239,11 @@ def frontend_decim(cfg: ModemConfig, pcm, p0r, p0i, tail0_r, tail0_i,
     fall below 2^-80 without being 0 is outside the kernel's contract
     (see :func:`frontend_rows`).
 
-    A config the kernels refuse raises here for tensors on either device.
+    A numerology the kernels are not compiled for raises here for tensors
+    on either device.
     """
     fold = cfg.mixer_fold if mixer_fold is None else mixer_fold
     _build.require_kernel_geometry(cfg)
-    _check_rows_config(cfg)
     if pcm.device.type == "cpu":
         ref = frontend_decim_folded_ref if fold else frontend_decim_ref
         return ref(cfg, pcm, p0r, p0i, tail0_r, tail0_i, adv)
@@ -262,6 +264,7 @@ def frontend_decim(cfg: ModemConfig, pcm, p0r, p0i, tail0_r, tail0_i,
                             out, device=pcm.device)
     err = getattr(_build.load(), "sc_" + name)(
         *ptrs, B, C, int(ddt == torch.bfloat16), 1.0 / cfg.tx_amplitude,
+        int(cfg.frontend_dtype == "f32"),
         torch.cuda.current_stream(pcm.device).cuda_stream)
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
@@ -281,13 +284,8 @@ def _kernel_operands(cfg: ModemConfig, name: str, fold: bool, dev):
 # ------------------------------------------- per-row phases and halos
 
 def _check_rows_config(cfg: ModemConfig, debug_mode: str = "none"):
-    """The decimating kernels round u to bf16 whatever the config says,
-    and the premix pair's fused tap sums return the plain version's bits
-    only for bf16 samples and taps: every way into them passes here."""
-    if cfg.frontend_dtype != "bf16":
-        raise NotImplementedError(
-            f"cfg.frontend_dtype={cfg.frontend_dtype!r} is not ported yet "
-            "(only 'bf16'); ROADMAP: f32 front-end matmul operands")
+    """Refuse the TPU kernel's cost probes (``debug_mode``), which have
+    no counterpart; every config the decimating kernels take runs."""
     if debug_mode != "none":
         raise NotImplementedError(
             f"debug_mode={debug_mode!r} is a cost probe of the TPU kernel "
@@ -372,20 +370,22 @@ def frontend_rows(cfg: ModemConfig, pcm, phase_r, phase_i, tail_r, tail_i,
     [cycles, 2, N, n_sym] in ``cfg.decim_dtype``.  ``mixer_fold``
     (default ``cfg.mixer_fold``) runs the mixer-folded kernel.
 
-    The kernels fuse their tap sums (``csrc/frontend.cu::tap_sums``),
-    which returns the plain version's bits while every tap times sample
-    is exact in f32.  For the folded kernel's smallest tap that needs
-    each un-rotated halo sample to be 0 or at least 2^-80 in magnitude:
+    With bf16 operands (``cfg.frontend_dtype``) the kernels fuse their
+    tap sums (``csrc/frontend.cu::tap_sums``), which returns the plain
+    version's bits while every tap times sample is exact in f32; with f32
+    operands they take each product and sum on its own.  For the folded
+    kernel's smallest tap exactness needs each un-rotated halo sample to
+    be 0 or at least 2^-80 in magnitude:
     a tail carried from int16 PCM (``_frontend_state_out``,
     ``downmix_tail``) and un-rotated with the phase that follows it
     always is; a tail made otherwise that breaks the bound is outside the
     contract, and the planes may then differ from the plain version's.
 
-    A config the kernels refuse raises here for tensors on either device.
+    A numerology the kernels are not compiled for raises here for tensors
+    on either device.
     """
     fold = cfg.mixer_fold if mixer_fold is None else mixer_fold
     _build.require_kernel_geometry(cfg)
-    _check_rows_config(cfg)
     if pcm.device.type == "cpu":
         ref = frontend_rows_folded_ref if fold else frontend_rows_ref
         return ref(cfg, pcm, phase_r, phase_i, tail_r, tail_i,
@@ -407,6 +407,7 @@ def frontend_rows(cfg: ModemConfig, pcm, phase_r, phase_i, tail_r, tail_i,
                             out, device=dev)
     err = getattr(_build.load(), "sc_" + name)(
         *ptrs, N, layout, 1.0 / cfg.tx_amplitude,
+        int(cfg.frontend_dtype == "f32"),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, name)
     _build.LAUNCHES[name] += 1

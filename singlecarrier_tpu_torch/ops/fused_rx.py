@@ -34,30 +34,6 @@ from .decode import check_stage, fused_hunt_decode_decim
 from .frontend import frontend_decim
 
 
-# knob -> (value the port runs, ROADMAP item that brings the others)
-_SUPPORTED = {
-    "frontend_dtype": ("bf16", "f32 front-end matmul operands"),
-    "cfo_dtype": ("f32", "bf16 CFO DFT"),
-    "hunt_norm": ("espan", "hunt_norm energy/none"),
-    "ls_gram": ("sliding", "ls_gram=direct"),
-    "ls_bvec": ("reduce", "ls_bvec=matmul"),
-}
-
-
-def check_supported(cfg: ModemConfig, stage: str = "full") -> None:
-    """Raise NotImplementedError for a config the port cannot run yet."""
-    for knob, (value, item) in _SUPPORTED.items():
-        if getattr(cfg, knob) != value:
-            raise NotImplementedError(
-                f"cfg.{knob}={getattr(cfg, knob)!r} is not ported yet "
-                f"(only {value!r}); ROADMAP: {item}")
-    if cfg.hunt_dtype not in ("bf16", "int8"):
-        raise NotImplementedError(
-            f"cfg.hunt_dtype={cfg.hunt_dtype!r} is not ported yet (bf16 "
-            "and int8 are); ROADMAP: hunt_dtype=f32")
-    check_stage(stage)
-
-
 @functools.lru_cache(maxsize=32)
 def _advances(cfg: ModemConfig, B: int, dev):
     """adv^b for b in [0, B]: the complex64 numpy table (float64 phase ->
@@ -91,7 +67,7 @@ def fused_rx_block(cfg: ModemConfig, pcm_frames, p0r, p0i, tail0_r,
     ``stage="gate"`` stops each row after its energy gate (phase 1 of
     ``modem.rx_gated``); the stream state is the full stage's.
     """
-    check_supported(cfg, stage)
+    check_stage(stage)
     n = cfg.frame_size
     halo = cfg.ntaps - 1
     B, C = pcm_frames.shape[0], pcm_frames.shape[1]

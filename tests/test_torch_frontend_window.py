@@ -527,12 +527,17 @@ def test_the_kernel_geometry_is_consistent():
 
 
 def test_only_the_premix_tap_loop_fuses():
-    """The one fused multiply-add is the FUSED branch of the tap loop
-    ``tap_sums``, and its only callers are the premix pair's
+    """The front-ends' one fused multiply-add is the FUSED branch of the
+    tap loop ``tap_sums``.  Its callers are the premix pair's
     ``window_sums`` and the folded pair's ``folded_window_sums``, which
-    only the four decimating kernels reach.  ``frontend_full``'s loop is
-    the other branch, each product and sum rounded on its own by
-    ``__fmul_rn`` and ``__fadd_rn``, and its code names no fma."""
+    take it as ``tap_sums<ROUND>`` -- fused only where the operands are
+    bf16 values (``cfg.frontend_dtype="bf16"``: the entry points take
+    the ``ROUND`` false instantiation for "f32") -- and only the four
+    decimating kernels reach them.  ``frontend_full``'s loop is the other
+    branch, each product and sum rounded on its own by ``__fmul_rn`` and
+    ``__fadd_rn``, and its code names no fma.  Of the other sources only
+    the decode's CFO DFT fuses, in ``mac<EXACT>``, which only its bf16
+    instantiation takes (bf16 operands: exact products)."""
     assert "-fmad=false" in _build.NVCC_FLAGS
     code = _code(SRC)
     assert code.count("__fmaf_rn(") == 1 and code.count("fma") == 1
@@ -543,16 +548,24 @@ def test_only_the_premix_tap_loop_fuses():
         r"if constexpr \(FUSED\)\s*acc\[i\] = __fmaf_rn\(w\[k\], v\[e\], "
         r"acc\[i\]\);\s*else\s*acc\[i\] = __fadd_rn\(acc\[i\], "
         r"__fmul_rn\(w\[k\], v\[e\]\)\);", body)
-    # the definition, two fused callers and one unfused
+    # the definition, two callers fused exactly for bf16 operands, one
+    # unfused
     assert len(re.findall(r"\btap_sums\b", code)) == 4
-    assert len(re.findall(r"\btap_sums<true>\(", code)) == 2
+    assert len(re.findall(r"\btap_sums<ROUND>\(", code)) == 2
     assert len(re.findall(r"\btap_sums<false>\(", code)) == 1
     premix = code[code.index("void window_sums("):
                   code.index("frontend_decim_kernel(")]
-    assert "tap_sums<true>(sm.w, &sm.u[p][WIN_T * j], acc);" in premix
+    assert "tap_sums<ROUND>(sm.w, &sm.u[p][WIN_T * j], acc);" in premix
     folded = code[code.index("void folded_window_sums("):
                   code.index("frontend_decim_folded_kernel(")]
-    assert "tap_sums<true>(sm.w[q], &sm.u[WIN_T * j], acc);" in folded
+    assert "tap_sums<ROUND>(sm.w[q], &sm.u[WIN_T * j], acc);" in folded
+    # ROUND: every operand is rounded to bf16 on its way into shared
+    # memory, and the entry points take ROUND false for f32 operands
+    assert re.search(r"float fe_operand\(float x\) \{\s*if constexpr "
+                     r"\(ROUND\) return bf16_round\(x\);\s*return x;", code)
+    for launch in ("launch_decim", "launch_rows", "launch_decim_folded",
+                   "launch_rows_folded"):
+        assert f"(f32_operands ? {launch}<false> : {launch}<true>)(" in code
     # the fused callers' callers: the four decimating kernels, once each
     for callee, kernels in (
             ("window_sums<", ("frontend_decim_kernel(",
@@ -569,23 +582,42 @@ def test_only_the_premix_tap_loop_fuses():
     assert "tap_sums<false>(sm.in.w, &sm.in.u[p][WIN_T * j], acc);" in full
     assert "frontend_full_kernel(" in full
     assert "full_window_sums(sm, tid);" in full
-    assert "fma" not in full and "tap_sums<true>" not in full
+    assert "fma" not in full and "tap_sums<ROUND>" not in full
     assert "window_sums<" not in full.replace("full_window_sums", "")
-    for other in ("hunt.cu", "decode.cu", "common.cuh"):
+    for other in ("hunt.cu", "common.cuh"):
         text = _code((_build.CSRC / other).read_text())
         assert "fmaf" not in text and "__fma" not in text, other
+    dec = _code((_build.CSRC / "decode.cu").read_text())
+    assert dec.count("__fmaf_rn(") == 1
+    assert len(re.findall(r"fma(?!xf)", dec)) == 1       # fmaxf is a max
+    assert re.search(r"float mac\(float s, float a, float b\) \{\s*"
+                     r"if constexpr \(EXACT\) return __fmaf_rn\(a, b, s\);"
+                     r"\s*return s \+ a \* b;", dec)
+    assert len(re.findall(r"\bmac<", dec)) == 8
+    assert len(re.findall(r"\bmac<CFO16>\(", dec)) == 8
+    assert "cfo_dft_block<(KNOBS & KNOB_CFO16) != 0>" in dec
+    assert re.search(r"if constexpr \(CFO16\) \{\s*tr = bf16_round\(tr\);"
+                     r"\s*ti = bf16_round\(ti\);", dec)
 
 
 @pytest.mark.parametrize("entry", ["frontend_decim", "frontend_rows",
                                    "fused_frontend_decim"])
 def test_every_way_into_the_kernels_checks_the_operand_dtype(entry):
-    """The kernels round to bf16 whatever the config says and fuse only
-    because both operands are bf16 values: ``frontend_dtype="f32"`` must
-    raise before a launch."""
-    with pytest.raises(NotImplementedError):
-        frontend._check_rows_config(
-            DEFAULT_CONFIG.replace(frontend_dtype="f32"))
-    frontend._check_rows_config(DEFAULT_CONFIG)
+    """The kernels round their operands to bf16 and fuse their tap sums
+    only for ``frontend_dtype="bf16"``: every way into them hands the
+    kernel the operand dtype (``f32_operands``), and the plain version
+    under "f32" keeps the operands unrounded."""
     import inspect
     src = inspect.getsource(getattr(frontend, entry))
-    assert "_check_rows_config(cfg" in src
+    if entry == "fused_frontend_decim":
+        assert "frontend_rows(cfg, pcm" in src
+    else:
+        assert 'int(cfg.frontend_dtype == "f32")' in src
+    f32 = DEFAULT_CONFIG.replace(frontend_dtype="f32")
+    frontend._check_rows_config(f32)
+    rows = (torch.from_numpy(_pcm("noise", 2, 45)), *_state(2, 46))
+    a = frontend.frontend_rows(f32, *rows)
+    b = frontend.frontend_rows(DEFAULT_CONFIG, *rows)
+    assert a.dtype == b.dtype == torch.float32
+    assert not torch.equal(a, b)
+    assert float((a - b).abs().max()) < 1e-1 * float(b.abs().max())

@@ -12,6 +12,7 @@ extracted packets exactly (pure selection).
 """
 
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,9 +33,11 @@ def _tcfg(cfg):
     return TorchConfig(**dataclasses.asdict(cfg))
 
 
+@functools.lru_cache(maxsize=None)
 def _windows(seed):
-    """([N, cyc, 2, 2*n_sym] f32 hunt windows, has_packet [N]) of a noisy
-    3-packet stream on C channels with distinct delays."""
+    """[N, cyc, 2, 2*n_sym] f32 hunt windows of a noisy 3-packet stream on
+    C channels with distinct delays (one JAX run per seed and module;
+    the callers only read them)."""
     rng = np.random.default_rng(seed)
     bits = rng.integers(0, 2, (3, CFG.ns, CFG.data_symbols * 2),
                         dtype=np.uint8)
@@ -132,7 +135,21 @@ def test_extract_packet_planes_matches_jax_and_pads_with_zeros():
 
 @pytest.mark.parametrize("norm", ["energy", "none"])
 def test_other_hunt_norms_still_raise(norm):
-    tcfg = _tcfg(CFG.replace(hunt_norm=norm))
-    p = torch.zeros((1, CFG.cycles, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trx._hunt_metric(tcfg, p, torch.zeros((1, CFG.cycles, 503)))
+    """``hunt_norm`` energy and none raised here until the kernels took
+    them; now the plain hunt runs them and equals JAX's on the rows that
+    hold a packet (lag, phase; the peak to 1e-5 relative)."""
+    cfg = CFG.replace(hunt_norm=norm)
+    wins = _windows(seed=9)
+    lag_j, ph_j, peak_j = (np.array(a) for a in jrx._hunt_planes(
+        cfg, jnp.asarray(wins)))
+    lag, ph, peak = trx._hunt_planes(_tcfg(cfg), torch.from_numpy(wins))
+    pk = trx._extract_packet_planes(_tcfg(cfg), torch.from_numpy(wins),
+                                    torch.from_numpy(lag_j),
+                                    torch.from_numpy(ph_j))
+    off, P = CFG.eq_length // 2, CFG.preamble_length
+    energy = (pk[:, :, off:off + P] ** 2).sum(dim=(1, 2)).numpy()
+    det = peak_j > 7.0 * energy
+    assert det.sum() >= 8
+    assert np.array_equal(lag.numpy()[det], lag_j[det])
+    assert np.array_equal(ph.numpy()[det], ph_j[det])
+    assert np.allclose(peak.numpy()[det], peak_j[det], rtol=1e-5)

@@ -1,6 +1,7 @@
 """PyTorch port: its own numerology and tables against the JAX package's,
 state interop, imports free of JAX and of the JAX package, the device
-rule, unsupported knobs, and the CPU route of the kernel wrappers."""
+rule, the configuration knobs every entry point runs, and the CPU route
+of the kernel wrappers."""
 
 import dataclasses
 import pathlib
@@ -260,34 +261,23 @@ def test_no_jax_import_in_package_sources():
 
 
 @pytest.mark.parametrize("knob", [
+    {"mixer_fold": True}, {"frac_timing": True},
+    {"mixer_fold": True, "decim_dtype": "bf16", "hunt_dtype": "int8"},
     {"hunt_norm": "energy"}, {"hunt_norm": "none"}, {"ls_gram": "direct"},
     {"ls_bvec": "matmul"}, {"cfo_dtype": "bf16"},
     {"frontend_dtype": "f32"}, {"hunt_dtype": "f32"},
 ], ids=lambda k: "-".join(f"{a}={b}" for a, b in k.items()))
-def test_unported_knobs_raise(knob):
-    cfg = TCFG.replace(**knob)
-    state = prod_rx_init_planes(cfg, 2, "cpu")
-    pcm = torch.zeros((1, 2, cfg.frame_size), dtype=torch.int16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prod_rx_batch(cfg, state, pcm, fuse_frontend=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prod_rx_batch(cfg, state, pcm)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prod_rx_stream_pallas(cfg, prod_rx_init(cfg, (2,), "cpu"), pcm)
-
-
-@pytest.mark.parametrize("knob", [
-    {"mixer_fold": True}, {"frac_timing": True},
-    {"mixer_fold": True, "decim_dtype": "bf16", "hunt_dtype": "int8"},
-], ids=lambda k: "-".join(f"{a}={b}" for a, b in k.items()))
 def test_ported_knobs_run(knob):
     """The knobs this port once refused: every entry point that takes
-    them runs."""
+    them runs (the streaming paths, the XLA path, the batch paths in every
+    flag combination, the superstep and the gated RX)."""
     cfg = TCFG.replace(**knob)
     state = prod_rx_init_planes(cfg, 2, "cpu")
     cstate = prod_rx_init(cfg, (2,), "cpu")
     pcm = torch.zeros((2, 2, cfg.frame_size), dtype=torch.int16)
     _, out = prod_rx_stream_pallas(cfg, cstate, pcm)
+    assert out.valid.shape == (2, 2) and not bool(out.valid.any())
+    _, out = trx.prod_rx_stream(cfg, cstate, pcm)
     assert out.valid.shape == (2, 2) and not bool(out.valid.any())
     if cfg.frac_timing:
         return                  # the batch paths refuse it, as in JAX
@@ -301,6 +291,9 @@ def test_ported_knobs_run(knob):
     _, out = prod_rx_stream_superstep(cfg, state, pcm, superstep=2,
                                       fuse_frontend=True)
     assert out.valid.shape == (2, 2)
+    _, gout = prod_rx_batch_gated(cfg, prod_rx_gated_init(cfg, 2, "cpu"),
+                                  pcm, max_detections=2)
+    assert int(gout["count"]) == 0
 
 
 def test_unported_paths_raise():
@@ -417,7 +410,6 @@ _DECIMATING = ("frontend_decim", "frontend_decim folded", "frontend_rows",
 
 
 @pytest.mark.parametrize("wrapper,refused", [
-    *((w, "frontend_dtype=f32") for w in _DECIMATING),
     *((w, "corr_segments=4") for w in (*_DECIMATING, "frontend_full", "hunt",
                                        "extract_decode", "extract_gate",
                                        "fused_decode_extract",
@@ -425,12 +417,10 @@ _DECIMATING = ("frontend_decim", "frontend_decim folded", "frontend_rows",
 ])
 def test_wrappers_refuse_on_the_cpu_what_the_card_refuses(wrapper, refused):
     """A config the kernel refuses raises for CPU tensors too, before
-    the plain version runs: ``frontend_dtype="f32"`` (the decimating
-    kernels round to bf16 and fuse their tap sums) and a numerology the
-    kernels are not compiled for."""
+    the plain version runs: a numerology the kernels are not compiled
+    for."""
     knob, value = refused.split("=")
-    cfg = TCFG.replace(**{knob: value if knob == "frontend_dtype"
-                          else int(value)})
+    cfg = TCFG.replace(**{knob: int(value)})
     call = _wrapper_calls()[wrapper]
     call(TCFG)                                   # the operands are right
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -187,8 +187,9 @@ def test_backend_matches_jax(channel_frames, descramble):
 
 def test_knobs_the_xla_path_does_not_read_run_and_hunt_norm_raises(
         golden_frames):
-    """The XLA path refuses only what its own code cannot do: the kernel
-    knobs leave its decisions as they are; hunt_norm energy/none raises."""
+    """The kernel knobs leave the XLA path's decisions as they are;
+    hunt_norm energy and none, which raised here until the port took
+    them, run and find the golden packets the espan statistic finds."""
     tcfg = _tcfg(CFG)
     part = torch.from_numpy(golden_frames[:2, :4])
     fn = trx.make_prod_rx_fn(tcfg, batched=True)
@@ -200,8 +201,11 @@ def test_knobs_the_xla_path_does_not_read_run_and_hunt_norm_raises(
         _, out = trx.make_prod_rx_fn(cfg, batched=True)(
             trx.prod_rx_init(cfg, (2,), device="cpu"), part)
         assert all(torch.equal(a, b) for a, b in zip(out, ref)), knob
+    assert bool(ref.valid.any())
     for norm in ("energy", "none"):
         cfg = tcfg.replace(hunt_norm=norm)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trx.make_prod_rx_fn(cfg, batched=True)(
-                trx.prod_rx_init(cfg, (2,), device="cpu"), part)
+        _, out = trx.make_prod_rx_fn(cfg, batched=True)(
+            trx.prod_rx_init(cfg, (2,), device="cpu"), part)
+        v = ref.valid
+        assert torch.equal(out.valid, v), norm
+        assert torch.equal(out.bits[v], ref.bits[v]), norm
