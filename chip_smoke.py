@@ -76,7 +76,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  golden rows, then the kernels it changes on 8192 x 4
                  rows of full-scale noise (front-ends equal to the bit,
                  the hunt's lag, phase and peak equal, the decode's gated
-                 and valid flags equal);
+                 and valid flags equal); (j) the named numerologies
+                 (``ops/_build.NUMEROLOGIES``), whose eight libraries build
+                 at once from phase 2 on: for each, the build's seconds and
+                 ptxas' registers, shared memory and spills per kernel;
+                 (1) phase 3's and (i)'s comparisons of every kernel and
+                 knob variant with its plain version at the numerology's
+                 default and bench operating point, on its own TX's rows
+                 among noise and on 32,768 rows of full-scale noise; (2)
+                 the XLA path and every kernel path (the batch paths in
+                 every flag combination, both with ``mixer_fold``, the
+                 superstep, the gated RX, both streaming bodies, and at
+                 ``J_FRAC`` the frac body) on (g)'s kind of stream at the
+                 numerology, each held to the XLA path by the North star's
+                 criterion, and to the truth where the XLA path itself
+                 finds every packet; (3) the main path at 8192 x 128 x 3
+                 chained dispatches of full-scale noise (samples/s, the
+                 three kernels beside their bounds, peak memory, launches)
+                 and every kernel at 32,768 rows beside its bound;
   6. timing   -- chained dispatches of the main path (premix, then
                  ``mixer_fold=True``: (d1)), of the gated RX, of (a) and
                  of (d2), (a) with ``mixer_fold=True`` (8192 x 128
@@ -95,7 +112,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  and ``python -m singlecarrier_tpu_torch loopback``.
 
 Prints one ``{"kernels": [...]}`` line (each kernel with its knob
-variants under "variants"), the ``nvidia-smi`` name/power line and,
+variants under "variants" and its (j) readings by numerology under
+"geometries"), the ``nvidia-smi`` name/power line and,
 last, ``{"ok": true, "device": {...}}``.  Any failing phase
 exits non-zero before the last line.
 """
@@ -902,7 +920,7 @@ def _compare_decode_on_noise(torch, cfg, dk, dprev0, what: str) -> dict:
           f"{dcfo:.3e} Hz, |deq_error| {deq:.3e} (reported)", flush=True)
 
 
-def _knob_phase(torch, gen, inputs_fn, default, bench) -> dict:
+def _knob_phase(torch, gen, inputs_fn, default, bench, prefix="") -> dict:
     """(i): each knob value at both operating points, the kernels it
     changes against their plain versions (the others run their default
     instantiation, which phase 3 holds): on golden rows among noise
@@ -910,7 +928,8 @@ def _knob_phase(torch, gen, inputs_fn, default, bench) -> dict:
     The front-ends equal to the bit in every layout; the hunt's lag,
     phase and peak equal to the bit; the decode by decisions, knife edges
     aside (``_compare_decode_soft``), and on noise its gated and valid
-    flags.  Returns {knob: {kernel: largest max |err|}}."""
+    flags.  ``prefix`` leads every label.  Returns {knob: {kernel:
+    largest max |err|}}."""
     from singlecarrier_tpu_torch.ops.frontend import frontend_decim
     errs = {}
     for knob, value, kernels in KNOB_VALUES:
@@ -919,7 +938,7 @@ def _knob_phase(torch, gen, inputs_fn, default, bench) -> dict:
         for what, base in (("library default", default),
                            ("bench operating point", bench)):
             cfg = base.replace(**{knob: value})
-            tag = f"{name} at the {what}"
+            tag = f"{prefix}{name} at the {what}"
             golden = inputs_fn(cfg, C_CMP, B_CMP)
             noisy = inputs_fn(cfg, C_MAIN, B_KTIME)
             if knob == "frontend_dtype":
@@ -1124,33 +1143,43 @@ def _parity_stream(torch, cfg, bits, seed: int, dev):
 
 
 def _truth(cfg, out, ref):
-    """Bit errors, bits counted, false detects and the set of (channel,
-    block) true-packet detections of [C, B] numpy outputs against the
-    sent payloads ``ref`` [C, packets, bits], matched by stream position
-    (``ber.assign_detections``, the records' semantics)."""
+    """Bit errors, bits counted, false detects, the set of (channel,
+    block) true-packet detections and the set of those with a bit error,
+    of [C, B] numpy outputs against the sent payloads ``ref`` [C,
+    packets, bits], matched by stream position (``ber.assign_detections``,
+    the records' semantics)."""
     from singlecarrier_tpu_torch.ber import assign_detections
     err = total = false = 0
-    hits = set()
+    hits, wrong = set(), set()
     for c in range(out.valid.shape[0]):
         assigned, f = assign_detections(cfg, out.valid[c], out.lag[c],
                                         out.timing_phase[c], ref.shape[1])
         false += f
         for p, (_, fr) in assigned.items():
             hits.add((c, fr))
-            err += int((out.bits[c, fr] != ref[c, p]).sum())
+            e = int((out.bits[c, fr] != ref[c, p]).sum())
+            if e:
+                wrong.add((c, fr))
+            err += e
             total += ref.shape[2]
-    return err, total, false, hits
+    return err, total, false, hits, wrong
 
 
-def _parity_check(cfg, out_p, out_x, truth_p, truth_x, expected: int):
+def _parity_check(cfg, out_p, out_x, truth_p, truth_x, expected: int,
+                  exclude=frozenset()):
     """``tools/tpu_parity.py``'s fields and the North star's criterion of
     one path against the XLA path, with that tool's one allowance: under
     the int8 hunt, valid flags may flip on blocks that are a true packet
     in neither path (round() puts noise blocks on a knife edge of the
     energy gate), at most one in 1000 blocks.  Against the truth every
-    packet is found once, with no bit error and no false detect."""
+    packet is found once, with no bit error and no false detect.
+    ``exclude``: (channel, block)s whose bits, cfo and eq_error are not
+    compared (valid, lag and phase still are)."""
     import numpy as np
     both = out_x.valid & out_p.valid
+    lag_both = both.copy()
+    for c, b in exclude:
+        both[c, b] = False
     diff = out_p.bits[both] != out_x.bits[both]
     flips = [tuple(map(int, cb)) for cb in
              np.argwhere(out_p.valid != out_x.valid)]
@@ -1170,17 +1199,21 @@ def _parity_check(cfg, out_p, out_x, truth_p, truth_x, expected: int):
         "blocks_differing_vs_xla": int(diff.any(-1).sum()),
         "bit_errors_vs_truth": [truth_p[0], truth_p[1]],
         "false_detects": truth_p[2],
-        "lag_identical_on_valid": bool(np.array_equal(out_p.lag[both],
-                                                      out_x.lag[both])),
+        "lag_identical_on_valid": bool(np.array_equal(
+            out_p.lag[lag_both], out_x.lag[lag_both])),
         "phase_identical_on_valid": bool(np.array_equal(
-            out_p.timing_phase[both], out_x.timing_phase[both])),
+            out_p.timing_phase[lag_both], out_x.timing_phase[lag_both])),
+        "blocks_not_compared": len(exclude),
         "max_cfo_delta_hz": cfo_d, "max_eq_error_delta": eq_d,
         "packets_detected": int(out_p.valid.sum()),
     }
-    rep["ok"] = bool(
+    rep["valid_ok"] = bool(v_ok)
+    rep["agrees_with_xla"] = bool(
         v_ok and rep["bits_identical_on_valid"]
         and rep["lag_identical_on_valid"] and rep["phase_identical_on_valid"]
-        and cfo_d < 0.5 and eq_d < 2e-3 and truth_p[0] == 0
+        and cfo_d < 0.5 and eq_d < 2e-3)
+    rep["ok"] = bool(
+        rep["agrees_with_xla"] and truth_p[0] == 0
         and truth_p[1] == expected * cfg.bits_per_frame and truth_p[2] == 0)
     return rep
 
@@ -1311,6 +1344,382 @@ def _ber_phase(torch, cfg, drive, dev, seed: int, record: dict) -> None:
                  f"{kern['ber_ci95']}")
 
 
+# ---- (j) the numerologies: every kernel path at the named numerologies
+
+J_FRAC = ("alt_9600",)       # numerologies whose (j) 2 runs the frac body
+_PTXAS_KERNELS = ("frontend_decim_kernel", "frontend_rows_kernel",
+                  "frontend_decim_folded_kernel",
+                  "frontend_rows_folded_kernel", "frontend_full_kernel",
+                  "hunt_mma_kernel", "hunt_toeplitz_kernel",
+                  "extract_decode_kernel", "decode_extract_kernel",
+                  "decode_packets_kernel", "extract_gate_kernel")
+
+
+def _bench_point(cfg):
+    """The bench operating point at ``cfg``'s numerology: bf16 planes,
+    the int8 hunt, ``ls_refit_symbols = min(128, D)``."""
+    return cfg.replace(decim_dtype="bf16", hunt_dtype="int8",
+                       ls_refit_symbols=min(128, cfg.frame_symbols))
+
+
+def _numerology_tx(torch, np, cfg, dev, packets: int = 10):
+    """[samples] int16 on ``dev``: ``packets`` scrambled packets of seeded
+    random payload at ``cfg``'s numerology with the flushed gap, the
+    golden stream's make-up at another numerology."""
+    from singlecarrier_tpu_torch.modem.tx import tx_stream
+    rng = np.random.default_rng(SEED)
+    bits = rng.integers(0, 2, (packets, cfg.ns, 2 * cfg.data_symbols),
+                        dtype=np.uint8)
+    return tx_stream(cfg, bits, flush_gap=True, scramble=True, device=dev)
+
+
+def _start_builds(configs: dict):
+    """Start building every config's kernel library at once (one thread
+    each; each build runs its three nvcc together).  Returns {name:
+    future of (seconds, ptxas log)}."""
+    import concurrent.futures
+    from singlecarrier_tpu_torch.ops import _build
+
+    def one(cfg):
+        t0 = time.perf_counter()
+        _, log = _build.build(verbose=True,
+                              defines=_build.kernel_geometry(cfg))
+        return time.perf_counter() - t0, log
+
+    pool = concurrent.futures.ThreadPoolExecutor(len(configs))
+    futures = {name: pool.submit(one, cfg) for name, cfg in configs.items()}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def _ptxas_table(log: str) -> dict:
+    """{kernel: "regs a..b, smem ..., spills ..."} over every instantiation
+    of each of the ten kernels in a verbose build log."""
+    import re
+    seen = {}
+    kernel = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = next((k for k in _PTXAS_KERNELS if k in line), None)
+            if kernel:
+                seen.setdefault(kernel, []).append([0, 0, 0])
+        elif kernel:
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                seen[kernel][-1][0] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                seen[kernel][-1][1] = int(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                seen[kernel][-1][2] = int(m.group(1))
+    return {k: (f"{len(v)} instantiations, registers "
+                f"{min(x[0] for x in v)}..{max(x[0] for x in v)}, static "
+                f"smem {max(x[1] for x in v)} B, spill stores up to "
+                f"{max(x[2] for x in v)} B")
+            for k, v in seen.items()}
+
+
+def _gated_as_out(torch, out, B: int, C: int):
+    """The gated RX's compacted rows put back in the [B, C] layout of
+    ``ProdRxOut`` (a row it did not decode is not valid)."""
+    from singlecarrier_tpu_torch.modem import ProdRxOut
+    count = min(int(out["count"]), out["valid"].shape[0])
+    b = out["block_idx"][:count].long()
+    c = out["channel_idx"][:count].long()
+
+    def scatter(x):
+        full = torch.zeros((B, C, *x.shape[1:]), dtype=x.dtype,
+                           device=x.device)
+        full[b, c] = x[:count]
+        return full
+    return ProdRxOut(*(scatter(out[f]) for f in ProdRxOut._fields))
+
+
+def _numerology_parity(torch, np, cfg, drive, dev, tag: str,
+                       frac: bool) -> dict:
+    """(j) 2: the records' kind of stream (PARITY_C channels x
+    PARITY_PACKETS packets, 12 dB, 15 Hz) at ``cfg``'s numerology
+    through the XLA path and every kernel path, each held to the XLA path
+    by the North star's criterion (``_parity_check``) and to the truth:
+    every packet once with no bit error and no false detect.  Where the
+    XLA path itself decodes packets with bit errors (a numerology whose
+    band is impaired at 12 dB), the two receivers, which round in other
+    places, may decide a marginal symbol or a refit guard apart: there a
+    kernel path is held to the XLA path by decisions (valid, lag and
+    phase everywhere, bits on the packets neither decoded wrong, the same
+    detections and false detects, |dcfo| < 0.5 Hz; |deq_error|
+    reported), and to the main path the same way, with |dcfo| < 0.5 Hz
+    and |deq_error| < 2e-3 besides on the paths that read the main
+    path's own planes (not the unfused ones, which read f32 windows, the
+    folded ones, whose front-end rounds elsewhere, or the full-rate
+    front-end with the XLA back end).  Both counts against the truth are
+    printed.  Returns {kernel: launches}."""
+    from singlecarrier_tpu_torch.modem import (
+        ProdRxOut, prod_rx_batch, prod_rx_batch_gated, prod_rx_gated_init,
+        prod_rx_init, prod_rx_init_planes, prod_rx_stream,
+        prod_rx_stream_pallas, prod_rx_stream_superstep)
+    from singlecarrier_tpu_torch.ops import _build
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    bits = torch.randint(0, 2, (PARITY_C, PARITY_PACKETS, cfg.ns,
+                                2 * cfg.data_symbols), generator=gen,
+                         device=dev, dtype=torch.uint8)
+    ref = bits.reshape(PARITY_C, PARITY_PACKETS, -1).cpu().numpy()
+    expected = PARITY_C * PARITY_PACKETS
+    frames = _parity_stream(torch, cfg, bits, SEED + 1, dev)
+    B, C = frames.shape[0], frames.shape[1]
+    launches = {}
+
+    def host(out):                                  # [B, C] -> numpy [C, B]
+        return ProdRxOut(*(v.transpose(0, 1).cpu().numpy() for v in out))
+
+    rows = ("frontend_rows", "hunt", "extract_decode")
+    main = ("frontend_decim", "hunt", "extract_decode")
+    fold = cfg.replace(mixer_fold=True)
+    sup = next(k for k in (4, 3, 2, 1) if B % k == 0)
+    runs = [(cfg, {
+        "fused_rx, plane state": (lambda: prod_rx_batch(
+            cfg, prod_rx_init_planes(cfg, C, dev), frames,
+            fuse_frontend=True)[1], main),
+        "batch_pallas": (lambda: prod_rx_batch(
+            cfg, prod_rx_init(cfg, (C,), dev), frames)[1], rows),
+        "fused_rx": (lambda: prod_rx_batch(
+            cfg, prod_rx_init(cfg, (C,), dev), frames,
+            fuse_frontend=True)[1], main),
+        f"superstep {sup}": (lambda: prod_rx_stream_superstep(
+            cfg, prod_rx_init_planes(cfg, C, dev), frames, superstep=sup,
+            fuse_frontend=True)[1], main),
+        "fuse_hunt=False": (lambda: prod_rx_batch(
+            cfg, prod_rx_init(cfg, (C,), dev), frames, fuse_hunt=False)[1],
+            ("frontend_rows", "decode_extract")),
+        "fuse_extract=False": (lambda: prod_rx_batch(
+            cfg, prod_rx_init(cfg, (C,), dev), frames, fuse_hunt=False,
+            fuse_extract=False)[1], ("frontend_rows", "decode_packets")),
+        "fused_rx, mixer_fold": (lambda: prod_rx_batch(
+            fold, prod_rx_init_planes(fold, C, dev), frames,
+            fuse_frontend=True)[1],
+            ("frontend_decim_folded", "hunt", "extract_decode")),
+        "batch_pallas, mixer_fold": (lambda: prod_rx_batch(
+            fold, prod_rx_init_planes(fold, C, dev), frames)[1],
+            ("frontend_rows_folded", "hunt", "extract_decode")),
+        "gated": (lambda: _gated_as_out(torch, prod_rx_batch_gated(
+            cfg, prod_rx_gated_init(cfg, C, dev), frames,
+            max_detections=B * C)[1], B, C),
+            ("frontend_decim", "hunt", "extract_gate", "extract_decode")),
+        "scan_pallas": (lambda: prod_rx_stream_pallas(
+            cfg, prod_rx_init(cfg, (C,), dev), frames)[1], rows),
+        "pallas_fe_xla_decode": (lambda: prod_rx_stream_pallas(
+            cfg, prod_rx_init(cfg, (C,), dev), frames,
+            fuse_decode=False)[1], ("frontend_full",)),
+    })]
+    if frac:
+        fcfg = cfg.replace(frac_timing=True)
+        runs.append((fcfg, {
+            "frac scan_pallas": (lambda: prod_rx_stream_pallas(
+                fcfg, prod_rx_init(fcfg, (C,), dev), frames)[1],
+                ("frontend_full", "decode_packets")),
+            "frac pallas_fe_xla_decode": (lambda: prod_rx_stream_pallas(
+                fcfg, prod_rx_init(fcfg, (C,), dev), frames,
+                fuse_decode=False)[1], ("frontend_full",))}))
+    for rcfg, paths in runs:
+        head = {"numerology": tag, "frac_timing": rcfg.frac_timing}
+        anchor = None                   # the first path: the main one
+        out_x = host(drive(f"{tag} parity: xla", lambda: prod_rx_stream(
+            rcfg, prod_rx_init(rcfg, (C,), dev), frames)[1], ()))
+        truth_x = _truth(rcfg, out_x, ref)
+        xla_full = (truth_x[0] == 0 and truth_x[2] == 0
+                    and truth_x[1] == expected * rcfg.bits_per_frame)
+        _report("numerology", {**head, "path": "xla", "blocks": B,
+                               "packets_detected": int(out_x.valid.sum()),
+                               "expected_packets": expected,
+                               "bit_errors_vs_truth": list(truth_x[:2]),
+                               "false_detects": truth_x[2],
+                               "truth_held": xla_full})
+        for path, (fn, expect) in paths.items():
+            out_p = host(drive(f"{tag} parity: {path}", fn, expect))
+            for k, v in _build.LAUNCHES.items():
+                launches[k] = launches.get(k, 0) + v
+            truth_p = _truth(rcfg, out_p, ref)
+            # where the XLA path itself decodes a packet with bit errors,
+            # the two receivers' roundings may decide a marginal symbol
+            # apart: such packets (in either path) are held by valid, lag
+            # and phase only, and counted
+            rep = _parity_check(rcfg, out_p, out_x, truth_p, truth_x,
+                                expected, exclude=(
+                                    frozenset() if xla_full
+                                    else truth_x[4] | truth_p[4]))
+            _report("numerology", {**head, "path": path, **rep})
+            if xla_full:
+                _require(rep["ok"], f"{tag} parity: {path} against the "
+                         f"XLA path and the truth: {rep}")
+                continue
+            decided = (rep["valid_ok"] and rep["bits_identical_on_valid"]
+                       and rep["lag_identical_on_valid"]
+                       and rep["phase_identical_on_valid"]
+                       and rep["max_cfo_delta_hz"] < 0.5
+                       and truth_p[2] == truth_x[2]
+                       and rep["packets_detected"]
+                       == int(out_x.valid.sum()))
+            _require(decided, f"{tag} parity: {path} against the XLA "
+                     f"path by decisions: {rep}")
+            if anchor is None:          # the main path: the first run
+                anchor = (out_p, truth_p)
+                continue
+            to_main = _parity_check(rcfg, out_p, anchor[0], truth_p,
+                                    anchor[1], expected,
+                                    exclude=truth_p[4] | anchor[1][4])
+            # the paths that read the main path's own planes
+            stats = not any(k in path for k in ("fuse_", "fold", "xla"))
+            held = (to_main["valid_ok"]
+                    and to_main["bits_identical_on_valid"]
+                    and to_main["lag_identical_on_valid"]
+                    and to_main["phase_identical_on_valid"]
+                    and (not stats or (to_main["max_cfo_delta_hz"] < 0.5
+                                       and to_main["max_eq_error_delta"]
+                                       < 2e-3)))
+            _report("numerology", {**head, "path": path,
+                                   "against": "fused_rx, plane state",
+                                   **to_main, "held": held})
+            _require(held, f"{tag} parity: {path} against the main path: "
+                     f"{to_main}")
+    return launches
+
+
+def _numerology_phase(torch, np, gen, dev, builds, drive, smi_line) -> dict:
+    """(j): at every named numerology, (1) every kernel and knob variant
+    against its plain version, (2) every kernel path against the XLA path
+    (``_numerology_parity``), (3) the main path at C_MAIN x B_TIME x
+    ITERS chained dispatches on full-scale noise, with the three kernels'
+    ms beside their bounds.  Returns {kernel: {numerology: entry}} for the
+    kernels line's "geometries"."""
+    from singlecarrier_tpu_torch import DEFAULT_CONFIG
+    from singlecarrier_tpu_torch.modem import (prod_rx_batch,
+                                               prod_rx_init_planes)
+    from singlecarrier_tpu_torch.ops import _build
+    from singlecarrier_tpu_torch.ops.decode import extract_decode, hunt
+    from singlecarrier_tpu_torch.ops.frontend import frontend_decim
+    geometries = {name: {} for name in KERNELS}
+    for tag, fut in builds.items():
+        sec, log = fut.result()
+        cfg = DEFAULT_CONFIG.replace(**_build.NUMEROLOGIES[tag])
+        _build.load(cfg)
+        print(f"[numerology] {tag}: {' '.join(_build.kernel_geometry(cfg))}"
+              f" built in {sec:.1f} s (eight geometries at once, started "
+              f"with phase 2)", flush=True)
+        for kern, line in _ptxas_table(log).items():
+            print(f"[numerology] {tag}: ptxas {kern}: {line}", flush=True)
+    for tag, kw in _build.NUMEROLOGIES.items():
+        t_start = time.perf_counter()
+        default = DEFAULT_CONFIG.replace(**kw)
+        bench = _bench_point(default)
+        tx = _numerology_tx(torch, np, default, dev)
+
+        def inputs(cfg_, C, B):
+            return _kernel_inputs(torch, np, gen, tx, cfg_, C, B, dev)
+
+        # ---- 1. every kernel and knob variant against its plain version
+        errs = {}
+        for what, cfg in (("default", default), ("bench", bench)):
+            w = f"{tag} {what}"
+            rep = _compare_kernels(torch, cfg, inputs(cfg, C_CMP, B_CMP), w)
+            for k, v in rep.items():
+                errs[k] = max(errs.get(k, 0.0), v["max_abs_err"])
+            noisy = inputs(cfg, C_MAIN, B_KTIME)
+            _compare_decimating(torch, cfg, noisy, f"{w}, {C_MAIN} x "
+                                f"{B_KTIME}", gen)
+            _compare_full_on_noise(torch, cfg, noisy, gen, f"{w}, {C_MAIN}"
+                                   f" x {B_KTIME}")
+            pcm = torch.randint(-16384, 16384, noisy[0].shape, generator=gen,
+                                device=dev, dtype=torch.int16)
+            dk = frontend_decim(cfg, pcm, *noisy[1:6])
+            _compare_hunt(torch, cfg, dk, noisy[6], f"{w}, {C_MAIN} x "
+                          f"{B_KTIME} rows of noise")
+            del noisy, pcm, dk
+        _compare_kernels(torch, bench, inputs(bench, 5, 3),
+                         f"{tag} bench, 5 channels x 3 blocks")
+        _knob_phase(torch, gen, inputs, default, bench, f"{tag}: ")
+        t_1 = time.perf_counter()
+        # ---- 2. parity of every kernel path with the XLA path
+        launches = _numerology_parity(torch, np, bench, drive, dev, tag,
+                                      tag in J_FRAC)
+        t_2 = time.perf_counter()
+        # ---- 3. the main path at full width on full-scale noise
+        n = bench.frame_size
+        noise = torch.randint(-16384, 16384, (B_TIME, C_MAIN, n),
+                              generator=gen, device=dev, dtype=torch.int16)
+        state = prod_rx_init_planes(bench, C_MAIN)
+        state, _ = prod_rx_batch(bench, state, noise, fuse_frontend=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            state, out = prod_rx_batch(bench, state, noise,
+                                       fuse_frontend=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_build.LAUNCHES)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        main = ("frontend_decim", "hunt", "extract_decode")
+        _require(all(counts[k] == ITERS for k in main)
+                 and sum(counts.values()) == ITERS * len(main),
+                 f"{tag} main path: launches {counts}")
+        _require(bool(torch.isfinite(out.eq_error).all()
+                      and torch.isfinite(out.cfo_hz).all()),
+                 f"{tag} main path: non-finite outputs")
+        rate = ITERS * B_TIME * C_MAIN * n / wall
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        p0r, p0i, t0r, t0i, dprev0 = prod_rx_init_planes(bench, C_MAIN)
+        advs = np.exp(-2j * np.pi * bench.center / bench.fs * n
+                      * np.arange(B_TIME)).astype(np.complex64)
+        adv = torch.from_numpy(np.stack([advs.real, advs.imag])).to(dev)
+        dk = frontend_decim(bench, noise, p0r, p0i, t0r, t0i, adv)
+        lk, pk_, qk = hunt(bench, dk, dprev0)
+        split = {
+            "frontend_decim": lambda: frontend_decim(
+                bench, noise, p0r, p0i, t0r, t0i, adv),
+            "hunt": lambda: hunt(bench, dk, dprev0),
+            "extract_decode": lambda: extract_decode(
+                bench, dk, dprev0, lk, pk_, qk)}
+        bounds = _kernel_bounds(bench, C_MAIN * B_TIME, C_MAIN)
+        k_ms = {k: _time_cuda(fn, 3) for k, fn in split.items()}
+        print(f"[numerology] {tag}: main path {C_MAIN} ch x {B_TIME} blocks "
+              f"x {ITERS} chained dispatches on full-scale noise: "
+              f"{wall:.3f} s, {rate:.4e} samples/s, peak memory "
+              f"{peak:.1f} GiB, launches {counts}; kernels of one dispatch "
+              + ", ".join(f"{k} {k_ms[k]:.3f} ms (bound {bounds[k][0]:.3f} "
+                          f"ms, {bounds[k][1]})" for k in main)
+              + f"; {smi_line}", flush=True)
+        del noise, state, out, dk, lk, pk_, qk, split
+        # every kernel at C_MAIN x B_KTIME rows beside its bound
+        kin = inputs(bench, C_MAIN, B_KTIME)
+        kbounds = _kernel_bounds(bench, C_MAIN * B_KTIME, C_MAIN)
+        for name, (kern, _) in _kernel_calls(torch, bench, kin,
+                                             C_MAIN).items():
+            geometries[name][tag] = {
+                "launches": launches.get(name, 0),
+                "max_abs_err": errs.get(name, 0.0),
+                "ms": _time_cuda(kern, 10), "bound_ms": kbounds[name][0],
+                "bound_by": kbounds[name][1],
+                "main_path_ms": k_ms.get(name),
+                "main_path_bound_ms": bounds[name][0] if name in k_ms
+                else None}
+        del kin
+        _require(all(v.get(tag, {}).get("launches", 0) > 0
+                     for v in geometries.values()),
+                 f"{tag}: a kernel was launched on none of (j)'s paths: "
+                 f"{launches}")
+        print(f"[numerology] {tag}: " + ", ".join(
+            f"{k} {v[tag]['ms']:.3f} ms (bound {v[tag]['bound_ms']:.4f})"
+            for k, v in geometries.items())
+            + f" at {C_MAIN} x {B_KTIME} rows; phase seconds: kernels "
+            f"{t_1 - t_start:.1f}, parity {t_2 - t_1:.1f}, timing "
+            f"{time.perf_counter() - t_2:.1f}; {smi_line}", flush=True)
+    return geometries
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1375,6 +1784,9 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"[build]   {line.strip()}")
     ptxas_full = _ptxas_of(log, "frontend_full_kernel")
+    # (j)'s libraries, one a named numerology, build while phases 3-5 run
+    builds = _start_builds({tag: DEFAULT_CONFIG.replace(**kw) for tag, kw
+                            in _build.NUMEROLOGIES.items()})
 
     # ---- 3. kernels vs plain, on the card ----
     def _inputs(cfg_, C, B):
@@ -1681,6 +2093,13 @@ def main() -> int:
           f"points: {time.perf_counter() - t0:.1f} s; {smi_line}",
           flush=True)
 
+    # ---- (j) the named numerologies ----
+    t0 = time.perf_counter()
+    geometries = _numerology_phase(torch, np, gen, dev, builds, _drive,
+                                   smi_line)
+    print(f"[numerology] (j) {len(_build.NUMEROLOGIES)} numerologies: "
+          f"{time.perf_counter() - t0:.1f} s; {smi_line}", flush=True)
+
     _require(all(path_launches.get(k, 0) > 0 for k in KERNELS),
              f"a kernel was launched on no path: {path_launches}")
     print(f"[paths] launches over the driven paths: {path_launches}",
@@ -1717,6 +2136,7 @@ def main() -> int:
         for _ in range(ITERS):
             state, _ = prod_rx_batch(cfg_, state, noise, **kw)
 
+    torch.cuda.reset_peak_memory_stats()     # from here, not (j)'s peak
     main_rate = _rate(f"main path {C_MAIN} ch x {B_TIME} blocks x {ITERS} "
                       f"chained dispatches",
                       lambda: _dispatches(state, fuse_frontend=True),
@@ -1968,7 +2388,8 @@ def main() -> int:
                 "ms": report[name]["ms"],
                 "plain_ms": report[name]["plain_ms"],
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-                "library_ms": None, "variants": variants[name]}
+                "library_ms": None, "variants": variants[name],
+                "geometries": geometries[name]}
                for name, (src, rep, note) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -1,10 +1,14 @@
 // Shared geometry and helpers of the RX kernels (sm_90a).
 //
-// The kernels compile in the reference numerology (ModemConfig defaults;
-// ops/_build.py KERNEL_GEOMETRY checks a config against it).  Decim
-// planes are laid out [cyc][2][N][N_SYM] (phase, real/imag plane, row,
-// symbol) with row n = b*C + ch, f32 or bf16; the hunt window of row n
-// is [OFF zeros | prev block | this block | zeros], prev being row n - C
+// The kernels compile the modem's shapes in.  Each SC_* name below is a
+// -D define that ops/_build.py kernel_geometry gives for a config; left
+// undefined it takes the reference numerology's value (ModemConfig
+// defaults), so the default library is built with no define at all.
+// ops/_build.py kernel_limits states the numerologies the kernels are
+// written for; the static_asserts here and in each source hold them.
+// Decim planes are laid out [cyc][2][N][N_SYM] (phase, real/imag plane,
+// row, symbol) with row n = b*C + ch, f32 or bf16; the hunt window of row
+// n is [OFF zeros | prev block | this block | zeros], prev being row n - C
 // or, for n < C, the carried planes dprev0 [cyc][2][C][N_SYM].
 #pragma once
 
@@ -12,23 +16,73 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifndef SC_N_SAMP
+#define SC_N_SAMP 1880
+#endif
+#ifndef SC_CYC
+#define SC_CYC 5
+#endif
+#ifndef SC_NTAPS
+#define SC_NTAPS 49
+#endif
+#ifndef SC_P
+#define SC_P 128
+#endif
+#ifndef SC_NSEG
+#define SC_NSEG 8
+#endif
+#ifndef SC_D
+#define SC_D 248
+#endif
+#ifndef SC_L
+#define SC_L 5
+#endif
+#ifndef SC_NFFT
+#define SC_NFFT 512
+#endif
+#ifndef SC_PKT
+#define SC_PKT 384
+#endif
+
 namespace sc {
 
-constexpr int N_SAMP = 1880;       // frame_size
-constexpr int CYC = 5;             // fs / rs
-constexpr int N_SYM = 376;         // symbols_per_block
-constexpr int NTAPS = 49;
+constexpr int N_SAMP = SC_N_SAMP;  // frame_size
+constexpr int CYC = SC_CYC;        // fs / rs
+constexpr int N_SYM = N_SAMP / CYC;  // symbols_per_block
+constexpr int NTAPS = SC_NTAPS;
 constexpr int HALO = NTAPS - 1;
-constexpr int P = 128;             // preamble chips
-constexpr int NSEG = 8;            // corr_segments
+constexpr int P = SC_P;            // preamble chips
+constexpr int NSEG = SC_NSEG;      // corr_segments
 constexpr int SEG = P / NSEG;
-constexpr int D = 248;             // frame_symbols
-constexpr int L = 5;               // eq_length
+constexpr int D = SC_D;            // frame_symbols
+constexpr int L = SC_L;            // eq_length
 constexpr int OFF = L / 2;
-constexpr int NFFT = 512;          // cfo_nfft
-constexpr int PKT = 384;           // pkt_window
-constexpr int WP = 768;            // hunt window width
+constexpr int NFFT = SC_NFFT;      // cfo_nfft
+constexpr int PKT = SC_PKT;        // pkt_window
 constexpr int N_OUT = D + 8;       // packed output row
+
+constexpr int roundup(int x, int m) { return (x + m - 1) / m * m; }
+constexpr int imax(int a, int b) { return a > b ? a : b; }
+
+// hunt window width (fused_rx_block's wp: roundup128 of the widest of the
+// packet reach, the [OFF | prev | cur] span and the correlation reach)
+constexpr int WP = roundup(imax(imax(N_SYM - 1 + PKT, OFF + 2 * N_SYM),
+                                roundup(OFF + N_SYM + P - 1, 128)),
+                           128);
+
+static_assert(N_SAMP % CYC == 0, "a block is whole symbols");
+static_assert(P == 128, "preamble_length 128");
+static_assert(NSEG == 4 || NSEG == 8 || NSEG == 16, "corr_segments 4, 8, 16");
+static_assert(NTAPS == 49, "ntaps 49");
+static_assert(CYC >= 2 && CYC <= 5, "cycles 2 to 5");
+static_assert(N_SAMP <= 1880 && N_SYM >= P && N_SYM <= 376,
+              "frame_size at most 1880, P <= symbols_per_block <= 376");
+static_assert(D >= 1 && D <= 248, "frame_symbols at most 248");
+static_assert(L >= 1 && L <= 7, "eq_length 1 to 7");
+static_assert(PKT >= P + D + L - 1 && PKT % 8 == 0 && PKT <= 384,
+              "pkt_window covers the packet, at most 384");
+static_assert(NFFT == 256 || NFFT == 512 || NFFT == 1024,
+              "cfo_nfft 256, 512, 1024");
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));

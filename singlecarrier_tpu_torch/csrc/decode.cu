@@ -3,12 +3,12 @@
 //
 // decode_packet is _decode_core of
 // singlecarrier_tpu/ops/decode_pallas.py (:398-597): energy gate, CFO
-// DFT (128 x 512, f32), derotation (cosf/sinf), LS train (sliding Gram,
-// ridge, off-tap prior, unrolled 5x5 complex Cholesky), one guarded
-// refit over the first R data symbols, decode, three guarded
-// phase/frequency refines (Taylor cos/sin, small-angle ratio) and the
-// descramble XOR, into slots 0..D+4 of the packed [N, 256] f32 row of
-// fused_rx.py:551-561.
+// DFT (P x NFFT, f32; 128 x 512 at the reference numerology),
+// derotation (cosf/sinf), LS train (sliding Gram, ridge, off-tap prior,
+// unrolled L x L complex Cholesky), one guarded refit over the first R
+// data symbols, decode, three guarded phase/frequency refines (Taylor
+// cos/sin, small-angle ratio) and the descramble XOR, into slots 0..D+4
+// of the packed [N, D + 8] f32 row of fused_rx.py:551-561.
 //
 // Three configuration knobs of the JAX kernel are template parameters
 // of every decode kernel (KNOBS, a bit each), chosen by the entry point:
@@ -55,13 +55,14 @@
 // with no broadcast.
 //
 // The CFO DFT is the one stage the block runs together (cfo_dft_block):
-// the 128 x 512 f32 table (dft_r, dft_i: 512 KB, more than L1 holds) is
-// walked in tiles of KC rows of k, copied into shared memory with
-// cp.async, double-buffered, and each tile element is read from shared
-// memory once for all the rows of the block.  A thread keeps the four
-// running sums of BPT bins x DEC_ROWS rows in registers; the rows'
-// (chip * pn) operands are a small table in shared memory, read as
-// broadcast 16-byte loads.  Every (row, bin) keeps its arithmetic: s1..s4
+// the P x NFFT f32 table (dft_r, dft_i: 512 KB at 128 x 512, more than L1
+// holds) is walked in tiles of KC rows of k and the GB bins of a group
+// (every bin in one group up to 512 bins, two groups at 1024), copied
+// into shared memory with cp.async, double-buffered, and each tile
+// element is read from shared memory once for all the rows of the block.
+// A thread keeps the four running sums of BPT bins x DEC_ROWS rows in
+// registers; the rows' (chip * pn) operands are a small table in shared
+// memory, read as broadcast 16-byte loads.  Every (row, bin) keeps its arithmetic: s1..s4
 // in ascending k, each product rounded before its sum (-fmad=false), then
 // sr = s1 - s2, si = s3 + s4 and the power, which the row's warp reads
 // back for the first-maximum argmax and the parabola.  So the table
@@ -87,12 +88,20 @@ namespace {
 constexpr int DEC_ROWS = 8;                // rows (warps) per block
 constexpr int DEC_THREADS = DEC_ROWS * 32;
 constexpr int GATE_WARPS = 4;              // rows per block of the gate stage
-constexpr int MAXJ = (D + 31) / 32;        // symbols per lane
+// symbols per lane: the data symbols, and at least the P chips the
+// train fit runs over
+constexpr int MAXJ = imax((D + 31) / 32, P / 32);
+constexpr int MSK_LEN = roundup(D, 4);     // the packets stay 16 B aligned
 constexpr int BINS = NFFT / 32;            // DFT bins per lane (argmax)
-constexpr int BPT = NFFT / DEC_THREADS;    // DFT bins per thread (sums)
+// The DFT's bins go in groups of GB, BPT a thread: a group walks the
+// table's tiles (its KC x GB part of them) with its sums in registers,
+// and holds its powers there until the last group is done.
+constexpr int BPT = NFFT / DEC_THREADS < 2 ? NFFT / DEC_THREADS : 2;
+constexpr int GB = DEC_THREADS * BPT;      // bins of a group
+constexpr int GROUPS = NFFT / GB;
 constexpr int KC = 4;                      // table rows of k per tile
 constexpr int NCHUNK = P / KC;
-constexpr int TILE_F = KC * NFFT;          // floats of one plane's tile
+constexpr int TILE_F = KC * GB;            // floats of one plane's tile
 constexpr int N_STAGES = 8;                // stage clocks
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -102,7 +111,8 @@ constexpr int KNOB_DIRECT = 2;             // ls_gram "direct"
 constexpr int KNOB_BVMAT = 4;              // ls_bvec "matmul"
 constexpr int GRAM_N = L * (L + 1) / 2;    // lower-triangle Gram entries
 
-static_assert(NFFT % DEC_THREADS == 0 && P % KC == 0, "DFT tiling");
+static_assert(NFFT % DEC_THREADS == 0 && NFFT % GB == 0 && P % KC == 0,
+              "DFT tiling");
 static_assert(DEC_ROWS % 2 == 0, "operand table read two rows a load");
 static_assert(TILE_F % (4 * DEC_THREADS) == 0, "16-byte copies a thread");
 
@@ -425,23 +435,26 @@ __device__ __forceinline__ float mac(float s, float a, float b) {
 // The block's dynamic shared memory (every member 16-byte aligned).
 struct BlockSmem {
   float pns[P];
-  float msk[D];
+  float msk[MSK_LEN];
   float pkt[DEC_ROWS][2][PKT];     // each row's packet planes
   float2 ttab[P][DEC_ROWS];        // (chip k * pn[k]) of each row, (re, im)
   float tile[2][2][TILE_F];        // [buffer][dft_r | dft_i][KC][NFFT];
                                    // after the DFT: the power [row][NFFT]
 };
-static_assert(sizeof(float) * (P + D) % 16 == 0, "pkt stays aligned");
+static_assert(sizeof(float) * (P + MSK_LEN) % 16 == 0, "pkt stays aligned");
 static_assert(2 * 2 * TILE_F >= DEC_ROWS * NFFT, "the power fits the tiles");
 
-__device__ __forceinline__ void load_tile(BlockSmem& sm, int buf, int chunk,
+// Tile (group, chunk): table rows KC chunk .. + KC - 1, the group's GB
+// columns of each (one contiguous run where one group is every bin).
+__device__ __forceinline__ void load_tile(BlockSmem& sm, int buf, int group,
+                                          int chunk,
                                           const float* __restrict__ dft_r,
                                           const float* __restrict__ dft_i) {
-  const float* src_r = dft_r + chunk * TILE_F;
-  const float* src_i = dft_i + chunk * TILE_F;
   for (int i = 4 * threadIdx.x; i < TILE_F; i += 4 * DEC_THREADS) {
-    __pipeline_memcpy_async(&sm.tile[buf][0][i], src_r + i, 16);
-    __pipeline_memcpy_async(&sm.tile[buf][1][i], src_i + i, 16);
+    const int k = i / GB, col = i - k * GB;
+    const int src = (chunk * KC + k) * NFFT + group * GB + col;
+    __pipeline_memcpy_async(&sm.tile[buf][0][i], dft_r + src, 16);
+    __pipeline_memcpy_async(&sm.tile[buf][1][i], dft_i + src, 16);
   }
   __pipeline_commit();
 }
@@ -457,7 +470,7 @@ __device__ __forceinline__ void cfo_dft_block(
     BlockSmem& sm, const float* __restrict__ dft_r,
     const float* __restrict__ dft_i) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  load_tile(sm, 0, 0, dft_r, dft_i);
+  load_tile(sm, 0, 0, 0, dft_r, dft_i);
   const float* pr = sm.pkt[warp][0];
   const float* pi = sm.pkt[warp][1];
   for (int k = lane; k < P; k += 32) {
@@ -468,58 +481,72 @@ __device__ __forceinline__ void cfo_dft_block(
     }
     sm.ttab[k][warp] = make_float2(tr, ti);
   }
-  float s1[DEC_ROWS][BPT], s2[DEC_ROWS][BPT], s3[DEC_ROWS][BPT],
-      s4[DEC_ROWS][BPT];
+  float pwk[GROUPS][DEC_ROWS][BPT];        // each group's powers
 #pragma unroll
-  for (int r = 0; r < DEC_ROWS; ++r)
+  for (int g = 0; g < GROUPS; ++g) {
+    float s1[DEC_ROWS][BPT], s2[DEC_ROWS][BPT], s3[DEC_ROWS][BPT],
+        s4[DEC_ROWS][BPT];
 #pragma unroll
-    for (int b = 0; b < BPT; ++b) s1[r][b] = s2[r][b] = s3[r][b] = s4[r][b] = 0.f;
-  for (int ch = 0; ch < NCHUNK; ++ch) {
-    if (ch + 1 < NCHUNK) {
-      load_tile(sm, (ch + 1) & 1, ch + 1, dft_r, dft_i);
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();          // tile ch (and, first, the operand table)
-    const float* wr = sm.tile[ch & 1][0] + tid;
-    const float* wi = sm.tile[ch & 1][1] + tid;
+    for (int r = 0; r < DEC_ROWS; ++r)
 #pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      float r[BPT], m[BPT];
-#pragma unroll
-      for (int b = 0; b < BPT; ++b) {
-        r[b] = wr[kk * NFFT + DEC_THREADS * b];
-        m[b] = wi[kk * NFFT + DEC_THREADS * b];
+      for (int b = 0; b < BPT; ++b)
+        s1[r][b] = s2[r][b] = s3[r][b] = s4[r][b] = 0.f;
+    for (int ch = 0; ch < NCHUNK; ++ch) {
+      const int it = g * NCHUNK + ch;      // tiles in the order loaded
+      if (it + 1 < GROUPS * NCHUNK) {
+        load_tile(sm, (it + 1) & 1, (it + 1) / NCHUNK, (it + 1) % NCHUNK,
+                  dft_r, dft_i);
+        __pipeline_wait_prior(1);
+      } else {
+        __pipeline_wait_prior(0);
       }
-      const float4* t4 =
-          reinterpret_cast<const float4*>(&sm.ttab[ch * KC + kk][0]);
+      __syncthreads();        // tile it (and, first, the operand table)
+      const float* wr = sm.tile[it & 1][0] + tid;
+      const float* wi = sm.tile[it & 1][1] + tid;
 #pragma unroll
-      for (int rp = 0; rp < DEC_ROWS / 2; ++rp) {
-        const float4 t = t4[rp];       // rows 2 rp and 2 rp + 1: (re, im)
+      for (int kk = 0; kk < KC; ++kk) {
+        float r[BPT], m[BPT];
 #pragma unroll
         for (int b = 0; b < BPT; ++b) {
-          s1[2 * rp][b] = mac<CFO16>(s1[2 * rp][b], t.x, r[b]);
-          s2[2 * rp][b] = mac<CFO16>(s2[2 * rp][b], t.y, m[b]);
-          s3[2 * rp][b] = mac<CFO16>(s3[2 * rp][b], t.x, m[b]);
-          s4[2 * rp][b] = mac<CFO16>(s4[2 * rp][b], t.y, r[b]);
-          s1[2 * rp + 1][b] = mac<CFO16>(s1[2 * rp + 1][b], t.z, r[b]);
-          s2[2 * rp + 1][b] = mac<CFO16>(s2[2 * rp + 1][b], t.w, m[b]);
-          s3[2 * rp + 1][b] = mac<CFO16>(s3[2 * rp + 1][b], t.z, m[b]);
-          s4[2 * rp + 1][b] = mac<CFO16>(s4[2 * rp + 1][b], t.w, r[b]);
+          r[b] = wr[kk * GB + DEC_THREADS * b];
+          m[b] = wi[kk * GB + DEC_THREADS * b];
+        }
+        const float4* t4 =
+            reinterpret_cast<const float4*>(&sm.ttab[ch * KC + kk][0]);
+#pragma unroll
+        for (int rp = 0; rp < DEC_ROWS / 2; ++rp) {
+          const float4 t = t4[rp];     // rows 2 rp and 2 rp + 1: (re, im)
+#pragma unroll
+          for (int b = 0; b < BPT; ++b) {
+            s1[2 * rp][b] = mac<CFO16>(s1[2 * rp][b], t.x, r[b]);
+            s2[2 * rp][b] = mac<CFO16>(s2[2 * rp][b], t.y, m[b]);
+            s3[2 * rp][b] = mac<CFO16>(s3[2 * rp][b], t.x, m[b]);
+            s4[2 * rp][b] = mac<CFO16>(s4[2 * rp][b], t.y, r[b]);
+            s1[2 * rp + 1][b] = mac<CFO16>(s1[2 * rp + 1][b], t.z, r[b]);
+            s2[2 * rp + 1][b] = mac<CFO16>(s2[2 * rp + 1][b], t.w, m[b]);
+            s3[2 * rp + 1][b] = mac<CFO16>(s3[2 * rp + 1][b], t.z, m[b]);
+            s4[2 * rp + 1][b] = mac<CFO16>(s4[2 * rp + 1][b], t.w, r[b]);
+          }
         }
       }
+      __syncthreads();        // the buffer may be filled again
     }
-    __syncthreads();          // the buffer may be filled again
+#pragma unroll
+    for (int r = 0; r < DEC_ROWS; ++r)
+#pragma unroll
+      for (int b = 0; b < BPT; ++b) {
+        const float sr = s1[r][b] - s2[r][b], si = s3[r][b] + s4[r][b];
+        pwk[g][r][b] = sr * sr + si * si;
+      }
   }
   float* pw = &sm.tile[0][0][0];
 #pragma unroll
-  for (int r = 0; r < DEC_ROWS; ++r)
+  for (int g = 0; g < GROUPS; ++g)
 #pragma unroll
-    for (int b = 0; b < BPT; ++b) {
-      const float sr = s1[r][b] - s2[r][b], si = s3[r][b] + s4[r][b];
-      pw[r * NFFT + tid + DEC_THREADS * b] = sr * sr + si * si;
-    }
+    for (int r = 0; r < DEC_ROWS; ++r)
+#pragma unroll
+      for (int b = 0; b < BPT; ++b)
+        pw[r * NFFT + g * GB + tid + DEC_THREADS * b] = pwk[g][r][b];
   __syncthreads();
 }
 

@@ -137,22 +137,40 @@ __device__ __forceinline__ void downmix(const int16_t* __restrict__ x_row,
 
 // A task is WIN_SYMS consecutive symbols of one plane of a row: outputs
 // y[p][WIN_T j .. WIN_T j + WIN_T - 1] from u[p][WIN_T j .. WIN_T j +
-// WIN_LEN - 1]; thread p * WIN_TASKS_PLANE + j takes task (p, j).
+// WIN_LEN - 1]; thread p * WIN_TASKS_PLANE + j takes task (p, j).  Where
+// N_SYM is not whole tasks the last task of a plane is ragged: it sums
+// past the block (u is padded to N_STAGE samples) and stores only the
+// symbols the row has.
 constexpr int WIN_SYMS = 4;
 constexpr int WIN_BLOCKS_SM = 6;       // 56 registers a thread, no spills
 constexpr int WIN_T = CYC * WIN_SYMS;
 constexpr int WIN_LEN = WIN_T + HALO;
 constexpr int WIN_VEC = 4;                            // floats a shared load
-constexpr int WIN_TASKS_PLANE = N_SYM / WIN_SYMS;
+constexpr int WIN_TASKS_PLANE = (N_SYM + WIN_SYMS - 1) / WIN_SYMS;
 constexpr int WIN_TASKS = 2 * WIN_TASKS_PLANE;       // of one row
+// a thread a task (at least 96: symbols_per_block is at least P + 1)
 constexpr int WIN_THREADS = (WIN_TASKS + 31) / 32 * 32;
-constexpr int U_LEN = HALO + N_SAMP;
-constexpr int W_PAD = (NTAPS + 3) / 4 * 4;
 constexpr int STAGE_VEC = 8;                          // samples per 16 B of PCM
-static_assert(N_SYM % WIN_SYMS == 0 && WIN_SYMS == 4 &&
-              WIN_T % WIN_VEC == 0 && U_LEN % 4 == 0 &&
-              N_SAMP % STAGE_VEC == 0 && HALO % STAGE_VEC == 0 &&
-              WIN_THREADS >= 2 * HALO && WIN_THREADS >= 2 * W_PAD &&
+// samples of a row staged (the ragged last task reads up to its end)
+constexpr int N_STAGE = roundup(imax(N_SAMP, WIN_T * WIN_TASKS_PLANE),
+                                STAGE_VEC);
+constexpr int U_LEN = HALO + N_STAGE;
+constexpr int W_PAD = (NTAPS + 3) / 4 * 4;
+// What the geometry allows of the 16-byte paths, at compile time: the
+// staging loop whole (N_STAGE == N_SAMP, whole 8-sample steps), the
+// mixer table's imaginary half 16-byte aligned, whole tasks (and with
+// them the float4 / 8-byte plane stores), and the bytes a cp.async of a
+// PCM row moves (rows N_SAMP int16 apart; 0: element copies).
+constexpr bool STAGE_WHOLE = N_STAGE == N_SAMP;
+constexpr bool TAB_VEC = N_SAMP % 4 == 0;
+constexpr bool TASKS_WHOLE = N_SYM % WIN_SYMS == 0;
+constexpr int PCM_BYTES = N_SAMP % 8 == 0   ? 16
+                          : N_SAMP % 4 == 0 ? 8
+                          : N_SAMP % 2 == 0 ? 4
+                                            : 0;
+static_assert(WIN_SYMS == 4 && WIN_T % WIN_VEC == 0 && U_LEN % 4 == 0 &&
+              HALO % STAGE_VEC == 0 && WIN_THREADS >= 2 * HALO &&
+              WIN_THREADS >= 70 && WIN_THREADS >= W_PAD &&
               WIN_TASKS % 2 == 0,
               "window front-end geometry");
 
@@ -161,7 +179,7 @@ static_assert(N_SYM % WIN_SYMS == 0 && WIN_SYMS == 4 &&
 struct __align__(16) PremixSmem {
   float u[2][U_LEN];        // [halo | z], bf16 values (or f32: ROUND false)
   float w[W_PAD];           // taps (frontend_full: times the gain)
-  int16_t x[N_SAMP];        // PCM of the next row
+  int16_t x[N_STAGE];       // PCM of the next row
   int16_t xh[HALO];         // batch form: raw tail of row n - C
   float tail[2][HALO];      // downmixed halo as given (rows; block 0)
   float ph[8];              // rows: phase; batch: p0, adv^b, adv^(b-1)
@@ -174,17 +192,33 @@ __device__ __forceinline__ void load4(const float* p, float* v) {
 
 // WIN_SYMS neighbouring symbols of one phase plane, one store, kept out
 // of L1 (the row-major layout took twice the time with plain stores).
+// Where N_SYM is not whole tasks, the rows are not 16 (8) bytes apart:
+// the first `n` symbols a store each.
 __device__ __forceinline__ void store_syms(float* o,
-                                           const float (&v)[WIN_SYMS]) {
-  __stcg(reinterpret_cast<float4*>(o), make_float4(v[0], v[1], v[2], v[3]));
+                                           const float (&v)[WIN_SYMS],
+                                           int n) {
+  if constexpr (TASKS_WHOLE) {
+    __stcg(reinterpret_cast<float4*>(o), make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+#pragma unroll
+    for (int s = 0; s < WIN_SYMS; ++s)
+      if (s < n) __stcg(o + s, v[s]);
+  }
 }
 __device__ __forceinline__ void store_syms(__nv_bfloat16* o,
-                                           const float (&v)[WIN_SYMS]) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-  __stcg(reinterpret_cast<uint2*>(o),
-         make_uint2(*reinterpret_cast<const unsigned*>(&lo),
-                    *reinterpret_cast<const unsigned*>(&hi)));
+                                           const float (&v)[WIN_SYMS],
+                                           int n) {
+  if constexpr (TASKS_WHOLE) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    __stcg(reinterpret_cast<uint2*>(o),
+           make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                      *reinterpret_cast<const unsigned*>(&hi)));
+  } else {
+#pragma unroll
+    for (int s = 0; s < WIN_SYMS; ++s)
+      if (s < n) o[s] = __float2bfloat16_rn(v[s]);
+  }
 }
 
 __device__ __forceinline__ bool aligned16(const void* a, const void* b,
@@ -194,19 +228,22 @@ __device__ __forceinline__ bool aligned16(const void* a, const void* b,
           15) == 0;
 }
 
-// dst[0 .. n) = src[0 .. n), asynchronously 16 bytes a thread where the
-// pointers allow (vec; n * sizeof(T) is a multiple of 16), by threads
-// first .. first + n * sizeof(T) / 16 - 1; else element by element.
-template <typename T>
+// dst[0 .. n) = src[0 .. n), asynchronously BYTES a thread where the
+// pointers allow (vec; n * sizeof(T) is a multiple of BYTES), by threads
+// first .. first + n * sizeof(T) / BYTES - 1; else (or BYTES 0) element
+// by element.
+template <typename T, int BYTES = 16>
 __device__ __forceinline__ void fetch(T* dst, const T* __restrict__ src,
                                       int n, bool vec, int tid, int first) {
-  constexpr int PER = 16 / sizeof(T);
-  if (vec) {
-    for (int q = tid - first; q >= 0 && q < n / PER; q += WIN_THREADS)
-      __pipeline_memcpy_async(dst + PER * q, src + PER * q, 16);
-  } else {
-    for (int i = tid; i < n; i += WIN_THREADS) dst[i] = src[i];
+  if constexpr (BYTES > 0) {
+    constexpr int PER = BYTES / sizeof(T);
+    if (vec) {
+      for (int q = tid - first; q >= 0 && q < n / PER; q += WIN_THREADS)
+        __pipeline_memcpy_async(dst + PER * q, src + PER * q, BYTES);
+      return;
+    }
   }
+  for (int i = tid; i < n; i += WIN_THREADS) dst[i] = src[i];
 }
 
 // sm.u[.][HALO + t] = downmixed block of the row whose PCM is in sm.x,
@@ -218,17 +255,22 @@ __device__ __forceinline__ void stage_block(PremixSmem& sm,
                                             const float* __restrict__ tab,
                                             bool vec, float pr, float pi,
                                             float inv_scale, int tid) {
-  for (int t = STAGE_VEC * tid; t < N_SAMP; t += STAGE_VEC * WIN_THREADS) {
+  for (int t = STAGE_VEC * tid; t < N_STAGE; t += STAGE_VEC * WIN_THREADS) {
     float tr[STAGE_VEC], ti[STAGE_VEC];
-    if (vec) {
+    if (vec && (STAGE_WHOLE || (TAB_VEC && t + STAGE_VEC <= N_SAMP))) {
       load4(tab + t, tr);
       load4(tab + t + 4, tr + 4);
       load4(tab + N_SAMP + t, ti);
       load4(tab + N_SAMP + t + 4, ti + 4);
     } else {
+      // past the block (the padding to N_STAGE) the table reads as 0, so
+      // the padding stages as zeros
 #pragma unroll
-      for (int e = 0; e < STAGE_VEC; ++e)
-        tr[e] = tab[t + e], ti[e] = tab[N_SAMP + t + e];
+      for (int e = 0; e < STAGE_VEC; ++e) {
+        const bool in = STAGE_WHOLE || t + e < N_SAMP;
+        tr[e] = in ? tab[t + e] : 0.f;
+        ti[e] = in ? tab[N_SAMP + t + e] : 0.f;
+      }
     }
     const uint4 raw = *reinterpret_cast<const uint4*>(&sm.x[t]);
     const unsigned word[4] = {raw.x, raw.y, raw.z, raw.w};
@@ -329,7 +371,7 @@ __device__ __forceinline__ void store_task(OutT* __restrict__ out,
     float v[WIN_SYMS];
 #pragma unroll
     for (int s = 0; s < WIN_SYMS; ++s) v[s] = y[CYC * s + c];
-    store_syms(out + o, v);
+    store_syms(out + o, v, N_SYM - WIN_SYMS * j);
   }
 }
 
@@ -372,13 +414,13 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
   auto fetch_row = [&](long long row) {
     const int b = (int)(row / C);
     const int ch = (int)(row - (long long)b * C);
-    fetch(sm.x, pcm + row * N_SAMP, N_SAMP, vec, tid, 0);
+    fetch<int16_t, PCM_BYTES>(sm.x, pcm + row * N_SAMP, N_SAMP, vec, tid, 0);
     if (b == 0) {
       fetch(sm.tail[0], tail0_r + ch * HALO, HALO, vec, tid, 0);
       fetch(sm.tail[1], tail0_i + ch * HALO, HALO, vec, tid, 32);
     } else {
-      fetch(sm.xh, pcm + (row - C) * N_SAMP + N_SAMP - HALO, HALO, vec, tid,
-            32);
+      fetch<int16_t, PCM_BYTES>(sm.xh, pcm + (row - C) * N_SAMP + N_SAMP - HALO,
+                                HALO, vec, tid, 32);
     }
     if (tid >= 64 && tid < 70) {
       const int i = tid - 64, bm = b > 0 ? b - 1 : 0;
@@ -433,7 +475,7 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
   if (tid < W_PAD) sm.w[tid] = tid < NTAPS ? taps[tid] : 0.f;
 
   auto fetch_row = [&](long long row) {
-    fetch(sm.x, pcm + row * N_SAMP, N_SAMP, vec, tid, 0);
+    fetch<int16_t, PCM_BYTES>(sm.x, pcm + row * N_SAMP, N_SAMP, vec, tid, 0);
     fetch(sm.tail[0], tail_r + row * HALO, HALO, vec, tid, 0);
     fetch(sm.tail[1], tail_i + row * HALO, HALO, vec, tid, 32);
     if (tid >= 64 && tid < 66)
@@ -468,7 +510,7 @@ struct __align__(16) FoldSmem {
   float u[U_LEN];           // [halo | bf16(x)], bf16 values (or f32)
   float w[2][W_PAD];        // real, imaginary parts of the folded taps
   float eu[2][HALO];        // halo un-rotation: cos, sin of w(m - HALO + 1)
-  int16_t x[N_SAMP];        // PCM of the next row
+  int16_t x[N_STAGE];       // PCM of the next row
   int16_t xh[HALO];         // batch form: raw tail of row n - C
   float tail[2][HALO];      // downmixed halo as given (rows; block 0)
   float ph[4];              // rows: phase; batch: p0, adv^b
@@ -477,8 +519,8 @@ struct __align__(16) FoldSmem {
 __device__ __forceinline__ void load_fold_tables(
     FoldSmem& sm, const float* __restrict__ ctaps,
     const float* __restrict__ unrot, int tid) {
-  if (tid < 2 * W_PAD) {
-    const int q = tid / W_PAD, k = tid - q * W_PAD;
+  for (int i = tid; i < 2 * W_PAD; i += WIN_THREADS) {
+    const int q = i / W_PAD, k = i - q * W_PAD;
     sm.w[q][k] = k < NTAPS ? ctaps[q * NTAPS + k] : 0.f;
   }
   if (tid < 2 * HALO) sm.eu[tid / HALO][tid % HALO] = unrot[tid];
@@ -489,14 +531,17 @@ __device__ __forceinline__ void load_fold_tables(
 template <bool ROUND>
 __device__ __forceinline__ void stage_raw(FoldSmem& sm, float inv_scale,
                                           int tid) {
-  for (int t = STAGE_VEC * tid; t < N_SAMP; t += STAGE_VEC * WIN_THREADS) {
+  for (int t = STAGE_VEC * tid; t < N_STAGE; t += STAGE_VEC * WIN_THREADS) {
     const uint4 raw = *reinterpret_cast<const uint4*>(&sm.x[t]);
     const unsigned word[4] = {raw.x, raw.y, raw.z, raw.w};
     float z[STAGE_VEC];
 #pragma unroll
-    for (int e = 0; e < STAGE_VEC; ++e)
-      z[e] = fe_operand<ROUND>(
-          (float)(short)(word[e >> 1] >> (16 * (e & 1))) * inv_scale);
+    for (int e = 0; e < STAGE_VEC; ++e)      // the padding stages as zeros
+      z[e] = STAGE_WHOLE || t + e < N_SAMP
+                 ? fe_operand<ROUND>(
+                       (float)(short)(word[e >> 1] >> (16 * (e & 1))) *
+                       inv_scale)
+                 : 0.f;
 #pragma unroll
     for (int e = 0; e < STAGE_VEC; e += 4)
       *reinterpret_cast<float4*>(&sm.u[HALO + t + e]) =
@@ -538,13 +583,16 @@ __device__ __forceinline__ void folded_window_sums(
 #pragma unroll
   for (int i0 = 0; i0 < WIN_T; i0 += 4) {
     float tr[4], ti[4];
-    if (vec) {
+    if (vec && TAB_VEC && (TASKS_WHOLE || WIN_T * j + i0 + 4 <= N_SAMP)) {
       load4(ta + i0, tr);
       load4(ta + N_SAMP + i0, ti);
-    } else {
+    } else {                 // past the block: outputs that are not stored
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        tr[e] = ta[i0 + e], ti[e] = ta[N_SAMP + i0 + e];
+      for (int e = 0; e < 4; ++e) {
+        const bool in = TASKS_WHOLE || WIN_T * j + i0 + e < N_SAMP;
+        tr[e] = in ? ta[i0 + e] : 0.f;
+        ti[e] = in ? ta[N_SAMP + i0 + e] : 0.f;
+      }
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -580,13 +628,13 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
   auto fetch_row = [&](long long row) {
     const int b = (int)(row / C);
     const int ch = (int)(row - (long long)b * C);
-    fetch(sm.x, pcm + row * N_SAMP, N_SAMP, vec, tid, 0);
+    fetch<int16_t, PCM_BYTES>(sm.x, pcm + row * N_SAMP, N_SAMP, vec, tid, 0);
     if (b == 0) {
       fetch(sm.tail[0], tail0_r + ch * HALO, HALO, vec, tid, 0);
       fetch(sm.tail[1], tail0_i + ch * HALO, HALO, vec, tid, 32);
     } else {
-      fetch(sm.xh, pcm + (row - C) * N_SAMP + N_SAMP - HALO, HALO, vec, tid,
-            32);
+      fetch<int16_t, PCM_BYTES>(sm.xh, pcm + (row - C) * N_SAMP + N_SAMP - HALO,
+                                HALO, vec, tid, 32);
     }
     if (tid >= 64 && tid < 68) {
       const int i = tid - 64;
@@ -634,7 +682,7 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
   load_fold_tables(sm, ctaps, unrot, tid);
 
   auto fetch_row = [&](long long row) {
-    fetch(sm.x, pcm + row * N_SAMP, N_SAMP, vec, tid, 0);
+    fetch<int16_t, PCM_BYTES>(sm.x, pcm + row * N_SAMP, N_SAMP, vec, tid, 0);
     fetch(sm.tail[0], tail_r + row * HALO, HALO, vec, tid, 0);
     fetch(sm.tail[1], tail_i + row * HALO, HALO, vec, tid, 32);
     if (tid >= 64 && tid < 66)
@@ -703,9 +751,10 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
 
 // What a full-rate block keeps in shared memory: the premix pair's
 // operands, and the row's outputs on their way to device memory.
+constexpr int Y_PLANE = WIN_T * WIN_TASKS_PLANE;   // N_SAMP, or past it
 struct __align__(16) FullSmem {
   PremixSmem in;
-  float y[2 * N_SAMP];      // [p][t] of the row in work
+  float y[2 * Y_PLANE];     // [p][t] of the row in work
 };
 
 // The sums of the row in sm.in.u, a task (plane p, outputs WIN_T j ..
@@ -739,7 +788,7 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
   if (tid < W_PAD) in.w[tid] = tid < NTAPS ? taps[tid] * gain : 0.f;
 
   auto fetch_row = [&](long long row) {
-    fetch(in.x, pcm + row * N_SAMP, N_SAMP, vec, tid, 0);
+    fetch<int16_t, PCM_BYTES>(in.x, pcm + row * N_SAMP, N_SAMP, vec, tid, 0);
     fetch(in.tail[0], tail_r + row * HALO, HALO, vec, tid, 0);
     fetch(in.tail[1], tail_i + row * HALO, HALO, vec, tid, 32);
     if (tid >= 64 && tid < 66)
@@ -763,9 +812,18 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
     if (row + gridDim.x < N) fetch_row(row + gridDim.x);
     full_window_sums(sm, tid);
     __syncthreads();        // y is whole
-    float4* o = reinterpret_cast<float4*>(out + row * (2 * N_SAMP));
-    const float4* y = reinterpret_cast<const float4*>(sm.y);
-    for (int q = tid; q < 2 * N_SAMP / 4; q += WIN_THREADS) __stcg(o + q, y[q]);
+    if constexpr (Y_PLANE == N_SAMP && N_SAMP % 2 == 0) {
+      float4* o = reinterpret_cast<float4*>(out + row * (2 * N_SAMP));
+      const float4* y = reinterpret_cast<const float4*>(sm.y);
+      for (int q = tid; q < 2 * N_SAMP / 4; q += WIN_THREADS)
+        __stcg(o + q, y[q]);
+    } else {                 // a ragged last task: planes Y_PLANE apart
+      float* o = out + row * (2 * N_SAMP);
+      for (int i = tid; i < 2 * N_SAMP; i += WIN_THREADS) {
+        const int p = i >= N_SAMP;
+        __stcg(o + i, sm.y[p * Y_PLANE + i - p * N_SAMP]);
+      }
+    }
   }
 }
 

@@ -104,22 +104,38 @@ __device__ __forceinline__ Best warp_best(Best x) {
 
 // ------------------------------------------------------------ int8 body
 
+// The mma's N = 8 columns are the preamble's 16-chip chunks, B[k][q] =
+// pn[16 q + k], whatever the segments: z[t][q] = sum_k x[2 + t + k]
+// pn[16 q + k], and chunk q of lag l is z[l + 16 q][q], one tile after
+// chunk q - 1.  A segment of 16 chips is a chunk (the reference
+// numerology); one of 32 chips is two (GRP 2: the quad thread that holds
+// columns 2 tig and 2 tig + 1 adds the two int32 sums, then squares);
+// one of 8 chips is half a chunk (SUB 2: each half has its own B
+// fragment, zero on the other half's chips, so every tile takes SUB mma a
+// plane, and the zero chips add exact zeros).
 constexpr int MMA_WARPS = 4;               // rows per block
-constexpr int XW = 128;                    // words of an int8 plane
-constexpr int XN = 4 * XW;                 // operand values x[OFF + 0..511]
-constexpr int TILES = 31;                  // 16-row tiles of t = l + 16 s
 constexpr int CHUNK = 8;                   // values per 16-byte bf16 load
-constexpr int PREV_CHUNKS = N_SYM / CHUNK; // 47: chunks of the prev block
-constexpr int NL = 13;                     // adjacent lags a lane sums
-constexpr int EN_W = 384;                  // espan sums kept (lags padded)
+constexpr int NCH = P / 16;                // 16-chip chunks: the mma's N
+constexpr int SUB = SEG < 16 ? 16 / SEG : 1;   // segments a chunk holds
+constexpr int GRP = SEG > 16 ? SEG / 16 : 1;   // chunks a segment spans
+// 16-lag tiles, an even count (the quad shares out two at a time)
+constexpr int LAG_TILES = roundup((N_SYM + 15) / 16, 2);
+constexpr int TILES = LAG_TILES + NCH - 1; // 16-row tiles of t = l + 16 q
+constexpr int XCH = (16 * TILES + 16 + 255) / 256;   // chunks a lane loads
+constexpr int XN = 32 * CHUNK * XCH;       // operand values x[OFF + 0..XN)
+constexpr int XW = XN / 4;                 // words of an int8 plane
+constexpr int PREV_CHUNKS = N_SYM / CHUNK; // chunks of the prev block
+constexpr int EN_W = 16 * LAG_TILES;       // espan sums kept (lags padded)
+constexpr int NL = EN_W / 32 + 1;          // adjacent lags a lane sums
 
-static_assert(N_SYM % CHUNK == 0, "the prev block is whole chunks");
-static_assert(XN == 2 * 32 * CHUNK, "two chunks a lane fill a plane");
-static_assert((TILES - 1) * 16 + 15 + SEG - 1 < XN, "tiles stay in x");
+static_assert(NCH == 8 && SUB * NCH == NSEG * GRP && SUB <= 2 && GRP <= 2,
+              "8 chunks; segments of 8, 16 or 32 chips");
+// the highest word a lane's funnel shift reads: 4 (TILES - 1) + 3 + wbase
+static_assert(4 * (TILES - 1) + 7 < XW, "tiles stay in x");
 static_assert(N_SYM - 1 + P - 1 < XN, "espan sums stay in x");
-static_assert(TILES == (N_SYM + 15) / 16 + NSEG - 1, "tiles cover lags");
-static_assert(29 * NL > N_SYM && 28 * NL + P + NL - 2 < XN, "espan lanes");
-static_assert(NSEG == 8 && SEG == 16, "the m16n8k16 shape");
+static_assert(32 * NL >= EN_W && EN_W >= N_SYM &&
+                  (N_SYM - 1) / NL * NL + P + NL - 1 <= XN,
+              "espan lanes");
 
 struct alignas(16) MmaWarpSmem {
   uint32_t x[CYC][2][XW];   // int8 operand planes, x[OFF + j] at byte j
@@ -178,14 +194,49 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(b), "r"(0));
 }
 
+// Window value j of a plane row, one load
+template <bool BF16>
+__device__ __forceinline__ float load1(const void* row, int j) {
+  if (BF16) return __bfloat162float(static_cast<const __nv_bfloat16*>(row)[j]);
+  return static_cast<const float*>(row)[j];
+}
+
 // Chunk q (window values x[OFF + 8q .. 8q + 7]) of phase c's two planes
-// of row n: the previous block's row, then this block's.
+// of row n: the previous block's row, then this block's, then zeros.
+// Where N_SYM is not whole chunks the rows are not 16 bytes apart: a
+// value a load.
 template <bool BF16>
 __device__ __forceinline__ void load_chunk(const void* decim,
                                            const void* dprev0, long long N,
                                            int C, long long n, int c, int q,
                                            float (&vr)[CHUNK],
                                            float (&vi)[CHUNK]) {
+  if constexpr (N_SYM % CHUNK != 0) {
+    const void* prev_r =
+        n < C ? plane_row<BF16>(dprev0, (c * 2LL) * C + n)
+              : plane_row<BF16>(decim, (c * 2LL) * N + n - C);
+    const void* prev_i =
+        n < C ? plane_row<BF16>(dprev0, (c * 2LL + 1) * C + n)
+              : plane_row<BF16>(decim, (c * 2LL + 1) * N + n - C);
+    const void* cur_r = plane_row<BF16>(decim, (c * 2LL) * N + n);
+    const void* cur_i = plane_row<BF16>(decim, (c * 2LL + 1) * N + n);
+#pragma unroll
+    for (int e = 0; e < CHUNK; ++e) {
+      const int j = CHUNK * q + e;
+      vr[e] = j < N_SYM       ? load1<BF16>(prev_r, j)
+              : j < 2 * N_SYM ? load1<BF16>(cur_r, j - N_SYM)
+                              : 0.f;
+      vi[e] = j < N_SYM       ? load1<BF16>(prev_i, j)
+              : j < 2 * N_SYM ? load1<BF16>(cur_i, j - N_SYM)
+                              : 0.f;
+    }
+    return;
+  }
+  if (2 * N_SYM < XN && q >= 2 * PREV_CHUNKS) {   // past the window
+#pragma unroll
+    for (int e = 0; e < CHUNK; ++e) vr[e] = vi[e] = 0.f;
+    return;
+  }
   if (q < PREV_CHUNKS) {
     if (n < C) {
       load8<BF16>(plane_row<BF16>(dprev0, (c * 2LL) * C + n), CHUNK * q, vr);
@@ -205,14 +256,14 @@ __device__ __forceinline__ void load_chunk(const void* decim,
   }
 }
 
-// The window-energy sums of the warp's squares sq (chunks lane and
-// lane + 32): en[l] = sum_k sq[l + k], k ascending, NL lags a lane, into
+// The window-energy sums of the warp's squares sq (chunks lane + 32 h):
+// en[l] = sum_k sq[l + k], k ascending, NL lags a lane, into
 // sm.ssum (the squares' place) for l < EN_W.
 __device__ __forceinline__ void window_energy(MmaWarpSmem& sm,
-                                              const float (&sq)[2][CHUNK],
+                                              const float (&sq)[XCH][CHUNK],
                                               int lane) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
+  for (int h = 0; h < XCH; ++h) {
     float4* dst = reinterpret_cast<float4*>(&sm.ssum[CHUNK * (lane + 32 * h)]);
     dst[0] = make_float4(sq[h][0], sq[h][1], sq[h][2], sq[h][3]);
     dst[1] = make_float4(sq[h][4], sq[h][5], sq[h][6], sq[h][7]);
@@ -265,23 +316,31 @@ __global__ void __launch_bounds__(MMA_WARPS * 32) hunt_mma_kernel(
   MmaWarpSmem& sm = wsm[warp];
   const int g = lane >> 2, tig = lane & 3;   // mma row group, quad thread
 
-  // B fragment: B[k][s] = pn[16 s + k]; this thread holds k = 4 tig..+3
-  // of column s = g
-  uint32_t bfrag = 0;
+  // B fragments: B[k][q] = pn[16 q + k]; this thread holds k = 4 tig..+3
+  // of column q = g; fragment u keeps the chips of segment u of the chunk
+  // (SUB 2: half a chunk each) and zeros the others
+  uint32_t bfrag[SUB];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    bfrag |= (static_cast<uint32_t>(static_cast<int>(
-                  pn[SEG * g + 4 * tig + i])) & 0xffu) << (8 * i);
+  for (int u = 0; u < SUB; ++u) {
+    bfrag[u] = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = 4 * tig + i;
+      if (SUB == 1 || k / (16 / SUB) == u)
+        bfrag[u] |= (static_cast<uint32_t>(static_cast<int>(
+                        pn[16 * g + k])) & 0xffu) << (8 * i);
+    }
+  }
 
   // ---- pass 1: quantise the planes, sum the squares over the phases ----
-  float ss[2][CHUNK];
+  float ss[XCH][CHUNK];
 #pragma unroll
-  for (int h = 0; h < 2; ++h)
+  for (int h = 0; h < XCH; ++h)
 #pragma unroll
     for (int e = 0; e < CHUNK; ++e) ss[h][e] = 0.f;
   for (int c = 0; c < CYC; ++c) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < XCH; ++h) {
       const int q = lane + 32 * h;           // chunk: x values 8q..8q+7
       float vr[CHUNK], vi[CHUNK];
       load_chunk<BF16>(decim, dprev0, N, C, n, c, q, vr, vi);
@@ -311,9 +370,9 @@ __global__ void __launch_bounds__(MMA_WARPS * 32) hunt_mma_kernel(
   for (int c = 0; c < CYC; ++c) {
     if constexpr (NORM == NORM_ENERGY) {
       // this phase's own window energies, from its planes loaded again
-      float sq[2][CHUNK];
+      float sq[XCH][CHUNK];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
+      for (int h = 0; h < XCH; ++h) {
         float vr[CHUNK], vi[CHUNK];
         load_chunk<BF16>(decim, dprev0, N, C, n, c, lane + 32 * h, vr, vi);
 #pragma unroll
@@ -325,36 +384,72 @@ __global__ void __launch_bounds__(MMA_WARPS * 32) hunt_mma_kernel(
     }
     const uint32_t* xr = sm.x[c][0] + wbase;
     const uint32_t* xi = sm.x[c][1] + wbase;
-    // rows g (A) and g + 8 (B) of the tile: the even column's square-sum
-    // of the previous tile, the running sums of the last two tiles
-    float qeA = 0.f, qeB = 0.f, p1A = 0.f, p1B = 0.f, p2A = 0.f, p2B = 0.f;
+    // rows g (A) and g + 8 (B) of the tile: the even column's square-sums
+    // of the previous tile (GRP 2: its int32 sums), the running sums of
+    // the last two tiles
+    float qeA[SUB], qeB[SUB];
+    int erA = 0, eiA = 0, erB = 0, eiB = 0;
+#pragma unroll
+    for (int u = 0; u < SUB; ++u) qeA[u] = qeB[u] = 0.f;
+    float p1A = 0.f, p1B = 0.f, p2A = 0.f, p2B = 0.f;
     float fA = 0.f, fB = 0.f;
 #pragma unroll
     for (int T = 0; T < TILES; ++T) {
-      int dr[4], di[4];
-      mma_s8(dr, __funnelshift_r(xr[4 * T], xr[4 * T + 1], sh),
-             __funnelshift_r(xr[4 * T + 2], xr[4 * T + 3], sh), bfrag);
-      mma_s8(di, __funnelshift_r(xi[4 * T], xi[4 * T + 1], sh),
-             __funnelshift_r(xi[4 * T + 2], xi[4 * T + 3], sh), bfrag);
-      // re^2 + im^2 < 2^24: exact in int32 and in f32
-      float q[4];
+      const uint32_t ar0 = __funnelshift_r(xr[4 * T], xr[4 * T + 1], sh);
+      const uint32_t ar1 = __funnelshift_r(xr[4 * T + 2], xr[4 * T + 3], sh);
+      const uint32_t ai0 = __funnelshift_r(xi[4 * T], xi[4 * T + 1], sh);
+      const uint32_t ai1 = __funnelshift_r(xi[4 * T + 2], xi[4 * T + 3], sh);
+      int dr[SUB][4], di[SUB][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        q[j] = static_cast<float>(dr[j] * dr[j] + di[j] * di[j]);
-      // this thread continues lag tile T - 2 tig - 1: segment 2 tig is
-      // column 2 tig of tile T - 1, segment 2 tig + 1 column 2 tig + 1 of
+      for (int u = 0; u < SUB; ++u) {
+        mma_s8(dr[u], ar0, ar1, bfrag[u]);
+        mma_s8(di[u], ai0, ai1, bfrag[u]);
+      }
+      // this thread continues lag tile T - 2 tig - 1: chunk 2 tig is
+      // column 2 tig of tile T - 1, chunk 2 tig + 1 column 2 tig + 1 of
       // tile T; its left neighbour left that lag tile two tiles ago
       float rA = __shfl_up_sync(FULL, p2A, 1);
       float rB = __shfl_up_sync(FULL, p2B, 1);
       if (tig == 0) rA = rB = 0.f;
-      const float accA = (rA + qeA) + q[1];
-      const float accB = (rB + qeB) + q[3];
-      p2A = p1A; p1A = accA; qeA = q[0];
-      p2B = p1B; p1B = accB; qeB = q[2];
+      float accA, accB;
+      if constexpr (GRP == 1) {
+        // re^2 + im^2 < 2^24: exact in int32 and in f32; the segments
+        // of the two chunks in ascending s
+        accA = rA;
+        accB = rB;
+#pragma unroll
+        for (int u = 0; u < SUB; ++u) {
+          accA = accA + qeA[u];
+          accB = accB + qeB[u];
+        }
+#pragma unroll
+        for (int u = 0; u < SUB; ++u) {
+          accA = accA + static_cast<float>(dr[u][1] * dr[u][1] +
+                                           di[u][1] * di[u][1]);
+          accB = accB + static_cast<float>(dr[u][3] * dr[u][3] +
+                                           di[u][3] * di[u][3]);
+          qeA[u] = static_cast<float>(dr[u][0] * dr[u][0] +
+                                      di[u][0] * di[u][0]);
+          qeB[u] = static_cast<float>(dr[u][2] * dr[u][2] +
+                                      di[u][2] * di[u][2]);
+        }
+      } else {
+        // one segment of two chunks: the int32 sums added, then squared
+        // (< 2^31 in int32, rounded once to f32 as the plain version's
+        // re^2 + im^2 of exact squares is)
+        const int sAr = erA + dr[0][1], sAi = eiA + di[0][1];
+        const int sBr = erB + dr[0][3], sBi = eiB + di[0][3];
+        accA = rA + static_cast<float>(sAr * sAr + sAi * sAi);
+        accB = rB + static_cast<float>(sBr * sBr + sBi * sBi);
+        erA = dr[0][0], eiA = di[0][0];
+        erB = dr[0][2], eiB = di[0][2];
+      }
+      p2A = p1A; p1A = accA;
+      p2B = p1B; p1B = accB;
       // quad thread 3 now holds pw of lag tile T - 7, rows g and g + 8;
       // every second tile the quad shares out the last two tiles' four
-      if (T >= NSEG - 1) {
-        if ((T - (NSEG - 1)) % 2 == 0) {
+      if (T >= NCH - 1) {
+        if ((T - (NCH - 1)) % 2 == 0) {
           fA = accA;
           fB = accB;
         } else {
@@ -364,7 +459,7 @@ __global__ void __launch_bounds__(MMA_WARPS * 32) hunt_mma_kernel(
           const float r2 = __shfl_sync(FULL, accA, src);
           const float pw = tig == 0 ? r0 : tig == 1 ? r1 : tig == 2 ? r2
                                                                     : accB;
-          const int lag = 16 * (T - NSEG) + lag0;
+          const int lag = 16 * (T - NCH) + lag0;
           float v = pw;
           if constexpr (NORM != NORM_NONE) v = pw / (en_s[lag] + 1e-12f);
           if (lag < N_SYM && v > best.v) best = Best{v, pw, lag, c};
@@ -382,19 +477,23 @@ __global__ void __launch_bounds__(MMA_WARPS * 32) hunt_mma_kernel(
 
 // ---------------------------------------------------- bf16 / f32 operands
 
-constexpr int TOE_THREADS = 512;           // one thread per t = l + 16 s
+// one thread per operand value, x[OFF + 0 .. N_SYM + P - 2]
+constexpr int TOE_THREADS = roundup(N_SYM + P - 1, 32);
 constexpr int TOE_WARPS = TOE_THREADS / 32;
-constexpr int T_ROWS = N_SYM + SEG * (NSEG - 1);   // 488 values of t
-constexpr int Q_STRIDE = N_SYM + 4;        // segment rows 16 bytes aligned
+constexpr int T_ROWS = N_SYM + SEG * (NSEG - 1);   // values of t = l + SEG s
+constexpr int Q_STRIDE = roundup(N_SYM, 4) + 4;    // segment rows 16 B apart
 
-static_assert(T_ROWS + SEG - 1 <= XN && XN == TOE_THREADS, "a thread per t");
+static_assert(T_ROWS + SEG - 1 <= TOE_THREADS && TOE_THREADS <= 1024,
+              "a thread per t");
 
-// x[OFF + j] of row n's window, phase c, plane p, for 0 <= j < XN: the
-// previous block's row, then this block's
+// x[OFF + j] of row n's window, phase c, plane p, for 0 <= j <
+// TOE_THREADS: the previous block's row, this block's, then zeros
 __device__ __forceinline__ float operand_at(const void* decim,
                                             const void* dprev0, int bf16,
                                             long long N, int C, long long n,
                                             int c, int p, int j) {
+  if constexpr (2 * N_SYM < TOE_THREADS)
+    if (j >= 2 * N_SYM) return 0.f;
   const long long cp = c * 2 + p;
   if (j >= N_SYM) return load_plane(decim, (cp * N + n) * N_SYM + j - N_SYM,
                                     bf16);
@@ -416,8 +515,8 @@ __global__ void __launch_bounds__(TOE_THREADS) hunt_toeplitz_kernel(
     int in_bf16, const float* __restrict__ pn, int* __restrict__ lag_out,
     int* __restrict__ ph_out, float* __restrict__ peak_out, long long N,
     int C, float peak_scale) {
-  __shared__ float xs[2][XN];              // the operand, x[OFF + j]
-  __shared__ float ssum[XN];               // squares (summed over phases)
+  __shared__ float xs[2][TOE_THREADS];     // the operand, x[OFF + j]
+  __shared__ float ssum[TOE_THREADS];      // squares (summed over phases)
   __shared__ __align__(16) float pns[P];
   __shared__ float qs[NSEG][Q_STRIDE];     // re^2 + im^2 by (segment, lag)
   __shared__ Best wbest[TOE_WARPS];

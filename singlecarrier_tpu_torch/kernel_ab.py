@@ -3,7 +3,7 @@
 Run from the root of a checkout::
 
     python3 -m singlecarrier_tpu_torch.kernel_ab [--other DIR] [--blocks B]
-                                                 [--stages]
+                                                 [--stages] [--config NAME]
 
 ``--other DIR`` names another ``csrc`` tree, for example a parent
 commit's (``git archive <commit> singlecarrier_tpu_torch/csrc | tar -x
@@ -47,6 +47,15 @@ plain version on N fresh draws of ``chip_smoke.py``'s kernel inputs
 points and counts the valid rows' dibits that differ, each with its
 plain soft margin (distance to the slicer's boundary over the symbol's
 magnitude): the evidence for ``chip_smoke.KNIFE_EDGE``.
+
+``--config NAME`` runs all of it at one of the named numerologies
+(``ops/_build.NUMEROLOGIES``) in place of the reference one: both trees
+are built with that geometry's defines (``_build.kernel_geometry``), the
+operands come from the port's TX at that numerology in place of the
+golden stream, and the bench operating point takes ``ls_refit_symbols =
+min(128, D)``.  The other tree must compile the geometry from the same
+defines (a tree older than them builds the reference shapes and is
+refused).
 
 Every line carries the card's name and power limit.  Needs a GPU.
 """
@@ -217,19 +226,19 @@ def _one_tap_tree(csrc: Path) -> dict:
     return dict(csrc=copy, defines=("SC_FE_TAPS=1",))
 
 
-def _knife_edges(cs, gen, tx, dev, draws: int, card: str) -> None:
+def _knife_edges(cs, gen, tx, dev, draws: int, card: str, base,
+                 bench) -> None:
     """``extract_decode`` against its plain version on ``draws`` draws of
-    chip_smoke's kernel inputs at both operating points: the valid rows'
-    dibits that differ and their plain soft margins."""
+    chip_smoke's kernel inputs at both operating points (``base`` and
+    ``bench``): the valid rows' dibits that differ and their plain soft
+    margins."""
     from .ops import decode
-    bench = DEFAULT_CONFIG.replace(decim_dtype="bf16", hunt_dtype="int8",
-                                   ls_refit_symbols=128)
-    D = DEFAULT_CONFIG.frame_symbols
+    D = base.frame_symbols
     mask = torch.from_numpy(decode._mask_np(D, True)).to(dev)
     valid = near = 0
     margins = []
     for _ in range(draws):
-        for cfg in (DEFAULT_CONFIG, bench):
+        for cfg in (base, bench):
             pcm, p0r, p0i, t0r, t0i, adv, dprev0 = cs._kernel_inputs(
                 torch, np, gen, tx, cfg, cs.C_CMP, cs.B_CMP, dev)
             dk = frontend_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv)
@@ -263,6 +272,8 @@ def main(argv=None) -> int:
     ap.add_argument("--knife-edges", type=int, default=0, metavar="N",
                     help="the decode's decisions against the plain "
                     "version's on N draws of chip_smoke's inputs")
+    ap.add_argument("--config", choices=sorted(_build.NUMEROLOGIES),
+                    help="a named numerology in place of the reference one")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -279,25 +290,36 @@ def main(argv=None) -> int:
     card = smi[0] if smi else torch.cuda.get_device_name(0)
     print(f"[device] {card}; torch {torch.__version__}", flush=True)
 
-    mine = _build.load()
-    other = _bind_tree(args.other) if args.other else None
-    golden = np.load(root / "tests" / "golden" / "reference.npz")
-    tx = torch.from_numpy(golden["tx_pcm"].astype(np.int16)).to(dev)
+    base = DEFAULT_CONFIG.replace(**_build.NUMEROLOGIES.get(args.config, {}))
+    geo = _build.kernel_geometry(base)
+    bench = cs._bench_point(base)
+    if args.other and geo and "SC_N_SAMP" not in (
+            Path(args.other) / "common.cuh").read_text():
+        print(f"kernel_ab: {args.other} compiles the reference shapes "
+              f"only; --config needs a tree that takes the geometry's "
+              f"defines", file=sys.stderr)
+        return 1
+    mine = _build.load(base)
+    other = (_bind_tree(args.other, defines=geo) if args.other else None)
     gen = torch.Generator(device=dev)
     gen.manual_seed(cs.SEED)
-    bench = DEFAULT_CONFIG.replace(decim_dtype="bf16", hunt_dtype="int8",
-                                   ls_refit_symbols=128)
+    if args.config:
+        tx = cs._numerology_tx(torch, np, base, dev)
+        card = f"{args.config} numerology; {card}"
+    else:
+        golden = np.load(root / "tests" / "golden" / "reference.npz")
+        tx = torch.from_numpy(golden["tx_pcm"].astype(np.int16)).to(dev)
 
     if args.knife_edges:
-        _knife_edges(cs, gen, tx, dev, args.knife_edges, card)
+        _knife_edges(cs, gen, tx, dev, args.knife_edges, card, base, bench)
 
     if other is not None:
-        for what, cfg in (("library default", DEFAULT_CONFIG),
+        for what, cfg in (("library default", base),
                           ("bench operating point", bench)):
             for C, B in ((cs.C_CMP, cs.B_CMP), (cs.C_MAIN, cs.B_KTIME)):
                 op = _operands(cs, cfg, gen, tx, C, B, dev)
                 a = _run_all(cfg, op)
-                with _build.using(other):
+                with _build.using(other, base):
                     b = _run_all(cfg, op)
                 for name in a:
                     print(f"[equal] {what} ({cfg.decim_dtype} planes), "
@@ -361,7 +383,7 @@ def main(argv=None) -> int:
     for name, fn in calls.items():
         times = []
         for tag, lib in order:
-            with _build.using(lib):
+            with _build.using(lib, base):
                 times.append((tag, cs._time_cuda(fn, 3)))
         n_rows = n_small if name.endswith("rows)") else rows[0].shape[0]
         note = ""
@@ -383,13 +405,13 @@ def main(argv=None) -> int:
             [("other", other, args.other)] if other else [])
         for tag, lib, csrc in trees:
             cut = _one_tap_tree(csrc)          # a copy: bound as a _Tree
-            one = _bind_tree(cut.pop("csrc"), **cut)
+            one = _bind_tree(cut["csrc"], defines=cut["defines"] + geo)
             for kern in ("frontend_decim (bf16 planes)",
                          "frontend_decim_folded (bf16 planes)",
                          "frontend_full"):
-                with _build.using(lib):
+                with _build.using(lib, base):
                     whole = cs._time_cuda(calls[kern], 3)
-                with _build.using(one):
+                with _build.using(one, base):
                     staged = cs._time_cuda(calls[kern], 3)
                 print(f"[stages] {kern} of {tag} tree at "
                       f"{cs.C_MAIN * args.blocks} rows: {whole:.3f} ms "
@@ -399,10 +421,11 @@ def main(argv=None) -> int:
                       f"row during the sums has nothing to hide those "
                       f"loads behind in the one-term build, which then "
                       f"overstates the staging; {card}", flush=True)
-        probe = _build.bind(_build.build(defines=("SC_STAGE_CLOCKS",))[0])
+        probe = _build.bind(
+            _build.build(defines=("SC_STAGE_CLOCKS", *geo))[0])
         ticks = (ctypes.c_uint64 * len(STAGES))()
         stream = torch.cuda.current_stream(dev).cuda_stream
-        with _build.using(probe):
+        with _build.using(probe, base):
             calls["extract_decode"]()                       # warm-up
             _build.check(probe.sc_decode_stage_cycles(ticks, 1, stream),
                          "stage clocks")

@@ -3,7 +3,12 @@
 The sources are compiled by ``nvcc`` for ``sm_90a`` (one ``nvcc`` per
 source, all started together, then one link) into one shared library
 with a plain C interface under ``build/torch_kernels/`` of the
-checkout, at first use, and loaded with ``ctypes``.  Each C entry point
+checkout, at first use, and loaded with ``ctypes``.  The kernels
+compile the modem's shapes in: :func:`kernel_geometry` gives a config's
+shapes as ``-D`` defines (none at the reference numerology, whose
+library is the default one), :func:`load` builds and keeps one library
+per geometry, and :func:`kernel_limits` states, in one place, the
+numerologies the kernels are written for.  Each C entry point
 launches on the stream it is given and returns ``cudaGetLastError()``;
 :func:`check` raises on anything but 0.
 
@@ -20,14 +25,16 @@ library of its own name; :func:`bind` loads one and :func:`using` puts
 it in the wrappers' hands for a ``with`` block.  ``kernel_ab.py`` uses
 them to hold two builds against each other on the card.
 
-Module state: the library handle and :data:`LAUNCHES`, the per-kernel
-launch counters (each wrapper adds one where it launches its kernel).
+Module state: the library handles (the reference geometry's, and the
+others' by their defines) and :data:`LAUNCHES`, the per-kernel launch
+counters (each wrapper adds one where it launches its kernel).
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -48,7 +55,8 @@ LAUNCHES = {"frontend_decim": 0, "frontend_rows": 0, "hunt": 0,
             "frontend_decim_folded": 0, "frontend_rows_folded": 0,
             "extract_gate": 0, "frontend_full": 0}
 
-_lib = None
+_lib = None          # the reference geometry's library
+_libs = {}           # every other geometry's, by its defines
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -167,24 +175,39 @@ def bind(path: Path):
     return lib
 
 
-def load():
-    """The bound kernel library (built on first use)."""
+def load(cfg=None):
+    """The bound kernel library for ``cfg``'s geometry (the reference
+    one by default), built on first use."""
     global _lib
-    if _lib is None:
-        _lib = bind(build()[0])
-    return _lib
+    defines = kernel_geometry(cfg) if cfg is not None else ()
+    if not defines:
+        if _lib is None:
+            _lib = bind(build()[0])
+        return _lib
+    if defines not in _libs:
+        _libs[defines] = bind(build(defines=defines)[0])
+    return _libs[defines]
 
 
 @contextlib.contextmanager
-def using(lib):
+def using(lib, cfg=None):
     """Let the wrappers launch from ``lib`` (a :func:`bind` result)
-    inside the block."""
+    inside the block, for configs of ``cfg``'s geometry (the reference
+    one by default)."""
     global _lib
-    mine, _lib = load(), lib
+    defines = kernel_geometry(cfg) if cfg is not None else ()
+    mine = load(cfg)
+    if defines:
+        _libs[defines] = lib
+    else:
+        _lib = lib
     try:
         yield lib
     finally:
-        _lib = mine
+        if defines:
+            _libs[defines] = mine
+        else:
+            _lib = mine
 
 
 def check(err: int, name: str) -> None:
@@ -194,11 +217,76 @@ def check(err: int, name: str) -> None:
                            f"cudaError {err}")
 
 
-# The shapes csrc/common.cuh compiles in (the reference numerology).
-KERNEL_GEOMETRY = {"frame_size": 1880, "cycles": 5, "ntaps": 49,
-                   "preamble_length": 128, "corr_segments": 8,
-                   "frame_symbols": 248, "eq_length": 5, "cfo_nfft": 512,
-                   "pkt_window": 384}
+# The shapes csrc/common.cuh compiles in, by their -D names, and their
+# values at the reference numerology (the defaults there).
+_GEOMETRY = (("SC_N_SAMP", "frame_size", 1880), ("SC_CYC", "cycles", 5),
+             ("SC_NTAPS", "ntaps", 49), ("SC_P", "preamble_length", 128),
+             ("SC_NSEG", "corr_segments", 8),
+             ("SC_D", "frame_symbols", 248), ("SC_L", "eq_length", 5),
+             ("SC_NFFT", "cfo_nfft", 512), ("SC_PKT", "pkt_window", 384))
+
+
+# The numerologies the JAX package runs beyond the reference one, each a
+# ``DEFAULT_CONFIG.replace(**kw)``, at which the kernels are held to their
+# plain versions on the card (chip_smoke.py, kernel_ab.py --config) and
+# the port to the JAX package on the CPU (tests/test_torch_numerology*).
+NUMEROLOGIES = {
+    "alt_9600": {"fs": 9600.0, "rs": 2400.0, "center": 1500.0},
+    "tiny_payload": {"data_symbols": 1, "ns": 2},
+    "mid_payload": {"data_symbols": 9, "ns": 8},
+    "ns4": {"ns": 4},
+    "eq7": {"eq_length": 7},
+    "seg4": {"corr_segments": 4},
+    "seg16": {"corr_segments": 16},
+    "nfft1024": {"cfo_nfft": 1024},
+}
+
+
+@functools.lru_cache(maxsize=64)
+def kernel_geometry(cfg) -> tuple:
+    """The ``-D`` defines that compile the kernels for ``cfg``'s shapes:
+    none at the reference numerology, else all nine (``SC_N_SAMP=1504``,
+    ...); ``csrc/common.cuh`` derives the rest.  Raises as
+    :func:`kernel_limits` for a config outside the limits."""
+    kernel_limits(cfg)
+    got = tuple((name, int(getattr(cfg, field)))
+                for name, field, _ in _GEOMETRY)
+    if all(v == ref for (_, v), (*_, ref) in zip(got, _GEOMETRY)):
+        return ()
+    return tuple(f"{name}={v}" for name, v in got)
+
+
+@functools.lru_cache(maxsize=64)       # a per-block loop calls it often
+def kernel_limits(cfg) -> None:
+    """Raise ``NotImplementedError`` naming the limit ``cfg`` exceeds;
+    return if the kernels are written for its numerology.
+
+    The limits, all of which the reference numerology meets:
+
+      * preamble_length 128: the hunt's tensor-core tile takes the
+        preamble as 8 chunks of 16 chips;
+      * corr_segments 4, 8 or 16 (segments of 32, 16 or 8 chips);
+      * ntaps 49: the front-ends' tap loops and halo staging;
+      * cycles 2 to 5 and symbols_per_block at most 376 (so frame_size
+        at most 1880, frame_symbols at most 248): the registers and
+        shared memory the kernels are laid out for;
+      * eq_length 1 to 7 (so pkt_window at most 384);
+      * cfo_nfft 256, 512 or 1024: the DFT's bin groups.
+    """
+    limits = (
+        ("preamble_length == 128", cfg.preamble_length == 128),
+        ("corr_segments in (4, 8, 16)", cfg.corr_segments in (4, 8, 16)),
+        ("ntaps == 49", cfg.ntaps == 49),
+        ("2 <= cycles <= 5", 2 <= cfg.cycles <= 5),
+        ("symbols_per_block <= 376", cfg.symbols_per_block <= 376),
+        ("1 <= eq_length <= 7", 1 <= cfg.eq_length <= 7),
+        ("cfo_nfft in (256, 512, 1024)", cfg.cfo_nfft in (256, 512, 1024)),
+    )
+    for name, ok in limits:
+        if not ok:
+            raise NotImplementedError(
+                f"the CUDA kernels' limit {name} does not hold for this "
+                f"config (ops/_build.kernel_limits)")
 
 
 def decode_params(cfg) -> list:
@@ -212,15 +300,6 @@ def decode_params(cfg) -> list:
             float(np.float32(-2.0 * np.pi / cfg.rs)),
             int(cfg.cfo_dtype == "bf16"), int(cfg.ls_gram == "direct"),
             int(cfg.ls_bvec == "matmul")]
-
-
-def require_kernel_geometry(cfg) -> None:
-    """Raise unless ``cfg`` has the shapes the CUDA kernels compile in."""
-    got = {k: getattr(cfg, k) for k in KERNEL_GEOMETRY}
-    if got != KERNEL_GEOMETRY:
-        raise NotImplementedError(
-            f"the CUDA kernels are compiled for {KERNEL_GEOMETRY}, got "
-            f"{got} (ROADMAP: alternate numerologies on the card)")
 
 
 def cuda_args(*tensors, device):

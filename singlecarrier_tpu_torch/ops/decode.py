@@ -25,8 +25,9 @@ Counterparts of ``singlecarrier_tpu/ops/decode_pallas.py``:
     packets.
 
 Each wrapper launches its CUDA kernel (``csrc/hunt.cu``,
-``csrc/decode.cu``) for tensors on the card, and refuses a numerology the
-kernels are not compiled for on either device; ``hunt_ref``,
+``csrc/decode.cu``, built for the config's geometry) for tensors on the
+card, and refuses a config outside ``_build.kernel_limits`` on either
+device; ``hunt_ref``,
 ``extract_decode_ref``, ``extract_gate_ref``,
 ``fused_decode_extract_ref`` and ``fused_decode_ref`` are the plain
 versions, used for CPU tensors and
@@ -193,7 +194,7 @@ def hunt(cfg: ModemConfig, decim, dprev0):
 
     Returns (lag i32 [N], phase i32 [N], peak f32 [N]).
     """
-    _build.require_kernel_geometry(cfg)
+    _build.kernel_limits(cfg)
     if decim.device.type == "cpu":
         return hunt_ref(cfg, decim, dprev0)
     _check_planes(cfg, decim, dprev0)
@@ -210,7 +211,7 @@ def hunt(cfg: ModemConfig, decim, dprev0):
     if ptrs[0] % 16 or ptrs[1] % 16:
         raise ValueError("the hunt kernel reads the planes in 16-byte "
                          "words: decim and dprev0 must be 16-byte aligned")
-    err = _build.load().sc_hunt(
+    err = _build.load(cfg).sc_hunt(
         *ptrs, N, C, int(decim.dtype == torch.bfloat16),
         int(int8_hunt), float(cfg.hunt_int8_scale), peak_scale,
         int(cfg.hunt_dtype == "f32"), _HUNT_NORMS[cfg.hunt_norm],
@@ -612,7 +613,7 @@ def extract_decode(cfg: ModemConfig, decim, dprev0, lag, phase, peak, *,
     [N, frame_symbols + 8] f32 stats: descrambled dibits, matches,
     eq_error, cfo_hz, gated, energy, lag, phase, peak.
     """
-    _build.require_kernel_geometry(cfg)
+    _build.kernel_limits(cfg)
     if decim.device.type == "cpu":
         return extract_decode_ref(cfg, decim, dprev0, lag, phase, peak,
                                   descramble=descramble)
@@ -621,7 +622,7 @@ def extract_decode(cfg: ModemConfig, decim, dprev0, lag, phase, peak, *,
     ptrs = _build.cuda_args(decim, dprev0, lag, phase, peak,
                             *_decode_tables(cfg, descramble, dev), out,
                             device=dev)
-    err = _build.load().sc_extract_decode(
+    err = _build.load(cfg).sc_extract_decode(
         *ptrs, N, C, int(decim.dtype == torch.bfloat16),
         *_build.decode_params(cfg),
         torch.cuda.current_stream(dev).cuda_stream)
@@ -635,13 +636,13 @@ def extract_gate(cfg: ModemConfig, decim, dprev0, lag, phase, peak):
     extraction and energy gate without its decode tail.  Returns the
     packed [N, frame_symbols + 8] rows, zero except gated (slot D+3),
     energy (D+4) and lag, phase, peak (D+5..D+7)."""
-    _build.require_kernel_geometry(cfg)
+    _build.kernel_limits(cfg)
     if decim.device.type == "cpu":
         return extract_gate_ref(cfg, decim, dprev0, lag, phase, peak)
     dev = decim.device
     N, C, out = _extract_operands(cfg, decim, dprev0, lag, phase, peak)
     ptrs = _build.cuda_args(decim, dprev0, lag, phase, peak, out, device=dev)
-    err = _build.load().sc_extract_gate(
+    err = _build.load(cfg).sc_extract_gate(
         *ptrs, N, C, int(decim.dtype == torch.bfloat16),
         float(cfg.effective_peak_gate),
         torch.cuda.current_stream(dev).cuda_stream)
@@ -790,7 +791,7 @@ def fused_decode_extract(cfg: ModemConfig, windows, lag, phase_idx, peak,
         raise TypeError(f"windows must be f32, got {windows.dtype}")
     lag, phase_idx = lag.to(torch.int32), phase_idx.to(torch.int32)
     _check_row_stats(N, lag, phase_idx, peak)
-    _build.require_kernel_geometry(cfg)
+    _build.kernel_limits(cfg)
     if windows.device.type == "cpu":
         out = fused_decode_extract_ref(cfg, windows, lag, phase_idx, peak,
                                        descramble=descramble)
@@ -800,7 +801,7 @@ def fused_decode_extract(cfg: ModemConfig, windows, lag, phase_idx, peak,
     ptrs = _build.cuda_args(windows, lag, phase_idx, peak,
                             *_decode_tables(cfg, descramble, dev), out,
                             device=dev)
-    err = _build.load().sc_decode_extract(
+    err = _build.load(cfg).sc_decode_extract(
         *ptrs, N, wp, *_build.decode_params(cfg),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "decode_extract")
@@ -837,7 +838,7 @@ def fused_decode(cfg: ModemConfig, pkt_r, pkt_i, peak, *,
             raise ValueError(f"expected f32 [{N}, {cfg.pkt_window}], got "
                              f"{t.dtype} {tuple(t.shape)}")
     _check_row_stats(N, None, None, peak)
-    _build.require_kernel_geometry(cfg)
+    _build.kernel_limits(cfg)
     if pkt_r.device.type == "cpu":
         out = fused_decode_ref(cfg, pkt_r, pkt_i, peak,
                                descramble=descramble)
@@ -847,7 +848,7 @@ def fused_decode(cfg: ModemConfig, pkt_r, pkt_i, peak, *,
     ptrs = _build.cuda_args(pkt_r, pkt_i, peak,
                             *_decode_tables(cfg, descramble, dev), out,
                             device=dev)
-    err = _build.load().sc_decode_packets(
+    err = _build.load(cfg).sc_decode_packets(
         *ptrs, N, *_build.decode_params(cfg),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "decode_packets")

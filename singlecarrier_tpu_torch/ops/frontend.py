@@ -42,9 +42,10 @@ previous block's raw PCM and un-rotates only the carried seed.
 full-rate 49-tap filter in f32 with no bf16 rounding, [C, frame_size]
 real and imaginary outputs; its kernel wrapper is :func:`frontend_full`.
 
-Each wrapper launches its CUDA kernel (``csrc/frontend.cu``) for
-tensors on the card and refuses, on either device, a config the kernel
-does not take; ``frontend_decim_ref``, ``frontend_rows_ref``,
+Each wrapper launches its CUDA kernel (``csrc/frontend.cu``, built for
+the config's geometry) for tensors on the card and refuses, on either
+device, a config outside ``_build.kernel_limits``;
+``frontend_decim_ref``, ``frontend_rows_ref``,
 ``frontend_decim_folded_ref``, ``frontend_rows_folded_ref`` and
 ``frontend_full_ref`` (``fused_frontend_decim_ref`` and
 ``fused_frontend_ref`` with the state out) are the plain versions, used
@@ -239,11 +240,11 @@ def frontend_decim(cfg: ModemConfig, pcm, p0r, p0i, tail0_r, tail0_i,
     fall below 2^-80 without being 0 is outside the kernel's contract
     (see :func:`frontend_rows`).
 
-    A numerology the kernels are not compiled for raises here for tensors
-    on either device.
+    A config outside ``_build.kernel_limits`` raises here for tensors on
+    either device.
     """
     fold = cfg.mixer_fold if mixer_fold is None else mixer_fold
-    _build.require_kernel_geometry(cfg)
+    _build.kernel_limits(cfg)
     if pcm.device.type == "cpu":
         ref = frontend_decim_folded_ref if fold else frontend_decim_ref
         return ref(cfg, pcm, p0r, p0i, tail0_r, tail0_i, adv)
@@ -262,7 +263,7 @@ def frontend_decim(cfg: ModemConfig, pcm, p0r, p0i, tail0_r, tail0_i,
     name, tables = _kernel_operands(cfg, "frontend_decim", fold, pcm.device)
     ptrs = _build.cuda_args(pcm, p0r, p0i, tail0_r, tail0_i, adv, *tables,
                             out, device=pcm.device)
-    err = getattr(_build.load(), "sc_" + name)(
+    err = getattr(_build.load(cfg), "sc_" + name)(
         *ptrs, B, C, int(ddt == torch.bfloat16), 1.0 / cfg.tx_amplitude,
         int(cfg.frontend_dtype == "f32"),
         torch.cuda.current_stream(pcm.device).cuda_stream)
@@ -381,11 +382,11 @@ def frontend_rows(cfg: ModemConfig, pcm, phase_r, phase_i, tail_r, tail_i,
     always is; a tail made otherwise that breaks the bound is outside the
     contract, and the planes may then differ from the plain version's.
 
-    A numerology the kernels are not compiled for raises here for tensors
-    on either device.
+    A config outside ``_build.kernel_limits`` raises here for tensors on
+    either device.
     """
     fold = cfg.mixer_fold if mixer_fold is None else mixer_fold
-    _build.require_kernel_geometry(cfg)
+    _build.kernel_limits(cfg)
     if pcm.device.type == "cpu":
         ref = frontend_rows_folded_ref if fold else frontend_rows_ref
         return ref(cfg, pcm, phase_r, phase_i, tail_r, tail_i,
@@ -405,7 +406,7 @@ def frontend_rows(cfg: ModemConfig, pcm, phase_r, phase_i, tail_r, tail_i,
     name, tables = _kernel_operands(cfg, "frontend_rows", fold, dev)
     ptrs = _build.cuda_args(pcm, phase_r, phase_i, tail_r, tail_i, *tables,
                             out, device=dev)
-    err = getattr(_build.load(), "sc_" + name)(
+    err = getattr(_build.load(cfg), "sc_" + name)(
         *ptrs, N, layout, 1.0 / cfg.tx_amplitude,
         int(cfg.frontend_dtype == "f32"),
         torch.cuda.current_stream(dev).cuda_stream)
@@ -480,8 +481,8 @@ def frontend_full(cfg: ModemConfig, pcm, phase_r, phase_i, tail_r, tail_i):
     y[p][t] = sum_k (taps[k] * gain) * u[p][t + k] in ascending k over
     u = [tail | downmixed block].  Returns [C, 2, frame_size] f32 (the
     kernel of :func:`fused_frontend`, whose arguments these are).  A
-    numerology the kernel is not compiled for raises on either device."""
-    _build.require_kernel_geometry(cfg)
+    config outside ``_build.kernel_limits`` raises on either device."""
+    _build.kernel_limits(cfg)
     if pcm.device.type == "cpu":
         return frontend_full_ref(cfg, pcm, phase_r, phase_i, tail_r, tail_i)
     _check_row_operands(cfg, pcm, phase_r, phase_i, tail_r, tail_i)
@@ -491,7 +492,7 @@ def frontend_full(cfg: ModemConfig, pcm, phase_r, phase_i, tail_r, tail_i):
     ptrs = _build.cuda_args(pcm, phase_r, phase_i, tail_r, tail_i,
                             _mixer_planes(cfg, dev), _full_taps(cfg, dev),
                             out, device=dev)
-    err = _build.load().sc_frontend_full(
+    err = _build.load(cfg).sc_frontend_full(
         *ptrs, C, 1.0 / cfg.tx_amplitude, float(cfg.fir_gain),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "frontend_full")

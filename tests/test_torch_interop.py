@@ -312,9 +312,9 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="frac_timing"):
         prod_rx_batch(TCFG.replace(frac_timing=True), state, pcm,
                       fuse_frontend=True)
-    cfg = TCFG.replace(eq_length=7)
-    with pytest.raises(NotImplementedError, match="numerolog"):
-        _build.require_kernel_geometry(cfg)
+    cfg = TCFG.replace(corr_segments=32)
+    with pytest.raises(NotImplementedError, match="corr_segments"):
+        _build.kernel_limits(cfg)
 
 
 @pytest.mark.parametrize("frac_timing", [False, True],
@@ -370,61 +370,112 @@ def test_unfused_stream_and_xla_fn_match_jax(golden, frac_timing):
     agree(o_t, o_j)
 
 
-def _wrapper_calls():
-    """Every kernel wrapper with CPU operands of the reference shapes
-    (N = 2 rows, one block of C = 2 channels)."""
+def _wrapper_calls(cfg):
+    """Every kernel wrapper with seeded CPU operands of ``cfg``'s shapes
+    (N = 2 rows, one block of C = 2 channels): {name: (call, plain)},
+    each taking the config to run at; ``plain`` calls the wrapper's plain
+    version directly."""
     from singlecarrier_tpu_torch.ops import decode, frontend
-    n, halo, cyc, n_sym = 1880, 48, 5, 376
+    n, halo, cyc = cfg.frame_size, cfg.ntaps - 1, cfg.cycles
+    n_sym, pkt = cfg.symbols_per_block, cfg.pkt_window
+    wp = -(-(n_sym - 1 + pkt) // 128) * 128
+    gen = torch.Generator().manual_seed(7)
     f32 = dict(dtype=torch.float32)
-    pcm = torch.zeros((2, n), dtype=torch.int16)
-    ph, tail = torch.ones((2,), **f32), torch.zeros((2, halo), **f32)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, **f32)
+
+    pcm = torch.randint(-16384, 16384, (2, n), generator=gen,
+                        dtype=torch.int16)
+    ang = torch.rand((2,), generator=gen) * 6.0
+    ph_r, ph_i = torch.cos(ang), torch.sin(ang)
+    tail_r, tail_i = rand(2, halo) * 0.1, rand(2, halo) * 0.1
     adv = torch.tensor([[1.0], [0.0]])
-    planes = torch.zeros((cyc, 2, 2, n_sym), **f32)
-    lag = torch.zeros((2,), dtype=torch.int32)
+    planes = rand(cyc, 2, 2, n_sym) * 0.5
+    prev = rand(cyc, 2, 2, n_sym) * 0.5
+    lag = torch.randint(0, n_sym, (2,), generator=gen, dtype=torch.int32)
+    phase = torch.randint(0, cyc, (2,), generator=gen, dtype=torch.int32)
     peak = torch.ones((2,), **f32)
-    wins = torch.zeros((2, cyc, 2, 768), **f32)
-    pkt = torch.zeros((2, 384), **f32)
-    rows = (pcm, ph, ph, tail, tail)
-    batch = (pcm[None], ph, ph, tail, tail, adv)
+    wins = rand(2, cyc, 2, wp) * 0.5
+    pkt_r, pkt_i = rand(2, pkt) * 0.5, rand(2, pkt) * 0.5
+    rows = (pcm, ph_r, ph_i, tail_r, tail_i)
+    batch = (pcm[None], ph_r, ph_i, tail_r, tail_i, adv)
+    ext = (planes, prev, lag, phase, peak)
     return {
-        "frontend_decim": lambda c: frontend.frontend_decim(c, *batch),
-        "frontend_decim folded": lambda c: frontend.frontend_decim(
-            c, *batch, mixer_fold=True),
-        "frontend_rows": lambda c: frontend.frontend_rows(c, *rows),
-        "frontend_rows folded": lambda c: frontend.frontend_rows(
-            c, *rows, mixer_fold=True),
-        "frontend_full": lambda c: frontend.frontend_full(c, *rows),
-        "hunt": lambda c: decode.hunt(c, planes, planes),
-        "extract_decode": lambda c: decode.extract_decode(
-            c, planes, planes, lag, lag, peak),
-        "extract_gate": lambda c: decode.extract_gate(
-            c, planes, planes, lag, lag, peak),
-        "fused_decode_extract": lambda c: decode.fused_decode_extract(
-            c, wins, lag, lag, peak),
-        "fused_decode": lambda c: decode.fused_decode(c, pkt, pkt, peak),
+        "frontend_decim": (
+            lambda c: frontend.frontend_decim(c, *batch),
+            lambda c: frontend.frontend_decim_ref(c, *batch)),
+        "frontend_decim folded": (
+            lambda c: frontend.frontend_decim(c, *batch, mixer_fold=True),
+            lambda c: frontend.frontend_decim_folded_ref(c, *batch)),
+        "frontend_rows": (
+            lambda c: frontend.frontend_rows(c, *rows),
+            lambda c: frontend.frontend_rows_ref(c, *rows)),
+        "frontend_rows folded": (
+            lambda c: frontend.frontend_rows(c, *rows, mixer_fold=True),
+            lambda c: frontend.frontend_rows_folded_ref(c, *rows)),
+        "frontend_full": (
+            lambda c: frontend.frontend_full(c, *rows),
+            lambda c: frontend.frontend_full_ref(c, *rows)),
+        "hunt": (lambda c: decode.hunt(c, planes, prev),
+                 lambda c: decode.hunt_ref(c, planes, prev)),
+        "extract_decode": (
+            lambda c: decode.extract_decode(c, *ext),
+            lambda c: decode.extract_decode_ref(c, *ext)),
+        "extract_gate": (
+            lambda c: decode.extract_gate(c, *ext),
+            lambda c: decode.extract_gate_ref(c, *ext)),
+        "fused_decode_extract": (
+            lambda c: decode.fused_decode_extract(c, wins, lag, phase, peak),
+            lambda c: decode.stat_dict(c, decode.fused_decode_extract_ref(
+                c, wins, lag, phase, peak), hunt=False)),
+        "fused_decode": (
+            lambda c: decode.fused_decode(c, pkt_r, pkt_i, peak),
+            lambda c: decode.stat_dict(c, decode.fused_decode_ref(
+                c, pkt_r, pkt_i, peak), hunt=False)),
     }
 
 
 _DECIMATING = ("frontend_decim", "frontend_decim folded", "frontend_rows",
                "frontend_rows folded")
+_WRAPPERS = (*_DECIMATING, "frontend_full", "hunt", "extract_decode",
+             "extract_gate", "fused_decode_extract", "fused_decode")
+
+
+def _leaves(out):
+    if isinstance(out, dict):
+        return [out[k] for k in sorted(out)]
+    return list(out) if isinstance(out, tuple) else [out]
 
 
 @pytest.mark.parametrize("wrapper,refused", [
-    *((w, "corr_segments=4") for w in (*_DECIMATING, "frontend_full", "hunt",
-                                       "extract_decode", "extract_gate",
-                                       "fused_decode_extract",
-                                       "fused_decode")),
+    *((w, "corr_segments=3") for w in _WRAPPERS),
 ])
 def test_wrappers_refuse_on_the_cpu_what_the_card_refuses(wrapper, refused):
-    """A config the kernel refuses raises for CPU tensors too, before
-    the plain version runs: a numerology the kernels are not compiled
-    for."""
+    """A config outside the kernels' limits (``_build.kernel_limits``)
+    raises for CPU tensors too, before the plain version runs, naming the
+    limit."""
     knob, value = refused.split("=")
     cfg = TCFG.replace(**{knob: int(value)})
-    call = _wrapper_calls()[wrapper]
+    call, _ = _wrapper_calls(TCFG)[wrapper]
     call(TCFG)                                   # the operands are right
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match=re.escape("corr_segments in (4, 8, 16)")):
         call(cfg)
+
+
+@pytest.mark.parametrize("wrapper", _WRAPPERS)
+def test_wrappers_run_another_geometry_on_the_cpu(wrapper):
+    """A config inside the limits with other compiled-in shapes than the
+    reference (``corr_segments=4``: segments of 32 chips) runs every
+    wrapper on the CPU, and equals its plain version called directly."""
+    cfg = TCFG.replace(corr_segments=4)
+    assert _build.kernel_geometry(cfg)
+    call, plain = _wrapper_calls(cfg)[wrapper]
+    got, want = _leaves(call(cfg)), _leaves(plain(cfg))
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 def test_cpu_tensors_take_the_plain_path():
