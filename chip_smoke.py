@@ -94,6 +94,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  chained dispatches of full-scale noise (samples/s, the
                  three kernels beside their bounds, peak memory, launches)
                  and every kernel at 32,768 rows beside its bound;
+                 (k) the faithful receiver ``rx_stream`` (plain PyTorch,
+                 no kernel: the launch counters stay at 0): the C
+                 harness's ``tx_pcm`` on 8192 channels, every channel
+                 equal to the C fixture ``rxt_*`` and, at 20 Hz,
+                 ``f20_rxt_*`` (matches there equal to the port's own CPU
+                 run); 32 channels of it at delays over 0..1879 and
+                 ``blocked=32`` on 8192 channels at every delay, each
+                 held to the port's CPU run of the same channels; the
+                 five other numerologies at which the JAX package's
+                 faithful path runs, 128 channels of each one's own TX,
+                 held to the CPU run; then its rates at 8192 and 65,536
+                 channels x 8 chained frames, exact and blocked, with
+                 the host's enqueue time, the launches of one frame,
+                 peak memory and the TPU records as history;
   6. timing   -- chained dispatches of the main path (premix, then
                  ``mixer_fold=True``: (d1)), of the gated RX, of (a) and
                  of (d2), (a) with ``mixer_fold=True`` (8192 x 128
@@ -1720,6 +1734,248 @@ def _numerology_phase(torch, np, gen, dev, builds, drive, smi_line) -> dict:
     return geometries
 
 
+# ---- (k) the faithful receiver (modem/rx.py): plain PyTorch, no kernel
+
+K_CH = 8192                  # channels of the C harness's stream
+K_DELAYED = 32               # channels at delays 0..1879, against the CPU
+K_BLOCK = 32                 # the blocked equalizer's block
+K_NUM_CH = 128               # channels of each numerology's own TX
+K_NUM_PACKETS = 4
+K_TIME_CH = (8192, 65536)    # timed widths, each K_TIME_FRAMES chained
+K_TIME_FRAMES = 8
+# the numerologies other than the reference at which the JAX package's
+# faithful rx_stream runs (seg4, seg16 and nfft1024 do not reach it)
+K_NUMEROLOGIES = ("alt_9600", "tiny_payload", "mid_payload", "ns4", "eq7")
+K_RECORDS = ("BENCH_FAITHFUL.json", "BENCH_FAITHFUL_BLOCKED.json")
+
+
+def _host(out):
+    """An RxOut of tensors -> the same of numpy arrays."""
+    return type(out)(*(x.cpu().numpy() for x in out))
+
+
+def _first(np, mask, *arrays) -> str:
+    """The first few (frame, channel) pairs where ``mask`` holds, with the
+    arrays' values there."""
+    at = np.argwhere(mask)[:4]
+    return f"{len(np.argwhere(mask))} at {at.tolist()}: " + " vs ".join(
+        str(a[tuple(at.T)].tolist()) for a in arrays)
+
+
+def _faithful_agree(np, got, want, what: str) -> int:
+    """(k)'s criterion of a card run against the port's CPU run of the
+    same channels ([frames, C] leaves): valid, max_index, matches and the
+    bits of valid frames equal; max_value, mean and eof_cost within 1e-4
+    of their scale.  Returns the bit rows of invalid frames that differ
+    (the miss branch's slicing, reported)."""
+    for name in ("valid", "max_index", "matches"):
+        g, w = getattr(got, name), getattr(want, name)
+        _require(np.array_equal(g, w), f"(k) {what}: {name} differs "
+                 f"from the CPU run, " + _first(np, g != w, g, w))
+    rows = (got.bits != want.bits).any(-1)
+    _require(not (rows & want.valid).any(), f"(k) {what}: the bits of "
+             f"valid frames differ, " + _first(np, rows & want.valid,
+                                                want.matches))
+    for name in ("max_value", "mean", "eof_cost"):
+        g, w = getattr(got, name), getattr(want, name)
+        scale = max(float(np.abs(w).max()), 1e-30)
+        _require(float(np.abs(g - w).max()) <= 1e-4 * scale,
+                 f"(k) {what}: {name} off by {np.abs(g - w).max():.3e} at "
+                 f"scale {scale:.3e}")
+    return int(rows.sum())
+
+
+def _faithful_vs_c(np, out, timing, golden, tag: str, what: str,
+                   matches=None) -> None:
+    """Every channel of ``out`` ([frames, C] numpy leaves) against the C
+    fixture ``tag``: valid, max_index, the bits of valid frames and the
+    final rx_timing equal; max_value and mean within rtol 1e-3; matches
+    equal to ``matches`` (the C's by default)."""
+    valid = golden[f"{tag}_valid"].astype(bool)
+    want = {"valid": valid, "max_index": golden[f"{tag}_max_index"],
+            "matches": golden[f"{tag}_matches"] if matches is None
+            else matches}
+    for name, w in want.items():
+        g = getattr(out, name)
+        _require((g == w[:, None]).all(), f"(k) {what}: {name} differs "
+                 f"from {tag}_{name}, " + _first(
+                     np, g != w[:, None], g, np.broadcast_to(
+                         w[:, None], g.shape)))
+    bits = golden[f"{tag}_bits"][valid]
+    _require((out.bits[valid] == bits[:, None]).all(),
+             f"(k) {what}: the bits of valid frames differ from {tag}")
+    _require((timing == golden[f"{tag}_rx_timing"][-1]).all(),
+             f"(k) {what}: final rx_timing {np.unique(timing).tolist()}, "
+             f"the C {golden[f'{tag}_rx_timing'][-1]}")
+    for name in ("max_value", "mean"):
+        _require(np.allclose(getattr(out, name),
+                             golden[f"{tag}_{name}"][:, None], rtol=1e-3,
+                             atol=1e-3), f"(k) {what}: {name} off")
+
+
+def _faithful_phase(torch, np, golden, dev, here: str, smi_line: str):
+    """(k): the faithful RX on the card against the C fixtures and the
+    port's CPU runs, then its rates."""
+    from singlecarrier_tpu_torch import DEFAULT_CONFIG
+    from singlecarrier_tpu_torch.modem import rx_init, rx_stream
+    from singlecarrier_tpu_torch.ops import _build
+
+    cfg = DEFAULT_CONFIG
+    n = cfg.frame_size
+    pcm = golden["tx_pcm"].astype(np.int16)
+    nf = len(pcm) // n
+    harness = torch.from_numpy(pcm[:nf * n].reshape(nf, 1, n)).to(dev)
+
+    def run(cfg_, frames, C, device=dev, **kw):
+        st, out = rx_stream(cfg_, rx_init(cfg_, (C,), device=device),
+                            frames.to(device), **kw)
+        return st.rx_timing.cpu().numpy(), _host(out)
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    # the C harness's stream on K_CH channels, at 0 Hz and at 20 Hz
+    timing, out = run(cfg, harness.expand(-1, K_CH, -1), K_CH)
+    _faithful_vs_c(np, out, timing, golden, "rxt", f"{K_CH} channels")
+    _, cpu20 = run(cfg, harness.cpu(), 1, "cpu", freq_offset=20.0)
+    timing, out = run(cfg, harness.expand(-1, K_CH, -1), K_CH,
+                      freq_offset=20.0)
+    _faithful_vs_c(np, out, timing, golden, "f20_rxt",
+                   f"{K_CH} channels at 20 Hz", matches=cpu20.matches[:, 0])
+    knife = np.nonzero(cpu20.matches[:, 0] != golden["f20_rxt_matches"])[0]
+    print(f"[faithful] (k) tx_pcm on {K_CH} channels: every channel equals "
+          f"rxt_* and f20_rxt_* (valid {int(out.valid[:, 0].sum())} of "
+          f"{nf} frames at 20 Hz); matches at 20 Hz equal the port's CPU "
+          f"run, which leaves the C at frames {knife.tolist()} "
+          f"({cpu20.matches[knife, 0].tolist()} vs the C's "
+          f"{golden['f20_rxt_matches'][knife].tolist()}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # delayed channels and the blocked equalizer, against the CPU
+    tx = torch.from_numpy(pcm).to(dev)
+    nb = -(-(len(pcm) + n) // n) + 1
+    offsets = torch.arange(K_CH, device=dev) % n
+    frames = _frames(_golden_stream(torch, tx, K_CH, nb * n, offsets, dev),
+                     nb, n)
+    sub = frames[:, ::K_CH // K_DELAYED]            # delays 0, 235, ..
+    _, got = run(cfg, sub, K_DELAYED)
+    _, want = run(cfg, sub, K_DELAYED, "cpu")
+    odd = _faithful_agree(np, got, want, f"{K_DELAYED} delayed channels")
+    print(f"[faithful] (k) {K_DELAYED} channels at delays "
+          f"{offsets[::K_CH // K_DELAYED][:3].tolist()}.. on {nb} frames: "
+          f"the card equals the CPU ({int(want.valid.sum())} valid, "
+          f"{odd} invalid frames' bit rows differ)", flush=True)
+    _, got = run(cfg, frames, K_CH, blocked=K_BLOCK)
+    _, want = run(cfg, frames, K_CH, "cpu", blocked=K_BLOCK)
+    odd = _faithful_agree(np, got, want, f"blocked={K_BLOCK}, {K_CH} ch")
+    print(f"[faithful] (k) blocked={K_BLOCK} on {K_CH} channels at delays "
+          f"0..{n - 1}, {nb} frames: the card equals the CPU "
+          f"({int(want.valid.sum())} valid, {odd} invalid frames' bit rows "
+          f"differ)", flush=True)
+    del frames, sub, got, want
+
+    # the other numerologies, each on its own TX
+    for tag in K_NUMEROLOGIES:
+        ncfg = DEFAULT_CONFIG.replace(**_build.NUMEROLOGIES[tag])
+        nn = ncfg.frame_size
+        ntx = _numerology_tx(torch, np, ncfg, dev, K_NUM_PACKETS)
+        nbk = -(-(ntx.numel() + nn) // nn) + 1
+        offs = (torch.arange(K_NUM_CH, device=dev) * nn) // K_NUM_CH
+        nfr = _frames(_golden_stream(torch, ntx, K_NUM_CH, nbk * nn, offs,
+                                     dev), nbk, nn)
+        _, got = run(ncfg, nfr, K_NUM_CH)
+        _, want = run(ncfg, nfr, K_NUM_CH, "cpu")
+        odd = _faithful_agree(np, got, want, tag)
+        _require(want.valid.sum() >= K_NUM_CH, f"(k) {tag}: "
+                 f"{int(want.valid.sum())} detections")
+        print(f"[faithful] (k) {tag}: {K_NUM_CH} ch x {nbk} frames of "
+              f"{K_NUM_PACKETS} packets: the card equals the CPU "
+              f"({int(want.valid.sum())} valid, {odd} invalid frames' bit "
+              f"rows differ)", flush=True)
+    _require(not any(_build.LAUNCHES.values()),
+             f"(k) the faithful path launched a kernel: {_build.LAUNCHES}")
+    _faithful_timing(torch, np, cfg, dev, here, smi_line)
+
+
+def _faithful_timing(torch, np, cfg, dev, here: str, smi_line: str):
+    """(k)'s rates: K_TIME_FRAMES chained frames of full-scale noise at
+    each width of K_TIME_CH, exact and blocked, one synchronize; the
+    host's enqueue time; the launches of one frame; peak memory."""
+    from singlecarrier_tpu_torch.modem import rx_frame, rx_init, rx_stream
+
+    n = cfg.frame_size
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    for C in K_TIME_CH:
+        noise = torch.randint(-16384, 16384, (K_TIME_FRAMES, C, n),
+                              generator=gen, device=dev, dtype=torch.int16)
+        for blocked in (0, K_BLOCK):
+            st, _ = rx_stream(cfg, rx_init(cfg, (C,)), noise[:1],
+                              blocked=blocked)                 # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rx_stream(cfg, st, noise, blocked=blocked)
+            enqueued = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rate = K_TIME_FRAMES * C * n / wall
+            print(f"[timing] (k) faithful rx_stream"
+                  f"{f' blocked={blocked}' if blocked else ''} {C} ch x "
+                  f"{K_TIME_FRAMES} chained frames: {wall:.3f} s (the host "
+                  f"had enqueued it after {enqueued:.3f} s), {rate:.4e} "
+                  f"samples/s = {rate / cfg.fs:.1f} real-time channels; "
+                  f"peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                  f"{smi_line}", flush=True)
+            if C == K_TIME_CH[0]:
+                counts = _launches_of(torch, lambda: rx_frame(
+                    cfg, st, noise[0], blocked=blocked))
+                print(f"[timing] (k) one frame at {C} ch"
+                      f"{f', blocked={blocked}' if blocked else ''}: "
+                      f"{counts}; {smi_line}", flush=True)
+        del noise, st
+    for name in K_RECORDS:
+        with open(os.path.join(here, name)) as f:
+            rec = json.load(f)
+        print(f"[timing] (k) TPU history, not a target: {name} "
+              f"{rec['metric']} {rec['value']} samples/s on "
+              f"{rec['detail']['device']} ({rec['detail']['channels']} ch x "
+              f"{rec['detail']['blocks_per_iter']} blocks)", flush=True)
+
+
+def _launches_of(torch, fn) -> str:
+    """The kernel launches and the aten operations of one call of ``fn``
+    (``torch.profiler`` and a dispatch counter), as a phrase."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class _Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            _Count.ops += 1
+            return func(*args, **(kwargs or {}))
+
+    with _Count():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    launches = sum(e.count for e in ka if "LaunchKernel" in e.key)
+    on_card = [e for e in ka
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = (f"{sum(e.count for e in on_card)} device kernels "
+               f"({sum(e.self_device_time_total for e in on_card) / 1e3:.1f}"
+               f" ms of device time)" if on_card else
+               "device kernels not measured (the profiler recorded none)")
+    return (f"{launches} kernel launches (the profiler's runtime calls), "
+            f"{kernels}, {_Count.ops} aten operations dispatched (views "
+            f"included)")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2099,6 +2355,12 @@ def main() -> int:
                                    smi_line)
     print(f"[numerology] (j) {len(_build.NUMEROLOGIES)} numerologies: "
           f"{time.perf_counter() - t0:.1f} s; {smi_line}", flush=True)
+
+    # ---- (k) the faithful receiver ----
+    t0 = time.perf_counter()
+    _faithful_phase(torch, np, golden, dev, here, smi_line)
+    print(f"[faithful] (k) {time.perf_counter() - t0:.1f} s; {smi_line}",
+          flush=True)
 
     _require(all(path_launches.get(k, 0) > 0 for k in KERNELS),
              f"a kernel was launched on no path: {path_launches}")

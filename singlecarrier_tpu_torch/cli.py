@@ -6,6 +6,7 @@ says otherwise.
 Usage:
   python -m singlecarrier_tpu_torch mod --out tx.raw --packets 10
   python -m singlecarrier_tpu_torch demod --in tx.raw
+  python -m singlecarrier_tpu_torch demod --in tx.raw --mode faithful
   python -m singlecarrier_tpu_torch loopback --packets 10
   python -m singlecarrier_tpu_torch ber --snrs 0,2,4,6,8
   python -m singlecarrier_tpu_torch info
@@ -119,15 +120,33 @@ def cmd_mod(args) -> int:
     return 0
 
 
+def _demod_faithful(cfg: ModemConfig, frames: np.ndarray, dev,
+                    freq_offset: float) -> int:
+    """``demod --mode faithful``: the faithful RX over [n, frame_size]
+    frames, a JSON line per detected frame."""
+    from .modem import make_rx_stream_fn, rx_init
+    fn = make_rx_stream_fn(cfg, freq_offset=freq_offset)
+    _, out = fn(rx_init(cfg, device=dev), torch.from_numpy(frames))
+    out = type(out)(*(v.cpu().numpy() for v in out))
+    for fr in np.nonzero(out.valid)[0]:
+        print(json.dumps({
+            "frame": int(fr),
+            "max_index": int(out.max_index[fr]),
+            "matches": int(out.matches[fr]),
+            "bits": "".join(map(str, out.bits[fr])),
+        }))
+    print(f"{int(out.valid.sum())} packets detected in {len(frames)} "
+          f"blocks", file=sys.stderr)
+    return 0
+
+
 def cmd_demod(args) -> int:
     cfg = _cfg_from(args)
-    if args.mode == "faithful":
-        raise NotImplementedError(
-            "demod --mode faithful is not ported yet; ROADMAP: Faithful "
-            "path (modem/rx.py and the Kalman equalizer)")
     dev = resolve_device(args.device)
     frames = _frames(cfg, np.fromfile(getattr(args, "in"), dtype="<i2"),
                      np.int16)
+    if args.mode == "faithful":
+        return _demod_faithful(cfg, frames, dev, args.freq_offset)
     out = _run_rx(cfg, frames, dev, args.descramble)
     for fr in np.nonzero(out.valid)[0]:
         print(json.dumps({
@@ -212,8 +231,7 @@ def main(argv=None) -> int:
     p.add_argument("--descramble", action="store_true", default=False)
     p.add_argument("--mode", choices=["production", "faithful"],
                    default="production",
-                   help="faithful = bit-parity with the C reference "
-                        "(not ported yet)")
+                   help="faithful = bit-parity with the C reference")
     p.add_argument("--freq-offset", type=float, default=0.0,
                    help="faithful-mode RX carrier offset (FOFFSET)")
     p.set_defaults(fn=cmd_demod)

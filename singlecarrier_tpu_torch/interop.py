@@ -8,7 +8,8 @@ phase_i, fir_tail_r, fir_tail_i, decim_prev_t)``, where
 ``decim_prev_t`` may be ``ml_dtypes.bfloat16``) or the complex
 ``ProdRxState`` (phase c64 [C], fir_tail c64 [C, ntaps-1], decim_prev
 c64 [C, cycles, n_sym]) or the ``GatedRxState`` (the plane state plus
-two int16 PCM leaves).  ``torch.from_numpy`` refuses bf16, so bf16
+two int16 PCM leaves) or the faithful path's ``RxState`` (four complex64
+and three int32 leaves).  ``torch.from_numpy`` refuses bf16, so bf16
 crosses as its raw 16-bit pattern.  Tensors are made on the card unless
 ``device`` says otherwise.
 """
@@ -20,6 +21,7 @@ import torch
 
 from .config import ModemConfig
 from .device import resolve_device
+from .modem.rx import RxState
 from .modem.rx_gated import GatedRxState
 from .modem.rx_production import ProdRxState
 
@@ -87,3 +89,20 @@ def gated_state_to_numpy(state: GatedRxState):
     pcm_prev2_tail)`` of numpy arrays."""
     return (planes_to_numpy(state.planes), _to_numpy(state.pcm_prev),
             _to_numpy(state.pcm_prev2_tail))
+
+
+_RX_DTYPES = (np.complex64,) * 4 + (np.int32,) * 3   # RxState's leaves
+
+
+def rx_state_from_numpy(state, device=None) -> RxState:
+    """JAX ``RxState`` leaves (numpy arrays, in field order: phase,
+    fir_tail, raw_prev, decim_prev complex64; rx_timing,
+    scramble_offset, sm_state int32) -> the port's ``RxState``."""
+    dev = resolve_device(device)
+    return RxState(*(_to_torch(np.asarray(a, dt), dev)
+                     for a, dt in zip(state, _RX_DTYPES)))
+
+
+def rx_state_to_numpy(state: RxState):
+    """The port's ``RxState`` -> tuple of numpy arrays in field order."""
+    return tuple(_to_numpy(t) for t in state)

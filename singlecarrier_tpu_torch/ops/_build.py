@@ -26,8 +26,10 @@ it in the wrappers' hands for a ``with`` block.  ``kernel_ab.py`` uses
 them to hold two builds against each other on the card.
 
 Module state: the library handles (the reference geometry's, and the
-others' by their defines) and :data:`LAUNCHES`, the per-kernel launch
-counters (each wrapper adds one where it launches its kernel).
+others' by their defines), a lock per library (threads that build or
+load one geometry at once wait for one build) and :data:`LAUNCHES`, the
+per-kernel launch counters (each wrapper adds one where it launches its
+kernel).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -57,6 +60,8 @@ LAUNCHES = {"frontend_decim": 0, "frontend_rows": 0, "hunt": 0,
 
 _lib = None          # the reference geometry's library
 _libs = {}           # every other geometry's, by its defines
+_locks = {}          # a lock per library path and per loaded geometry
+_locks_guard = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -103,6 +108,12 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def _lock(key) -> threading.Lock:
+    """The one lock of ``key`` (made on first use)."""
+    with _locks_guard:
+        return _locks.setdefault(key, threading.Lock())
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -134,9 +145,18 @@ def build(verbose: bool = False, *, csrc: Path = CSRC,
     lib_path = BUILD_DIR / f"libsc_kernels_{_digest(Path(csrc), flags)}.so"
     if lib_path.exists() and not verbose:
         return lib_path, ""
+    with _lock(lib_path):               # one build of a library at a time
+        if lib_path.exists() and not verbose:
+            return lib_path, ""
+        return lib_path, _compile(lib_path, csrc, flags, verbose)
+
+
+def _compile(lib_path: Path, csrc, flags, verbose: bool) -> str:
+    """Compile the sources into ``lib_path``; return the compiler output.
+    The temporary files are named by process and thread."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    tag = f"{lib_path.stem}.{os.getpid()}"
+    tag = f"{lib_path.stem}.{os.getpid()}.{threading.get_ident()}"
     objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
     procs = [subprocess.Popen(
         [nvcc, *flags, *(["-Xptxas", "-v"] if verbose else []), "-c",
@@ -160,7 +180,7 @@ def build(verbose: bool = False, *, csrc: Path = CSRC,
         for obj in objs:
             obj.unlink(missing_ok=True)
     os.replace(tmp, lib_path)
-    return lib_path, "".join(logs) + res.stdout + res.stderr
+    return "".join(logs) + res.stdout + res.stderr
 
 
 def bind(path: Path):
@@ -180,13 +200,17 @@ def load(cfg=None):
     one by default), built on first use."""
     global _lib
     defines = kernel_geometry(cfg) if cfg is not None else ()
-    if not defines:
-        if _lib is None:
-            _lib = bind(build()[0])
-        return _lib
-    if defines not in _libs:
-        _libs[defines] = bind(build(defines=defines)[0])
-    return _libs[defines]
+    lib = _libs.get(defines) if defines else _lib
+    if lib is not None:
+        return lib
+    with _lock(("load", defines)):      # one thread builds, the rest wait
+        if not defines:
+            if _lib is None:
+                _lib = bind(build()[0])
+            return _lib
+        if defines not in _libs:
+            _libs[defines] = bind(build(defines=defines)[0])
+        return _libs[defines]
 
 
 @contextlib.contextmanager

@@ -195,9 +195,11 @@ def test_the_card_is_the_default_device():
     """Without ``device`` the constructors make CUDA tensors, and raise
     where there is no card; the processing entry points follow their
     state."""
+    from singlecarrier_tpu_torch.modem import rx_frame, rx_init
     if torch.cuda.is_available():
         assert prod_rx_init_planes(TCFG, 2)[0].is_cuda
         assert prod_rx_init(TCFG, (2,)).phase.is_cuda
+        assert rx_init(TCFG, (2,)).rx_timing.is_cuda
         return
     z = np.zeros(2, np.float32)
     from singlecarrier_tpu_torch.ber import ber_run, ber_sweep
@@ -214,6 +216,10 @@ def test_the_card_is_the_default_device():
                  lambda: ber_run(TCFG, None),
                  lambda: ber_sweep(TCFG, [4.0]),
                  lambda: cli_main(["loopback", "--packets", "1"]),
+                 lambda: cli_main(["demod", "--in", "-", "--mode",
+                                   "faithful"]),
+                 lambda: rx_init(TCFG, (2,)),
+                 lambda: interop.rx_state_from_numpy([z] * 7),
                  lambda: interop.planes_from_numpy([z]),
                  lambda: interop.state_from_numpy([z]),
                  lambda: interop.gated_state_from_numpy(([z], z, z))):
@@ -224,6 +230,8 @@ def test_the_card_is_the_default_device():
     pcm = torch.zeros((1, 2, TCFG.frame_size), dtype=torch.int16)
     new, out = prod_rx_batch(TCFG, state, pcm)
     assert out.valid.device.type == new[4].device.type == "cpu"
+    new, out = rx_frame(TCFG, rx_init(TCFG, (2,), device="cpu"), pcm[0])
+    assert out.valid.device.type == new.rx_timing.device.type == "cpu"
 
 
 def test_package_imports_without_jax():
@@ -236,8 +244,12 @@ def test_package_imports_without_jax():
             "singlecarrier_tpu_torch.__main__, "
             "singlecarrier_tpu_torch.scramble, "
             "singlecarrier_tpu_torch.adaptive.ls_equalizer, "
+            "singlecarrier_tpu_torch.adaptive.blocked_rls, "
+            "singlecarrier_tpu_torch.modem.rx, "
             "singlecarrier_tpu_torch.dsp.fir, "
             "singlecarrier_tpu_torch.dsp.fftops, "
+            "singlecarrier_tpu_torch.dsp.correlate, "
+            "singlecarrier_tpu_torch.dsp.decimate, "
             "singlecarrier_tpu_torch.utils.linalg; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'singlecarrier_tpu' or "

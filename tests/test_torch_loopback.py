@@ -8,7 +8,8 @@ other); the cast saturates as XLA's does, equal to the bit.  Channel
 impairments within 1e-5 of the output's scale; the AWGN scale with JAX's
 own normal draw fed through the port's one noise function.  BER scoring
 equal to JAX's on the same RX outputs.  The CLI's ``loopback`` and
-``demod`` print JAX's JSON lines; the one unrounded float,
+``demod`` (production and, on the C harness's stream, faithful at 0
+and 20 Hz) print JAX's JSON lines; the one unrounded float,
 ``mean_cfo_hz``, within 1e-4 Hz.
 """
 
@@ -263,7 +264,8 @@ def test_cli_loopback_prints_the_jax_cli_line(capsys):
     assert g == w == {"packets_sent": 3, "packets_detected": 3, "ber": 0.0}
 
 
-def test_cli_mod_then_demod_prints_the_jax_cli_lines(tmp_path, capsys):
+def test_cli_mod_then_demod_prints_the_jax_cli_lines(tmp_path, capsys,
+                                                     golden):
     raw, bits = str(tmp_path / "tx.raw"), str(tmp_path / "bits.npy")
     assert tcli.main(["mod", "--out", raw, "--bits-out", bits, "--packets",
                       "3", "--seed", "3", "--scramble", "--device",
@@ -277,9 +279,20 @@ def test_cli_mod_then_demod_prints_the_jax_cli_lines(tmp_path, capsys):
     assert got == want and len(got) == 3
     sent = np.load(bits).reshape(3, CFG.bits_per_frame)
     assert [r["bits"] for r in got] == ["".join(map(str, b)) for b in sent]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(["demod", "--in", raw, "--mode", "faithful", "--device",
-                   "cpu"])
+    # the faithful RX on the C harness's stream's first 8 frames, as the
+    # C at 0 and 20 Hz
+    raw = str(tmp_path / "harness.raw")
+    golden["tx_pcm"][:8 * CFG.frame_size].astype("<i2").tofile(raw)
+    for extra, tag in (([], "rxt"), (["--freq-offset", "20"], "f20_rxt")):
+        args = ["demod", "--in", raw, "--mode", "faithful", *extra]
+        assert jcli.main(args) == 0
+        want = _json_lines(capsys.readouterr().out)
+        assert tcli.main(args + ["--device", "cpu"]) == 0
+        got = _json_lines(capsys.readouterr().out)
+        assert got == want
+        valid = golden[f"{tag}_valid"][:8]
+        assert [r["frame"] for r in got if r["frame"] < 8] \
+            == np.nonzero(valid)[0].tolist()
     assert tcli.main(["info", "--device", "cpu"]) == 0
     assert json.loads(capsys.readouterr().out)["derived"]["frame_size"] \
         == CFG.frame_size
