@@ -108,6 +108,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  channels x 8 chained frames, exact and blocked, with
                  the host's enqueue time, the launches of one frame,
                  peak memory and the TPU records as history;
+                 (l) the runtime layer (``singlecarrier_tpu_torch.
+                 runtime``): the native engine's transposes at 8192
+                 channels against numpy's; phase 4's frames written
+                 interleaved to a file and read back through
+                 ``PcmDispatchSource(workers=8)`` -> ``PrefetchIngest``
+                 (pinned buffers, side-stream copies) -> ``feed`` -> the
+                 main path, every output field equal to phase 4's to the
+                 bit, the profiler showing every host-to-device copy
+                 pinned and on a stream without kernels; again with
+                 ``depth=1, inflight=0`` (each buffer refilled once) and
+                 in ring mode at 64 channels, each equal to the main path
+                 called directly; ``StreamDemodulator`` on 8192 channels
+                 against ``prod_rx_stream``; the plane state checkpointed
+                 between the dispatches and resumed, equal to the bit;
+                 ``ElasticDemodulator`` through a source fault and a NaN
+                 phase, equal to the clean run; ``checkify_step`` on a
+                 NaN phase; then the rates at 8192 x 16 blocks a dispatch
+                 on a file of full-scale noise: host assembly at 1, 4, 8
+                 and 16 workers, memcpy, ring mode, pinned and pageable
+                 H2D, compute on a resident operand (and at 128 blocks),
+                 end to end through ``feed`` with the compute stream's
+                 busy share, and which of them binds;
   6. timing   -- chained dispatches of the main path (premix, then
                  ``mixer_fold=True``: (d1)), of the gated RX, of (a) and
                  of (d2), (a) with ``mixer_fold=True`` (8192 x 128
@@ -1976,7 +1998,466 @@ def _launches_of(torch, fn) -> str:
             f"included)")
 
 
+# ---- (l) the runtime layer: native ingest into the main path, the
+# streaming demodulator, checkpoint, failover and checks, on the card
+
+L_WORKERS = (1, 4, 8, 16)   # host assembly rates at these worker counts
+L_RATE_B = 16               # blocks a dispatch of the rate runs: 493 MB
+L_RATE_DISP = 8             # dispatches of the end-to-end run
+L_RING_CH = 64              # channels of the ring-mode run
+MAIN_KERNELS = ("frontend_decim", "hunt", "extract_decode")
+# The inflight=0 run: each copy waits L_COPY_DELAY SM cycles (0.15 s at
+# 1980 MHz) behind a sleeping kernel on the side stream, and the consumer
+# spends L_HOST_WAIT seconds on the host after each dispatch's launches
+# (as one that reads its results would), so the producer is ahead and
+# takes each buffer back the moment it is handed back, copy in flight.
+L_COPY_DELAY = 300_000_000
+L_HOST_WAIT = 0.1
+
+
+def _slow_copies(torch, base):
+    """``base`` (a ``PrefetchIngest``) whose every copy starts behind a
+    kernel that sleeps ``L_COPY_DELAY`` cycles on the side stream: with a
+    consumer slower than the producer, each buffer goes back to the
+    producer while its copy is still in flight, and only the copy's event
+    keeps the producer off it.  (Undelayed, a 154 MB copy takes 3 ms and
+    has always finished before the producer's first write.)"""
+    class SlowCopies(base):
+        def put(self, host):
+            with torch.cuda.stream(self._copy_stream):
+                torch.cuda._sleep(L_COPY_DELAY)
+            return super().put(host)
+    return SlowCopies
+
+
+def _outs_equal(torch, a, b, what: str) -> None:
+    """Every output field equal to the bit."""
+    for name, x, y in zip(a._fields, a, b):
+        _require(x.dtype == y.dtype and torch.equal(x, y),
+                 f"{what}: {name} differs")
+
+
+def _h2d_in_trace(log_dir: str, kernel_names) -> str:
+    """Every host-to-device copy in the newest Chrome trace under
+    ``log_dir`` must read pinned memory and run on a stream that runs
+    none of the kernels; returns what the trace shows, as a phrase."""
+    import glob
+    files = sorted(glob.glob(os.path.join(log_dir, "*.pt.trace.json")),
+                   key=os.path.getmtime)
+    _require(bool(files), f"no Chrome trace under {log_dir}")
+    with open(files[-1]) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    h2d = [e for e in events if e.get("name", "").startswith("Memcpy HtoD")]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    _require(bool(h2d) and bool(kern), f"the trace holds {len(h2d)} "
+             f"host-to-device copies and {len(kern)} kernels")
+    pageable = [e["name"] for e in h2d if "Pinned -> Device" not in e["name"]]
+    _require(not pageable, f"host-to-device copies not from pinned memory: "
+             f"{pageable[:4]}")
+    copy_streams = {e["args"]["stream"] for e in h2d}
+    kern_streams = {e["args"]["stream"] for e in kern}
+    _require(not copy_streams & kern_streams,
+             f"copies on streams {copy_streams}, kernels on {kern_streams}")
+    ours = {e["name"] for e in kern
+            if any(k in e["name"] for k in kernel_names)}
+    _require(len(ours) == len(kernel_names),
+             f"the trace's kernels: {sorted({e['name'] for e in kern})[:8]}")
+    nbytes = sum(e["args"].get("bytes", 0) for e in h2d)
+    us = sum(e["dur"] for e in h2d)
+    return (f"{len(h2d)} host-to-device copies, all 'Pinned -> Device', "
+            f"{nbytes / 1e6:.1f} MB at {nbytes / us / 1e3:.2f} GB/s by the "
+            f"trace, on stream(s) {sorted(copy_streams)}; the {len(kern)} "
+            f"kernels ({', '.join(kernel_names)} among them) on stream(s) "
+            f"{sorted(kern_streams)}")
+
+
+def _runtime_phase(torch, np, cfg, default, frames, main_out, tx_bits,
+                   drive, dev, here: str, smi_line: str) -> None:
+    """(l): the runtime layer on the card (``singlecarrier_tpu_torch.
+    runtime``).  ``frames`` [20, 8192, 1880] and ``main_out`` are phase 4's
+    frames and outputs (two chained dispatches of 10 blocks)."""
+    import shutil
+    import tempfile
+
+    from singlecarrier_tpu_torch.modem import (
+        ProdRxOut, prod_rx_batch, prod_rx_frame, prod_rx_init,
+        prod_rx_init_planes, prod_rx_stream)
+    from singlecarrier_tpu_torch.runtime import (
+        ElasticDemodulator, StreamDemodulator, checkify_step, log_compiles,
+        restore_state, save_state, trace)
+    from singlecarrier_tpu_torch.runtime import engine
+    from singlecarrier_tpu_torch.runtime.ingest import (
+        PcmDispatchSource, PrefetchIngest, feed)
+
+    t_phase = time.perf_counter()
+    n_blocks, C, n = frames.shape
+    half = n_blocks // 2
+
+    def cat(outs):
+        return ProdRxOut(*(torch.cat(xs) for xs in zip(*outs)))
+
+    # ---- 1. the engine: its own build, transposes at full width ----
+    t0 = time.perf_counter()
+    lib = engine.load_library()
+    t_lib = time.perf_counter() - t0
+    host = frames[0].cpu().numpy()
+    t0 = time.perf_counter()
+    inter = engine.interleave(host)
+    t_i = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = engine.deinterleave(inter, C)
+    t_d = time.perf_counter() - t0
+    _require(np.array_equal(inter, host.T.reshape(-1))
+             and np.array_equal(back, host),
+             "the engine's transposes differ from numpy's")
+    print(f"[runtime] engine {os.path.relpath(lib._name, here)} (built and "
+          f"loaded in {t_lib:.2f} s): interleave and deinterleave of "
+          f"{C} channels x {n} samples equal numpy's transposes "
+          f"({host.nbytes / t_i / 1e9:.2f} and {host.nbytes / t_d / 1e9:.2f}"
+          f" GB/s, one thread)", flush=True)
+    del host, inter, back
+
+    work = tempfile.mkdtemp(prefix="runtime_", dir=os.path.join(here,
+                                                                "build"))
+    try:
+        # ---- 2. file -> ingest -> the main path, against phase 4 ----
+        path = os.path.join(work, "golden.raw")
+        frames.transpose(1, 2).contiguous().cpu().numpy().tofile(path)
+        ring_path = os.path.join(work, "golden64.raw")
+        ring_frames = frames[:, :L_RING_CH].contiguous()
+        ring_frames.transpose(1, 2).contiguous().cpu().numpy().tofile(
+            ring_path)
+
+        def ingest_run(path_, C_, blocks, n_disp, *, mode="deinterleave",
+                       workers=8, ingest_cls=PrefetchIngest, host_wait=0.0,
+                       **kw):
+            src = PcmDispatchSource(path_, C_, n, blocks, mode=mode,
+                                    workers=workers)
+            ingest = ingest_cls(src, n_disp, device=dev, **kw)
+            outs = []
+
+            def step(state, x):
+                state, out = prod_rx_batch(cfg, state, x, descramble=False,
+                                           fuse_frontend=True)
+                outs.append(out)
+                time.sleep(host_wait)
+                return state, None
+
+            state, _ = feed(ingest, ingest.put, step,
+                            prod_rx_init_planes(cfg, C_))
+            torch.cuda.synchronize()
+            src.close()
+            return state, outs
+
+        def chained(parts, C_):
+            state, outs = prod_rx_init_planes(cfg, C_), []
+            for part in parts:
+                state, out = prod_rx_batch(cfg, state, part,
+                                           descramble=False,
+                                           fuse_frontend=True)
+                outs.append(out)
+            return outs
+
+        # one dispatch at this operating point and size first: the main
+        # path's constant tables (uploads cached per config, which (i)'s
+        # and (j)'s many configs evict) reach the card once, as at a
+        # deployment's start, and not inside the profiled run
+        prod_rx_batch(cfg, prod_rx_init_planes(cfg, C), frames[:half],
+                      descramble=False, fuse_frontend=True)
+        trace_dir = os.path.join(work, "trace")
+        with log_compiles() as compiles:
+            with trace(trace_dir):
+                _, outs = drive("runtime ingest", lambda: ingest_run(
+                    path, C, half, 2), MAIN_KERNELS)
+            _outs_equal(torch, cat(outs), main_out,
+                        "ingest (workers=8, depth=2, inflight=2) vs phase 4")
+            seen = _h2d_in_trace(trace_dir, ("frontend_decim_kernel",
+                                             "hunt", "extract_decode"))
+            print(f"[runtime] file ({os.path.getsize(path) / 1e6:.0f} MB, "
+                  f"{n_blocks} blocks x {C} channels interleaved) -> "
+                  f"PcmDispatchSource(workers=8) -> PrefetchIngest(depth=2,"
+                  f" inflight=2, pinned) -> feed -> prod_rx_batch("
+                  f"fuse_frontend=True), 2 dispatches of {half} blocks: "
+                  f"every output field equal to phase 4's, to the bit; "
+                  f"the profiler: {seen}", flush=True)
+            # one spare buffer, each handed back with its copy in flight:
+            # 4 dispatches of 5 blocks through 2 buffers, against the main
+            # path called directly on the same split
+            quarter = n_blocks // 4
+            _, outs = drive("runtime ingest inflight=0", lambda: ingest_run(
+                path, C, quarter, 4, depth=1, inflight=0,
+                ingest_cls=_slow_copies(torch, PrefetchIngest),
+                host_wait=L_HOST_WAIT), MAIN_KERNELS)
+            ref = chained([frames[k:k + quarter]
+                           for k in range(0, n_blocks, quarter)], C)
+            _outs_equal(torch, cat(outs), cat(ref),
+                        "ingest (depth=1, inflight=0) vs the direct calls")
+            _decisions_agree(cat(outs), main_out,
+                             "ingest in 4 dispatches vs phase 4's 2")
+            _, outs = drive("runtime ingest ring", lambda: ingest_run(
+                ring_path, L_RING_CH, half, 2, mode="ring", workers=1),
+                MAIN_KERNELS)
+            sub = ProdRxOut(*(x[:, :L_RING_CH] for x in main_out))
+            _outs_equal(torch, cat(outs), cat(chained(
+                (ring_frames[:half], ring_frames[half:]), L_RING_CH)),
+                "ring-mode ingest vs the direct calls")
+            _outs_equal(torch, cat(outs), sub,
+                        f"ring-mode ingest vs phase 4's first {L_RING_CH} "
+                        f"channels")
+        _require(not compiles, f"the ingest runs compiled: {compiles}")
+        print(f"[runtime] depth=1, inflight=0 (2 host buffers, 4 dispatches "
+              f"of {quarter} blocks; each copy held {L_COPY_DELAY:,} cycles "
+              f"behind a sleeping kernel on the side stream and the "
+              f"consumer {L_HOST_WAIT} s on the host a dispatch, so every "
+              f"buffer goes back to a waiting producer with its copy in "
+              f"flight and is refilled once the copy's event completes): "
+              f"every field equal to the main path called "
+              f"directly on the same split, decisions equal to phase 4's; "
+              f"ring mode at {L_RING_CH} channels: every field equal to the "
+              f"direct calls and to phase 4's first {L_RING_CH} channels; "
+              f"log_compiles: none in the three runs", flush=True)
+        del outs, ref, sub, ring_frames
+
+        # ---- 3. StreamDemodulator (XLA path) against prod_rx_stream ----
+        def stream_run():
+            demod = StreamDemodulator(default, C, descramble=False)
+            return demod, [demod.push(frames[k]) for k in range(n_blocks)]
+
+        t0 = time.perf_counter()
+        sd, sd_outs = drive("runtime stream", stream_run, ())
+        t_sd = time.perf_counter() - t0
+        _, xs = prod_rx_stream(default, prod_rx_init(default, (C,)), frames,
+                               descramble=False)
+        sd_cat = ProdRxOut(*(torch.stack(x) for x in zip(*sd_outs)))
+        _decisions_agree(sd_cat, xs, "StreamDemodulator vs prod_rx_stream")
+        bits_too = ("equal to the bit" if all(
+            torch.equal(x, y) for x, y in zip(sd_cat, xs))
+            else "not all equal to the bit")
+        n_dup = _check_packets(torch, [sd_cat], tx_bits, default)
+        s = sd.metrics.summary()
+        print(f"[runtime] StreamDemodulator(library default) on {C} channels "
+              f"x {n_blocks} blocks, pushed one at a time ({t_sd:.2f} s, "
+              f"no kernel launched): 10/10 packets on every channel "
+              f"({n_dup} seam repeats), decisions equal to prod_rx_stream's"
+              f" on the same frames (every field {bits_too}); metrics: "
+              f"{s['packets']} "
+              f"packets, mean matches {s['mean_matches']:.3f}, mean cfo "
+              f"{s['mean_cfo_hz']:.4f} Hz", flush=True)
+        del xs, sd
+
+        # ---- 4. checkpoint the plane state between the two dispatches ----
+        ckpt = os.path.join(work, "planes.pt")
+
+        def resumed():
+            state, out0 = prod_rx_batch(cfg, prod_rx_init_planes(cfg, C),
+                                        frames[:half], descramble=False,
+                                        fuse_frontend=True)
+            save_state(ckpt, state, step=1)
+            state, step = restore_state(ckpt,
+                                        like=prod_rx_init_planes(cfg, C))
+            _require(step == 1 and state[4].dtype == torch.bfloat16
+                     and state[4].device == frames.device,
+                     "checkpoint: restored state")
+            return [out0, prod_rx_batch(cfg, state, frames[half:],
+                                        descramble=False,
+                                        fuse_frontend=True)[1]]
+
+        outs = drive("runtime checkpoint", resumed, MAIN_KERNELS)
+        _outs_equal(torch, cat(outs), main_out, "checkpoint and resume")
+        print(f"[runtime] checkpoint: the bf16 plane state at {C} channels "
+              f"saved after dispatch 1 ({os.path.getsize(ckpt) / 1e6:.1f} MB,"
+              f" torch.load(weights_only=True)), restored onto the card, "
+              f"dispatch 2 run from it: every field equal to the unbroken "
+              f"run's, to the bit", flush=True)
+        del outs
+
+        # ---- 5. ElasticDemodulator: a source fault and a NaN phase ----
+        faulted = {"done": False}
+
+        def source(i):
+            if i == 5 and not faulted["done"]:
+                faulted["done"] = True
+                raise IOError("injected transient ingest fault")
+            return frames[i]
+
+        def elastic():
+            ed = ElasticDemodulator(
+                default, C, checkpoint_path=os.path.join(work, "ed.pt"),
+                checkpoint_every=4, descramble=False)
+            outs = []
+            for i in range(n_blocks):
+                if i == 9:
+                    phase = ed.state.phase.clone()
+                    phase[5] = complex(float("nan"), 0.0)
+                    ed.state = ed.state._replace(phase=phase)
+                outs.append(ed.step(source))
+            return ed, outs
+
+        t0 = time.perf_counter()
+        ed, outs = drive("runtime elastic", elastic, ())
+        t_ed = time.perf_counter() - t0
+        _require(ed.recoveries >= 1, "elastic: no recovery")
+        for k, (o, ref) in enumerate(zip(outs, sd_outs)):
+            _outs_equal(torch, o, ref, f"ElasticDemodulator block {k}")
+        print(f"[runtime] ElasticDemodulator on {C} channels x {n_blocks} "
+              f"blocks, a source fault at block 5 and a NaN in channel 5's"
+              f" phase before block 9: {ed.recoveries} recoveries, every "
+              f"output field equal to the clean StreamDemodulator run's "
+              f"({t_ed:.2f} s, checkpoints every 4 blocks)", flush=True)
+        del ed, outs, sd_outs, sd_cat
+
+        # ---- 6. checkify_step flags a NaN phase on the card ----
+        step = checkify_step(lambda st, pcm: prod_rx_frame(
+            default, st, pcm, descramble=False))
+        st = prod_rx_init(default, (C,))
+        step(st, frames[0])
+        phase = st.phase.clone()
+        phase[3] = complex(float("nan"), 0.0)
+        try:
+            step(st._replace(phase=phase), frames[0])
+            flagged = ""
+        except FloatingPointError as e:
+            flagged = str(e)
+        _require("phase" in flagged, f"checkify_step: {flagged!r}")
+        print(f"[runtime] checkify_step on the card: a clean step passes, a "
+              f"NaN phase raises '{flagged}'", flush=True)
+        del st, phase
+
+        # ---- 7. rates: a file of full-scale noise, looped ----
+        _runtime_rates(torch, np, cfg, work, C, n, dev, smi_line)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[runtime] (l) {time.perf_counter() - t_phase:.1f} s; "
+          f"{smi_line}", flush=True)
+
+
+def _runtime_rates(torch, np, cfg, work: str, C: int, n: int, dev,
+                   smi_line: str) -> None:
+    """(l) 7: host assembly, memcpy, ring mode, pinned and pageable H2D,
+    compute on a resident operand and end to end through ``feed``, at
+    ``C`` channels x ``L_RATE_B`` blocks a dispatch; which one binds."""
+    from singlecarrier_tpu_torch.modem import (prod_rx_batch,
+                                               prod_rx_init_planes)
+    from singlecarrier_tpu_torch.runtime import trace
+    from singlecarrier_tpu_torch.runtime.ingest import (
+        PcmDispatchSource, PrefetchIngest, feed)
+
+    B = L_RATE_B
+    samples = B * C * n                          # a dispatch
+    nbytes = 2 * samples
+    noise = np.random.default_rng(SEED).integers(
+        -32768, 32768, size=2 * samples, dtype=np.int16)
+    npath = os.path.join(work, "noise.raw")
+    noise.tofile(npath)
+    pinned = torch.empty((B, C, n), dtype=torch.int16, pin_memory=True)
+    _require(pinned.is_pinned(), "a pinned buffer is not pinned")
+    out = pinned.numpy()
+
+    def host_rate(src, reps):
+        src.read_dispatch(out=out[:src.B])       # warm-up: scratch, cache
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            src.read_dispatch(out=out[:src.B])
+        dt = time.perf_counter() - t0
+        src.close()
+        return reps * 2 * src.B * src.C * n / dt / 1e9
+
+    assembly = {w: host_rate(PcmDispatchSource(
+        npath, C, n, B, loop=True, workers=w), 2) for w in L_WORKERS}
+    src = noise[:samples].reshape(B, C, n)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        np.copyto(out, src)
+    memcpy = 3 * nbytes / (time.perf_counter() - t0) / 1e9
+    ring = host_rate(PcmDispatchSource(npath, C, n, 2, loop=True,
+                                       mode="ring"), 1)
+    print(f"[runtime] rates, {C} channels x {B} blocks a dispatch "
+          f"({nbytes / 1e6:.1f} MB): host assembly (mmap read + blocked "
+          f"deinterleave into a pinned buffer) " + ", ".join(
+              f"{assembly[w]:.2f} GB/s at {w} workers" for w in L_WORKERS)
+          + f"; one-thread memcpy {memcpy:.2f} GB/s; ring mode (one "
+          f"thread, 2 blocks) {ring:.3f} GB/s; {os.cpu_count()} CPUs; "
+          f"{smi_line}", flush=True)
+
+    resident = torch.from_numpy(src).to(dev)
+    h2d_ms = _time_cuda(lambda: resident.copy_(pinned, non_blocking=True), 5)
+    pageable = torch.from_numpy(src)
+    pg_ms = _time_cuda(lambda: resident.copy_(pageable), 2)
+    h2d = nbytes / h2d_ms / 1e6
+    print(f"[runtime] H2D of one dispatch: pinned {h2d_ms:.3f} ms = "
+          f"{h2d:.2f} GB/s, pageable {pg_ms:.3f} ms = "
+          f"{nbytes / pg_ms / 1e6:.2f} GB/s (CUDA events); {smi_line}",
+          flush=True)
+    del pageable
+
+    def compute_rate(operand, iters):
+        state = prod_rx_init_planes(cfg, C)
+        state, _ = prod_rx_batch(cfg, state, operand, descramble=False,
+                                 fuse_frontend=True)        # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            state, _ = prod_rx_batch(cfg, state, operand, descramble=False,
+                                     fuse_frontend=True)
+        torch.cuda.synchronize()
+        return iters * operand.numel() / (time.perf_counter() - t0)
+
+    compute = compute_rate(resident, L_RATE_DISP)
+    big = resident.repeat(128 // B, 1, 1)
+    compute128 = compute_rate(big, 3)
+    del big
+    print(f"[runtime] compute only (main path on a resident operand, "
+          f"chained, one synchronize): {compute:.4e} samples/s at {C} x {B}"
+          f" x {L_RATE_DISP} dispatches, {compute128:.4e} at {C} x 128 x 3;"
+          f" {smi_line}", flush=True)
+
+    # end to end: file -> 8 workers -> pinned buffers -> side-stream
+    # copies -> the main path, the clock from the producer's start, under
+    # the profiler (its copies are checked as the first ingest run's)
+    s_src = PcmDispatchSource(npath, C, n, B, loop=True, workers=8)
+    ingest = PrefetchIngest(s_src, L_RATE_DISP, device=dev)
+    marks = []
+
+    def step(state, x):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        state, _ = prod_rx_batch(cfg, state, x, descramble=False,
+                                 fuse_frontend=True)
+        ev1.record()
+        marks.append((ev0, ev1))
+        return state, None
+
+    state = prod_rx_init_planes(cfg, C)
+    trace_dir = os.path.join(work, "trace_e2e")
+    with trace(trace_dir):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feed(ingest, ingest.put, step, state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    s_src.close()
+    seen = _h2d_in_trace(trace_dir, ("frontend_decim_kernel", "hunt",
+                                     "extract_decode"))
+    e2e = L_RATE_DISP * samples / wall
+    busy = sum(a.elapsed_time(b) for a, b in marks) / 1e3 / wall
+    bounds = {"host assembly at 8 workers": assembly[8] * 1e9 / 2,
+              "pinned H2D": h2d * 1e9 / 2, "compute": compute}
+    binds = min(bounds, key=bounds.get)
+    print(f"[runtime] end to end through feed, {L_RATE_DISP} dispatches of "
+          f"{C} x {B} from a looped file of full-scale noise: {wall:.3f} s, "
+          f"{e2e:.4e} samples/s = {e2e / cfg.fs:.1f} real-time channels; "
+          f"the compute stream busy {100 * busy:.1f}% of the window (CUDA "
+          f"events around each dispatch's kernels); in samples/s " +
+          ", ".join(f"{k} {v:.4e}" for k, v in bounds.items()) +
+          f": {binds} binds, end to end at {100 * e2e / bounds[binds]:.1f}%"
+          f" of it; the profiler over the loop: {seen}; {smi_line}",
+          flush=True)
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     import numpy as np
     import torch
 
@@ -2362,6 +2843,12 @@ def main() -> int:
     print(f"[faithful] (k) {time.perf_counter() - t0:.1f} s; {smi_line}",
           flush=True)
 
+    # ---- (l) the runtime layer ----
+    _runtime_phase(torch, np, cfg, default, frames, main_out, tx_bits,
+                   _drive, dev, here, smi_line)
+    print(f"[runtime] the script so far: "
+          f"{time.perf_counter() - t_script:.1f} s", flush=True)
+
     _require(all(path_launches.get(k, 0) > 0 for k in KERNELS),
              f"a kernel was launched on no path: {path_launches}")
     print(f"[paths] launches over the driven paths: {path_launches}",
@@ -2653,6 +3140,7 @@ def main() -> int:
                 "library_ms": None, "variants": variants[name],
                 "geometries": geometries[name]}
                for name, (src, rep, note) in KERNELS.items()]
+    print(f"[script] {time.perf_counter() - t_script:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,10 @@ Layer map:
                      oracle), prod_rx_batch, prod_rx_stream_pallas,
                      prod_rx_stream_superstep, ProdRxState and the plane
                      state; prod_rx_batch_gated and GatedRxState; the TX
+  runtime/           StreamDemodulator, the native PCM engine and the
+                     ingest (pinned buffers, side-stream copies into the
+                     main path), checkpoint and resume, failover,
+                     boundary checks, metrics, profiling
   channel, ber       impairments; BER sweeps over the three RX paths
   cli, __main__      ``python -m singlecarrier_tpu_torch info|mod|demod|
                      loopback|ber``

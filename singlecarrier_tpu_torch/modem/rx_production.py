@@ -232,15 +232,17 @@ def _hunt_planes_rows(cfg: ModemConfig, windows, col_offset: int,
                           w[:, :, 0] * w[:, :, 0] + w[:, :, 1] * w[:, :, 1])
 
     # argmax of the flattened [cyc * n_lags] metric, first maximum: the
-    # lowest lag among a phase's maxima, strict > across ascending phases
+    # lowest lag among a phase's maxima, strict > across ascending phases;
+    # a NaN counts as the maximum, as in jnp.argmax (amax propagates it)
     lags = torch.arange(n_lags, device=dev)
     mx = metric.amax(dim=-1)                                # [N, cyc]
-    first = torch.where(metric == mx[..., None], lags,
-                        n_lags).amin(dim=-1)                # [N, cyc]
+    hit = (metric == mx[..., None]) | torch.isnan(metric)
+    first = torch.where(hit, lags, n_lags).amin(dim=-1)     # [N, cyc]
     best_m, best_lag = mx[:, 0], first[:, 0]
     best_ph = torch.zeros_like(best_lag)
     for c in range(1, cyc):
-        upd = mx[:, c] > best_m
+        upd = (mx[:, c] > best_m) | (torch.isnan(mx[:, c])
+                                     & ~torch.isnan(best_m))
         best_m = torch.where(upd, mx[:, c], best_m)
         best_lag = torch.where(upd, first[:, c], best_lag)
         best_ph = torch.where(upd, torch.full_like(best_ph, c), best_ph)

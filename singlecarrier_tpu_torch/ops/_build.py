@@ -29,7 +29,8 @@ Module state: the library handles (the reference geometry's, and the
 others' by their defines), a lock per library (threads that build or
 load one geometry at once wait for one build) and :data:`LAUNCHES`, the
 per-kernel launch counters (each wrapper adds one where it launches its
-kernel).
+kernel), and :data:`COMPILE_LISTENERS`, called with a line for each
+library built and each geometry's first load (``runtime.log_compiles``).
 """
 
 from __future__ import annotations
@@ -57,6 +58,8 @@ LAUNCHES = {"frontend_decim": 0, "frontend_rows": 0, "hunt": 0,
             "extract_decode": 0, "decode_extract": 0, "decode_packets": 0,
             "frontend_decim_folded": 0, "frontend_rows_folded": 0,
             "extract_gate": 0, "frontend_full": 0}
+
+COMPILE_LISTENERS = []   # callables taking one line per build or first load
 
 _lib = None          # the reference geometry's library
 _libs = {}           # every other geometry's, by its defines
@@ -108,6 +111,11 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def _notify(event: str) -> None:
+    for listener in list(COMPILE_LISTENERS):
+        listener(event)
+
+
 def _lock(key) -> threading.Lock:
     """The one lock of ``key`` (made on first use)."""
     with _locks_guard:
@@ -148,7 +156,9 @@ def build(verbose: bool = False, *, csrc: Path = CSRC,
     with _lock(lib_path):               # one build of a library at a time
         if lib_path.exists() and not verbose:
             return lib_path, ""
-        return lib_path, _compile(lib_path, csrc, flags, verbose)
+        log = _compile(lib_path, csrc, flags, verbose)
+    _notify(f"built {lib_path.name} (defines {list(defines)})")
+    return lib_path, log
 
 
 def _compile(lib_path: Path, csrc, flags, verbose: bool) -> str:
@@ -207,9 +217,11 @@ def load(cfg=None):
         if not defines:
             if _lib is None:
                 _lib = bind(build()[0])
+                _notify("loaded the reference geometry's kernels")
             return _lib
         if defines not in _libs:
             _libs[defines] = bind(build(defines=defines)[0])
+            _notify(f"loaded the kernels of geometry {list(defines)}")
         return _libs[defines]
 
 

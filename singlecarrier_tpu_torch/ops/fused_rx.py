@@ -46,8 +46,14 @@ def _advances(cfg: ModemConfig, B: int, dev):
         np.stack([advs.real[:B], advs.imag[:B]])).to(dev)
 
 
-def _f32(x: float, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=device)
+@functools.lru_cache(maxsize=32)
+def _last_advances(cfg: ModemConfig, B: int, dev) -> torch.Tensor:
+    """adv^(B-1) and adv^B as [2, 2] f32 (row: power, column: real and
+    imaginary part) on ``dev``, uploaded once per (config, B, device): a
+    dispatch must not wait on a host copy."""
+    advs = _advances(cfg, B, dev)[0]
+    return torch.from_numpy(np.stack([advs[B - 1:].real,
+                                      advs[B - 1:].imag], 1)).to(dev)
 
 
 def fused_rx_block(cfg: ModemConfig, pcm_frames, p0r, p0i, tail0_r,
@@ -73,7 +79,7 @@ def fused_rx_block(cfg: ModemConfig, pcm_frames, p0r, p0i, tail0_r,
     B, C = pcm_frames.shape[0], pcm_frames.shape[1]
     dev = pcm_frames.device
 
-    advs, adv = _advances(cfg, B, dev)
+    adv = _advances(cfg, B, dev)[1]
     decim = frontend_decim(cfg, pcm_frames, p0r, p0i, tail0_r, tail0_i, adv)
     dprev0 = dprev0_t.to(decim.dtype).contiguous()
     dec = fused_hunt_decode_decim(cfg, dprev0, decim, channels=C,
@@ -81,14 +87,16 @@ def fused_rx_block(cfg: ModemConfig, pcm_frames, p0r, p0i, tail0_r,
     dlast = decim[:, :, (B - 1) * C:].clone()
 
     # ---- closed-form final phase + tail (O(C) glue) ----
-    def _ph(b):
-        ar, ai = _f32(advs.real[b], dev), _f32(advs.imag[b], dev)
+    last = _last_advances(cfg, B, dev)
+
+    def _ph(k):                        # p0 * adv^(B-1+k)
+        ar, ai = last[k, 0], last[k, 1]
         return p0r * ar - p0i * ai, p0r * ai + p0i * ar
 
-    fr, fi = _ph(B)
+    fr, fi = _ph(1)
     mag = torch.sqrt(fr * fr + fi * fi)
     x_t = pcm_frames[-1, :, n - halo:].float() * (1.0 / cfg.tx_amplitude)
-    lr, li = _ph(B - 1)
+    lr, li = _ph(0)
     fin_tr, fin_ti = downmix_tail(cfg.center, cfg.fs, n, halo, x_t,
                                   lr[:, None], li[:, None])
     return dec, dlast, (fr / mag, fi / mag, fin_tr, fin_ti)

@@ -1,0 +1,31 @@
+"""The runtime layer around the receiver (``singlecarrier_tpu.runtime``
+counterpart): the streaming demodulator, checkpoint and resume, failover,
+boundary validation, metrics and profiling; ``runtime.engine`` (the
+native PCM engine) and ``runtime.ingest`` (file -> pinned buffers ->
+side-stream copies -> the kernel main path) are imported by name."""
+
+from .stream import StreamDemodulator
+from .checkpoint import restore_state, save_state
+from .failover import (ElasticDemodulator, Heartbeat, failed_processes,
+                       health_check, monitor_heartbeats)
+from .metrics import MetricsAggregator
+from .profiling import ThroughputMeter, log_compiles, trace
+from .validate import assert_pcm_block, assert_rx_state, checkify_step
+
+__all__ = [
+    "assert_pcm_block",
+    "assert_rx_state",
+    "checkify_step",
+    "StreamDemodulator",
+    "save_state",
+    "restore_state",
+    "ElasticDemodulator",
+    "Heartbeat",
+    "failed_processes",
+    "health_check",
+    "monitor_heartbeats",
+    "MetricsAggregator",
+    "ThroughputMeter",
+    "log_compiles",
+    "trace",
+]

@@ -250,7 +250,16 @@ def test_package_imports_without_jax():
             "singlecarrier_tpu_torch.dsp.fftops, "
             "singlecarrier_tpu_torch.dsp.correlate, "
             "singlecarrier_tpu_torch.dsp.decimate, "
-            "singlecarrier_tpu_torch.utils.linalg; "
+            "singlecarrier_tpu_torch.utils.linalg, "
+            "singlecarrier_tpu_torch.runtime, "
+            "singlecarrier_tpu_torch.runtime.checkpoint, "
+            "singlecarrier_tpu_torch.runtime.engine, "
+            "singlecarrier_tpu_torch.runtime.failover, "
+            "singlecarrier_tpu_torch.runtime.ingest, "
+            "singlecarrier_tpu_torch.runtime.metrics, "
+            "singlecarrier_tpu_torch.runtime.profiling, "
+            "singlecarrier_tpu_torch.runtime.stream, "
+            "singlecarrier_tpu_torch.runtime.validate; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'singlecarrier_tpu' or "
             "m.startswith('singlecarrier_tpu.')); assert not bad, bad; "
