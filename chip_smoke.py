@@ -23,7 +23,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  to the bit; then the hunt alone on 8192 x 4 rows of
                  full-scale noise at both operating points and with the
                  int8 operand on f32 planes (lag, phase and peak equal
-                 on every row);
+                 on every row); and on NaN windows (a NaN phase state, one
+                 NaN sample in the carried planes) under every operand
+                 mode and statistic: equal to the plain version, and by
+                 the JAX kernel's rule (a phase whose statistic holds a
+                 NaN does not win, a NaN quantises to 0);
   4. main     -- ``prod_rx_batch(fuse_frontend=True)`` at the bench
                  operating point, 8192 channels, two chained dispatches
                  of 10 blocks carrying the state, on the golden stream
@@ -130,6 +134,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  H2D, compute on a resident operand (and at 128 blocks),
                  end to end through ``feed`` with the compute stream's
                  busy share, and which of them binds;
+                 (m) the multi-device layer (``singlecarrier_tpu_torch.
+                 parallel``): on a one-rank NCCL group (``tcp://
+                 127.0.0.1``), ``make_fused_sharded_rx`` over phase 4's
+                 frames equal to phase 4's outputs to the bit (and with
+                 ``fuse_frontend=False`` by decisions), ``metrics_summary``
+                 through NCCL equal to the local reduction, the plane state
+                 through ``save_sharded`` / ``restore_sharded`` between the
+                 dispatches resumed equal to the bit; ``_grid_shard`` for
+                 each of 2 and 4 time shards in one process, decisions equal
+                 to phase 4's across every seam and 10/10 golden packets;
+                 two spawned gloo processes on card 0 (NCCL takes one rank a
+                 card), ``make_fused_grid_sharded_rx`` at (ch=1, time=2)
+                 and ``make_fused_sharded_rx`` at ch=2, each rank equal to
+                 its slice to the bit; then the rates: the main path and
+                 the one-rank path in turns, the two gloo ranks combined
+                 with the halo exchange alone, the grid at 4 shards;
   6. timing   -- chained dispatches of the main path (premix, then
                  ``mixer_fold=True``: (d1)), of the gated RX, of (a) and
                  of (d2), (a) with ``mixer_fold=True`` (8192 x 128
@@ -582,6 +602,55 @@ def _compare_hunt(torch, cfg, dk, dprev0, what: str) -> dict:
           f"{cfg.hunt_norm}) vs plain: lag and phase identical on "
           f"{lk.numel()} rows, peak equal to the bit", flush=True)
     return {"max_abs_err": float((qk - qr).abs().max())}
+
+
+def _compare_hunt_nan(torch, cfg, inputs, what: str) -> None:
+    """The hunt on NaN windows against its plain version (lag, phase and
+    peak equal to the bit), and the JAX kernel's rule on them.  Channels
+    4k + 1 carry a NaN phase, so their planes are NaN from the front-end
+    on; channels 4k + 2 one NaN sample in the carried planes.  A phase
+    whose statistic holds a NaN does not win, so a NaN-phase row keeps
+    lag 0, phase 0 and the peak 2 (-1) in the peak's units wherever a NaN
+    reaches every phase's statistic (an energy, or a bf16 / f32 operand);
+    the int8 operand takes a NaN as 0, so under hunt_norm none the hunt
+    of the NaN windows is that of the windows with their NaNs zeroed."""
+    from singlecarrier_tpu_torch.ops.decode import hunt
+    from singlecarrier_tpu_torch.ops.frontend import frontend_decim
+    pcm, p0r, p0i, t0r, t0i, adv, dprev0 = inputs
+    C, dev = pcm.shape[1], pcm.device
+    p0r = p0r.clone()
+    p0r[1::4] = float("nan")
+    dprev0 = dprev0.clone()
+    ch = torch.arange(2, C, 4, device=dev)
+    dprev0[ch % cfg.cycles, ch % 2, ch,
+           (ch * 37) % cfg.symbols_per_block] = float("nan")
+    dk = frontend_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv)
+    _compare_hunt(torch, cfg, dk, dprev0, f"{what}, NaN windows")
+    lk, pk_, qk = hunt(cfg, dk, dprev0)
+    int8_hunt = cfg.hunt_dtype == "int8"
+    if int8_hunt and cfg.hunt_norm == "none":
+        zk = hunt(cfg, torch.nan_to_num(dk, nan=0.0),
+                  torch.nan_to_num(dprev0, nan=0.0))
+        _require(all(torch.equal(a, b) for a, b in zip((lk, pk_, qk), zk)),
+                 f"{what}: the int8 hunt of NaN windows is not that of "
+                 f"the windows with the NaNs zeroed")
+        rule = "equal to the hunt of the windows with the NaNs zeroed"
+    else:
+        scale = 1.0 / cfg.hunt_int8_scale ** 2 if int8_hunt else 1.0
+        rows = (torch.arange(lk.numel(), device=dev) % C) % 4 == 1
+        want = torch.tensor(2.0 * -1.0, device=dev) * torch.tensor(
+            scale, dtype=torch.float32, device=dev)
+        _require(bool((lk[rows] == 0).all() and (pk_[rows] == 0).all()
+                      and (qk[rows] == want).all()),
+                 f"{what}: a NaN-phase row did not keep lag 0, phase 0, "
+                 f"peak {float(want)}")
+        rule = (f"every NaN-phase row at lag 0, phase 0, peak "
+                f"{float(want)}")
+    print(f"[kernels] {what}: hunt ({cfg.hunt_dtype} operand, hunt_norm "
+          f"{cfg.hunt_norm}) on NaN windows ({len(range(1, C, 4))} "
+          f"channels of a NaN phase, {len(ch)} with one NaN sample): lag, "
+          f"phase and peak equal to the plain version's; {rule}",
+          flush=True)
 
 
 def _compare_decimating(torch, cfg, inputs, what: str, gen=None):
@@ -2456,6 +2525,365 @@ def _runtime_rates(torch, np, cfg, work: str, C: int, n: int, dev,
           flush=True)
 
 
+# ---- (m) the multi-device layer (singlecarrier_tpu_torch.parallel): a
+# one-rank NCCL group, the time shards in one process, two gloo processes
+# on the one card (NCCL takes one rank a card)
+
+M_WORLD = 2             # (m) 3: gloo processes, both on card 0
+M_SHARDS = (2, 4)       # (m) 2: time shards of phase 4's frames
+M_RATE_SHARDS = 4       # (m) 4: time shards of the timed in-process grid
+M_EXCHANGES = 10        # (m) 4: timed halo exchanges of the gloo run
+M_PATH = ("frontend_decim", "hunt", "extract_decode")
+
+
+def _m_cat(torch, outs, dim=0):
+    from singlecarrier_tpu_torch.modem import ProdRxOut
+    return ProdRxOut(*(torch.cat(xs, dim) for xs in zip(*outs)))
+
+
+def _m_grid(torch, cfg, frames, n_t: int, descramble: bool = False):
+    """``_grid_shard`` for every time shard of ``frames`` [B, C, n] in one
+    process, each halo cut from the frames themselves: the shards'
+    outputs in order."""
+    from singlecarrier_tpu_torch.parallel.sharded_rx import _grid_shard
+    b = frames.shape[0] // n_t
+    halo = cfg.ntaps - 1
+    outs = []
+    for t in range(n_t):
+        prev = frames[t * b - 1] if t else torch.zeros_like(frames[0])
+        pre = (frames[t * b - 2, :, -halo:] if t
+               else torch.zeros_like(frames[0, :, :halo]))
+        outs.append(_grid_shard(cfg, frames[t * b:(t + 1) * b], prev, pre,
+                                t, n_t, descramble=descramble))
+    return outs
+
+
+def _m_timed(torch, fn) -> float:
+    """Wall seconds of ``fn`` (its launches and one synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _m_rank(rank: int, init: str, here: str, work: str) -> None:
+    """One of (m) 3's gloo processes, on card 0 with the other: phase 4's
+    frames rebuilt from the golden stream, ``make_fused_grid_sharded_rx``
+    at (ch=1, time=2) on their first half of the channels and
+    ``make_fused_sharded_rx`` at ch=2 on all of them in phase 4's two
+    dispatches, then the grid's rate on noise and the halo exchange
+    alone; everything saved to ``work`` for the parent to hold."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, here)
+    from singlecarrier_tpu_torch import DEFAULT_CONFIG
+    from singlecarrier_tpu_torch.modem import prod_rx_init_planes
+    from singlecarrier_tpu_torch.ops import _build
+    from singlecarrier_tpu_torch.parallel import (make_fused_grid_sharded_rx,
+                                                  make_fused_sharded_rx,
+                                                  make_mesh,
+                                                  shard_plane_state)
+    from singlecarrier_tpu_torch.parallel import multihost
+    from singlecarrier_tpu_torch.parallel.mesh import shift_right
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(init, M_WORLD, rank, backend="gloo")
+    try:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        cfg = DEFAULT_CONFIG.replace(decim_dtype="bf16", hunt_dtype="int8",
+                                     ls_refit_symbols=128)
+        n = cfg.frame_size
+        golden = np.load(os.path.join(here, "tests", "golden",
+                                      "reference.npz"))
+        tx = torch.from_numpy(golden["tx_pcm"].astype(np.int16)).to(dev)
+        offsets = torch.arange(C_MAIN, device=dev) % n
+        frames = _frames(_golden_stream(torch, tx, C_MAIN, 2 * B_MAIN * n,
+                                        offsets, dev), 2 * B_MAIN, n)
+        c_half = C_MAIN // M_WORLD
+        _build.reset_launches()
+        mesh_t = make_mesh(ch=1, time=M_WORLD)
+        grid = make_fused_grid_sharded_rx(cfg, mesh_t, descramble=False)(
+            frames[:, :c_half])
+        mesh_c = make_mesh(ch=M_WORLD)
+        fn = make_fused_sharded_rx(cfg, mesh_c, descramble=False)
+        st = shard_plane_state(prod_rx_init_planes(cfg, C_MAIN), mesh_c)
+        outs = []
+        for part in (frames[:B_MAIN], frames[B_MAIN:]):
+            st, out = fn(st, part)
+            outs.append(out)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 17)
+        noise = torch.randint(-16384, 16384, (B_TIME, c_half, n),
+                              generator=gen, device=dev, dtype=torch.int16)
+        gfn = make_fused_grid_sharded_rx(cfg, mesh_t)
+        gfn(noise)                                          # warm-up
+        dist.barrier()
+        wall = _m_timed(torch, lambda: [gfn(noise) for _ in range(ITERS)])
+        halo = cfg.ntaps - 1
+        sent = torch.cat([noise[-2, :, n - halo:], noise[-1]], -1)
+        shift_right(sent, mesh_t)
+        dist.barrier()
+        xch = _m_timed(torch, lambda: [shift_right(sent, mesh_t)
+                                       for _ in range(M_EXCHANGES)])
+        torch.save({"grid": tuple(x.cpu() for x in grid),
+                    "fused": tuple(x.cpu() for x in _m_cat(torch, outs)),
+                    "launches": launches, "wall": wall,
+                    "exchange_s": xch / M_EXCHANGES,
+                    "exchange_bytes": sent.numel() * sent.element_size()},
+                   os.path.join(work, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _m_two_ranks(torch, here: str, work: str) -> list:
+    """Run :func:`_m_rank` in ``M_WORLD`` spawned processes joined by a
+    gloo group on a ``tcp://127.0.0.1`` store; every one must exit 0."""
+    import multiprocessing
+
+    from singlecarrier_tpu_torch.parallel.mesh import _free_port
+    init = f"127.0.0.1:{_free_port()}"
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_m_rank, args=(r, init, here, work))
+             for r in range(M_WORLD)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    _require(all(c == 0 for c in codes),
+             f"(m) the gloo processes exited with {codes}")
+    return [torch.load(os.path.join(work, f"rank{r}.pt"), map_location="cpu",
+                       weights_only=False) for r in range(M_WORLD)]
+
+
+def _parallel_phase(torch, cfg, frames, main_out, tx_bits, drive, dev,
+                    here: str, smi_line: str) -> None:
+    """(m) the multi-device layer on the one card (``frames`` [20, 8192,
+    1880] and ``main_out`` are phase 4's): 1. a one-rank NCCL group, the
+    fused sharded path, ``metrics_summary`` and the sharded checkpoint;
+    2. the time shards in one process; 3. two gloo processes on card 0;
+    4. the rates."""
+    import shutil
+
+    import torch.distributed as dist
+    from singlecarrier_tpu_torch.modem import (ProdRxOut, prod_rx_batch,
+                                               prod_rx_init_planes)
+    from singlecarrier_tpu_torch.parallel import (make_fused_sharded_rx,
+                                                  make_mesh, metrics_summary,
+                                                  shard_plane_state)
+    from singlecarrier_tpu_torch.runtime import restore_sharded, save_sharded
+    t_phase = time.perf_counter()
+    B, C = frames.shape[0] // 2, frames.shape[1]
+    n = cfg.frame_size
+    halves = (frames[:B], frames[B:])
+    work = os.path.join(here, "build", "chip_smoke_parallel")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    mgen = torch.Generator(device=dev)
+    mgen.manual_seed(SEED + 13)
+    noise = torch.randint(-16384, 16384, (B_TIME, C, n), generator=mgen,
+                          device=dev, dtype=torch.int16)
+    samples = ITERS * B_TIME * C * n
+    try:
+        # ---- 1. a one-rank NCCL group on a tcp://127.0.0.1 store ----
+        mesh = make_mesh()
+        try:
+            _require(dist.get_backend() == "nccl"
+                     and dist.get_world_size() == 1,
+                     f"(m) make_mesh() made a {dist.get_backend()} group of "
+                     f"{dist.get_world_size()}")
+            fn = make_fused_sharded_rx(cfg, mesh, descramble=False)
+
+            def chained_with(f, state, parts):
+                outs = []
+                for part in parts:
+                    state, out = f(state, part)
+                    outs.append(out)
+                return state, outs
+
+            _, outs = drive("(m) make_fused_sharded_rx, one NCCL rank",
+                            lambda: chained_with(fn, shard_plane_state(
+                                prod_rx_init_planes(cfg, C), mesh), halves),
+                            M_PATH)
+            sharded = _m_cat(torch, outs)
+            _outs_equal(torch, sharded, main_out,
+                        "(m) one-rank fused sharded path vs phase 4")
+            print(f"[parallel] (m) 1. make_fused_sharded_rx on a one-rank "
+                  f"NCCL group (tcp://127.0.0.1), {C} channels x 2 "
+                  f"dispatches x {B} blocks: every output field equal to "
+                  f"phase 4's, to the bit", flush=True)
+            ffn = make_fused_sharded_rx(cfg, mesh, descramble=False,
+                                        fuse_frontend=False)
+            _, outs = drive(
+                "(m) make_fused_sharded_rx(fuse_frontend=False), one NCCL "
+                "rank", lambda: chained_with(ffn, shard_plane_state(
+                    prod_rx_init_planes(cfg, C), mesh), halves),
+                ("frontend_rows", "hunt", "extract_decode"))
+            _decisions_agree(_m_cat(torch, outs), main_out,
+                             "(m) one-rank two-kernel sharded path vs "
+                             "phase 4")
+            print(f"[parallel] (m) 1. make_fused_sharded_rx(fuse_frontend="
+                  f"False), the same: decisions equal to phase 4's (valid, "
+                  f"bits, lag, phase; |dcfo| < 0.5 Hz, |deq| < 2e-3)",
+                  flush=True)
+
+            m = metrics_summary(sharded, mesh.get_group("ch"))
+            v = main_out.valid
+            zero = torch.zeros((), device=dev)
+            local = torch.stack([
+                v.sum().double(),
+                torch.where(v, main_out.cfo_hz, zero).double().sum(),
+                torch.where(v, main_out.eq_error, zero).double().sum()])
+            want = (int(local[0]), float(local[1] / local[0]),
+                    float(local[2] / local[0]))
+            got = (int(m["packets_detected"]), float(m["mean_cfo_hz"]),
+                   float(m["mean_eq_error"]))
+            _require(got == want, f"(m) metrics_summary {got} != the local "
+                     f"reduction {want}")
+            print(f"[parallel] (m) 1. metrics_summary through NCCL: "
+                  f"{got[0]} packets, mean cfo {got[1]:.6e} Hz, mean "
+                  f"eq_error {got[2]:.6e}: equal to the local reduction",
+                  flush=True)
+
+            st, first = fn(shard_plane_state(prod_rx_init_planes(cfg, C),
+                                             mesh), halves[0])
+            ck = os.path.join(work, "planes")
+            ck_s = _m_timed(torch, lambda: save_sharded(ck, st, step=B))
+            t0 = time.perf_counter()
+            back, step = restore_sharded(ck, st)
+            torch.cuda.synchronize()
+            rs_s = time.perf_counter() - t0
+            _require(step == B and all(
+                a.dtype == b.dtype and torch.equal(a, b)
+                for a, b in zip(back, st)), "(m) restore_sharded differs")
+            _, second = fn(back, halves[1])
+            _outs_equal(torch, _m_cat(torch, [first, second]), main_out,
+                        "(m) sharded checkpoint resume vs phase 4")
+            ck_mb = sum(os.path.getsize(os.path.join(ck, f))
+                        for f in os.listdir(ck)) / 1e6
+            print(f"[parallel] (m) 1. save_sharded / restore_sharded of "
+                  f"the plane state between the dispatches ({ck_mb:.1f} MB,"
+                  f" saved in {ck_s:.2f} s, restored in {rs_s:.2f} s): "
+                  f"resumed equal to phase 4 to the bit", flush=True)
+            del sharded, outs, first, second, back, st
+
+            # ---- 4a. the main path and the one-rank path, in turns ----
+            tfn = make_fused_sharded_rx(cfg, mesh)
+
+            def main_path():
+                st_ = prod_rx_init_planes(cfg, C)
+                for _ in range(ITERS):
+                    st_, _ = prod_rx_batch(cfg, st_, noise,
+                                           fuse_frontend=True)
+
+            def one_rank():
+                st_ = shard_plane_state(prod_rx_init_planes(cfg, C), mesh)
+                for _ in range(ITERS):
+                    st_, _ = tfn(st_, noise)
+
+            prod_rx_batch(cfg, prod_rx_init_planes(cfg, C), noise,
+                          fuse_frontend=True)                  # warm-up
+            tfn(shard_plane_state(prod_rx_init_planes(cfg, C), mesh), noise)
+            walls = {"main": [], "one": []}
+            for tag, f in (("main", main_path), ("one", one_rank),
+                           ("one", one_rank), ("main", main_path)):
+                walls[tag].append(_m_timed(torch, f))
+        finally:
+            dist.destroy_process_group()
+        _require(not dist.is_initialized(), "(m) a process group is left")
+        r_main = [samples / w for w in walls["main"]]
+        r_one = [samples / w for w in walls["one"]]
+        print(f"[parallel] (m) 4. {C} ch x {B_TIME} blocks x {ITERS} chained "
+              f"dispatches of noise, in the order main, sharded, sharded, "
+              f"main: the main path {r_main[0]:.4e} / {r_main[1]:.4e}, the "
+              f"one-rank make_fused_sharded_rx {r_one[0]:.4e} / "
+              f"{r_one[1]:.4e} samples/s ({100 * sum(r_one) / sum(r_main):.1f}"
+              f"% of the main path); {smi_line}", flush=True)
+
+        # ---- 2. the time shards in one process ----
+        grid2 = None
+        for n_t in M_SHARDS:
+            outs = drive(f"(m) _grid_shard x {n_t} in one process",
+                         lambda: _m_grid(torch, cfg, frames, n_t), M_PATH)
+            g = _m_cat(torch, outs)
+            _decisions_agree(g, main_out, f"(m) {n_t} time shards vs "
+                             f"phase 4")
+            n_dup = _check_packets(torch, outs, tx_bits, cfg)
+            print(f"[parallel] (m) 2. _grid_shard for each of {n_t} time "
+                  f"shards of phase 4's {2 * B} blocks, {C} channels, in one "
+                  f"process: decisions equal to phase 4's across every seam "
+                  f"(valid, bits, lag, phase; |dcfo| < 0.5 Hz, |deq| < "
+                  f"2e-3), 10/10 golden packets on every channel ({n_dup} "
+                  f"seam repeats)", flush=True)
+            if n_t == M_WORLD:
+                grid2 = g
+            del outs, g
+
+        # ---- 3. two gloo processes on card 0 ----
+        t0 = time.perf_counter()
+        ranks = _m_two_ranks(torch, here, work)
+        c_half = C // M_WORLD
+        for r, res in enumerate(ranks):
+            want = ProdRxOut(*(x[r * B:(r + 1) * B, :c_half] for x in grid2))
+            _outs_equal(torch, ProdRxOut(*(x.to(dev) for x in res["grid"])),
+                        want, f"(m) gloo grid, rank {r}, vs (m) 2")
+            want = ProdRxOut(*(x[:, r * c_half:(r + 1) * c_half]
+                               for x in main_out))
+            _outs_equal(torch, ProdRxOut(*(x.to(dev) for x in res["fused"])),
+                        want, f"(m) gloo fused sharded, rank {r}, vs phase 4")
+            lc = res["launches"]
+            _require(all(lc[k] > 0 for k in M_PATH)
+                     and all(v == 0 for k, v in lc.items()
+                             if k not in M_PATH),
+                     f"(m) gloo rank {r} launches: {lc}")
+            print(f"[parallel] (m) 3. gloo rank {r} of {M_WORLD} on "
+                  f"cuda:0: make_fused_grid_sharded_rx (ch=1, time=2) on "
+                  f"{c_half} channels, its {B} blocks equal to (m) 2's to "
+                  f"the bit; make_fused_sharded_rx (ch=2), its {c_half} "
+                  f"channels equal to phase 4's to the bit; launches {lc}",
+                  flush=True)
+        wall = max(res["wall"] for res in ranks)
+        gloo_rate = ITERS * B_TIME * c_half * n / wall
+        xch = [res["exchange_s"] for res in ranks]
+        print(f"[parallel] (m) 4. two gloo ranks on cuda:0, "
+              f"make_fused_grid_sharded_rx (ch=1, time=2), {c_half} ch x "
+              f"{B_TIME} blocks x {ITERS} dispatches of noise: "
+              f"{gloo_rate:.4e} samples/s combined ({wall:.3f} s); the halo "
+              f"exchange alone ({ranks[0]['exchange_bytes'] / 1e6:.1f} MB "
+              f"through host buffers) {1e3 * xch[0]:.2f} ms sending, "
+              f"{1e3 * xch[1]:.2f} ms receiving a dispatch; (m) 3 took "
+              f"{time.perf_counter() - t0:.1f} s with the processes' start; "
+              f"{smi_line}", flush=True)
+        del ranks, grid2
+
+        # ---- 4b. the in-process grid at M_RATE_SHARDS shards ----
+        _m_grid(torch, cfg, noise, M_RATE_SHARDS, True)       # warm-up
+        w = _m_timed(torch, lambda: [_m_grid(torch, cfg, noise,
+                                             M_RATE_SHARDS, True)
+                                     for _ in range(ITERS)])
+        print(f"[parallel] (m) 4. _grid_shard x {M_RATE_SHARDS} in one "
+              f"process (each shard {B_TIME // M_RATE_SHARDS} blocks + the "
+              f"halo block), {C} ch x {B_TIME} blocks x {ITERS} dispatches "
+              f"of noise: {samples / w:.4e} samples/s "
+              f"({100 * samples / w / (sum(r_main) / 2):.1f}% of the main "
+              f"path above); {smi_line}", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[parallel] (m) {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import numpy as np
@@ -2560,6 +2988,18 @@ def main() -> int:
         _compare_hunt(torch, cfg_, dk, dprev0,
                       f"{what}, {C_MAIN} x {B_KTIME} rows of noise")
         del pcm, dk, dprev0
+    # the hunt on NaN windows (a corrupted or restored state), by the JAX
+    # kernel's rule: every operand mode and statistic
+    for what, cfg_ in (("bench operating point", cfg),
+                       ("bench, hunt_norm none", cfg.replace(
+                           hunt_norm="none")),
+                       ("bench, hunt_norm energy", cfg.replace(
+                           hunt_norm="energy")),
+                       ("library default", default),
+                       ("library default, hunt_norm none", default.replace(
+                           hunt_norm="none")),
+                       ("f32 operand", default.replace(hunt_dtype="f32"))):
+        _compare_hunt_nan(torch, cfg_, _inputs(cfg_, C_CMP, B_CMP), what)
 
     # ---- 4. main path ----
     def _drive(what, fn, expect):
@@ -2846,6 +3286,10 @@ def main() -> int:
     # ---- (l) the runtime layer ----
     _runtime_phase(torch, np, cfg, default, frames, main_out, tx_bits,
                    _drive, dev, here, smi_line)
+
+    # ---- (m) the multi-device layer ----
+    _parallel_phase(torch, cfg, frames, main_out, tx_bits, _drive, dev,
+                    here, smi_line)
     print(f"[runtime] the script so far: "
           f"{time.perf_counter() - t_script:.1f} s", flush=True)
 

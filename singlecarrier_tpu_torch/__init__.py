@@ -40,8 +40,14 @@ Layer map:
                      state; prod_rx_batch_gated and GatedRxState; the TX
   runtime/           StreamDemodulator, the native PCM engine and the
                      ingest (pinned buffers, side-stream copies into the
-                     main path), checkpoint and resume, failover,
-                     boundary checks, metrics, profiling
+                     main path), checkpoint and resume (also sharded, over
+                     torch.distributed.checkpoint), failover, boundary
+                     checks, metrics, profiling
+  parallel/          the multi-device layer over torch.distributed: the
+                     (ch, time) DeviceMesh, channel-sharded RX (the XLA
+                     path and the kernel paths), time- and grid-sharded RX
+                     with a one-block halo exchange, the metric
+                     all-reduce, the multi-process launcher (multihost)
   channel, ber       impairments; BER sweeps over the three RX paths
   cli, __main__      ``python -m singlecarrier_tpu_torch info|mod|demod|
                      loopback|ber``

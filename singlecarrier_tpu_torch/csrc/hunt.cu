@@ -23,7 +23,11 @@
 // stat = pw / (en + 1e-12) in IEEE division; argmax takes the first
 // maximum over lags and a strict > across ascending phases
 // (decode_pallas.py:856-876).  The peak is the raw power at the chosen
-// lag in every mode.
+// lag in every mode.  NaN windows (a corrupted or restored state) follow
+// the JAX kernel too: a phase whose statistic holds a NaN does not win
+// (its per-phase max is NaN), a NaN quantises to 0 (XLA's cast), and a
+// row whose every phase is skipped keeps the initial best: lag 0, phase
+// 0, peak 2 (-1) scaled as any peak.
 //
 // Two bodies, chosen by the operand mode:
 //
@@ -173,13 +177,16 @@ __device__ __forceinline__ const void* plane_row(const void* base,
                     static_cast<const float*>(base) + row * N_SYM);
 }
 
-// clip(rint(v * scale), +/-127) of 4 values, packed as int8 (rounding a
-// clamped value equals clamping the rounded one: the limits are integers)
+// clip(rint(v * scale), +/-127) of 4 values, packed as int8: rounded
+// first, then clamped as integers (rounding a clamped value equals
+// clamping the rounded one: the limits are integers).  The conversion
+// takes a NaN to 0, as XLA's cast to int8 does (a float clamp, fmaxf,
+// would make it -127), and saturates infinities.
 __device__ __forceinline__ uint32_t quant4(const float* v, float scale) {
   uint32_t w = 0;
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    const int q = __float2int_rn(fminf(fmaxf(v[e] * scale, -127.f), 127.f));
+    const int q = min(max(__float2int_rn(v[e] * scale), -127), 127);
     w |= (static_cast<uint32_t>(q) & 0xffu) << (8 * e);
   }
   return w;
@@ -258,8 +265,11 @@ __device__ __forceinline__ void load_chunk(const void* decim,
 
 // The window-energy sums of the warp's squares sq (chunks lane + 32 h):
 // en[l] = sum_k sq[l + k], k ascending, NL lags a lane, into
-// sm.ssum (the squares' place) for l < EN_W.
-__device__ __forceinline__ void window_energy(MmaWarpSmem& sm,
+// sm.ssum (the squares' place) for l < EN_W.  Returns whether one of
+// this lane's sums of a lag l < N_SYM is NaN: then the statistic
+// pw / (en + 1e-12) of the phases they serve holds a NaN (the int8 power
+// is finite), and those phases do not win.
+__device__ __forceinline__ bool window_energy(MmaWarpSmem& sm,
                                               const float (&sq)[XCH][CHUNK],
                                               int lane) {
 #pragma unroll
@@ -301,6 +311,14 @@ __device__ __forceinline__ void window_energy(MmaWarpSmem& sm,
   for (int i = 0; i < NL; ++i)
     if (lane * NL + i < EN_W) en_s[lane * NL + i] = en[i];
   __syncwarp();
+  // A NaN square reaches every sum whose window holds it, and the
+  // windows of a lane's lags overlap in all but NL - 1 positions: a NaN
+  // sum among them makes its first or its last one of a lag < N_SYM NaN
+  // (the lane that holds lag N_SYM - 1 stops at sum LAST; a lane past it
+  // summed nothing).
+  constexpr int LAST = (N_SYM - 1) % NL;
+  const float last = lane * NL + NL - 1 < N_SYM ? en[NL - 1] : en[LAST];
+  return isnan(en[0]) || isnan(last);
 }
 
 template <bool BF16, int NORM>
@@ -356,18 +374,24 @@ __global__ void __launch_bounds__(MMA_WARPS * 32) hunt_mma_kernel(
     }
   }
   // ---- espan: en[l] = sum_k ssum[l + k], k ascending, NL lags a lane ----
+  bool row_nan = false;       // espan: this lane saw a NaN energy, which
+                              // skips every phase
   if constexpr (NORM == NORM_ESPAN)
-    window_energy(sm, ss, lane);
+    row_nan = window_energy(sm, ss, lane);
   else
     __syncwarp();             // the operand planes are whole
   const float* en_s = sm.ssum;
 
   // ---- pass 2: Toeplitz mma, ascending-s sum along the quad, argmax ----
-  Best best{-1.f, 0.f, 0, 0};
+  // no lag wins a row whose every phase is skipped: lag 0, phase 0, the
+  // peak 2 (-1) / s^2 of the JAX kernel's initial best
+  Best best{-1.f, -1.f, 0, 0};
   const int wbase = tig + (g >> 2);       // first operand word of tile 0
   const int sh = 8 * (g & 3);             // byte offset inside it
   const int lag0 = 16 * (tig >> 1) + g + 8 * (tig & 1);
   for (int c = 0; c < CYC; ++c) {
+    const Best before = best;   // the best of the phases before this one
+    bool phase_nan = false;     // energy: phase c's statistic holds a NaN
     if constexpr (NORM == NORM_ENERGY) {
       // this phase's own window energies, from its planes loaded again
       float sq[XCH][CHUNK];
@@ -380,7 +404,7 @@ __global__ void __launch_bounds__(MMA_WARPS * 32) hunt_mma_kernel(
           sq[h][e] = vr[e] * vr[e] + vi[e] * vi[e];
       }
       __syncwarp();           // the last phase's sums are read
-      window_energy(sm, sq, lane);
+      phase_nan = __any_sync(FULL, window_energy(sm, sq, lane));
     }
     const uint32_t* xr = sm.x[c][0] + wbase;
     const uint32_t* xi = sm.x[c][1] + wbase;
@@ -466,7 +490,11 @@ __global__ void __launch_bounds__(MMA_WARPS * 32) hunt_mma_kernel(
         }
       }
     }
+    // a phase whose statistic holds a NaN does not win: the JAX kernel
+    // takes one max per phase, NaN there, and NaN > best is false
+    if (phase_nan) best = before;
   }
+  if (__any_sync(FULL, row_nan)) best = Best{-1.f, -1.f, 0, 0};
   best = warp_best(best);
   if (lane == 0) {
     lag_out[n] = best.i;
@@ -520,6 +548,7 @@ __global__ void __launch_bounds__(TOE_THREADS) hunt_toeplitz_kernel(
   __shared__ __align__(16) float pns[P];
   __shared__ float qs[NSEG][Q_STRIDE];     // re^2 + im^2 by (segment, lag)
   __shared__ Best wbest[TOE_WARPS];
+  __shared__ unsigned wnan[TOE_WARPS];     // phases with a NaN statistic
   const long long n = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -592,14 +621,29 @@ __global__ void __launch_bounds__(TOE_THREADS) hunt_toeplitz_kernel(
 #pragma unroll
     for (int c = 0; c < CYC; ++c) en[c] = e;
   }
-  Best x{-1.f, 0.f, tid, 0};
+  float v[CYC];
+  unsigned nan_ph = 0;                     // bit c: phase c holds a NaN
   if (tid < N_SYM) {
 #pragma unroll
     for (int c = 0; c < CYC; ++c) {
-      float v = pw[c];
-      if constexpr (NORM != NORM_NONE) v = pw[c] / (en[c] + 1e-12f);
-      if (v > x.v) x = Best{v, pw[c], tid, c};
+      v[c] = pw[c];
+      if constexpr (NORM != NORM_NONE) v[c] = pw[c] / (en[c] + 1e-12f);
+      if (isnan(v[c])) nan_ph |= 1u << c;
     }
+  }
+  // a phase whose statistic holds a NaN does not win: the JAX kernel
+  // takes one max per phase, NaN there, and NaN > best is false
+  nan_ph = __reduce_or_sync(FULL, nan_ph);
+  if (lane == 0) wnan[warp] = nan_ph;
+  __syncthreads();
+  nan_ph = __reduce_or_sync(FULL, lane < TOE_WARPS ? wnan[lane] : 0u);
+  // a row whose every phase is skipped: lag 0, phase 0, the peak 2 (-1)
+  // of the JAX kernel's initial best
+  Best x{-1.f, -1.f, tid, 0};
+  if (tid < N_SYM) {
+#pragma unroll
+    for (int c = 0; c < CYC; ++c)
+      if (!((nan_ph >> c) & 1u) && v[c] > x.v) x = Best{v[c], pw[c], tid, c};
   }
   x = warp_best(x);
   if (lane == 0) wbest[warp] = x;

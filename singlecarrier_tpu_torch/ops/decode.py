@@ -82,10 +82,12 @@ def _sum(x):
 
 def _hunt_operand(cfg: ModemConfig, wins):
     """The hunt operand of f32 windows: int8 mode clip(rint(s w), +/-127)
-    (integers held in f32), bf16 mode bf16(w), f32 mode w."""
+    (integers held in f32; a NaN becomes 0, as XLA's cast to int8 makes
+    it), bf16 mode bf16(w), f32 mode w."""
     if cfg.hunt_dtype == "int8":
-        return torch.clamp(torch.round(wins * cfg.hunt_int8_scale),
-                           -127.0, 127.0)
+        q = torch.clamp(torch.round(wins * cfg.hunt_int8_scale),
+                        -127.0, 127.0)
+        return torch.where(torch.isnan(q), 0.0, q)
     if cfg.hunt_dtype == "bf16":
         return wins.to(torch.bfloat16).float()
     return wins

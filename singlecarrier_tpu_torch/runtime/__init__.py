@@ -1,11 +1,14 @@
 """The runtime layer around the receiver (``singlecarrier_tpu.runtime``
 counterpart): the streaming demodulator, checkpoint and resume, failover,
-boundary validation, metrics and profiling; ``runtime.engine`` (the
+boundary validation, metrics and profiling; the sharded checkpoint
+(``save_sharded`` / ``restore_sharded``, over
+``torch.distributed.checkpoint``); ``runtime.engine`` (the
 native PCM engine) and ``runtime.ingest`` (file -> pinned buffers ->
 side-stream copies -> the kernel main path) are imported by name."""
 
 from .stream import StreamDemodulator
-from .checkpoint import restore_state, save_state
+from .checkpoint import (restore_sharded, restore_state, save_sharded,
+                         save_state)
 from .failover import (ElasticDemodulator, Heartbeat, failed_processes,
                        health_check, monitor_heartbeats)
 from .metrics import MetricsAggregator
@@ -19,6 +22,8 @@ __all__ = [
     "StreamDemodulator",
     "save_state",
     "restore_state",
+    "save_sharded",
+    "restore_sharded",
     "ElasticDemodulator",
     "Heartbeat",
     "failed_processes",

@@ -17,6 +17,12 @@ name and its field names, and a complex tensor as its real and
 imaginary planes (the JAX package's on-disk layout).  The write goes to
 a temporary file that is renamed over the target, so a reader sees the
 old checkpoint or the new one, never half of one.
+
+``save_sharded`` / ``restore_sharded`` are the path for a state sharded
+over ranks (``parallel.shard_channel_state`` / ``shard_plane_state``):
+a ``torch.distributed.checkpoint`` save in which every rank writes only
+its own shard and reads only its own back, the state never gathered to
+one process.
 """
 
 from __future__ import annotations
@@ -140,3 +146,111 @@ def restore_state(path: str, like: Any = None, *, device=None):
     payload = torch.load(path, map_location="cpu", weights_only=True)
     dev = None if like is not None else resolve_device(device)
     return _decode(payload["state"], like, dev, ""), payload["step"]
+
+
+# ---------------------------------------------------------------------------
+# Sharded path (torch.distributed.checkpoint)
+
+
+def _leaf_names(state):
+    return (state._fields if hasattr(state, "_fields")
+            else [str(i) for i in range(len(state))])
+
+
+def _sharded_leaves(state):
+    """(key, local tensor, channel axis) of a flat state (a NamedTuple or
+    tuple of tensors); a complex leaf as its real and imaginary planes
+    (the JAX package's {re, im})."""
+    from ..parallel.sharded_rx import channel_dims
+    for name, x, d in zip(_leaf_names(state), state, channel_dims(state)):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"cannot checkpoint a {type(x).__name__} leaf")
+        if x.is_complex():
+            yield f"state.{name}.re", x.real, d
+            yield f"state.{name}.im", x.imag, d
+        else:
+            yield f"state.{name}", x, d
+
+
+def _channel_mesh(state, mesh):
+    """``mesh``, or the default group's ranks on one ``ch`` axis."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    if mesh is not None:
+        return mesh
+    if not dist.is_initialized():
+        raise ValueError("save_sharded / restore_sharded need an "
+                         "initialized process group (parallel.make_mesh "
+                         "makes a one-rank one)")
+    return DeviceMesh(state[0].device.type,
+                      torch.arange(dist.get_world_size()),
+                      mesh_dim_names=("ch",))
+
+
+def _dtensors(state, mesh, fill):
+    """{key: DTensor} over ``mesh``, each leaf sharded on its channel
+    axis along the mesh's ``ch`` dimension and replicated along any
+    other; ``fill(local)`` gives the local tensor wrapped."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    out = {}
+    for key, x, d in _sharded_leaves(state):
+        placements = [Shard(d) if name == "ch" else Replicate()
+                      for name in mesh.mesh_dim_names]
+        out[key] = DTensor.from_local(fill(x), mesh, placements,
+                                      run_check=False)
+    return out
+
+
+def save_sharded(path: str, state: Any, *, step: int = 0,
+                 mesh=None) -> None:
+    """Save a channel-sharded state: every rank passes its own shard and
+    writes only it (``torch.distributed.checkpoint``).
+
+    ``state``: this rank's ``ProdRxState`` or plane tuple (bf16 planes
+    stay bf16).  ``mesh``: the mesh it is sharded on (a ``DeviceMesh``
+    with a ``ch`` dimension); default, the default group's ranks in
+    order on one ``ch`` axis, as ``shard_*_state`` on ``make_mesh()``
+    leaves them.  Every rank calls it with the same ``path``.
+    """
+    import torch.distributed.checkpoint as dcp
+    mesh = _channel_mesh(state, mesh)
+    sd = _dtensors(state, mesh, lambda x: x.contiguous())
+    sd["step"] = torch.tensor(int(step), dtype=torch.int64)
+    dcp.save(sd, checkpoint_id=os.path.abspath(path))
+
+
+def restore_sharded(path: str, like: Any, *, mesh=None):
+    """Restore ``(state, step)`` saved by :func:`save_sharded` onto the
+    same mesh: every rank reads only its own shard, onto ``like``'s
+    devices.  ``like`` is this rank's shard of a state of the expected
+    structure; a leaf whose global shape or dtype differs from the
+    checkpoint's, or a structure that does, raises ``ValueError``."""
+    import torch.distributed.checkpoint as dcp
+    path = os.path.abspath(path)
+    mesh = _channel_mesh(like, mesh)
+    sd = _dtensors(like, mesh, torch.empty_like)
+    saved = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    if set(saved) != set(sd) | {"step"}:
+        raise ValueError(f"checkpoint structure {sorted(saved)}, expected "
+                         f"{sorted(set(sd) | {'step'})}")
+    for key, t in sd.items():
+        meta = saved[key]
+        if (tuple(meta.size) != tuple(t.shape)
+                or meta.properties.dtype != t.dtype):
+            raise ValueError(
+                f"checkpoint structure at {key}: tensor "
+                f"{meta.properties.dtype} {tuple(meta.size)}, expected "
+                f"tensor {t.dtype} {tuple(t.shape)}")
+    sd["step"] = torch.zeros((), dtype=torch.int64)
+    dcp.load(sd, checkpoint_id=path)
+
+    from ..parallel.sharded_rx import _rebuild
+    leaves = []
+    for name, x in zip(_leaf_names(like), like):
+        key = f"state.{name}"
+        if x.is_complex():
+            leaves.append(torch.complex(sd[key + ".re"].to_local(),
+                                        sd[key + ".im"].to_local()))
+        else:
+            leaves.append(sd[key].to_local())
+    return _rebuild(like, leaves), int(sd["step"])

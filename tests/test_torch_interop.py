@@ -259,7 +259,17 @@ def test_package_imports_without_jax():
             "singlecarrier_tpu_torch.runtime.metrics, "
             "singlecarrier_tpu_torch.runtime.profiling, "
             "singlecarrier_tpu_torch.runtime.stream, "
-            "singlecarrier_tpu_torch.runtime.validate; "
+            "singlecarrier_tpu_torch.runtime.validate, "
+            "singlecarrier_tpu_torch.parallel, "
+            "singlecarrier_tpu_torch.parallel.mesh, "
+            "singlecarrier_tpu_torch.parallel.sharded_rx, "
+            "singlecarrier_tpu_torch.parallel.timeshard, "
+            "singlecarrier_tpu_torch.parallel.multihost, "
+            "torch.distributed.checkpoint; "
+            "from singlecarrier_tpu_torch.runtime import (save_sharded, "
+            "restore_sharded); "
+            "from singlecarrier_tpu_torch.parallel import *; "
+            "assert len(singlecarrier_tpu_torch.parallel.__all__) == 12; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'singlecarrier_tpu' or "
             "m.startswith('singlecarrier_tpu.')); assert not bad, bad; "
