@@ -150,6 +150,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  its slice to the bit; then the rates: the main path and
                  the one-rank path in turns, the two gloo ranks combined
                  with the halo exchange alone, the grid at 4 shards;
+                 (n) the tools (``singlecarrier_tpu_torch.tools``), each
+                 one's ``main`` in this process at a reduced size, writing
+                 into ``build/chip_smoke_tools``: ``parity`` (one config,
+                 128 channels), ``detection`` (8192 x 16 noise blocks,
+                 one Pd point), ``roofline`` (the ten kernels at 32,768
+                 rows), ``profile_stages`` (the one-kernel prefixes), both
+                 gated benches (8192 x 8), ``ingest_bench`` (two
+                 dispatches) and ``scaling_bench`` (the one-rank path and
+                 two shards): each record parses and names the card,
+                 every Wilson interval holds its estimate, no share
+                 exceeds 100%, parity reports ok;
   6. timing   -- chained dispatches of the main path (premix, then
                  ``mixer_fold=True``: (d1)), of the gated RX, of (a) and
                  of (d2), (a) with ``mixer_fold=True`` (8192 x 128
@@ -182,10 +193,23 @@ import subprocess
 import sys
 import time
 
-C_CMP, B_CMP = 256, 4          # kernel-vs-plain comparison geometry
-C_MAIN, B_MAIN = 8192, 10      # main path: two dispatches of B_MAIN blocks
+try:
+    from singlecarrier_tpu_torch.tools._measure import (
+        B_CMP, B_KTIME, C_CMP, C_MAIN, KERNELS, KNIFE_EDGE, KNOB_VALUES,
+        SEED, PhaseError, bench_point as _bench_point,
+        fp32_floor as _fp32_floor, frames as _frames,
+        golden_stream as _golden_stream, hunt_windows as _hunt_windows,
+        kernel_bounds as _kernel_bounds, kernel_calls as _kernel_calls,
+        kernel_inputs as _kernel_inputs, numerology_tx as _numerology_tx,
+        require as _require, row_inputs as _row_inputs,
+        sm_clock_under as _sm_clock_under, time_cuda as _time_cuda)
+except ImportError as e:          # main() reports it, after the CUDA check
+    _INCOMPLETE = e
+else:
+    _INCOMPLETE = None
+
+B_MAIN = 10                    # main path: two dispatches of B_MAIN blocks
 B_TIME, ITERS = 128, 3         # timed dispatches of C_MAIN x B_TIME
-B_KTIME = 4                    # per-kernel timing: C_MAIN x B_KTIME rows
 B_UNFUSED = 4                  # blocks of the unfused paths (c)
 N_REF_CH = 32                  # channels re-run on the CPU plain path
 GOLDEN_EVERY = 32              # gated RX: every 32nd channel carries packets
@@ -193,170 +217,6 @@ K_GATED, K_SMALL = 8192, 64    # gated RX capacities (the second overflows)
 K_TIME = (1024, 8192)          # gated RX capacities of the timed noise run:
                                # the first overflows, the second holds the
                                # rows of full-scale noise that pass the gate
-SEED = 1234
-
-# name -> (source, file:line of the Pallas body it replaces, note)
-KERNELS = {
-    "frontend_decim": (
-        "singlecarrier_tpu_torch/csrc/frontend.cu",
-        "singlecarrier_tpu/ops/fused_rx.py:155",
-        "front-end stage of kernel #1 fused_rx_block"),
-    "frontend_rows": (
-        "singlecarrier_tpu_torch/csrc/frontend.cu",
-        "singlecarrier_tpu/ops/frontend_pallas.py:200",
-        "kernel #3 fused_frontend_decim (_kernel_decim_aligned :200 and "
-        "_kernel_decim :149)"),
-    "hunt": (
-        "singlecarrier_tpu_torch/csrc/hunt.cu",
-        "singlecarrier_tpu/ops/decode_pallas.py:705",
-        "hunt of _hunt_decode_core, inlined in kernel #1 and in kernel #5 "
-        "fused_hunt_decode_decim (_hunt_decode_decim_kernel "
-        "decode_pallas.py:933), whose launcher runs hunt + extract_decode"),
-    "extract_decode": (
-        "singlecarrier_tpu_torch/csrc/decode.cu",
-        "singlecarrier_tpu/ops/decode_pallas.py:398",
-        "extraction + _decode_core, inlined in kernel #1 and in kernel #5 "
-        "fused_hunt_decode_decim (decode_pallas.py:933)"),
-    "decode_extract": (
-        "singlecarrier_tpu_torch/csrc/decode.cu",
-        "singlecarrier_tpu/ops/decode_pallas.py:1140",
-        "kernel #6 fused_decode_extract"),
-    "decode_packets": (
-        "singlecarrier_tpu_torch/csrc/decode.cu",
-        "singlecarrier_tpu/ops/decode_pallas.py:370",
-        "kernel #7 fused_decode"),
-    "frontend_decim_folded": (
-        "singlecarrier_tpu_torch/csrc/frontend.cu",
-        "singlecarrier_tpu/ops/fused_rx.py:217",
-        "front-end stage of kernel #2 fused_rx_block with mixer_fold "
-        "(_fused_rx_kernel_folded), followed by hunt + extract_decode"),
-    "frontend_rows_folded": (
-        "singlecarrier_tpu_torch/csrc/frontend.cu",
-        "singlecarrier_tpu/ops/frontend_pallas.py:286",
-        "kernel #4 fused_frontend_decim with mixer_fold "
-        "(_kernel_decim_folded)"),
-    "extract_gate": (
-        "singlecarrier_tpu_torch/csrc/decode.cu",
-        "singlecarrier_tpu/ops/decode_pallas.py:417",
-        "stage='gate' of kernels #1, #2 and #5: extraction + energy gate, "
-        "the decode tail not executed"),
-    "frontend_full": (
-        "singlecarrier_tpu_torch/csrc/frontend.cu",
-        "singlecarrier_tpu/ops/frontend_pallas.py:45",
-        "kernel #8 fused_frontend"),
-}
-
-# Published peaks of one H100 SXM (dense): bytes/s of device memory and
-# operations/s by operand type (int8 and bf16 on the tensor cores, f32 on
-# the CUDA cores).
-PEAK_BYTES = 3.35e12
-PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
-
-
-def _bound(nbytes: float, ops: dict):
-    """(least ms the card could take, what binds): the larger of bytes
-    over the memory rate and operations over the peak of their type."""
-    t_bytes = nbytes / PEAK_BYTES
-    t_ops = sum(n / PEAK_OPS[k] for k, n in ops.items())
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
-def _ops(*terms) -> dict:
-    """{operand type: operations} summed over (type, count) terms."""
-    out = {}
-    for kind, n in terms:
-        out[kind] = out.get(kind, 0) + n
-    return out
-
-
-def _kernel_bounds(cfg, N: int, C: int) -> dict:
-    """Bounds of every kernel for N rows of C channels at ``cfg``: each
-    input read once, each output written once; operations counted from
-    the shapes (multiply-add = 2), at the rate of the operand type the
-    config gives them (the knobs: front-end, hunt and CFO DFT operands;
-    the hunt's energy sums; the Gram)."""
-    n, cyc, n_sym = cfg.frame_size, cfg.cycles, cfg.symbols_per_block
-    halo, P, D = cfg.ntaps - 1, cfg.preamble_length, cfg.frame_symbols
-    L, pkt = cfg.eq_length, cfg.pkt_window
-    R = cfg.ls_refit_symbols or D
-    plane_b = 2 if cfg.decim_dtype == "bf16" else 4
-    planes = cyc * 2 * n_sym                       # values per row
-    out_row = 4 * (D + 8)
-    fir = _ops((cfg.frontend_dtype, N * 2 * n * cfg.ntaps * 2),  # f32 sums
-               ("f32", N * n * 14))                # scale + complex downmix
-    energy = {"espan": 2 * planes * 2 + n_sym * P,          # squares, sums
-              "energy": 2 * planes * 2 + cyc * n_sym * P,
-              "none": 0}[cfg.hunt_norm]
-    hunt_ops = _ops((cfg.hunt_dtype, N * cyc * 2 * n_sym * P * 2),
-                    ("f32", N * (energy + cyc * n_sym
-                                 * (4 * cfg.corr_segments + 2))))
-    gram = L * (L + 1) // 2 if cfg.ls_gram == "direct" else L
-    decode_ops = _ops(
-        (cfg.cfo_dtype, N * P * cfg.cfo_nfft * 4 * 2),        # CFO DFT
-        ("f32", N * (
-            cfg.cfo_nfft * 3                                  # power
-            + pkt * 8 + 2 * P * 2                             # derotate, gate
-            + (P + R) * (gram * 8 + L * 8)                    # Gram, b-vec
-            + (P * 2 + R + D) * L * 8                         # apply x4
-            + (1 + cfg.phase_refine_iters) * D * 40)))        # refine passes
-    k1_bytes = N * n * 2 + C * (2 + 2 * halo) * 4 + N * planes * plane_b
-    rows_in = N * n * 2 + N * (2 + 2 * halo) * 4
-    return {
-        # the fold does the same multiply-adds (two sums over one plane)
-        # and moves the mixer's products behind them: K1's bytes and
-        # operations
-        "frontend_decim": _bound(k1_bytes, fir),
-        "frontend_decim_folded": _bound(k1_bytes, fir),
-        "frontend_rows": _bound(rows_in + N * planes * plane_b, fir),
-        "frontend_rows_folded": _bound(rows_in + N * planes * plane_b, fir),
-        # all f32: 3.76 KB in and 15 KB out per row, 49 x 3760
-        # multiply-adds outside the tensor cores and 9 operations a
-        # sample for the scale (1), p * table (6) and x * (.) (2)
-        "frontend_full": _bound(
-            rows_in + N * 2 * n * 4,
-            {"f32": N * (2 * n * cfg.ntaps * 2 + n * 9)}),
-        # the 128 preamble chips a row's energy needs of its two planes,
-        # its lag, phase and peak, one packed row out
-        "extract_gate": _bound(
-            N * 2 * P * plane_b + N * 12 + N * out_row,
-            {"f32": N * (2 * P * 2)}),
-        # every row's planes once: whole as the previous block of row
-        # n + C, and of the last C rows (previous to none) only the
-        # P - 1 values a correlation at lag < n_sym reaches into them
-        "hunt": _bound((N * planes + C * cyc * 2 * (P - 1)) * plane_b
-                       + N * 12, hunt_ops),
-        "extract_decode": _bound(
-            (N + C) * planes * plane_b + N * 12 + N * out_row
-            + 2 * P * cfg.cfo_nfft * 4, decode_ops),
-        # the packet a row needs of its windows: 2 planes x pkt_window f32
-        "decode_extract": _bound(
-            N * 2 * pkt * 4 + N * 12 + N * out_row
-            + 2 * P * cfg.cfo_nfft * 4, decode_ops),
-        "decode_packets": _bound(
-            N * 2 * pkt * 4 + N * 4 + N * out_row
-            + 2 * P * cfg.cfo_nfft * 4, decode_ops),
-    }
-
-
-def _fp32_floor(cfg, name: str, rows: int, mhz: float, sms: int):
-    """(the least ms a front-end's 2 x 1880 x 49 multiply-adds a row take
-    for ``rows`` rows at ``mhz`` on ``sms`` SMs of 128 FP32 lanes, what it
-    counts): one FFMA a multiply-add, or for ``frontend_full``, whose f32
-    products are not exact, an FMUL and an FADD."""
-    per = 2 if name.startswith("frontend_full") else 1
-    ms = (rows * 2 * cfg.frame_size * cfg.ntaps * per
-          / (sms * 128 * mhz * 1e6) * 1e3)
-    return ms, ("FMUL + FADD floor" if per == 2 else "FFMA floor")
-
-
-class PhaseError(RuntimeError):
-    pass
-
-
-def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise PhaseError(msg)
 
 
 def _ptxas_of(log: str, kernel: str) -> str:
@@ -373,47 +233,6 @@ def _ptxas_of(log: str, kernel: str) -> str:
                     said.append(nxt.split("ptxas info    :")[-1].strip())
             return "; ".join(said)
     raise PhaseError(f"ptxas said nothing of {kernel}")
-
-
-def _time_cuda(fn, iters: int, warmup: int = 1) -> float:
-    """Mean milliseconds per call, by CUDA events around ``iters`` calls."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _sm_clock_under(torch, fn, launches: int = 40) -> float:
-    """The SM clock in MHz that ``nvidia-smi`` reads while ``launches``
-    calls of ``fn`` are queued on the card."""
-    for _ in range(launches):
-        fn()
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout
-    torch.cuda.synchronize()
-    return float(out.split()[0])
-
-
-def _golden_stream(torch, tx, C, n_samp, offsets, dev):
-    """[C, n_samp] int16: ``tx`` delayed by ``offsets[ch]``, zero elsewhere."""
-    stream = torch.zeros((C, n_samp), dtype=torch.int16, device=dev)
-    idx = torch.arange(tx.numel(), device=dev)[None] + offsets[:, None]
-    stream.scatter_(1, idx, tx[None].expand(C, -1).contiguous())
-    return stream
-
-
-def _frames(stream, B, n):
-    """[C, B*n] stream -> [B, C, n] contiguous frames."""
-    C = stream.shape[0]
-    return stream[:, :B * n].reshape(C, B, n).permute(1, 0, 2).contiguous()
 
 
 def _decisions_agree(a, b, what: str, stats: bool = True) -> None:
@@ -471,37 +290,6 @@ def _check_packets(torch, outs, tx_bits, cfg) -> int:
     return int(rep.any(0).sum())
 
 
-def _kernel_inputs(torch, np, gen, tx, cfg, C, B, dev):
-    """Kernel operands for [B, C] rows: golden packets at random delays
-    and positions with AWGN of 0..4500 (every 8th channel full-scale
-    noise only), a random carried state."""
-    n = cfg.frame_size
-    off = torch.randint(0, 4 * n, (C,), generator=gen, device=dev)
-    stream = _golden_stream(torch, tx, C, B * n + 4 * n + tx.numel(), off,
-                            dev)
-    start = torch.randint(0, tx.numel(), (C,), generator=gen, device=dev)
-    idx = start[:, None] + torch.arange(B * n, device=dev)[None]
-    sig = torch.gather(stream, 1, idx).float()
-    sigma = (torch.arange(C, device=dev) % 4).float()[:, None] * 1500.0
-    noise = torch.randn((C, B * n), generator=gen, device=dev) * sigma
-    x = (sig + noise).clamp(-32768, 32767).to(torch.int16)
-    pure = torch.randint(-16384, 16384, (C, B * n), generator=gen,
-                         device=dev, dtype=torch.int16)
-    x = torch.where((torch.arange(C, device=dev) % 8 == 7)[:, None], pure, x)
-    ph = torch.rand((C,), generator=gen, device=dev) * (2 * np.pi)
-    halo = cfg.ntaps - 1
-    t0r = torch.randn((C, halo), generator=gen, device=dev) * 0.1
-    t0i = torch.randn((C, halo), generator=gen, device=dev) * 0.1
-    w_ = -2.0 * np.pi * cfg.center / cfg.fs
-    advs = np.exp(1j * w_ * n * np.arange(B)).astype(np.complex64)
-    adv = torch.from_numpy(np.stack([advs.real, advs.imag])).to(dev)
-    ddt = torch.bfloat16 if cfg.decim_dtype == "bf16" else torch.float32
-    dprev0 = (torch.randn((cfg.cycles, 2, C, cfg.symbols_per_block),
-                          generator=gen, device=dev) * 0.5).to(ddt)
-    return (_frames(x, B, n), torch.cos(ph), torch.sin(ph), t0r, t0i, adv,
-            dprev0)
-
-
 def _compare_kernels(torch, cfg, inputs, what: str) -> dict:
     """Each kernel against its plain version on the same operands; returns
     {name: {"max_abs_err": x}}."""
@@ -537,7 +325,7 @@ def _compare_kernels(torch, cfg, inputs, what: str) -> dict:
 
     # ---- the per-row front-end, both layouts ----
     C = pcm.shape[1]
-    rows = _row_inputs(torch, cfg, pcm, p0r, p0i, t0r, t0i, adv)
+    rows = _row_inputs(cfg, pcm, p0r, p0i, t0r, t0i, adv)
     worst = 0.0
     for transposed in (True, False):
         fk = frontend_rows(cfg, *rows, transposed=transposed)
@@ -566,7 +354,7 @@ def _compare_kernels(torch, cfg, inputs, what: str) -> dict:
     report["frontend_rows"] = {"max_abs_err": worst}
 
     # ---- the decode variants, on windows of the row-major planes ----
-    wins, lag, ph, peak, pkt_r, pkt_i = _hunt_windows(torch, cfg, drow, C)
+    wins, lag, ph, peak, pkt_r, pkt_i = _hunt_windows(cfg, drow, C)
     ek = _decode_rows(torch, fused_decode_extract(cfg, wins, lag, ph, peak))
     er = fused_decode_extract_ref(cfg, wins, lag, ph, peak)
     pk = _decode_rows(torch, fused_decode(cfg, pkt_r, pkt_i, peak))
@@ -667,7 +455,7 @@ def _compare_decimating(torch, cfg, inputs, what: str, gen=None):
         pcm = torch.randint(-32768, 32768, pcm.shape, generator=gen,
                             device=pcm.device, dtype=torch.int16)
         rows_of = "rows of full-scale noise"
-    rows = _row_inputs(torch, cfg, pcm, p0r, p0i, t0r, t0i, adv)
+    rows = _row_inputs(cfg, pcm, p0r, p0i, t0r, t0i, adv)
     for fold, decim_ref, rows_ref in (
             (False, frontend_decim_ref, frontend_rows_ref),
             (True, frontend_decim_folded_ref, frontend_rows_folded_ref)):
@@ -717,7 +505,7 @@ def _compare_full_on_noise(torch, cfg, inputs, gen, what: str):
         return torch.randint(-32768, 32768, pcm.shape, generator=gen,
                              device=pcm.device, dtype=torch.int16)
 
-    rows = _row_inputs(torch, cfg, noise(), p0r, p0i, t0r, t0i, adv)
+    rows = _row_inputs(cfg, noise(), p0r, p0i, t0r, t0i, adv)
     _, _, ntr, nti, npr, npi = fused_frontend(cfg, *rows)
     chained = (noise().reshape(rows[0].shape), npr, npi, ntr, nti)
     for block, ops in (("first block", rows), ("chained block", chained)):
@@ -848,46 +636,6 @@ def _compare_decode(torch, cfg, out_k, out_r, what: str, name: str) -> dict:
     return {"max_abs_err": float(stat_err.max())}
 
 
-def _row_inputs(torch, cfg, pcm, p0r, p0i, t0r, t0i, adv):
-    """The per-row operands ``prod_rx_batch`` derives for the per-row
-    front-end: phases p0 * adv^b and the downmixed tail of the previous
-    raw block (the carried tail for block 0)."""
-    from singlecarrier_tpu_torch.dsp.mixer import downmix_tail
-    B, C, n = pcm.shape
-    halo = cfg.ntaps - 1
-    ar, ai = adv[0][:, None], adv[1][:, None]
-    ph_r = p0r[None] * ar - p0i[None] * ai
-    ph_i = p0r[None] * ai + p0i[None] * ar
-    x_t = pcm[:, :, n - halo:].float() * (1.0 / cfg.tx_amplitude)
-    tl_r, tl_i = downmix_tail(cfg.center, cfg.fs, n, halo, x_t,
-                              ph_r[..., None], ph_i[..., None])
-    N = B * C
-    return (pcm.reshape(N, n), ph_r.reshape(N), ph_i.reshape(N),
-            torch.cat([t0r[None], tl_r[:-1]]).reshape(N, halo),
-            torch.cat([t0i[None], tl_i[:-1]]).reshape(N, halo))
-
-
-def _hunt_windows(torch, cfg, drow, C):
-    """Padded hunt windows [N, cyc, 2, 768] of row-major planes
-    ``drow`` [N, cyc, 2, n_sym] (row n's previous block is row n - C;
-    zeros before block 0), the plain hunt's (lag, phase, peak), and the
-    packet planes [N, pkt_window] (real, imaginary) at that lag and
-    phase."""
-    from singlecarrier_tpu_torch.modem.rx_production import (
-        _extract_packet_planes, _hunt_planes)
-    off = cfg.eq_length // 2
-    n_sym = drow.shape[-1]
-    prev = torch.cat([torch.zeros_like(drow[:C]), drow[:-C]])
-    wp = -(-max(n_sym - 1 + cfg.pkt_window, off + 2 * n_sym) // 128) * 128
-    wins = torch.nn.functional.pad(torch.cat([prev, drow], -1),
-                                   (off, wp - off - 2 * n_sym))
-    lag, ph, peak = _hunt_planes(cfg, wins, col_offset=off)
-    pkt = _extract_packet_planes(
-        cfg, wins[..., off:off + 2 * n_sym].contiguous(), lag, ph)
-    return (wins.contiguous(), lag, ph, peak, pkt[:, 0].contiguous(),
-            pkt[:, 1].contiguous())
-
-
 def _decode_rows(torch, dec):
     """A decode launcher's stat dict as packed [N, D + 5] rows."""
     return torch.cat([dec["dibits"], dec["matches"].float()[:, None],
@@ -897,32 +645,6 @@ def _decode_rows(torch, dec):
 
 
 # ---- (i) the knob variants: the kernels' other instantiations
-
-_DECODES = ("extract_decode", "decode_extract", "decode_packets")
-# The seven configuration values of the JAX kernels that the CUDA kernels
-# take as template parameters, each with the kernels whose code it changes.
-KNOB_VALUES = (
-    ("hunt_norm", "energy", ("hunt",)),
-    ("hunt_norm", "none", ("hunt",)),
-    ("hunt_dtype", "f32", ("hunt",)),
-    ("ls_gram", "direct", _DECODES),
-    ("ls_bvec", "matmul", _DECODES),
-    ("cfo_dtype", "bf16", _DECODES),
-    ("frontend_dtype", "f32", ("frontend_decim", "frontend_rows",
-                               "frontend_decim_folded",
-                               "frontend_rows_folded")),
-)
-
-
-# A decision of the decode kernel may differ from its plain version's
-# only on a knife edge: a symbol whose plain soft value lies within this
-# fraction of its magnitude of the slicer's boundary.  The kernel's f32
-# sums run in another order than the plain version's (lane-strided,
-# then a butterfly), which moves a soft symbol by some 1e-7 of itself;
-# ``python3 -m singlecarrier_tpu_torch.kernel_ab --knife-edges N``
-# counts the symbols that differ on N draws of phase 3's inputs and
-# prints their margins.
-KNIFE_EDGE = 1e-5
 
 
 def _compare_decode_soft(torch, cfg, out_k, pkt_r, pkt_i, peak, what: str,
@@ -983,9 +705,9 @@ def _compare_decode_variants(torch, cfg, inputs, what: str) -> dict:
         torch, cfg, extract_decode(cfg, dk, dprev0, lk, pk_, qk)[:, :D + 5],
         pkt[:, 0].contiguous(), pkt[:, 1].contiguous(), qk, what,
         "extract_decode")}
-    rows = _row_inputs(torch, cfg, pcm, p0r, p0i, t0r, t0i, adv)
+    rows = _row_inputs(cfg, pcm, p0r, p0i, t0r, t0i, adv)
     wins, wl, wph, wpk, pkt_r, pkt_i = _hunt_windows(
-        torch, cfg, frontend_rows(cfg, *rows), pcm.shape[1])
+        cfg, frontend_rows(cfg, *rows), pcm.shape[1])
     ek = _decode_rows(torch, fused_decode_extract(cfg, wins, wl, wph, wpk))
     dp = _decode_rows(torch, fused_decode(cfg, pkt_r, pkt_i, wpk))
     rep["decode_extract"] = _compare_decode_soft(
@@ -1142,185 +864,12 @@ def _knob_main_paths(torch, np, cfg, noise, rate, dispatches, main_rate,
     return launches
 
 
-def _kernel_calls(torch, cfg, inputs, C: int) -> dict:
-    """{kernel: (kernel call, plain call)} of the ten kernels on the
-    operands of ``inputs`` ([B, C] rows from ``_kernel_inputs``) at
-    ``cfg``: the calls the timing runs."""
-    from singlecarrier_tpu_torch.ops.decode import (
-        extract_decode, extract_decode_ref, extract_gate, extract_gate_ref,
-        fused_decode, fused_decode_extract, fused_decode_extract_ref,
-        fused_decode_ref, hunt, hunt_ref)
-    from singlecarrier_tpu_torch.ops.frontend import (
-        frontend_decim, frontend_decim_folded_ref, frontend_decim_ref,
-        frontend_full, frontend_full_ref, frontend_rows,
-        frontend_rows_folded_ref, frontend_rows_ref)
-    pcm, p0r, p0i, t0r, t0i, adv, dprev0 = inputs
-    dk = frontend_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv)
-    lk, pk_, qk = hunt(cfg, dk, dprev0)
-    rows = _row_inputs(torch, cfg, pcm, p0r, p0i, t0r, t0i, adv)
-    wins, wl, wph, wpk, pkt_r, pkt_i = _hunt_windows(
-        torch, cfg, frontend_rows(cfg, *rows), C)
-    return {
-        "frontend_decim": (
-            lambda: frontend_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv),
-            lambda: frontend_decim_ref(cfg, pcm, p0r, p0i, t0r, t0i, adv)),
-        "frontend_rows": (
-            lambda: frontend_rows(cfg, *rows, transposed=True),
-            lambda: frontend_rows_ref(cfg, *rows, transposed=True)),
-        "hunt": (lambda: hunt(cfg, dk, dprev0),
-                 lambda: hunt_ref(cfg, dk, dprev0)),
-        "extract_decode": (
-            lambda: extract_decode(cfg, dk, dprev0, lk, pk_, qk),
-            lambda: extract_decode_ref(cfg, dk, dprev0, lk, pk_, qk)),
-        "decode_extract": (
-            lambda: fused_decode_extract(cfg, wins, wl, wph, wpk),
-            lambda: fused_decode_extract_ref(cfg, wins, wl, wph, wpk)),
-        "decode_packets": (
-            lambda: fused_decode(cfg, pkt_r, pkt_i, wpk),
-            lambda: fused_decode_ref(cfg, pkt_r, pkt_i, wpk)),
-        "frontend_decim_folded": (
-            lambda: frontend_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv,
-                                   mixer_fold=True),
-            lambda: frontend_decim_folded_ref(cfg, pcm, p0r, p0i, t0r, t0i,
-                                              adv)),
-        "frontend_rows_folded": (
-            lambda: frontend_rows(cfg, *rows, transposed=True,
-                                  mixer_fold=True),
-            lambda: frontend_rows_folded_ref(cfg, *rows, transposed=True)),
-        "extract_gate": (
-            lambda: extract_gate(cfg, dk, dprev0, lk, pk_, qk),
-            lambda: extract_gate_ref(cfg, dk, dprev0, lk, pk_, qk)),
-        "frontend_full": (lambda: frontend_full(cfg, *rows),
-                          lambda: frontend_full_ref(cfg, *rows)),
-    }
-
-
 # ---- (g) loopback parity and (h) BER: the port's XLA path as the oracle
 
-PARITY_C, PARITY_PACKETS = 128, 6        # tools/tpu_parity.py's defaults
-PARITY_SNR_DB, PARITY_CFO_HZ = 12.0, 15.0
 BER_SNRS = (2.0, 4.0, 6.0)
 BER_PACKETS, BER_TRIALS = 10, 64         # 317,440 payload bits a point
 BER_RECORD = "BER_PALLAS.jsonl"
 B_XLA = 8                                # timed XLA path: C_MAIN x B_XLA
-
-
-def _parity_configs(default):
-    """(name, record, config) of the seven pinned ``PARITY_TPU*.json``
-    configs, then the library default under each of the six other knob
-    values (no record: held to the XLA path and the truth alike)."""
-    int8 = default.replace(decim_dtype="bf16", hunt_dtype="int8")
-    knobs = [(f"{knob}={value}", None, default.replace(**{knob: value}))
-             for knob, value, _ in KNOB_VALUES if knob != "cfo_dtype"]
-    return [
-        ("default", "PARITY_TPU.json", default),
-        ("decim bf16", "PARITY_TPU_BF16.json",
-         default.replace(decim_dtype="bf16")),
-        ("alpha 0.50", "PARITY_TPU_WIDE.json", default.replace(alpha=0.50)),
-        ("frac timing", "PARITY_TPU_FRAC.json",
-         default.replace(frac_timing=True)),
-        ("hunt int8", "PARITY_TPU_INT8.json", int8),
-        ("refit 128", "PARITY_TPU_R128.json",
-         int8.replace(ls_refit_symbols=128)),
-        ("cfo bf16", "PARITY_TPU_CFO16.json", int8.replace(cfo_dtype="bf16")),
-    ] + knobs
-
-
-def _parity_stream(torch, cfg, bits, seed: int, dev):
-    """The records' stream: scrambled packets with the flushed gap, each
-    channel through ``channel`` at PARITY_SNR_DB and PARITY_CFO_HZ (its
-    own signal power, as the records' per-channel ``vmap`` measures it),
-    cast to int16 as XLA casts.  Returns frames [B, C, frame_size]."""
-    from singlecarrier_tpu_torch.channel import channel
-    from singlecarrier_tpu_torch.device import to_int16
-    from singlecarrier_tpu_torch.modem.tx import tx_stream
-    n = cfg.frame_size
-    pcm = tx_stream(cfg, bits, flush_gap=True, scramble=True, device=dev)
-    n_blocks = -(-pcm.shape[-1] // n) + 1
-    x = torch.zeros((pcm.shape[0], n_blocks * n), device=dev)
-    x[:, :pcm.shape[-1]] = pcm.float()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    x = torch.stack([channel(gen, row, snr_db=PARITY_SNR_DB,
-                             freq_hz=PARITY_CFO_HZ, fs=cfg.fs, device=dev)
-                     for row in x])
-    return to_int16(x).reshape(-1, n_blocks, n).transpose(0, 1).contiguous()
-
-
-def _truth(cfg, out, ref):
-    """Bit errors, bits counted, false detects, the set of (channel,
-    block) true-packet detections and the set of those with a bit error,
-    of [C, B] numpy outputs against the sent payloads ``ref`` [C,
-    packets, bits], matched by stream position (``ber.assign_detections``,
-    the records' semantics)."""
-    from singlecarrier_tpu_torch.ber import assign_detections
-    err = total = false = 0
-    hits, wrong = set(), set()
-    for c in range(out.valid.shape[0]):
-        assigned, f = assign_detections(cfg, out.valid[c], out.lag[c],
-                                        out.timing_phase[c], ref.shape[1])
-        false += f
-        for p, (_, fr) in assigned.items():
-            hits.add((c, fr))
-            e = int((out.bits[c, fr] != ref[c, p]).sum())
-            if e:
-                wrong.add((c, fr))
-            err += e
-            total += ref.shape[2]
-    return err, total, false, hits, wrong
-
-
-def _parity_check(cfg, out_p, out_x, truth_p, truth_x, expected: int,
-                  exclude=frozenset()):
-    """``tools/tpu_parity.py``'s fields and the North star's criterion of
-    one path against the XLA path, with that tool's one allowance: under
-    the int8 hunt, valid flags may flip on blocks that are a true packet
-    in neither path (round() puts noise blocks on a knife edge of the
-    energy gate), at most one in 1000 blocks.  Against the truth every
-    packet is found once, with no bit error and no false detect.
-    ``exclude``: (channel, block)s whose bits, cfo and eq_error are not
-    compared (valid, lag and phase still are)."""
-    import numpy as np
-    both = out_x.valid & out_p.valid
-    lag_both = both.copy()
-    for c, b in exclude:
-        both[c, b] = False
-    diff = out_p.bits[both] != out_x.bits[both]
-    flips = [tuple(map(int, cb)) for cb in
-             np.argwhere(out_p.valid != out_x.valid)]
-    true_miss = any(f in truth_p[3] or f in truth_x[3] for f in flips)
-    v_eq = not flips
-    v_ok = v_eq or (cfg.hunt_dtype == "int8" and not true_miss
-                    and len(flips) <= max(1, out_x.valid.size // 1000))
-    cfo_d = float(np.abs(out_p.cfo_hz[both] - out_x.cfo_hz[both]).max(
-        initial=0.0))
-    eq_d = float(np.abs(out_p.eq_error[both] - out_x.eq_error[both]).max(
-        initial=0.0))
-    rep = {
-        "valid_identical": v_eq, "valid_diff_blocks": flips[:16],
-        "valid_diffs_all_gate_marginal_noise": not true_miss,
-        "bits_identical_on_valid": not bool(diff.any()),
-        "bit_diffs_vs_xla": int(diff.sum()),
-        "blocks_differing_vs_xla": int(diff.any(-1).sum()),
-        "bit_errors_vs_truth": [truth_p[0], truth_p[1]],
-        "false_detects": truth_p[2],
-        "lag_identical_on_valid": bool(np.array_equal(
-            out_p.lag[lag_both], out_x.lag[lag_both])),
-        "phase_identical_on_valid": bool(np.array_equal(
-            out_p.timing_phase[lag_both], out_x.timing_phase[lag_both])),
-        "blocks_not_compared": len(exclude),
-        "max_cfo_delta_hz": cfo_d, "max_eq_error_delta": eq_d,
-        "packets_detected": int(out_p.valid.sum()),
-    }
-    rep["valid_ok"] = bool(v_ok)
-    rep["agrees_with_xla"] = bool(
-        v_ok and rep["bits_identical_on_valid"]
-        and rep["lag_identical_on_valid"] and rep["phase_identical_on_valid"]
-        and cfo_d < 0.5 and eq_d < 2e-3)
-    rep["ok"] = bool(
-        rep["agrees_with_xla"] and truth_p[0] == 0
-        and truth_p[1] == expected * cfg.bits_per_frame and truth_p[2] == 0)
-    return rep
 
 
 def _report(tag: str, line: dict) -> None:
@@ -1329,66 +878,28 @@ def _report(tag: str, line: dict) -> None:
 
 def _parity_phase(torch, default, drive, dev, seed: int) -> dict:
     """(g): the records' stream through the XLA path (the oracle) and every
-    path the config allows, each held to it; one ``[parity]`` line each.
-    Returns {config: {kernel: launches over its kernel paths}}."""
-    import numpy as np
-    from singlecarrier_tpu_torch.modem import (
-        ProdRxOut, prod_rx_batch, prod_rx_init, prod_rx_stream,
-        prod_rx_stream_pallas)
-    from singlecarrier_tpu_torch.ops import _build
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    bits = torch.randint(0, 2, (PARITY_C, PARITY_PACKETS, default.ns,
-                                2 * default.data_symbols), generator=gen,
-                         device=dev, dtype=torch.uint8)
-    ref = bits.reshape(PARITY_C, PARITY_PACKETS, -1).cpu().numpy()
-    expected = PARITY_C * PARITY_PACKETS
+    path the config allows (``tools/parity.run_config``), each held to it;
+    one ``[parity]`` line each.  Returns {config: {kernel: launches over
+    its kernel paths}}."""
+    from singlecarrier_tpu_torch.tools import parity
+    bits, ref = parity.payload(default, parity.PARITY_C,
+                               parity.PARITY_PACKETS, seed, dev)
     streams, launches = {}, {}
-
-    def host(out):                                  # [B, C] -> numpy [C, B]
-        return ProdRxOut(*(v.transpose(0, 1).cpu().numpy() for v in out))
-
-    for name, record, cfg in _parity_configs(default):
+    for name, record, cfg in parity.configs(default):
         head = {"config": name, "record": record}
         counts = launches[name] = {}
         if cfg.alpha not in streams:
-            streams[cfg.alpha] = _parity_stream(torch, cfg, bits, seed + 1,
-                                                dev)
-        frames = streams[cfg.alpha]
-        C = frames.shape[1]
-        out_x = host(drive(f"parity {name}: xla", lambda: prod_rx_stream(
-            cfg, prod_rx_init(cfg, (C,), dev), frames)[1], ()))
-        truth_x = _truth(cfg, out_x, ref)
-        xla_ok = (truth_x[0] == 0 and truth_x[2] == 0
-                  and truth_x[1] == expected * cfg.bits_per_frame)
-        line = {**head, "path": "xla", "blocks": frames.shape[0],
-                "packets_detected": int(out_x.valid.sum()),
-                "expected_packets": expected,
-                "bit_errors_vs_truth": [truth_x[0], truth_x[1]],
-                "false_detects": truth_x[2], "ok": xla_ok}
+            streams[cfg.alpha] = parity.stream(cfg, bits, seed + 1, dev)
+        xla, reps, path_launches = parity.run_config(
+            cfg, streams[cfg.alpha], ref, dev, drive, f"parity {name}")
+        line = {**head, "path": "xla",
+                **{k: v for k, v in xla.items() if k != "errored_blocks"}}
         _report("parity", line)
-        _require(xla_ok, f"parity {name}: the XLA path against the truth: "
-                 f"{line}")
-        rows = ("frontend_rows", "hunt", "extract_decode")
-        paths = {} if cfg.frac_timing else {
-            "batch_pallas": (lambda: prod_rx_batch(
-                cfg, prod_rx_init(cfg, (C,), dev), frames)[1], rows),
-            "fused_rx": (lambda: prod_rx_batch(
-                cfg, prod_rx_init(cfg, (C,), dev), frames,
-                fuse_frontend=True)[1],
-                ("frontend_decim", "hunt", "extract_decode"))}
-        paths["scan_pallas"] = (lambda: prod_rx_stream_pallas(
-            cfg, prod_rx_init(cfg, (C,), dev), frames)[1],
-            ("frontend_full", "decode_packets") if cfg.frac_timing else rows)
-        paths["pallas_fe_xla_decode"] = (lambda: prod_rx_stream_pallas(
-            cfg, prod_rx_init(cfg, (C,), dev), frames, fuse_decode=False)[1],
-            ("frontend_full",))
-        for path, (fn, expect) in paths.items():
-            out_p = host(drive(f"parity {name}: {path}", fn, expect))
-            for k, v in _build.LAUNCHES.items():
+        _require(xla["ok"], f"parity {name}: the XLA path against the "
+                 f"truth: {line}")
+        for path, rep in reps.items():
+            for k, v in path_launches[path].items():
                 counts[k] = counts.get(k, 0) + v
-            rep = _parity_check(cfg, out_p, out_x, _truth(cfg, out_p, ref),
-                                truth_x, expected)
             _report("parity", {**head, "path": path, **rep})
             _require(rep["ok"], f"parity {name}: {path} against the XLA "
                      f"path: {rep}")
@@ -1460,24 +971,6 @@ _PTXAS_KERNELS = ("frontend_decim_kernel", "frontend_rows_kernel",
                   "decode_packets_kernel", "extract_gate_kernel")
 
 
-def _bench_point(cfg):
-    """The bench operating point at ``cfg``'s numerology: bf16 planes,
-    the int8 hunt, ``ls_refit_symbols = min(128, D)``."""
-    return cfg.replace(decim_dtype="bf16", hunt_dtype="int8",
-                       ls_refit_symbols=min(128, cfg.frame_symbols))
-
-
-def _numerology_tx(torch, np, cfg, dev, packets: int = 10):
-    """[samples] int16 on ``dev``: ``packets`` scrambled packets of seeded
-    random payload at ``cfg``'s numerology with the flushed gap, the
-    golden stream's make-up at another numerology."""
-    from singlecarrier_tpu_torch.modem.tx import tx_stream
-    rng = np.random.default_rng(SEED)
-    bits = rng.integers(0, 2, (packets, cfg.ns, 2 * cfg.data_symbols),
-                        dtype=np.uint8)
-    return tx_stream(cfg, bits, flush_gap=True, scramble=True, device=dev)
-
-
 def _start_builds(configs: dict):
     """Start building every config's kernel library at once (one thread
     each; each build runs its three nvcc together).  Returns {name:
@@ -1543,36 +1036,33 @@ def _gated_as_out(torch, out, B: int, C: int):
 
 def _numerology_parity(torch, np, cfg, drive, dev, tag: str,
                        frac: bool) -> dict:
-    """(j) 2: the records' kind of stream (PARITY_C channels x
-    PARITY_PACKETS packets, 12 dB, 15 Hz) at ``cfg``'s numerology
-    through the XLA path and every kernel path, each held to the XLA path
-    by the North star's criterion (``_parity_check``) and to the truth:
-    every packet once with no bit error and no false detect.  Where the
-    XLA path itself decodes packets with bit errors (a numerology whose
-    band is impaired at 12 dB), the two receivers, which round in other
-    places, may decide a marginal symbol or a refit guard apart: there a
-    kernel path is held to the XLA path by decisions (valid, lag and
-    phase everywhere, bits on the packets neither decoded wrong, the same
-    detections and false detects, |dcfo| < 0.5 Hz; |deq_error|
-    reported), and to the main path the same way, with |dcfo| < 0.5 Hz
-    and |deq_error| < 2e-3 besides on the paths that read the main
-    path's own planes (not the unfused ones, which read f32 windows, the
-    folded ones, whose front-end rounds elsewhere, or the full-rate
-    front-end with the XLA back end).  Both counts against the truth are
-    printed.  Returns {kernel: launches}."""
+    """(j) 2: the records' kind of stream (``tools/parity.PARITY_C``
+    channels x ``PARITY_PACKETS`` packets, 12 dB, 15 Hz) at ``cfg``'s
+    numerology through the XLA path and every kernel path, each held to the
+    XLA path by the North star's criterion (``tools/parity.check``) and to
+    the truth: every packet once with no bit error and no false detect.
+    Where the XLA path itself decodes packets with bit errors (a numerology
+    whose band is impaired at 12 dB), the two receivers, which round in
+    other places, may decide a marginal symbol or a refit guard apart:
+    there a kernel path is held to the XLA path by decisions (valid, lag
+    and phase everywhere, bits on the packets neither decoded wrong, the
+    same detections and false detects, |dcfo| < 0.5 Hz; |deq_error|
+    reported), and to the main path the same way, with |dcfo| < 0.5 Hz and
+    |deq_error| < 2e-3 besides on the paths that read the main path's own
+    planes (not the unfused ones, which read f32 windows, the folded ones,
+    whose front-end rounds elsewhere, or the full-rate front-end with the
+    XLA back end). Both counts against the truth are printed. Returns
+    {kernel: launches}."""
     from singlecarrier_tpu_torch.modem import (
         ProdRxOut, prod_rx_batch, prod_rx_batch_gated, prod_rx_gated_init,
         prod_rx_init, prod_rx_init_planes, prod_rx_stream,
         prod_rx_stream_pallas, prod_rx_stream_superstep)
     from singlecarrier_tpu_torch.ops import _build
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
-    bits = torch.randint(0, 2, (PARITY_C, PARITY_PACKETS, cfg.ns,
-                                2 * cfg.data_symbols), generator=gen,
-                         device=dev, dtype=torch.uint8)
-    ref = bits.reshape(PARITY_C, PARITY_PACKETS, -1).cpu().numpy()
-    expected = PARITY_C * PARITY_PACKETS
-    frames = _parity_stream(torch, cfg, bits, SEED + 1, dev)
+    from singlecarrier_tpu_torch.tools import parity
+    bits, ref = parity.payload(cfg, parity.PARITY_C, parity.PARITY_PACKETS,
+                               SEED, dev)
+    expected = parity.PARITY_C * parity.PARITY_PACKETS
+    frames = parity.stream(cfg, bits, SEED + 1, dev)
     B, C = frames.shape[0], frames.shape[1]
     launches = {}
 
@@ -1632,7 +1122,7 @@ def _numerology_parity(torch, np, cfg, drive, dev, tag: str,
         anchor = None                   # the first path: the main one
         out_x = host(drive(f"{tag} parity: xla", lambda: prod_rx_stream(
             rcfg, prod_rx_init(rcfg, (C,), dev), frames)[1], ()))
-        truth_x = _truth(rcfg, out_x, ref)
+        truth_x = parity.truth(rcfg, out_x, ref)
         xla_full = (truth_x[0] == 0 and truth_x[2] == 0
                     and truth_x[1] == expected * rcfg.bits_per_frame)
         _report("numerology", {**head, "path": "xla", "blocks": B,
@@ -1645,12 +1135,12 @@ def _numerology_parity(torch, np, cfg, drive, dev, tag: str,
             out_p = host(drive(f"{tag} parity: {path}", fn, expect))
             for k, v in _build.LAUNCHES.items():
                 launches[k] = launches.get(k, 0) + v
-            truth_p = _truth(rcfg, out_p, ref)
+            truth_p = parity.truth(rcfg, out_p, ref)
             # where the XLA path itself decodes a packet with bit errors,
             # the two receivers' roundings may decide a marginal symbol
             # apart: such packets (in either path) are held by valid, lag
             # and phase only, and counted
-            rep = _parity_check(rcfg, out_p, out_x, truth_p, truth_x,
+            rep = parity.check(rcfg, out_p, out_x, truth_p, truth_x,
                                 expected, exclude=(
                                     frozenset() if xla_full
                                     else truth_x[4] | truth_p[4]))
@@ -1671,7 +1161,7 @@ def _numerology_parity(torch, np, cfg, drive, dev, tag: str,
             if anchor is None:          # the main path: the first run
                 anchor = (out_p, truth_p)
                 continue
-            to_main = _parity_check(rcfg, out_p, anchor[0], truth_p,
+            to_main = parity.check(rcfg, out_p, anchor[0], truth_p,
                                     anchor[1], expected,
                                     exclude=truth_p[4] | anchor[1][4])
             # the paths that read the main path's own planes
@@ -1718,10 +1208,10 @@ def _numerology_phase(torch, np, gen, dev, builds, drive, smi_line) -> dict:
         t_start = time.perf_counter()
         default = DEFAULT_CONFIG.replace(**kw)
         bench = _bench_point(default)
-        tx = _numerology_tx(torch, np, default, dev)
+        tx = _numerology_tx(default, dev)
 
         def inputs(cfg_, C, B):
-            return _kernel_inputs(torch, np, gen, tx, cfg_, C, B, dev)
+            return _kernel_inputs(gen, tx, cfg_, C, B, dev)
 
         # ---- 1. every kernel and knob variant against its plain version
         errs = {}
@@ -1801,7 +1291,7 @@ def _numerology_phase(torch, np, gen, dev, builds, drive, smi_line) -> dict:
         # every kernel at C_MAIN x B_KTIME rows beside its bound
         kin = inputs(bench, C_MAIN, B_KTIME)
         kbounds = _kernel_bounds(bench, C_MAIN * B_KTIME, C_MAIN)
-        for name, (kern, _) in _kernel_calls(torch, bench, kin,
+        for name, (kern, _) in _kernel_calls(bench, kin,
                                              C_MAIN).items():
             geometries[name][tag] = {
                 "launches": launches.get(name, 0),
@@ -1945,7 +1435,7 @@ def _faithful_phase(torch, np, golden, dev, here: str, smi_line: str):
     tx = torch.from_numpy(pcm).to(dev)
     nb = -(-(len(pcm) + n) // n) + 1
     offsets = torch.arange(K_CH, device=dev) % n
-    frames = _frames(_golden_stream(torch, tx, K_CH, nb * n, offsets, dev),
+    frames = _frames(_golden_stream(tx, K_CH, nb * n, offsets, dev),
                      nb, n)
     sub = frames[:, ::K_CH // K_DELAYED]            # delays 0, 235, ..
     _, got = run(cfg, sub, K_DELAYED)
@@ -1968,10 +1458,10 @@ def _faithful_phase(torch, np, golden, dev, here: str, smi_line: str):
     for tag in K_NUMEROLOGIES:
         ncfg = DEFAULT_CONFIG.replace(**_build.NUMEROLOGIES[tag])
         nn = ncfg.frame_size
-        ntx = _numerology_tx(torch, np, ncfg, dev, K_NUM_PACKETS)
+        ntx = _numerology_tx(ncfg, dev, K_NUM_PACKETS)
         nbk = -(-(ntx.numel() + nn) // nn) + 1
         offs = (torch.arange(K_NUM_CH, device=dev) * nn) // K_NUM_CH
-        nfr = _frames(_golden_stream(torch, ntx, K_NUM_CH, nbk * nn, offs,
+        nfr = _frames(_golden_stream(ntx, K_NUM_CH, nbk * nn, offs,
                                      dev), nbk, nn)
         _, got = run(ncfg, nfr, K_NUM_CH)
         _, want = run(ncfg, nfr, K_NUM_CH, "cpu")
@@ -2070,7 +1560,6 @@ def _launches_of(torch, fn) -> str:
 # ---- (l) the runtime layer: native ingest into the main path, the
 # streaming demodulator, checkpoint, failover and checks, on the card
 
-L_WORKERS = (1, 4, 8, 16)   # host assembly rates at these worker counts
 L_RATE_B = 16               # blocks a dispatch of the rate runs: 493 MB
 L_RATE_DISP = 8             # dispatches of the end-to-end run
 L_RING_CH = 64              # channels of the ring-mode run
@@ -2106,41 +1595,6 @@ def _outs_equal(torch, a, b, what: str) -> None:
                  f"{what}: {name} differs")
 
 
-def _h2d_in_trace(log_dir: str, kernel_names) -> str:
-    """Every host-to-device copy in the newest Chrome trace under
-    ``log_dir`` must read pinned memory and run on a stream that runs
-    none of the kernels; returns what the trace shows, as a phrase."""
-    import glob
-    files = sorted(glob.glob(os.path.join(log_dir, "*.pt.trace.json")),
-                   key=os.path.getmtime)
-    _require(bool(files), f"no Chrome trace under {log_dir}")
-    with open(files[-1]) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X"]
-    h2d = [e for e in events if e.get("name", "").startswith("Memcpy HtoD")]
-    kern = [e for e in events if e.get("cat") == "kernel"]
-    _require(bool(h2d) and bool(kern), f"the trace holds {len(h2d)} "
-             f"host-to-device copies and {len(kern)} kernels")
-    pageable = [e["name"] for e in h2d if "Pinned -> Device" not in e["name"]]
-    _require(not pageable, f"host-to-device copies not from pinned memory: "
-             f"{pageable[:4]}")
-    copy_streams = {e["args"]["stream"] for e in h2d}
-    kern_streams = {e["args"]["stream"] for e in kern}
-    _require(not copy_streams & kern_streams,
-             f"copies on streams {copy_streams}, kernels on {kern_streams}")
-    ours = {e["name"] for e in kern
-            if any(k in e["name"] for k in kernel_names)}
-    _require(len(ours) == len(kernel_names),
-             f"the trace's kernels: {sorted({e['name'] for e in kern})[:8]}")
-    nbytes = sum(e["args"].get("bytes", 0) for e in h2d)
-    us = sum(e["dur"] for e in h2d)
-    return (f"{len(h2d)} host-to-device copies, all 'Pinned -> Device', "
-            f"{nbytes / 1e6:.1f} MB at {nbytes / us / 1e3:.2f} GB/s by the "
-            f"trace, on stream(s) {sorted(copy_streams)}; the {len(kern)} "
-            f"kernels ({', '.join(kernel_names)} among them) on stream(s) "
-            f"{sorted(kern_streams)}")
-
-
 def _runtime_phase(torch, np, cfg, default, frames, main_out, tx_bits,
                    drive, dev, here: str, smi_line: str) -> None:
     """(l): the runtime layer on the card (``singlecarrier_tpu_torch.
@@ -2158,6 +1612,7 @@ def _runtime_phase(torch, np, cfg, default, frames, main_out, tx_bits,
     from singlecarrier_tpu_torch.runtime import engine
     from singlecarrier_tpu_torch.runtime.ingest import (
         PcmDispatchSource, PrefetchIngest, feed)
+    from singlecarrier_tpu_torch.tools import ingest_bench
 
     t_phase = time.perf_counter()
     n_blocks, C, n = frames.shape
@@ -2241,8 +1696,8 @@ def _runtime_phase(torch, np, cfg, default, frames, main_out, tx_bits,
                     path, C, half, 2), MAIN_KERNELS)
             _outs_equal(torch, cat(outs), main_out,
                         "ingest (workers=8, depth=2, inflight=2) vs phase 4")
-            seen = _h2d_in_trace(trace_dir, ("frontend_decim_kernel",
-                                             "hunt", "extract_decode"))
+            seen = ingest_bench.h2d_in_trace(trace_dir,
+                                             ingest_bench.MAIN_KERNELS)
             print(f"[runtime] file ({os.path.getsize(path) / 1e6:.0f} MB, "
                   f"{n_blocks} blocks x {C} channels interleaved) -> "
                   f"PcmDispatchSource(workers=8) -> PrefetchIngest(depth=2,"
@@ -2394,135 +1849,12 @@ def _runtime_phase(torch, np, cfg, default, frames, main_out, tx_bits,
         del st, phase
 
         # ---- 7. rates: a file of full-scale noise, looped ----
-        _runtime_rates(torch, np, cfg, work, C, n, dev, smi_line)
+        ingest_bench.rates(cfg, work, C, L_RATE_B, L_RATE_DISP, dev,
+                           smi_line, L_RING_CH)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"[runtime] (l) {time.perf_counter() - t_phase:.1f} s; "
           f"{smi_line}", flush=True)
-
-
-def _runtime_rates(torch, np, cfg, work: str, C: int, n: int, dev,
-                   smi_line: str) -> None:
-    """(l) 7: host assembly, memcpy, ring mode, pinned and pageable H2D,
-    compute on a resident operand and end to end through ``feed``, at
-    ``C`` channels x ``L_RATE_B`` blocks a dispatch; which one binds."""
-    from singlecarrier_tpu_torch.modem import (prod_rx_batch,
-                                               prod_rx_init_planes)
-    from singlecarrier_tpu_torch.runtime import trace
-    from singlecarrier_tpu_torch.runtime.ingest import (
-        PcmDispatchSource, PrefetchIngest, feed)
-
-    B = L_RATE_B
-    samples = B * C * n                          # a dispatch
-    nbytes = 2 * samples
-    noise = np.random.default_rng(SEED).integers(
-        -32768, 32768, size=2 * samples, dtype=np.int16)
-    npath = os.path.join(work, "noise.raw")
-    noise.tofile(npath)
-    pinned = torch.empty((B, C, n), dtype=torch.int16, pin_memory=True)
-    _require(pinned.is_pinned(), "a pinned buffer is not pinned")
-    out = pinned.numpy()
-
-    def host_rate(src, reps):
-        src.read_dispatch(out=out[:src.B])       # warm-up: scratch, cache
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            src.read_dispatch(out=out[:src.B])
-        dt = time.perf_counter() - t0
-        src.close()
-        return reps * 2 * src.B * src.C * n / dt / 1e9
-
-    assembly = {w: host_rate(PcmDispatchSource(
-        npath, C, n, B, loop=True, workers=w), 2) for w in L_WORKERS}
-    src = noise[:samples].reshape(B, C, n)
-    t0 = time.perf_counter()
-    for _ in range(3):
-        np.copyto(out, src)
-    memcpy = 3 * nbytes / (time.perf_counter() - t0) / 1e9
-    ring = host_rate(PcmDispatchSource(npath, C, n, 2, loop=True,
-                                       mode="ring"), 1)
-    print(f"[runtime] rates, {C} channels x {B} blocks a dispatch "
-          f"({nbytes / 1e6:.1f} MB): host assembly (mmap read + blocked "
-          f"deinterleave into a pinned buffer) " + ", ".join(
-              f"{assembly[w]:.2f} GB/s at {w} workers" for w in L_WORKERS)
-          + f"; one-thread memcpy {memcpy:.2f} GB/s; ring mode (one "
-          f"thread, 2 blocks) {ring:.3f} GB/s; {os.cpu_count()} CPUs; "
-          f"{smi_line}", flush=True)
-
-    resident = torch.from_numpy(src).to(dev)
-    h2d_ms = _time_cuda(lambda: resident.copy_(pinned, non_blocking=True), 5)
-    pageable = torch.from_numpy(src)
-    pg_ms = _time_cuda(lambda: resident.copy_(pageable), 2)
-    h2d = nbytes / h2d_ms / 1e6
-    print(f"[runtime] H2D of one dispatch: pinned {h2d_ms:.3f} ms = "
-          f"{h2d:.2f} GB/s, pageable {pg_ms:.3f} ms = "
-          f"{nbytes / pg_ms / 1e6:.2f} GB/s (CUDA events); {smi_line}",
-          flush=True)
-    del pageable
-
-    def compute_rate(operand, iters):
-        state = prod_rx_init_planes(cfg, C)
-        state, _ = prod_rx_batch(cfg, state, operand, descramble=False,
-                                 fuse_frontend=True)        # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            state, _ = prod_rx_batch(cfg, state, operand, descramble=False,
-                                     fuse_frontend=True)
-        torch.cuda.synchronize()
-        return iters * operand.numel() / (time.perf_counter() - t0)
-
-    compute = compute_rate(resident, L_RATE_DISP)
-    big = resident.repeat(128 // B, 1, 1)
-    compute128 = compute_rate(big, 3)
-    del big
-    print(f"[runtime] compute only (main path on a resident operand, "
-          f"chained, one synchronize): {compute:.4e} samples/s at {C} x {B}"
-          f" x {L_RATE_DISP} dispatches, {compute128:.4e} at {C} x 128 x 3;"
-          f" {smi_line}", flush=True)
-
-    # end to end: file -> 8 workers -> pinned buffers -> side-stream
-    # copies -> the main path, the clock from the producer's start, under
-    # the profiler (its copies are checked as the first ingest run's)
-    s_src = PcmDispatchSource(npath, C, n, B, loop=True, workers=8)
-    ingest = PrefetchIngest(s_src, L_RATE_DISP, device=dev)
-    marks = []
-
-    def step(state, x):
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        ev0.record()
-        state, _ = prod_rx_batch(cfg, state, x, descramble=False,
-                                 fuse_frontend=True)
-        ev1.record()
-        marks.append((ev0, ev1))
-        return state, None
-
-    state = prod_rx_init_planes(cfg, C)
-    trace_dir = os.path.join(work, "trace_e2e")
-    with trace(trace_dir):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        feed(ingest, ingest.put, step, state)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    s_src.close()
-    seen = _h2d_in_trace(trace_dir, ("frontend_decim_kernel", "hunt",
-                                     "extract_decode"))
-    e2e = L_RATE_DISP * samples / wall
-    busy = sum(a.elapsed_time(b) for a, b in marks) / 1e3 / wall
-    bounds = {"host assembly at 8 workers": assembly[8] * 1e9 / 2,
-              "pinned H2D": h2d * 1e9 / 2, "compute": compute}
-    binds = min(bounds, key=bounds.get)
-    print(f"[runtime] end to end through feed, {L_RATE_DISP} dispatches of "
-          f"{C} x {B} from a looped file of full-scale noise: {wall:.3f} s, "
-          f"{e2e:.4e} samples/s = {e2e / cfg.fs:.1f} real-time channels; "
-          f"the compute stream busy {100 * busy:.1f}% of the window (CUDA "
-          f"events around each dispatch's kernels); in samples/s " +
-          ", ".join(f"{k} {v:.4e}" for k, v in bounds.items()) +
-          f": {binds} binds, end to end at {100 * e2e / bounds[binds]:.1f}%"
-          f" of it; the profiler over the loop: {seen}; {smi_line}",
-          flush=True)
 
 
 # ---- (m) the multi-device layer (singlecarrier_tpu_torch.parallel): a
@@ -2534,138 +1866,6 @@ M_SHARDS = (2, 4)       # (m) 2: time shards of phase 4's frames
 M_RATE_SHARDS = 4       # (m) 4: time shards of the timed in-process grid
 M_EXCHANGES = 10        # (m) 4: timed halo exchanges of the gloo run
 M_PATH = ("frontend_decim", "hunt", "extract_decode")
-
-
-def _m_cat(torch, outs, dim=0):
-    from singlecarrier_tpu_torch.modem import ProdRxOut
-    return ProdRxOut(*(torch.cat(xs, dim) for xs in zip(*outs)))
-
-
-def _m_grid(torch, cfg, frames, n_t: int, descramble: bool = False):
-    """``_grid_shard`` for every time shard of ``frames`` [B, C, n] in one
-    process, each halo cut from the frames themselves: the shards'
-    outputs in order."""
-    from singlecarrier_tpu_torch.parallel.sharded_rx import _grid_shard
-    b = frames.shape[0] // n_t
-    halo = cfg.ntaps - 1
-    outs = []
-    for t in range(n_t):
-        prev = frames[t * b - 1] if t else torch.zeros_like(frames[0])
-        pre = (frames[t * b - 2, :, -halo:] if t
-               else torch.zeros_like(frames[0, :, :halo]))
-        outs.append(_grid_shard(cfg, frames[t * b:(t + 1) * b], prev, pre,
-                                t, n_t, descramble=descramble))
-    return outs
-
-
-def _m_timed(torch, fn) -> float:
-    """Wall seconds of ``fn`` (its launches and one synchronize)."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0
-
-
-def _m_rank(rank: int, init: str, here: str, work: str) -> None:
-    """One of (m) 3's gloo processes, on card 0 with the other: phase 4's
-    frames rebuilt from the golden stream, ``make_fused_grid_sharded_rx``
-    at (ch=1, time=2) on their first half of the channels and
-    ``make_fused_sharded_rx`` at ch=2 on all of them in phase 4's two
-    dispatches, then the grid's rate on noise and the halo exchange
-    alone; everything saved to ``work`` for the parent to hold."""
-    import numpy as np
-    import torch
-    import torch.distributed as dist
-    sys.path.insert(0, here)
-    from singlecarrier_tpu_torch import DEFAULT_CONFIG
-    from singlecarrier_tpu_torch.modem import prod_rx_init_planes
-    from singlecarrier_tpu_torch.ops import _build
-    from singlecarrier_tpu_torch.parallel import (make_fused_grid_sharded_rx,
-                                                  make_fused_sharded_rx,
-                                                  make_mesh,
-                                                  shard_plane_state)
-    from singlecarrier_tpu_torch.parallel import multihost
-    from singlecarrier_tpu_torch.parallel.mesh import shift_right
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    multihost.initialize(init, M_WORLD, rank, backend="gloo")
-    try:
-        dev = torch.device("cuda", torch.cuda.current_device())
-        cfg = DEFAULT_CONFIG.replace(decim_dtype="bf16", hunt_dtype="int8",
-                                     ls_refit_symbols=128)
-        n = cfg.frame_size
-        golden = np.load(os.path.join(here, "tests", "golden",
-                                      "reference.npz"))
-        tx = torch.from_numpy(golden["tx_pcm"].astype(np.int16)).to(dev)
-        offsets = torch.arange(C_MAIN, device=dev) % n
-        frames = _frames(_golden_stream(torch, tx, C_MAIN, 2 * B_MAIN * n,
-                                        offsets, dev), 2 * B_MAIN, n)
-        c_half = C_MAIN // M_WORLD
-        _build.reset_launches()
-        mesh_t = make_mesh(ch=1, time=M_WORLD)
-        grid = make_fused_grid_sharded_rx(cfg, mesh_t, descramble=False)(
-            frames[:, :c_half])
-        mesh_c = make_mesh(ch=M_WORLD)
-        fn = make_fused_sharded_rx(cfg, mesh_c, descramble=False)
-        st = shard_plane_state(prod_rx_init_planes(cfg, C_MAIN), mesh_c)
-        outs = []
-        for part in (frames[:B_MAIN], frames[B_MAIN:]):
-            st, out = fn(st, part)
-            outs.append(out)
-        torch.cuda.synchronize()
-        launches = dict(_build.LAUNCHES)
-
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(SEED + 17)
-        noise = torch.randint(-16384, 16384, (B_TIME, c_half, n),
-                              generator=gen, device=dev, dtype=torch.int16)
-        gfn = make_fused_grid_sharded_rx(cfg, mesh_t)
-        gfn(noise)                                          # warm-up
-        dist.barrier()
-        wall = _m_timed(torch, lambda: [gfn(noise) for _ in range(ITERS)])
-        halo = cfg.ntaps - 1
-        sent = torch.cat([noise[-2, :, n - halo:], noise[-1]], -1)
-        shift_right(sent, mesh_t)
-        dist.barrier()
-        xch = _m_timed(torch, lambda: [shift_right(sent, mesh_t)
-                                       for _ in range(M_EXCHANGES)])
-        torch.save({"grid": tuple(x.cpu() for x in grid),
-                    "fused": tuple(x.cpu() for x in _m_cat(torch, outs)),
-                    "launches": launches, "wall": wall,
-                    "exchange_s": xch / M_EXCHANGES,
-                    "exchange_bytes": sent.numel() * sent.element_size()},
-                   os.path.join(work, f"rank{rank}.pt"))
-        dist.barrier()
-    finally:
-        dist.destroy_process_group()
-
-
-def _m_two_ranks(torch, here: str, work: str) -> list:
-    """Run :func:`_m_rank` in ``M_WORLD`` spawned processes joined by a
-    gloo group on a ``tcp://127.0.0.1`` store; every one must exit 0."""
-    import multiprocessing
-
-    from singlecarrier_tpu_torch.parallel.mesh import _free_port
-    init = f"127.0.0.1:{_free_port()}"
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_m_rank, args=(r, init, here, work))
-             for r in range(M_WORLD)]
-    for p in procs:
-        p.start()
-    try:
-        for p in procs:
-            p.join(timeout=600)
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-    codes = [p.exitcode for p in procs]
-    _require(all(c == 0 for c in codes),
-             f"(m) the gloo processes exited with {codes}")
-    return [torch.load(os.path.join(work, f"rank{r}.pt"), map_location="cpu",
-                       weights_only=False) for r in range(M_WORLD)]
 
 
 def _parallel_phase(torch, cfg, frames, main_out, tx_bits, drive, dev,
@@ -2684,6 +1884,8 @@ def _parallel_phase(torch, cfg, frames, main_out, tx_bits, drive, dev,
                                                   make_mesh, metrics_summary,
                                                   shard_plane_state)
     from singlecarrier_tpu_torch.runtime import restore_sharded, save_sharded
+    from singlecarrier_tpu_torch.tools import scaling_bench
+    from singlecarrier_tpu_torch.tools._measure import wall as timed
     t_phase = time.perf_counter()
     B, C = frames.shape[0] // 2, frames.shape[1]
     n = cfg.frame_size
@@ -2717,7 +1919,7 @@ def _parallel_phase(torch, cfg, frames, main_out, tx_bits, drive, dev,
                             lambda: chained_with(fn, shard_plane_state(
                                 prod_rx_init_planes(cfg, C), mesh), halves),
                             M_PATH)
-            sharded = _m_cat(torch, outs)
+            sharded = scaling_bench.cat_outs(outs)
             _outs_equal(torch, sharded, main_out,
                         "(m) one-rank fused sharded path vs phase 4")
             print(f"[parallel] (m) 1. make_fused_sharded_rx on a one-rank "
@@ -2731,7 +1933,7 @@ def _parallel_phase(torch, cfg, frames, main_out, tx_bits, drive, dev,
                 "rank", lambda: chained_with(ffn, shard_plane_state(
                     prod_rx_init_planes(cfg, C), mesh), halves),
                 ("frontend_rows", "hunt", "extract_decode"))
-            _decisions_agree(_m_cat(torch, outs), main_out,
+            _decisions_agree(scaling_bench.cat_outs(outs), main_out,
                              "(m) one-rank two-kernel sharded path vs "
                              "phase 4")
             print(f"[parallel] (m) 1. make_fused_sharded_rx(fuse_frontend="
@@ -2760,7 +1962,7 @@ def _parallel_phase(torch, cfg, frames, main_out, tx_bits, drive, dev,
             st, first = fn(shard_plane_state(prod_rx_init_planes(cfg, C),
                                              mesh), halves[0])
             ck = os.path.join(work, "planes")
-            ck_s = _m_timed(torch, lambda: save_sharded(ck, st, step=B))
+            ck_s = timed(lambda: save_sharded(ck, st, step=B))
             t0 = time.perf_counter()
             back, step = restore_sharded(ck, st)
             torch.cuda.synchronize()
@@ -2769,8 +1971,8 @@ def _parallel_phase(torch, cfg, frames, main_out, tx_bits, drive, dev,
                 a.dtype == b.dtype and torch.equal(a, b)
                 for a, b in zip(back, st)), "(m) restore_sharded differs")
             _, second = fn(back, halves[1])
-            _outs_equal(torch, _m_cat(torch, [first, second]), main_out,
-                        "(m) sharded checkpoint resume vs phase 4")
+            _outs_equal(torch, scaling_bench.cat_outs([first, second]),
+                        main_out, "(m) sharded checkpoint resume vs phase 4")
             ck_mb = sum(os.path.getsize(os.path.join(ck, f))
                         for f in os.listdir(ck)) / 1e6
             print(f"[parallel] (m) 1. save_sharded / restore_sharded of "
@@ -2799,7 +2001,7 @@ def _parallel_phase(torch, cfg, frames, main_out, tx_bits, drive, dev,
             walls = {"main": [], "one": []}
             for tag, f in (("main", main_path), ("one", one_rank),
                            ("one", one_rank), ("main", main_path)):
-                walls[tag].append(_m_timed(torch, f))
+                walls[tag].append(timed(f))
         finally:
             dist.destroy_process_group()
         _require(not dist.is_initialized(), "(m) a process group is left")
@@ -2816,8 +2018,8 @@ def _parallel_phase(torch, cfg, frames, main_out, tx_bits, drive, dev,
         grid2 = None
         for n_t in M_SHARDS:
             outs = drive(f"(m) _grid_shard x {n_t} in one process",
-                         lambda: _m_grid(torch, cfg, frames, n_t), M_PATH)
-            g = _m_cat(torch, outs)
+                         lambda: scaling_bench.grid(cfg, frames, n_t), M_PATH)
+            g = scaling_bench.cat_outs(outs)
             _decisions_agree(g, main_out, f"(m) {n_t} time shards vs "
                              f"phase 4")
             n_dup = _check_packets(torch, outs, tx_bits, cfg)
@@ -2833,7 +2035,12 @@ def _parallel_phase(torch, cfg, frames, main_out, tx_bits, drive, dev,
 
         # ---- 3. two gloo processes on card 0 ----
         t0 = time.perf_counter()
-        ranks = _m_two_ranks(torch, here, work)
+        ranks = scaling_bench.gloo_ranks(work, {
+            "world": M_WORLD, "golden": os.path.join(
+                here, "tests", "golden", "reference.npz"),
+            "golden_channels": C, "golden_blocks": B,
+            "rate_blocks": B_TIME, "rate_channels": C // M_WORLD,
+            "iters": ITERS, "exchanges": M_EXCHANGES})
         c_half = C // M_WORLD
         for r, res in enumerate(ranks):
             want = ProdRxOut(*(x[r * B:(r + 1) * B, :c_half] for x in grid2))
@@ -2869,10 +2076,9 @@ def _parallel_phase(torch, cfg, frames, main_out, tx_bits, drive, dev,
         del ranks, grid2
 
         # ---- 4b. the in-process grid at M_RATE_SHARDS shards ----
-        _m_grid(torch, cfg, noise, M_RATE_SHARDS, True)       # warm-up
-        w = _m_timed(torch, lambda: [_m_grid(torch, cfg, noise,
-                                             M_RATE_SHARDS, True)
-                                     for _ in range(ITERS)])
+        scaling_bench.grid(cfg, noise, M_RATE_SHARDS, True)       # warm-up
+        w = timed(lambda: [scaling_bench.grid(cfg, noise, M_RATE_SHARDS,
+                                              True) for _ in range(ITERS)])
         print(f"[parallel] (m) 4. _grid_shard x {M_RATE_SHARDS} in one "
               f"process (each shard {B_TIME // M_RATE_SHARDS} blocks + the "
               f"halo block), {C} ch x {B_TIME} blocks x {ITERS} dispatches "
@@ -2882,6 +2088,139 @@ def _parallel_phase(torch, cfg, frames, main_out, tx_bits, drive, dev,
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"[parallel] (m) {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# ---- (n) the tools (singlecarrier_tpu_torch.tools): each one's main at a
+# reduced size, its record checked
+
+def _run_tool(module, argv) -> str:
+    """``module.main(argv)`` in this process; it must return 0.  Returns
+    what it printed (also echoed)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    print(buf.getvalue(), end="", flush=True)
+    _require(rc == 0, f"(n) {module.__name__} {' '.join(argv)}: rc {rc}")
+    return buf.getvalue()
+
+
+def _last_json(printed: str) -> dict:
+    return json.loads(printed.strip().splitlines()[-1])
+
+
+def _tools_phase(here: str, smi_line: str) -> None:
+    """(n): ``parity`` (one config, 128 channels), ``detection`` (8192 x 16
+    noise blocks, one Pd point), ``roofline`` (the ten kernels at 32,768
+    rows), ``profile_stages`` (the one-kernel prefixes), both gated
+    benches (8192 x 8), ``ingest_bench`` (two dispatches) and
+    ``scaling_bench`` (the one-rank path and two shards), each writing
+    into ``build/chip_smoke_tools``.  Each record must parse and name the
+    card; every Wilson interval must hold its estimate; no share may
+    exceed 100%; parity must report ok."""
+    import shutil
+
+    from singlecarrier_tpu_torch.tools import (
+        detection, gated_decode_bench, gated_wrapper_bench, ingest_bench,
+        parity, profile_stages, roofline, scaling_bench)
+    t_phase = time.perf_counter()
+    work = os.path.join(here, "build", "chip_smoke_tools")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    def out(name):
+        return os.path.join(work, name)
+
+    def record(path):
+        with open(path) as f:
+            text = f.read()
+        _require(smi_line in text, f"(n) {path} does not name the card "
+                 f"({smi_line})")
+        return json.loads(text) if path.endswith(".json") else text
+
+    t0, took = time.perf_counter(), {}
+
+    def lap(name):
+        nonlocal t0
+        took[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    try:
+        _run_tool(parity, ["--channels", "128", "--out",
+                           out("PARITY_GPU.json")])
+        rec = record(out("PARITY_GPU.json"))
+        _require(rec["ok"] and all(r["ok"] for r in rec["paths"].values()),
+                 f"(n) parity: {rec}")
+        lap("parity")
+        _run_tool(detection, ["--noise-blocks", "16", "--snrs", "6",
+                              "--cfos", "20", "--out", out("DETECTION.json"),
+                              "--md", out("DETECTION.md")])
+        rec = record(out("DETECTION.json"))
+        record(out("DETECTION.md"))
+        ests = [(r["pfa"], r["pfa_ci95"]) for rows in rec["pfa"].values()
+                for r in rows.values()]
+        ests += [(r["pd"], r["pd_ci95"]) for pts in rec["pd"].values()
+                 for row in pts.values() for r in row.values()]
+        _require(all(lo <= e <= hi for e, (lo, hi) in ests),
+                 f"(n) detection: a Wilson interval misses its estimate")
+        lap("detection")
+        line = _last_json(_run_tool(roofline, [
+            "--blocks", "4", "--out", out("ROOFLINE.md")]))
+        md = record(out("ROOFLINE.md"))
+        shares = [r["share"] for r in line["rows"]] + [
+            line["main_path"]["share"]]
+        _require(line["card"] == smi_line and len(line["rows"]) == 12
+                 and all(0 < s <= 1.0 for s in shares)
+                 and sum(r.startswith("| `")
+                         for r in md.splitlines()) == 12,
+                 f"(n) roofline: shares {shares}")
+        lap("roofline")
+        line = _last_json(_run_tool(profile_stages, [
+            "--one-kernel", "--channels", "8192", "--blocks", "16",
+            "--iters", "3"]))
+        us = line["us_per_block_channel"]
+        _require(line["card"] == smi_line
+                 and 0 < us["fe"] < us["hunt"] < us["full"],
+                 f"(n) profile_stages: {line}")
+        lap("profile_stages")
+        _run_tool(gated_decode_bench, [
+            "--blocks", "8", "--iters", "3", "--subset-fracs", "0.01,1.0",
+            "--out", out("GATED_DECODE.json")])
+        rec = record(out("GATED_DECODE.json"))
+        _require(rec["verify"]["mismatched"] == 0
+                 and rec["t_gate_s"] < rec["t_full_s"],
+                 f"(n) gated_decode_bench: {rec}")
+        _run_tool(gated_wrapper_bench, [
+            "--blocks", "8", "--iters", "3", "--out",
+            out("GATED_WRAPPER.json")])
+        rec = record(out("GATED_WRAPPER.json"))
+        _require(all(c["wrapper_GSps"] > 0
+                     for c in rec["capacities"].values()),
+                 f"(n) gated_wrapper_bench: {rec}")
+        lap("gated benches")
+        _run_tool(ingest_bench, ["--dispatches", "2", "--out",
+                                 out("BENCH_INGEST.json")])
+        rec = record(out("BENCH_INGEST.json"))
+        _require(rec["end_to_end_samples_per_sec"] > 0,
+                 f"(n) ingest_bench: {rec}")
+        lap("ingest_bench")
+        line = _last_json(_run_tool(scaling_bench, [
+            "--sizes", "8192x16", "--shards", "2", "--no-gloo", "--out",
+            out("SCALING.md")]))
+        record(out("SCALING.md"))
+        rows = line["sizes"]["8192x16"]["rows"]
+        _require(line["card"] == smi_line and len(rows) == 3
+                 and line["more_than_one_card"].startswith("not measured"),
+                 f"(n) scaling_bench: {line}")
+        lap("scaling_bench")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[tools] (n) every tool ran on the card and its record names "
+          f"it; seconds " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                       took.items())
+          + f"; (n) {time.perf_counter() - t_phase:.1f} s; {smi_line}",
+          flush=True)
 
 
 def main() -> int:
@@ -2895,6 +2234,8 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     try:
+        if _INCOMPLETE is not None:
+            raise _INCOMPLETE
         from singlecarrier_tpu_torch import DEFAULT_CONFIG
         from singlecarrier_tpu_torch.modem import (
             ProdRxOut, dibits_to_bits, prod_rx_batch, prod_rx_batch_gated,
@@ -2955,7 +2296,7 @@ def main() -> int:
 
     # ---- 3. kernels vs plain, on the card ----
     def _inputs(cfg_, C, B):
-        return _kernel_inputs(torch, np, gen, tx, cfg_, C, B, dev)
+        return _kernel_inputs(gen, tx, cfg_, C, B, dev)
 
     default = DEFAULT_CONFIG
     _compare_kernels(torch, default, _inputs(default, C_CMP, B_CMP),
@@ -3039,7 +2380,7 @@ def main() -> int:
 
     path_launches = {}
     offsets = torch.arange(C_MAIN, device=dev) % n
-    stream = _golden_stream(torch, tx, C_MAIN, 2 * B_MAIN * n, offsets, dev)
+    stream = _golden_stream(tx, C_MAIN, 2 * B_MAIN * n, offsets, dev)
     frames = _frames(stream, 2 * B_MAIN, n)
     halves = (frames[:B_MAIN], frames[B_MAIN:])
     outs = _drive("main", lambda: _chained(
@@ -3290,6 +2631,9 @@ def main() -> int:
     # ---- (m) the multi-device layer ----
     _parallel_phase(torch, cfg, frames, main_out, tx_bits, _drive, dev,
                     here, smi_line)
+
+    # ---- (n) the tools, each main in-process at a reduced size ----
+    _tools_phase(here, smi_line)
     print(f"[runtime] the script so far: "
           f"{time.perf_counter() - t_script:.1f} s", flush=True)
 
@@ -3474,7 +2818,7 @@ def main() -> int:
     advs = np.exp(-2j * np.pi * cfg.center / cfg.fs * n
                   * np.arange(B_TIME)).astype(np.complex64)
     adv = torch.from_numpy(np.stack([advs.real, advs.imag])).to(dev)
-    rows = _row_inputs(torch, cfg, noise, p0r, p0i, t0r, t0i, adv)
+    rows = _row_inputs(cfg, noise, p0r, p0i, t0r, t0i, adv)
     dk = frontend_decim(cfg, noise, p0r, p0i, t0r, t0i, adv)
     lk, pk_, qk = hunt(cfg, dk, dprev0)
     full = {
@@ -3500,7 +2844,7 @@ def main() -> int:
         note = ""
         if name.startswith("frontend"):
             # the clock the card holds under this kernel
-            mhz = clock[name] = _sm_clock_under(torch, kern)
+            mhz = clock[name] = _sm_clock_under(kern)
             f_ms, f_what = _fp32_floor(cfg, name, C_MAIN * B_TIME, mhz, sms)
             note = (f"; SM clock under this kernel {mhz:.0f} MHz, at which "
                     f"its multiply-adds alone take {f_ms:.3f} ms on {sms} "
@@ -3520,7 +2864,7 @@ def main() -> int:
     kinputs = _inputs(cfg, C_MAIN, B_KTIME)
     _, _, _, _, _, _, dprev0 = kinputs
     dk = frontend_decim(cfg, *kinputs[:6])
-    calls = _kernel_calls(torch, cfg, kinputs, C_MAIN)
+    calls = _kernel_calls(cfg, kinputs, C_MAIN)
     dk32 = dk.float()
     dprev32 = dprev0.float()
     for what, cfg_ in (("bf16 operand, f32 planes (the library default)",
@@ -3553,7 +2897,7 @@ def main() -> int:
     variants = {name: [] for name in KERNELS}
     for knob, value, names in KNOB_VALUES:
         kcfg = cfg.replace(**{knob: value})
-        kcalls = _kernel_calls(torch, kcfg, kinputs, C_MAIN)
+        kcalls = _kernel_calls(kcfg, kinputs, C_MAIN)
         kbounds = _kernel_bounds(kcfg, C_MAIN * B_KTIME, C_MAIN)
         key = f"{knob}={value}"
         # (g) runs the CFO knob as its pinned record's config
@@ -3595,7 +2939,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        code = main()
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
-        sys.exit(2)
+        code = 2
+    sys.exit(code)

@@ -14,20 +14,22 @@ compared.  Both trees are compiled, and ``frontend_decim``,
 ``frontend_rows`` (transposed and row-major), their mixer-folded forms
 ``frontend_decim_folded`` and ``frontend_rows_folded`` (the same
 layouts), ``frontend_full``, ``hunt``, ``extract_decode``,
-``decode_extract`` and ``decode_packets`` run from each on
-``chip_smoke.py``'s seeded operands (256 channels x 4 blocks and 8192
-x 4, golden packets among noise, at
+``decode_extract``, ``decode_packets`` and ``extract_gate`` run from
+each on the seeded operands of ``tools._measure.kernel_inputs`` (256
+channels x 4 blocks and 8192 x 4, golden packets among noise, at
 the library default, whose planes are f32, and the bench operating
 point, whose planes are bf16).  Reported per kernel: whether the outputs
 are equal to the bit; if not, on how many rows, and for the decode
 kernels the largest |dcfo| and |deq_error| and whether any valid row's
-dibits differ.  Then ``frontend_decim`` and ``frontend_decim_folded``
-(both ``decim_dtype``s), ``frontend_rows`` and ``frontend_rows_folded``
-(their three layouts), ``frontend_full``, ``hunt`` and
-``extract_decode`` are timed at 8192 channels x ``--blocks`` blocks of
-noise in the order this, other, other, this, and ``frontend_full`` also
-at 8192 x 4 rows, beside its FMUL + FADD floor at the SM clock read
-under it; last, one dispatch of the main path
+dibits differ, for the gate stage which of its lag, phase, peak, energy
+and gated columns differ.  Then ``frontend_decim`` and
+``frontend_decim_folded`` (both ``decim_dtype``s), ``frontend_rows`` and
+``frontend_rows_folded`` (their three layouts), ``frontend_full``,
+``hunt``, ``extract_decode`` and ``extract_gate`` are timed at 8192
+channels x ``--blocks`` blocks of noise in the order this, other, other,
+this, and ``frontend_full`` and ``extract_gate`` also at 8192 x 4 rows,
+the first beside its FMUL + FADD floor at the SM clock read under it;
+last, one dispatch of the main path
 ``prod_rx_batch(fuse_frontend=True)`` at the bench operating point on
 those rows, the same Python around either tree's kernels.
 
@@ -42,11 +44,11 @@ loop, which does not know the name, cut in a patched copy of the tree's
 ``frontend.cu``) is timed beside the whole kernel.
 
 ``--knife-edges N`` runs this tree's ``extract_decode`` against its
-plain version on N fresh draws of ``chip_smoke.py``'s kernel inputs
+plain version on N fresh draws of the kernel inputs
 (256 channels x 4 blocks, golden packets among noise) at both operating
 points and counts the valid rows' dibits that differ, each with its
 plain soft margin (distance to the slicer's boundary over the symbol's
-magnitude): the evidence for ``chip_smoke.KNIFE_EDGE``.
+magnitude): the evidence for ``tools._measure.KNIFE_EDGE``.
 
 ``--config NAME`` runs all of it at one of the named numerologies
 (``ops/_build.NUMEROLOGIES``) in place of the reference one: both trees
@@ -65,7 +67,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -75,23 +76,29 @@ import torch
 from . import DEFAULT_CONFIG
 from .modem import prod_rx_batch, prod_rx_init_planes
 from .ops import _build
-from .ops.decode import (extract_decode, fused_decode, fused_decode_extract,
-                         hunt)
+from .ops.decode import (extract_decode, extract_gate, fused_decode,
+                         fused_decode_extract, hunt)
 from .ops.frontend import frontend_decim, frontend_full, frontend_rows
+from .ops.fused_rx import _advances
+from .tools._measure import (B_CMP, B_KTIME, C_CMP, C_MAIN, KNIFE_EDGE, SEED,
+                             bench_point, fp32_floor, hunt_windows,
+                             kernel_inputs, numerology_tx, row_inputs,
+                             sm_clock_under, time_cuda)
+from .tools._measure import card as _card
 
 STAGES = ("extraction", "CFO DFT", "CFO peak", "derotation", "train",
           "refit", "refine", "descramble + output")
 
 
-def _operands(cs, cfg, gen, tx, C, B, dev):
-    """The kernels' operands from ``chip_smoke``'s seeded inputs."""
-    pcm, p0r, p0i, t0r, t0i, adv, dprev0 = cs._kernel_inputs(
-        torch, np, gen, tx, cfg, C, B, dev)
+def _operands(cfg, gen, tx, C, B, dev):
+    """The kernels' operands from the seeded kernel inputs."""
+    pcm, p0r, p0i, t0r, t0i, adv, dprev0 = kernel_inputs(
+        gen, tx, cfg, C, B, dev)
     batch = (pcm, p0r, p0i, t0r, t0i, adv)
     dk = frontend_decim(cfg, *batch)
-    rows = cs._row_inputs(torch, cfg, *batch)
-    wins, wl, wph, wpk, pkt_r, pkt_i = cs._hunt_windows(
-        torch, cfg, frontend_rows(cfg, *rows, transposed=False), C)
+    rows = row_inputs(cfg, *batch)
+    wins, wl, wph, wpk, pkt_r, pkt_i = hunt_windows(
+        cfg, frontend_rows(cfg, *rows, transposed=False), C)
     return dict(batch=batch, rows=rows, dk=dk, dprev0=dprev0, wins=wins,
                 wl=wl, wph=wph, wpk=wpk, pkt_r=pkt_r, pkt_i=pkt_i)
 
@@ -130,6 +137,9 @@ def _run_all(cfg, op):
             cfg, op["wins"], op["wl"], op["wph"], op["wpk"])),
         "decode_packets": rows(fused_decode(cfg, op["pkt_r"], op["pkt_i"],
                                             op["wpk"])),
+        # gated, energy, lag, phase, peak: the gate stage's real columns
+        "extract_gate": extract_gate(cfg, op["dk"], op["dprev0"], lag, ph,
+                                     peak)[:, D + 3:],
     }
     torch.cuda.synchronize()
     return out
@@ -143,11 +153,12 @@ def _differences(cfg, name, a, b) -> str:
         return (f"DIFFER on {rows} of {a.shape[0]} rows, "
                 f"{int((a != b).sum())} of {a.numel()} plane values, max "
                 f"|difference| {float((a.float() - b.float()).abs().max()):.3e}")
-    if name == "hunt":
-        return (f"DIFFER on {rows} of {a.shape[0]} rows (lag "
-                f"{int((a[:, 0] != b[:, 0]).sum())}, phase "
-                f"{int((a[:, 1] != b[:, 1]).sum())}, peak "
-                f"{int((a[:, 2] != b[:, 2]).sum())})")
+    if name in ("hunt", "extract_gate"):
+        cols = (("lag", "phase", "peak") if name == "hunt" else
+                ("gated", "energy", "lag", "phase", "peak"))
+        return (f"DIFFER on {rows} of {a.shape[0]} rows (" + ", ".join(
+            f"{c} {int((a[:, i] != b[:, i]).sum())}"
+            for i, c in enumerate(cols)) + ")")
     D = cfg.frame_symbols
     va = (a[:, D + 3] > 0.5) & (a[:, D] > cfg.match_threshold)
     vb = (b[:, D + 3] > 0.5) & (b[:, D] > cfg.match_threshold)
@@ -226,10 +237,10 @@ def _one_tap_tree(csrc: Path) -> dict:
     return dict(csrc=copy, defines=("SC_FE_TAPS=1",))
 
 
-def _knife_edges(cs, gen, tx, dev, draws: int, card: str, base,
+def _knife_edges(gen, tx, dev, draws: int, card: str, base,
                  bench) -> None:
     """``extract_decode`` against its plain version on ``draws`` draws of
-    chip_smoke's kernel inputs at both operating points (``base`` and
+    the kernel inputs at both operating points (``base`` and
     ``bench``): the valid rows' dibits that differ and their plain soft
     margins."""
     from .ops import decode
@@ -239,8 +250,8 @@ def _knife_edges(cs, gen, tx, dev, draws: int, card: str, base,
     margins = []
     for _ in range(draws):
         for cfg in (base, bench):
-            pcm, p0r, p0i, t0r, t0i, adv, dprev0 = cs._kernel_inputs(
-                torch, np, gen, tx, cfg, cs.C_CMP, cs.B_CMP, dev)
+            pcm, p0r, p0i, t0r, t0i, adv, dprev0 = kernel_inputs(
+                gen, tx, cfg, C_CMP, B_CMP, dev)
             dk = frontend_decim(cfg, pcm, p0r, p0i, t0r, t0i, adv)
             lag, ph, peak = hunt(cfg, dk, dprev0)
             got = extract_decode(cfg, dk, dprev0, lag, ph, peak)
@@ -252,12 +263,12 @@ def _knife_edges(cs, gen, tx, dev, draws: int, card: str, base,
             m = (torch.minimum((ar - ai).abs(), (ar + ai).abs())
                  / torch.sqrt(ar * ar + ai * ai).clamp_min(1e-30))[v]
             valid += int(v.sum())
-            near += int((m < cs.KNIFE_EDGE).sum())
+            near += int((m < KNIFE_EDGE).sum())
             margins += m[(got[v, :D] != want[v, :D])].tolist()
     print(f"[knife] extract_decode of this tree vs plain on {draws} x 2 "
-          f"draws of {cs.C_CMP} x {cs.B_CMP} rows: {valid} valid rows, "
+          f"draws of {C_CMP} x {B_CMP} rows: {valid} valid rows, "
           f"{valid * D} valid symbols, {near} of them within "
-          f"{cs.KNIFE_EDGE:.0e} of the slicer's boundary; {len(margins)} "
+          f"{KNIFE_EDGE:.0e} of the slicer's boundary; {len(margins)} "
           f"differ, at plain margins {[f'{x:.2e}' for x in margins]}; "
           f"{card}", flush=True)
 
@@ -271,7 +282,7 @@ def main(argv=None) -> int:
                     help="stage split of extract_decode")
     ap.add_argument("--knife-edges", type=int, default=0, metavar="N",
                     help="the decode's decisions against the plain "
-                    "version's on N draws of chip_smoke's inputs")
+                    "version's on N draws of the kernel inputs")
     ap.add_argument("--config", choices=sorted(_build.NUMEROLOGIES),
                     help="a named numerology in place of the reference one")
     args = ap.parse_args(argv)
@@ -279,20 +290,14 @@ def main(argv=None) -> int:
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
     root = Path(__file__).resolve().parents[1]
-    sys.path.insert(0, str(root))
-    import chip_smoke as cs
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()
-    card = smi[0] if smi else torch.cuda.get_device_name(0)
+    card = _card(dev).line
     print(f"[device] {card}; torch {torch.__version__}", flush=True)
 
     base = DEFAULT_CONFIG.replace(**_build.NUMEROLOGIES.get(args.config, {}))
     geo = _build.kernel_geometry(base)
-    bench = cs._bench_point(base)
+    bench = bench_point(base)
     if args.other and geo and "SC_N_SAMP" not in (
             Path(args.other) / "common.cuh").read_text():
         print(f"kernel_ab: {args.other} compiles the reference shapes "
@@ -302,22 +307,22 @@ def main(argv=None) -> int:
     mine = _build.load(base)
     other = (_bind_tree(args.other, defines=geo) if args.other else None)
     gen = torch.Generator(device=dev)
-    gen.manual_seed(cs.SEED)
+    gen.manual_seed(SEED)
     if args.config:
-        tx = cs._numerology_tx(torch, np, base, dev)
+        tx = numerology_tx(base, dev)
         card = f"{args.config} numerology; {card}"
     else:
         golden = np.load(root / "tests" / "golden" / "reference.npz")
         tx = torch.from_numpy(golden["tx_pcm"].astype(np.int16)).to(dev)
 
     if args.knife_edges:
-        _knife_edges(cs, gen, tx, dev, args.knife_edges, card, base, bench)
+        _knife_edges(gen, tx, dev, args.knife_edges, card, base, bench)
 
     if other is not None:
         for what, cfg in (("library default", base),
                           ("bench operating point", bench)):
-            for C, B in ((cs.C_CMP, cs.B_CMP), (cs.C_MAIN, cs.B_KTIME)):
-                op = _operands(cs, cfg, gen, tx, C, B, dev)
+            for C, B in ((C_CMP, B_CMP), (C_MAIN, B_KTIME)):
+                op = _operands(cfg, gen, tx, C, B, dev)
                 a = _run_all(cfg, op)
                 with _build.using(other, base):
                     b = _run_all(cfg, op)
@@ -331,19 +336,20 @@ def main(argv=None) -> int:
 
     # ---- timing at the full dispatch, on noise ----
     cfg, n = bench, bench.frame_size
-    noise = torch.randint(-16384, 16384, (args.blocks, cs.C_MAIN, n),
+    noise = torch.randint(-16384, 16384, (args.blocks, C_MAIN, n),
                           generator=gen, device=dev, dtype=torch.int16)
-    p0r, p0i, t0r, t0i, dprev0 = prod_rx_init_planes(cfg, cs.C_MAIN)
-    advs = np.exp(-2j * np.pi * cfg.center / cfg.fs * n
-                  * np.arange(args.blocks)).astype(np.complex64)
-    adv = torch.from_numpy(np.stack([advs.real, advs.imag])).to(dev)
+    p0r, p0i, t0r, t0i, dprev0 = prod_rx_init_planes(cfg, C_MAIN)
+    adv = _advances(cfg, args.blocks, dev)[1]
     batch = (noise, p0r, p0i, t0r, t0i, adv)
-    rows = cs._row_inputs(torch, cfg, *batch)
-    n_small = cs.C_MAIN * cs.B_KTIME
+    rows = row_inputs(cfg, *batch)
+    n_small = C_MAIN * B_KTIME
     small = [t[:n_small] for t in rows]
     f32 = cfg.replace(decim_dtype="f32")
     dk = frontend_decim(cfg, *batch)
     lag, ph, peak = hunt(cfg, dk, dprev0)
+    dk_s = frontend_decim(cfg, noise[:B_KTIME], p0r, p0i, t0r, t0i,
+                          adv[:, :B_KTIME].contiguous())
+    lag_s, ph_s, peak_s = hunt(cfg, dk_s, dprev0)
     calls = {"frontend_decim (bf16 planes)":
              lambda: frontend_decim(cfg, *batch),
              "frontend_decim (f32 planes)":
@@ -373,6 +379,10 @@ def main(argv=None) -> int:
              "hunt": lambda: hunt(cfg, dk, dprev0),
              "extract_decode": lambda: extract_decode(cfg, dk, dprev0, lag,
                                                       ph, peak),
+             "extract_gate": lambda: extract_gate(cfg, dk, dprev0, lag, ph,
+                                                  peak),
+             f"extract_gate ({n_small} rows)": lambda: extract_gate(
+                 cfg, dk_s, dprev0, lag_s, ph_s, peak_s),
              "main path (one dispatch)": lambda: prod_rx_batch(
                  cfg, (p0r, p0i, t0r, t0i, dprev0), noise,
                  fuse_frontend=True)}
@@ -384,12 +394,12 @@ def main(argv=None) -> int:
         times = []
         for tag, lib in order:
             with _build.using(lib, base):
-                times.append((tag, cs._time_cuda(fn, 3)))
+                times.append((tag, time_cuda(fn, 3)))
         n_rows = n_small if name.endswith("rows)") else rows[0].shape[0]
         note = ""
         if name.startswith("frontend_full"):
-            mhz = cs._sm_clock_under(torch, fn)
-            floor, what = cs._fp32_floor(cfg, name, n_rows, mhz, sms)
+            mhz = sm_clock_under(fn)
+            floor, what = fp32_floor(cfg, name, n_rows, mhz, sms)
             note = (f"; {what} {floor:.4f} ms at the {mhz:.0f} MHz read "
                     f"under this tree's kernel")
         if name.startswith("main path"):
@@ -410,11 +420,11 @@ def main(argv=None) -> int:
                          "frontend_decim_folded (bf16 planes)",
                          "frontend_full"):
                 with _build.using(lib, base):
-                    whole = cs._time_cuda(calls[kern], 3)
+                    whole = time_cuda(calls[kern], 3)
                 with _build.using(one, base):
-                    staged = cs._time_cuda(calls[kern], 3)
+                    staged = time_cuda(calls[kern], 3)
                 print(f"[stages] {kern} of {tag} tree at "
-                      f"{cs.C_MAIN * args.blocks} rows: {whole:.3f} ms "
+                      f"{C_MAIN * args.blocks} rows: {whole:.3f} ms "
                       f"whole, {staged:.3f} ms with one term of each tap "
                       f"sum (staging and stores), {whole - staged:.3f} ms "
                       f"the other 48 terms; a kernel that loads the next "
@@ -434,7 +444,7 @@ def main(argv=None) -> int:
                          "stage clocks")
         total = float(sum(ticks))
         k3 = ms["extract_decode"]
-        print(f"[stages] extract_decode at {cs.C_MAIN * args.blocks} rows, "
+        print(f"[stages] extract_decode at {C_MAIN * args.blocks} rows, "
               f"{k3:.3f} ms in the plain build; share of the warps' ticks "
               f"and that share of the time: " + ", ".join(
                   f"{s} {t / total:.1%} = {k3 * t / total:.2f} ms"

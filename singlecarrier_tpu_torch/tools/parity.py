@@ -1,0 +1,348 @@
+"""Decision parity of every kernel path against the XLA path, on the card.
+
+Counterpart of ``tools/tpu_parity.py``::
+
+    python3 -m singlecarrier_tpu_torch.tools.parity [--all-records]
+        [--config NAME] [--channels 128] [--packets 6] [--snr-db 12]
+        [--freq-hz 15] [knob overrides] [--device cpu] [--out PATH]
+
+The records' stream (scrambled packets with the flushed gap, each
+channel through the port's ``channel`` at ``--snr-db`` and ``--freq-hz``,
+cast to int16 as XLA casts) runs through the XLA path ``prod_rx_stream``
+(plain PyTorch, the oracle) and every kernel path the config allows: the
+two-kernel batch path ``prod_rx_batch`` (``batch_pallas``), the one-kernel
+path ``prod_rx_batch(fuse_frontend=True)`` (``fused_rx``), the streaming
+path ``prod_rx_stream_pallas`` (``scan_pallas``) and the full-rate
+front-end with the XLA back end, ``prod_rx_stream_pallas(fuse_decode=
+False)`` (``pallas_fe_xla_decode``); under ``frac_timing`` only the last
+two.  Each path is held to the XLA path by the North star's criterion
+(identical valid flags, bits on valid blocks, lag and phase; |dcfo| <
+0.5 Hz, |deq_error| < 2e-3; under the int8 hunt at most one valid flip
+in 1000 blocks, on blocks that are a true packet in neither path) and to
+the truth (every packet once, no bit error, no false detect).
+
+Writes ``PARITY_GPU.json`` (``PARITY_TPU.json``'s keys, the card's name
+and power limit, the launches of each path); ``--all-records`` runs the
+seven pinned configs and writes ``PARITY_GPU.json``, ``_BF16``,
+``_WIDE``, ``_FRAC``, ``_INT8``, ``_R128`` and ``_CFO16`` into
+``--out-dir``.  Exits 1 on any mismatch.  ``--device cpu`` runs the
+plain versions (the tests); the record then says ``"device": "cpu"``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+from .. import DEFAULT_CONFIG
+from ..ber import assign_detections
+from ..channel import channel
+from ..device import to_int16
+from ..modem import (ProdRxOut, prod_rx_batch, prod_rx_init, prod_rx_stream,
+                     prod_rx_stream_pallas)
+from ..modem.tx import tx_stream
+from ..ops import _build
+from ._measure import KNOB_VALUES, SEED, head, tool_device
+
+PARITY_C, PARITY_PACKETS = 128, 6        # tools/tpu_parity.py's defaults
+PARITY_SNR_DB, PARITY_CFO_HZ = 12.0, 15.0
+
+
+def configs(default):
+    """(name, record, config) of the seven pinned ``PARITY_TPU*.json``
+    configs, then the library default under each of the six other knob
+    values (no record: held to the XLA path and the truth alike)."""
+    int8 = default.replace(decim_dtype="bf16", hunt_dtype="int8")
+    knobs = [(f"{knob}={value}", None, default.replace(**{knob: value}))
+             for knob, value, _ in KNOB_VALUES if knob != "cfo_dtype"]
+    return [
+        ("default", "PARITY_TPU.json", default),
+        ("decim bf16", "PARITY_TPU_BF16.json",
+         default.replace(decim_dtype="bf16")),
+        ("alpha 0.50", "PARITY_TPU_WIDE.json", default.replace(alpha=0.50)),
+        ("frac timing", "PARITY_TPU_FRAC.json",
+         default.replace(frac_timing=True)),
+        ("hunt int8", "PARITY_TPU_INT8.json", int8),
+        ("refit 128", "PARITY_TPU_R128.json",
+         int8.replace(ls_refit_symbols=128)),
+        ("cfo bf16", "PARITY_TPU_CFO16.json", int8.replace(cfo_dtype="bf16")),
+    ] + knobs
+
+
+def stream(cfg, bits, seed: int, dev, snr_db: float = PARITY_SNR_DB,
+           freq_hz: float = PARITY_CFO_HZ):
+    """The records' stream: scrambled packets with the flushed gap, each
+    channel through ``channel`` at ``snr_db`` and ``freq_hz`` (its own
+    signal power, as the records' per-channel ``vmap`` measures it),
+    cast to int16 as XLA casts.  Returns frames [B, C, frame_size]."""
+    n = cfg.frame_size
+    pcm = tx_stream(cfg, bits, flush_gap=True, scramble=True, device=dev)
+    n_blocks = -(-pcm.shape[-1] // n) + 1
+    x = torch.zeros((pcm.shape[0], n_blocks * n), device=dev)
+    x[:, :pcm.shape[-1]] = pcm.float()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x = torch.stack([channel(gen, row, snr_db=snr_db, freq_hz=freq_hz,
+                             fs=cfg.fs, device=dev) for row in x])
+    return to_int16(x).reshape(-1, n_blocks, n).transpose(0, 1).contiguous()
+
+
+def truth(cfg, out, ref):
+    """Bit errors, bits counted, false detects, the set of (channel,
+    block) true-packet detections and {(channel, block): bit errors} of
+    those with a bit error, of [C, B] numpy outputs against the sent
+    payloads ``ref`` [C, packets, bits], matched by stream position
+    (``ber.assign_detections``, the records' semantics)."""
+    err = total = false = 0
+    hits, wrong = set(), {}
+    for c in range(out.valid.shape[0]):
+        assigned, f = assign_detections(cfg, out.valid[c], out.lag[c],
+                                        out.timing_phase[c], ref.shape[1])
+        false += f
+        for p, (_, fr) in assigned.items():
+            hits.add((c, fr))
+            e = int((out.bits[c, fr] != ref[c, p]).sum())
+            if e:
+                wrong[(c, fr)] = e
+            err += e
+            total += ref.shape[2]
+    return err, total, false, hits, wrong
+
+
+def check(cfg, out_p, out_x, truth_p, truth_x, expected: int,
+          exclude=frozenset(), allow_marginal: bool = False):
+    """``tools/tpu_parity.py``'s fields and the North star's criterion of
+    one path against the XLA path, with that tool's one allowance: under
+    the int8 hunt (or ``allow_marginal``), valid flags may flip on blocks
+    that are a true packet in neither path (round() puts noise blocks on
+    a knife edge of the energy gate), at most one in 1000 blocks.
+    Against the truth every packet is found once, with no bit error and
+    no false detect.  ``exclude``: (channel, block)s whose bits, cfo and
+    eq_error are not compared (valid, lag and phase still are)."""
+    both = out_x.valid & out_p.valid
+    lag_both = both.copy()
+    for c, b in exclude:
+        both[c, b] = False
+    diff = out_p.bits[both] != out_x.bits[both]
+    flips = [tuple(map(int, cb)) for cb in
+             np.argwhere(out_p.valid != out_x.valid)]
+    true_miss = any(f in truth_p[3] or f in truth_x[3] for f in flips)
+    v_eq = not flips
+    v_ok = v_eq or ((cfg.hunt_dtype == "int8" or allow_marginal)
+                    and not true_miss
+                    and len(flips) <= max(1, out_x.valid.size // 1000))
+    cfo_d = float(np.abs(out_p.cfo_hz[both] - out_x.cfo_hz[both]).max(
+        initial=0.0))
+    eq_d = float(np.abs(out_p.eq_error[both] - out_x.eq_error[both]).max(
+        initial=0.0))
+    rep = {
+        "valid_identical": v_eq, "valid_diff_blocks": flips[:16],
+        "valid_diffs_all_gate_marginal_noise": not true_miss,
+        "bits_identical_on_valid": not bool(diff.any()),
+        "bit_diffs_vs_xla": int(diff.sum()),
+        "blocks_differing_vs_xla": int(diff.any(-1).sum()),
+        "bit_errors_vs_truth": [truth_p[0], truth_p[1]],
+        "false_detects": truth_p[2],
+        "errored_blocks": [[c, b, e] for (c, b), e
+                           in sorted(truth_p[4].items())[:16]],
+        "lag_identical_on_valid": bool(np.array_equal(
+            out_p.lag[lag_both], out_x.lag[lag_both])),
+        "phase_identical_on_valid": bool(np.array_equal(
+            out_p.timing_phase[lag_both], out_x.timing_phase[lag_both])),
+        "blocks_not_compared": len(exclude),
+        "max_cfo_delta_hz": cfo_d, "max_eq_error_delta": eq_d,
+        "packets_detected": int(out_p.valid.sum()),
+    }
+    rep["valid_ok"] = bool(v_ok)
+    rep["agrees_with_xla"] = bool(
+        v_ok and rep["bits_identical_on_valid"]
+        and rep["lag_identical_on_valid"] and rep["phase_identical_on_valid"]
+        and cfo_d < 0.5 and eq_d < 2e-3)
+    rep["ok"] = bool(
+        rep["agrees_with_xla"] and truth_p[0] == 0
+        and truth_p[1] == expected * cfg.bits_per_frame and truth_p[2] == 0)
+    return rep
+
+
+def paths(cfg, frames, dev) -> dict:
+    """{path: (run, kernels it launches)} of every kernel path ``cfg``
+    allows, each from a fresh state."""
+    C = frames.shape[1]
+    rows = ("frontend_rows", "hunt", "extract_decode")
+    out = {} if cfg.frac_timing else {
+        "batch_pallas": (lambda: prod_rx_batch(
+            cfg, prod_rx_init(cfg, (C,), dev), frames)[1], rows),
+        "fused_rx": (lambda: prod_rx_batch(
+            cfg, prod_rx_init(cfg, (C,), dev), frames,
+            fuse_frontend=True)[1],
+            ("frontend_decim", "hunt", "extract_decode"))}
+    out["scan_pallas"] = (lambda: prod_rx_stream_pallas(
+        cfg, prod_rx_init(cfg, (C,), dev), frames)[1],
+        ("frontend_full", "decode_packets") if cfg.frac_timing else rows)
+    out["pallas_fe_xla_decode"] = (lambda: prod_rx_stream_pallas(
+        cfg, prod_rx_init(cfg, (C,), dev), frames, fuse_decode=False)[1],
+        ("frontend_full",))
+    return out
+
+
+def host(out) -> ProdRxOut:
+    """[B, C] outputs -> numpy [C, B]."""
+    return ProdRxOut(*(v.transpose(0, 1).cpu().numpy() for v in out))
+
+
+def drive_counted(what: str, fn, expect):
+    """Run ``fn`` with the launch counters at 0 just before and read just
+    after; where there is a card every kernel in ``expect`` must have
+    launched and no other."""
+    _build.reset_launches()
+    res = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        if (not all(counts[k] > 0 for k in expect)
+                or any(v for k, v in counts.items() if k not in expect)):
+            raise RuntimeError(f"{what}: launches {counts}, the path's "
+                               f"kernels are {expect}")
+    return res
+
+
+def run_config(cfg, frames, ref, dev, drive=drive_counted, tag: str = "",
+               allow_marginal: bool = False):
+    """The stream ``frames`` through the XLA path and every kernel path.
+    Returns (the XLA path's summary, {path: report}, {path: launches})."""
+    C = frames.shape[1]
+    expected = C * ref.shape[1]
+    out_x = host(drive(f"{tag}: xla", lambda: prod_rx_stream(
+        cfg, prod_rx_init(cfg, (C,), dev), frames)[1], ()))
+    truth_x = truth(cfg, out_x, ref)
+    xla = {"blocks": frames.shape[0],
+           "packets_detected": int(out_x.valid.sum()),
+           "expected_packets": expected,
+           "bit_errors_vs_truth": [truth_x[0], truth_x[1]],
+           "false_detects": truth_x[2],
+           "errored_blocks": [[c, b, e] for (c, b), e
+                              in sorted(truth_x[4].items())[:16]],
+           "ok": (truth_x[0] == 0 and truth_x[2] == 0
+                  and truth_x[1] == expected * cfg.bits_per_frame)}
+    reps, launches = {}, {}
+    for path, (fn, expect) in paths(cfg, frames, dev).items():
+        out_p = host(drive(f"{tag}: {path}", fn, expect))
+        launches[path] = {k: v for k, v in _build.LAUNCHES.items() if v}
+        reps[path] = check(cfg, out_p, out_x, truth(cfg, out_p, ref),
+                           truth_x, expected, allow_marginal=allow_marginal)
+    return xla, reps, launches
+
+
+def payload(cfg, C: int, packets: int, seed: int, dev):
+    """Seeded payload bits [C, packets, ns, 2 * data_symbols] on ``dev``
+    and the sent payloads as numpy [C, packets, bits]."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    bits = torch.randint(0, 2, (C, packets, cfg.ns, 2 * cfg.data_symbols),
+                         generator=gen, device=dev, dtype=torch.uint8)
+    return bits, bits.reshape(C, packets, -1).cpu().numpy()
+
+
+def record(name, rec, cfg, args, dev, dev_head) -> dict:
+    """One config's record in ``PARITY_TPU.json``'s layout."""
+    bits, ref = payload(cfg, args.channels, args.packets, args.seed, dev)
+    frames = stream(cfg, bits, args.seed + 1, dev, args.snr_db, args.freq_hz)
+    xla, reps, launches = run_config(cfg, frames, ref, dev, tag=name,
+                                     allow_marginal=args.allow_marginal_flips)
+    for path, rep in reps.items():
+        rep["launches"] = launches[path]
+    return {
+        **dev_head, "config": name,
+        "counterpart_of": rec,
+        "seed": args.seed, "channels": args.channels,
+        "packets": args.packets, "blocks": xla["blocks"],
+        "snr_db": args.snr_db, "freq_hz": args.freq_hz,
+        "alpha": cfg.alpha, "frac_timing": cfg.frac_timing,
+        "frontend_dtype": cfg.frontend_dtype,
+        "decim_dtype": cfg.decim_dtype, "hunt_dtype": cfg.hunt_dtype,
+        "hunt_norm": cfg.hunt_norm, "cfo_dtype": cfg.cfo_dtype,
+        "ls_refit_symbols": cfg.ls_refit_symbols,
+        "xla_packets_detected": xla["packets_detected"],
+        "expected_packets": xla["expected_packets"],
+        "xla_bit_errors_vs_truth": xla["bit_errors_vs_truth"],
+        "xla_false_detects": xla["false_detects"],
+        "xla_errored_blocks": xla["errored_blocks"],
+        "xla_ok": xla["ok"],
+        "paths": reps,
+        "ok": bool(xla["ok"] and all(r["ok"] for r in reps.values())),
+    }
+
+
+_OVERRIDES = (("frontend_dtype", str), ("ls_refit_iters", int),
+              ("ls_refit_symbols", int), ("phase_refine_iters", int),
+              ("hunt_dtype", str), ("hunt_norm", str), ("decim_dtype", str),
+              ("cfo_dtype", str), ("alpha", float))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--channels", type=int, default=PARITY_C)
+    ap.add_argument("--packets", type=int, default=PARITY_PACKETS)
+    ap.add_argument("--snr-db", type=float, default=PARITY_SNR_DB)
+    ap.add_argument("--freq-hz", type=float, default=PARITY_CFO_HZ)
+    ap.add_argument("--seed", type=int, default=SEED)
+    ap.add_argument("--config", default="default",
+                    choices=[name for name, rec, _ in
+                             configs(DEFAULT_CONFIG) if rec],
+                    help="one of the pinned records' configs")
+    ap.add_argument("--all-records", action="store_true",
+                    help="the seven pinned configs, one record each")
+    ap.add_argument("--out", default=None,
+                    help="the record (default: the config's PARITY_GPU "
+                    "file in --out-dir)")
+    ap.add_argument("--out-dir", default=".")
+    ap.add_argument("--frontend-dtype", choices=["bf16", "f32"])
+    ap.add_argument("--refit-iters", dest="ls_refit_iters", type=int)
+    ap.add_argument("--refit-symbols", dest="ls_refit_symbols", type=int)
+    ap.add_argument("--refine-iters", dest="phase_refine_iters", type=int)
+    ap.add_argument("--hunt-dtype", choices=["bf16", "f32", "int8"])
+    ap.add_argument("--hunt-norm", choices=["energy", "espan", "none"])
+    ap.add_argument("--decim-dtype", choices=["f32", "bf16"])
+    ap.add_argument("--cfo-dtype", choices=["f32", "bf16"])
+    ap.add_argument("--alpha", type=float)
+    ap.add_argument("--frac-timing", action="store_true")
+    ap.add_argument("--allow-marginal-flips", action="store_true",
+                    help="the int8 hunt's allowance for every hunt dtype")
+    ap.add_argument("--device", default=None,
+                    help="the card unless given (cpu: the plain versions)")
+    args = ap.parse_args(argv)
+    dev = tool_device(args.device, "parity", timing=False)
+    dev_head = head(dev)
+
+    chosen = [(name, rec, cfg) for name, rec, cfg in configs(DEFAULT_CONFIG)
+              if rec and (args.all_records or name == args.config)]
+    ok = True
+    for name, rec, cfg in chosen:
+        kw = {k: getattr(args, k) for k, _ in _OVERRIDES
+              if getattr(args, k) is not None}
+        if args.frac_timing:
+            kw["frac_timing"] = True
+        cfg = cfg.replace(**kw)
+        out_name = rec.replace("TPU", "GPU")
+        rep = record(name, rec, cfg, args, dev, dev_head)
+        path = (args.out if args.out and not args.all_records
+                else os.path.join(args.out_dir, out_name))
+        with open(path, "w") as f:
+            json.dump(rep, f, indent=1)
+        print(json.dumps({"config": name, "record": path, "ok": rep["ok"],
+                          "paths": {p: r["ok"] for p, r
+                                    in rep["paths"].items()},
+                          "xla_ok": rep["xla_ok"],
+                          "card": rep["card"] or "cpu run, no card"}),
+              flush=True)
+        ok = ok and rep["ok"]
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

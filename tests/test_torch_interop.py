@@ -265,6 +265,17 @@ def test_package_imports_without_jax():
             "singlecarrier_tpu_torch.parallel.sharded_rx, "
             "singlecarrier_tpu_torch.parallel.timeshard, "
             "singlecarrier_tpu_torch.parallel.multihost, "
+            "singlecarrier_tpu_torch.kernel_ab, "
+            "singlecarrier_tpu_torch.tools, "
+            "singlecarrier_tpu_torch.tools._measure, "
+            "singlecarrier_tpu_torch.tools.parity, "
+            "singlecarrier_tpu_torch.tools.detection, "
+            "singlecarrier_tpu_torch.tools.roofline, "
+            "singlecarrier_tpu_torch.tools.profile_stages, "
+            "singlecarrier_tpu_torch.tools.gated_decode_bench, "
+            "singlecarrier_tpu_torch.tools.gated_wrapper_bench, "
+            "singlecarrier_tpu_torch.tools.ingest_bench, "
+            "singlecarrier_tpu_torch.tools.scaling_bench, "
             "torch.distributed.checkpoint; "
             "from singlecarrier_tpu_torch.runtime import (save_sharded, "
             "restore_sharded); "
@@ -272,7 +283,8 @@ def test_package_imports_without_jax():
             "assert len(singlecarrier_tpu_torch.parallel.__all__) == 12; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'singlecarrier_tpu' or "
-            "m.startswith('singlecarrier_tpu.')); assert not bad, bad; "
+            "m.startswith('singlecarrier_tpu.') or m == 'chip_smoke'); "
+            "assert not bad, bad; "
             "assert 'singlecarrier_tpu_torch.config' in sys.modules")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=120)
