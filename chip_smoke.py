@@ -81,9 +81,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  rows of full-scale noise (front-ends equal to the bit,
                  the hunt's lag, phase and peak equal, the decode's gated
                  and valid flags equal); (j) the named numerologies
-                 (``ops/_build.NUMEROLOGIES``), whose eight libraries build
-                 at once from phase 2 on: for each, the build's seconds and
-                 ptxas' registers, shared memory and spills per kernel;
+                 (``ops/_build.NUMEROLOGIES``: the eight of at most 7
+                 taps, 5 cycles and 376 symbols a block, and the seven
+                 wider ones up to 16 taps, 10 cycles and 624 symbols, in
+                 ``WIDE_NUMEROLOGIES``), whose fifteen libraries build at
+                 once from phase 2 on: for each, the build's seconds,
+                 ptxas' registers, static shared memory and spills per
+                 kernel, and each body's block layout (shared bytes,
+                 dynamic past 48 KB; threads; the decode's LS solve in
+                 shared memory above 7 taps);
                  (1) phase 3's and (i)'s comparisons of every kernel and
                  knob variant with its plain version at the numerology's
                  default and bench operating point, on its own TX's rows
@@ -94,10 +100,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  ``J_FRAC`` the frac body) on (g)'s kind of stream at the
                  numerology, each held to the XLA path by the North star's
                  criterion, and to the truth where the XLA path itself
-                 finds every packet; (3) the main path at 8192 x 128 x 3
-                 chained dispatches of full-scale noise (samples/s, the
-                 three kernels beside their bounds, peak memory, launches)
-                 and every kernel at 32,768 rows beside its bound;
+                 finds every packet (at ``JAX_PARTS``' two numerologies,
+                 where the JAX package's own Pallas and XLA paths part
+                 alike, by decisions and the truth); (3) the main path
+                 at 8192 x 128 x 3 chained dispatches of full-scale
+                 noise (samples/s, the three kernels beside their bounds,
+                 peak memory, launches) and every kernel at 32,768 rows
+                 beside its bound;
+                 (o) the CLI at a wide geometry: ``ber --eq-length 9 --ns
+                 12 --snrs 6`` (500 symbols a block, its library built
+                 from phase 2 on) in this process through ``--path
+                 fused_rx`` (the three main-path kernels launched, the
+                 counters at 0 just before) and ``--path xla`` (none),
+                 detections, bit errors and false detects equal;
                  (k) the faithful receiver ``rx_stream`` (plain PyTorch,
                  no kernel: the launch counters stay at 0): the C
                  harness's ``tx_pcm`` on 8192 channels, every channel
@@ -161,6 +176,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  two shards): each record parses and names the card,
                  every Wilson interval holds its estimate, no share
                  exceeds 100%, parity reports ok;
+                 (p) the edge geometries (``EDGE_GEOMETRIES``: 7 and 9
+                 cycles, 624 symbols at 16 segments, 16 taps with 1024
+                 bins at 624 symbols), whose four libraries build from
+                 (j) on: each one's ptxas lines and block layout, then
+                 (j) 1 at it but for its 5 x 3 rows;
   6. timing   -- chained dispatches of the main path (premix, then
                  ``mixer_fold=True``: (d1)), of the gated RX, of (a) and
                  of (d2), (a) with ``mixer_fold=True`` (8192 x 128
@@ -222,15 +242,9 @@ K_TIME = (1024, 8192)          # gated RX capacities of the timed noise run:
 def _ptxas_of(log: str, kernel: str) -> str:
     """What ``ptxas -v`` says of ``kernel`` in a verbose build log: its
     registers, shared memory and spills, on one line."""
-    lines = log.splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry function" in line and kernel in line:
-            said = []
-            for nxt in lines[i + 1:]:
-                if "Compiling entry function" in nxt:
-                    break
-                if "registers" in nxt or "spill" in nxt:
-                    said.append(nxt.split("ptxas info    :")[-1].strip())
+    from singlecarrier_tpu_torch.ops import _build
+    for entry, said in _build.ptxas_entries(log).items():
+        if entry.startswith(kernel):
             return "; ".join(said)
     raise PhaseError(f"ptxas said nothing of {kernel}")
 
@@ -963,12 +977,16 @@ def _ber_phase(torch, cfg, drive, dev, seed: int, record: dict) -> None:
 # ---- (j) the numerologies: every kernel path at the named numerologies
 
 J_FRAC = ("alt_9600",)       # numerologies whose (j) 2 runs the frac body
-_PTXAS_KERNELS = ("frontend_decim_kernel", "frontend_rows_kernel",
-                  "frontend_decim_folded_kernel",
-                  "frontend_rows_folded_kernel", "frontend_full_kernel",
-                  "hunt_mma_kernel", "hunt_toeplitz_kernel",
-                  "extract_decode_kernel", "decode_extract_kernel",
-                  "decode_packets_kernel", "extract_gate_kernel")
+# Where the kernel paths part from the XLA path at the bench point just as
+# the JAX package's own Pallas and XLA paths part on the same frames
+# (tests/test_torch_wide_parity.py), and how they may part there:
+# {numerology: (the noise blocks (channel, block) of (j) 2's stream whose
+# valid flag may flip, each then a false detect of one path only,
+# |deq_error| < 2e-3 held)}.  At eq16 noise block 9 of channel 70 crosses
+# the gate in the kernel paths only (peak / energy 7.0014 against 6.8544);
+# at ns16 a packet's eq_error differs by up to 2.5e-3, as JAX's does.
+JAX_PARTS = {"eq16": (frozenset({(70, 9)}), True),
+             "ns16": (frozenset(), False)}
 
 
 def _start_builds(configs: dict):
@@ -994,23 +1012,18 @@ def _ptxas_table(log: str) -> dict:
     """{kernel: "regs a..b, smem ..., spills ..."} over every instantiation
     of each of the ten kernels in a verbose build log."""
     import re
+    from singlecarrier_tpu_torch.ops import _build
     seen = {}
-    kernel = None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            kernel = next((k for k in _PTXAS_KERNELS if k in line), None)
-            if kernel:
-                seen.setdefault(kernel, []).append([0, 0, 0])
-        elif kernel:
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                seen[kernel][-1][0] = int(m.group(1))
-            m = re.search(r"(\d+) bytes smem", line)
-            if m:
-                seen[kernel][-1][1] = int(m.group(1))
-            m = re.search(r"(\d+) bytes spill stores", line)
-            if m:
-                seen[kernel][-1][2] = int(m.group(1))
+    for entry, said in _build.ptxas_entries(log).items():
+        kernel = next((k for k in _build.KERNEL_ENTRIES
+                       if entry.startswith(k)), None)
+        if kernel:
+            text = " ".join(said)
+            seen.setdefault(kernel, []).append([
+                int(m.group(1)) if m else 0 for m in (
+                    re.search(r"Used (\d+) registers", text),
+                    re.search(r"(\d+) bytes smem", text),
+                    re.search(r"(\d+) bytes spill stores", text))])
     return {k: (f"{len(v)} instantiations, registers "
                 f"{min(x[0] for x in v)}..{max(x[0] for x in v)}, static "
                 f"smem {max(x[1] for x in v)} B, spill stores up to "
@@ -1047,12 +1060,15 @@ def _numerology_parity(torch, np, cfg, drive, dev, tag: str,
     there a kernel path is held to the XLA path by decisions (valid, lag
     and phase everywhere, bits on the packets neither decoded wrong, the
     same detections and false detects, |dcfo| < 0.5 Hz; |deq_error|
-    reported), and to the main path the same way, with |dcfo| < 0.5 Hz and
-    |deq_error| < 2e-3 besides on the paths that read the main path's own
-    planes (not the unfused ones, which read f32 windows, the folded ones,
-    whose front-end rounds elsewhere, or the full-rate front-end with the
-    XLA back end). Both counts against the truth are printed. Returns
-    {kernel: launches}."""
+    reported). At the numerologies of ``JAX_PARTS``, where the JAX
+    package's own Pallas and XLA paths part just as the port's do, a
+    kernel path is held as ``JAX_PARTS`` says, and to the truth. Every
+    path held by decisions is held to the main path the same way, with
+    |dcfo| < 0.5 Hz and |deq_error| < 2e-3 besides on the paths that read
+    the main path's own planes (not the unfused ones, which read f32
+    windows, the folded ones, whose front-end rounds elsewhere, or the
+    full-rate front-end with the XLA back end). Both counts against the
+    truth are printed. Returns {kernel: launches}."""
     from singlecarrier_tpu_torch.modem import (
         ProdRxOut, prod_rx_batch, prod_rx_batch_gated, prod_rx_gated_init,
         prod_rx_init, prod_rx_init_planes, prod_rx_stream,
@@ -1145,25 +1161,42 @@ def _numerology_parity(torch, np, cfg, drive, dev, tag: str,
                                     frozenset() if xla_full
                                     else truth_x[4] | truth_p[4]))
             _report("numerology", {**head, "path": path, **rep})
-            if xla_full:
+            parts = JAX_PARTS.get(tag) if xla_full else None
+            if xla_full and parts is None:
                 _require(rep["ok"], f"{tag} parity: {path} against the "
                          f"XLA path and the truth: {rep}")
                 continue
-            decided = (rep["valid_ok"] and rep["bits_identical_on_valid"]
-                       and rep["lag_identical_on_valid"]
-                       and rep["phase_identical_on_valid"]
-                       and rep["max_cfo_delta_hz"] < 0.5
-                       and truth_p[2] == truth_x[2]
-                       and rep["packets_detected"]
-                       == int(out_x.valid.sum()))
+            noise, eq_held = parts or (frozenset(), True)
+            if parts is None:
+                decided = (rep["valid_ok"] and rep["bits_identical_on_valid"]
+                           and rep["lag_identical_on_valid"]
+                           and rep["phase_identical_on_valid"]
+                           and rep["max_cfo_delta_hz"] < 0.5
+                           and truth_p[2] == truth_x[2]
+                           and rep["packets_detected"]
+                           == int(out_x.valid.sum()))
+            else:
+                flips = {tuple(cb) for cb in np.argwhere(
+                    out_p.valid != out_x.valid).tolist()}
+                decided = (rep["valid_ok"] and flips <= noise
+                           and rep["bits_identical_on_valid"]
+                           and rep["lag_identical_on_valid"]
+                           and rep["phase_identical_on_valid"]
+                           and rep["max_cfo_delta_hz"] < 0.5
+                           and (not eq_held
+                                or rep["max_eq_error_delta"] < 2e-3)
+                           and truth_p[0] == 0
+                           and truth_p[1] == expected * rcfg.bits_per_frame)
             _require(decided, f"{tag} parity: {path} against the XLA "
                      f"path by decisions: {rep}")
             if anchor is None:          # the main path: the first run
                 anchor = (out_p, truth_p)
                 continue
-            to_main = parity.check(rcfg, out_p, anchor[0], truth_p,
-                                    anchor[1], expected,
-                                    exclude=truth_p[4] | anchor[1][4])
+            # bits of a noise block that JAX_PARTS lets cross the gate are
+            # equalized noise: not compared
+            to_main = parity.check(
+                rcfg, out_p, anchor[0], truth_p, anchor[1], expected,
+                exclude={*truth_p[4], *anchor[1][4], *noise})
             # the paths that read the main path's own planes
             stats = not any(k in path for k in ("fuse_", "fold", "xla"))
             held = (to_main["valid_ok"]
@@ -1181,6 +1214,53 @@ def _numerology_parity(torch, np, cfg, drive, dev, tag: str,
     return launches
 
 
+def _print_build(kind: str, tag: str, cfg, sec: float, log: str,
+                 how: str) -> None:
+    """A geometry's build: its defines and seconds, ptxas' registers,
+    shared memory and spills per kernel, and each body's block layout."""
+    from singlecarrier_tpu_torch.ops import _build
+    lib = _build.load(cfg)
+    print(f"[{kind}] {tag}: {' '.join(_build.kernel_geometry(cfg))} built "
+          f"in {sec:.1f} s ({how})", flush=True)
+    for kern, line in _ptxas_table(log).items():
+        print(f"[{kind}] {tag}: ptxas {kern}: {line}", flush=True)
+    print(f"[{kind}] {tag}: block layout (shared bytes, dynamic past "
+          f"48 KB): {json.dumps(_build.layout(lib))}", flush=True)
+
+
+def _numerology_kernels(torch, gen, dev, tag: str, default):
+    """(j) 1's first part: every kernel against its plain version at
+    ``default``'s numerology, at the library default and the bench
+    operating point, on rows of the numerology's own TX among noise and
+    on C_MAIN x B_KTIME rows of full-scale noise.  Returns ({kernel:
+    largest max |err|}, the inputs function)."""
+    from singlecarrier_tpu_torch.ops.frontend import frontend_decim
+    bench = _bench_point(default)
+    tx = _numerology_tx(default, dev)
+
+    def inputs(cfg_, C, B):
+        return _kernel_inputs(gen, tx, cfg_, C, B, dev)
+
+    errs = {}
+    for what, cfg in (("default", default), ("bench", bench)):
+        w = f"{tag} {what}"
+        rep = _compare_kernels(torch, cfg, inputs(cfg, C_CMP, B_CMP), w)
+        for k, v in rep.items():
+            errs[k] = max(errs.get(k, 0.0), v["max_abs_err"])
+        noisy = inputs(cfg, C_MAIN, B_KTIME)
+        _compare_decimating(torch, cfg, noisy, f"{w}, {C_MAIN} x "
+                            f"{B_KTIME}", gen)
+        _compare_full_on_noise(torch, cfg, noisy, gen, f"{w}, {C_MAIN}"
+                               f" x {B_KTIME}")
+        pcm = torch.randint(-16384, 16384, noisy[0].shape, generator=gen,
+                            device=dev, dtype=torch.int16)
+        dk = frontend_decim(cfg, pcm, *noisy[1:6])
+        _compare_hunt(torch, cfg, dk, noisy[6], f"{w}, {C_MAIN} x "
+                      f"{B_KTIME} rows of noise")
+        del noisy, pcm, dk
+    return errs, inputs
+
+
 def _numerology_phase(torch, np, gen, dev, builds, drive, smi_line) -> dict:
     """(j): at every named numerology, (1) every kernel and knob variant
     against its plain version, (2) every kernel path against the XLA path
@@ -1196,41 +1276,15 @@ def _numerology_phase(torch, np, gen, dev, builds, drive, smi_line) -> dict:
     from singlecarrier_tpu_torch.ops.frontend import frontend_decim
     geometries = {name: {} for name in KERNELS}
     for tag, fut in builds.items():
-        sec, log = fut.result()
-        cfg = DEFAULT_CONFIG.replace(**_build.NUMEROLOGIES[tag])
-        _build.load(cfg)
-        print(f"[numerology] {tag}: {' '.join(_build.kernel_geometry(cfg))}"
-              f" built in {sec:.1f} s (eight geometries at once, started "
-              f"with phase 2)", flush=True)
-        for kern, line in _ptxas_table(log).items():
-            print(f"[numerology] {tag}: ptxas {kern}: {line}", flush=True)
+        _print_build("numerology", tag, DEFAULT_CONFIG.replace(
+            **_build.NUMEROLOGIES[tag]), *fut.result(),
+            f"{len(builds)} geometries at once, started with phase 2")
     for tag, kw in _build.NUMEROLOGIES.items():
         t_start = time.perf_counter()
         default = DEFAULT_CONFIG.replace(**kw)
         bench = _bench_point(default)
-        tx = _numerology_tx(default, dev)
-
-        def inputs(cfg_, C, B):
-            return _kernel_inputs(gen, tx, cfg_, C, B, dev)
-
         # ---- 1. every kernel and knob variant against its plain version
-        errs = {}
-        for what, cfg in (("default", default), ("bench", bench)):
-            w = f"{tag} {what}"
-            rep = _compare_kernels(torch, cfg, inputs(cfg, C_CMP, B_CMP), w)
-            for k, v in rep.items():
-                errs[k] = max(errs.get(k, 0.0), v["max_abs_err"])
-            noisy = inputs(cfg, C_MAIN, B_KTIME)
-            _compare_decimating(torch, cfg, noisy, f"{w}, {C_MAIN} x "
-                                f"{B_KTIME}", gen)
-            _compare_full_on_noise(torch, cfg, noisy, gen, f"{w}, {C_MAIN}"
-                                   f" x {B_KTIME}")
-            pcm = torch.randint(-16384, 16384, noisy[0].shape, generator=gen,
-                                device=dev, dtype=torch.int16)
-            dk = frontend_decim(cfg, pcm, *noisy[1:6])
-            _compare_hunt(torch, cfg, dk, noisy[6], f"{w}, {C_MAIN} x "
-                          f"{B_KTIME} rows of noise")
-            del noisy, pcm, dk
+        errs, inputs = _numerology_kernels(torch, gen, dev, tag, default)
         _compare_kernels(torch, bench, inputs(bench, 5, 3),
                          f"{tag} bench, 5 channels x 3 blocks")
         _knob_phase(torch, gen, inputs, default, bench, f"{tag}: ")
@@ -1266,6 +1320,10 @@ def _numerology_phase(torch, np, gen, dev, builds, drive, smi_line) -> dict:
                  f"{tag} main path: non-finite outputs")
         rate = ITERS * B_TIME * C_MAIN * n / wall
         peak = torch.cuda.max_memory_allocated() / 2**30
+        # the split below holds two dispatches' planes at once (48.8 GiB
+        # at wide_corner): the loop's cached blocks go back first
+        del state, out
+        torch.cuda.empty_cache()
         p0r, p0i, t0r, t0i, dprev0 = prod_rx_init_planes(bench, C_MAIN)
         advs = np.exp(-2j * np.pi * bench.center / bench.fs * n
                       * np.arange(B_TIME)).astype(np.complex64)
@@ -1287,7 +1345,8 @@ def _numerology_phase(torch, np, gen, dev, builds, drive, smi_line) -> dict:
               + ", ".join(f"{k} {k_ms[k]:.3f} ms (bound {bounds[k][0]:.3f} "
                           f"ms, {bounds[k][1]})" for k in main)
               + f"; {smi_line}", flush=True)
-        del noise, state, out, dk, lk, pk_, qk, split
+        del noise, dk, lk, pk_, qk, split
+        torch.cuda.empty_cache()
         # every kernel at C_MAIN x B_KTIME rows beside its bound
         kin = inputs(bench, C_MAIN, B_KTIME)
         kbounds = _kernel_bounds(bench, C_MAIN * B_KTIME, C_MAIN)
@@ -1313,6 +1372,94 @@ def _numerology_phase(torch, np, gen, dev, builds, drive, smi_line) -> dict:
             f"{t_1 - t_start:.1f}, parity {t_2 - t_1:.1f}, timing "
             f"{time.perf_counter() - t_2:.1f}; {smi_line}", flush=True)
     return geometries
+
+
+# ---- (p) the edge geometries: builds no named numerology makes
+
+# Shapes inside kernel_limits whose compile-time branches no named
+# numerology takes: odd cycle counts above 5 (4-symbol front-end tasks of
+# 28 and 36 accumulators, blocks an SM from the register file), the
+# Toeplitz hunt's shared memory past 48 KB (16 segments at 624 symbols)
+# and the decode's largest block (16 taps, 640-sample windows, 1024
+# bins).  They build from (j) on.  (At 2 cycles the receiver finds no
+# packet of its own TX, the XLA path neither, so (j) 1 has no decode to
+# hold there.)
+EDGE_GEOMETRIES = {
+    "cyc7": {"fs": 11200.0, "rs": 1600.0, "center": 1500.0},
+    "cyc9": {"fs": 14400.0, "rs": 1600.0, "center": 1500.0},
+    "seg16_ns16": {"corr_segments": 16, "ns": 16},
+    "seg4_eq16_ns16_nfft1024": {"corr_segments": 4, "eq_length": 16,
+                                "ns": 16, "cfo_nfft": 1024},
+}
+
+
+def _edge_phase(torch, gen, dev, builds, smi_line: str) -> None:
+    """(p): each of ``EDGE_GEOMETRIES`` as (j) 1 holds a named numerology
+    but for its 5 x 3 rows: its build's ptxas lines and block layout, then
+    every kernel and knob variant against its plain version."""
+    from singlecarrier_tpu_torch import DEFAULT_CONFIG
+    for tag, fut in builds.items():
+        t0 = time.perf_counter()
+        cfg = DEFAULT_CONFIG.replace(**EDGE_GEOMETRIES[tag])
+        _print_build("edge", tag, cfg, *fut.result(),
+                     f"{len(builds)} geometries at once, started with (j)")
+        # not (j)'s 5 x 3 rows, whose row count is the point there: at
+        # 16 segments and 624 symbols every one of them may pass the gate,
+        # whose check wants rows of both kinds
+        _, inputs = _numerology_kernels(torch, gen, dev, tag, cfg)
+        _knob_phase(torch, gen, inputs, cfg, _bench_point(cfg), f"{tag}: ")
+        print(f"[edge] {tag}: every kernel and knob variant equal to its "
+              f"plain version, {time.perf_counter() - t0:.1f} s; "
+              f"{smi_line}", flush=True)
+
+
+# ---- (o) the CLI at a wide geometry: ``ber`` through the one-kernel path
+
+CLI_WIDE = {"eq_length": 9, "ns": 12}          # 500 symbols a block
+CLI_ARGS = ("ber", "--eq-length", "9", "--ns", "12", "--snrs", "6")
+
+
+def _cli_wide_phase(build, smi_line: str) -> dict:
+    """``python -m singlecarrier_tpu_torch ber --eq-length 9 --ns 12
+    --snrs 6`` run in this process (the CLI's ``main``) with ``--path
+    fused_rx``, the launch counters at 0 just before and read just after,
+    and with ``--path xla`` on the same seed: detections, bit errors, the
+    bits counted and false detects equal; the fused path through the three
+    main-path kernels and the XLA path through none.  ``build`` is the
+    geometry's library build, started with phase 2.  Returns the fused
+    path's launches."""
+    import contextlib
+    import io
+    from singlecarrier_tpu_torch import cli
+    from singlecarrier_tpu_torch.ops import _build
+    sec, _ = build.result()
+    got = {}
+    for path in ("fused_rx", "xla"):
+        buf = io.StringIO()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([*CLI_ARGS, "--path", path])
+        _require(rc == 0, f"cli {' '.join(CLI_ARGS)} --path {path}: rc {rc}")
+        got[path] = (json.loads(buf.getvalue().strip().splitlines()[-1]),
+                     dict(_build.LAUNCHES), time.perf_counter() - t0)
+    (fused, launches, t_f), (xla, x_launches, t_x) = got["fused_rx"], \
+        got["xla"]
+    keys = ("err_bits", "total_bits", "detection_rate", "false_detects")
+    _require(all(fused[k] == xla[k] for k in keys),
+             f"cli {' '.join(CLI_ARGS)}: fused_rx {fused} against xla {xla}")
+    main = ("frontend_decim", "hunt", "extract_decode")
+    _require(all(launches[k] > 0 for k in main)
+             and sum(launches.values()) == sum(launches[k] for k in main)
+             and sum(x_launches.values()) == 0,
+             f"cli {' '.join(CLI_ARGS)}: launches fused_rx {launches}, "
+             f"xla {x_launches}")
+    print(f"[cli] (o) {' '.join(CLI_ARGS)} (geometry built in {sec:.1f} s):"
+          f" --path fused_rx {json.dumps(fused)} in {t_f:.2f} s, launches "
+          f"{launches}; --path xla {json.dumps(xla)} in {t_x:.2f} s; "
+          f"detections, bit errors and false detects equal; {smi_line}",
+          flush=True)
+    return launches
 
 
 # ---- (k) the faithful receiver (modem/rx.py): plain PyTorch, no kernel
@@ -2293,6 +2440,7 @@ def main() -> int:
     # (j)'s libraries, one a named numerology, build while phases 3-5 run
     builds = _start_builds({tag: DEFAULT_CONFIG.replace(**kw) for tag, kw
                             in _build.NUMEROLOGIES.items()})
+    cli_build = _start_builds({"cli": DEFAULT_CONFIG.replace(**CLI_WIDE)})
 
     # ---- 3. kernels vs plain, on the card ----
     def _inputs(cfg_, C, B):
@@ -2613,10 +2761,20 @@ def main() -> int:
 
     # ---- (j) the named numerologies ----
     t0 = time.perf_counter()
+    # (p)'s libraries build once (j)'s are done, while (j) to (n) run
+    for fut in builds.values():
+        fut.result()
+    edge_builds = _start_builds({tag: DEFAULT_CONFIG.replace(**kw) for tag,
+                                 kw in EDGE_GEOMETRIES.items()})
     geometries = _numerology_phase(torch, np, gen, dev, builds, _drive,
                                    smi_line)
     print(f"[numerology] (j) {len(_build.NUMEROLOGIES)} numerologies: "
           f"{time.perf_counter() - t0:.1f} s; {smi_line}", flush=True)
+
+    # ---- (o) the CLI at 9 taps and 500 symbols a block ----
+    t0 = time.perf_counter()
+    _cli_wide_phase(cli_build["cli"], smi_line)
+    print(f"[cli] (o) {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- (k) the faithful receiver ----
     t0 = time.perf_counter()
@@ -2634,6 +2792,12 @@ def main() -> int:
 
     # ---- (n) the tools, each main in-process at a reduced size ----
     _tools_phase(here, smi_line)
+
+    # ---- (p) the edge geometries ----
+    t0 = time.perf_counter()
+    _edge_phase(torch, gen, dev, edge_builds, smi_line)
+    print(f"[edge] (p) {len(EDGE_GEOMETRIES)} geometries: "
+          f"{time.perf_counter() - t0:.1f} s; {smi_line}", flush=True)
     print(f"[runtime] the script so far: "
           f"{time.perf_counter() - t_script:.1f} s", flush=True)
 

@@ -16,6 +16,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #ifndef SC_N_SAMP
 #define SC_N_SAMP 1880
 #endif
@@ -74,15 +76,55 @@ static_assert(N_SAMP % CYC == 0, "a block is whole symbols");
 static_assert(P == 128, "preamble_length 128");
 static_assert(NSEG == 4 || NSEG == 8 || NSEG == 16, "corr_segments 4, 8, 16");
 static_assert(NTAPS == 49, "ntaps 49");
-static_assert(CYC >= 2 && CYC <= 5, "cycles 2 to 5");
-static_assert(N_SAMP <= 1880 && N_SYM >= P && N_SYM <= 376,
-              "frame_size at most 1880, P <= symbols_per_block <= 376");
-static_assert(D >= 1 && D <= 248, "frame_symbols at most 248");
-static_assert(L >= 1 && L <= 7, "eq_length 1 to 7");
-static_assert(PKT >= P + D + L - 1 && PKT % 8 == 0 && PKT <= 384,
-              "pkt_window covers the packet, at most 384");
+static_assert(CYC >= 2 && CYC <= 10, "cycles 2 to 10");
+static_assert(N_SAMP <= 6240 && N_SYM >= P && N_SYM <= 624,
+              "frame_size at most 6240, P <= symbols_per_block <= 624");
+static_assert(D >= 1 && D <= 496, "frame_symbols at most 496");
+static_assert(L >= 1 && L <= 16, "eq_length 1 to 16");
+static_assert(PKT >= P + D + L - 1 && PKT % 8 == 0 && PKT <= 640,
+              "pkt_window covers the packet, at most 640");
 static_assert(NFFT == 256 || NFFT == 512 || NFFT == 1024,
               "cfo_nfft 256, 512, 1024");
+
+// A block's shared memory past the 48 KB a kernel has unasked is dynamic:
+// the launch names its size and the kernel is allowed it once
+// (cudaFuncSetAttribute).  Every layout that fits stays static.
+constexpr int STATIC_SMEM_MAX = 48 * 1024;
+
+template <class S>
+constexpr bool SMEM_DYNAMIC = (int)sizeof(S) > STATIC_SMEM_MAX;
+// the dynamic bytes a launch of a kernel that holds an S names
+template <class S>
+constexpr unsigned SMEM_LAUNCH_BYTES = SMEM_DYNAMIC<S> ? sizeof(S) : 0;
+// allow `kernel` `bytes` of dynamic shared memory (asked once for each
+// instantiation: past 48 KB a launch fails unless asked)
+template <class K>
+cudaError_t allow_smem_bytes(K kernel, int bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+// allow `kernel` an S in dynamic shared memory where it needs one
+template <class S, class K>
+cudaError_t allow_smem(K kernel) {
+  if constexpr (SMEM_DYNAMIC<S>)
+    return allow_smem_bytes(kernel, (int)sizeof(S));
+  else
+    return cudaSuccess;
+}
+struct SmemNone {};
+}  // namespace sc
+
+// `name`, a reference to the block's S: a static __shared__ S where it
+// fits STATIC_SMEM_MAX, else the kernel's dynamic shared memory.
+#define SC_BLOCK_SMEM(S, name)                                               \
+  extern __shared__ __align__(16) unsigned char sc_dyn_smem[];               \
+  __shared__ std::conditional_t<sc::SMEM_DYNAMIC<S>, sc::SmemNone, S>        \
+      sc_static_smem;                                                        \
+  S& name = *reinterpret_cast<S*>(sc::SMEM_DYNAMIC<S>                        \
+                                      ? static_cast<void*>(sc_dyn_smem)      \
+                                      : static_cast<void*>(&sc_static_smem))
+
+namespace sc {
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));

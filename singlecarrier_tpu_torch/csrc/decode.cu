@@ -443,6 +443,209 @@ struct BlockSmem {
 };
 static_assert(sizeof(float) * (P + MSK_LEN) % 16 == 0, "pkt stays aligned");
 static_assert(2 * 2 * TILE_F >= DEC_ROWS * NFFT, "the power fits the tiles");
+static_assert(L <= 16, "the matmul b-vector takes a lane a sum, 2 L of 32");
+
+// ---- the LS solve above 7 taps, in shared memory ----
+//
+// Past 7 taps each lane's copies of the Gram and of its Cholesky factor
+// (2 L^2 floats each, the same on every lane) would not fit the register
+// file.  There each warp keeps one copy in shared memory (LsWarp, after
+// BlockSmem in the block's dynamic shared memory): the Gram's and the
+// b-vector's sums are formed an entry at a time, each in fit's order (its
+// lane's terms in ascending j, then the butterfly), and the factor a
+// column at a time, lane i forming row i's entry in solve_chol's order.
+// So every element has the bits fit and solve_chol give it, and up to 7
+// taps they run as they are.
+constexpr bool LS_SMEM = L > 7;
+
+struct LsWarp {
+  float ar[L][L], ai[L][L];   // the Gram's lower triangle, then its factor
+  float br[L], bi[L];         // the b-vector
+};
+
+// the block's dynamic shared memory: BlockSmem, then (LS_SMEM) a LsWarp
+// a warp
+constexpr unsigned DEC_SMEM =
+    sizeof(BlockSmem) + (LS_SMEM ? DEC_ROWS * sizeof(LsWarp) : 0);
+
+__device__ __forceinline__ LsWarp& ls_warp() {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  return reinterpret_cast<LsWarp*>(smem_raw +
+                                   sizeof(BlockSmem))[threadIdx.x >> 5];
+}
+
+// solve_chol on the warp's ls: the factor over the Gram's lower triangle
+// in place, then both substitutions on every lane, into x.
+__device__ void solve_chol_smem(LsWarp& ls, int lane, Coef& x) {
+#pragma unroll 1
+  for (int j = 0; j < L; ++j) {
+    float s = ls.ar[j][j];
+    for (int k = 0; k < j; ++k)
+      s = s - (ls.ar[j][k] * ls.ar[j][k] + ls.ai[j][k] * ls.ai[j][k]);
+    const float d = sqrtf(fmaxf(s, 1e-30f));
+    const float inv = 1.f / d;
+    const int i = lane;                 // row i of column j
+    if (i > j && i < L) {
+      float tr = ls.ar[i][j], ti = ls.ai[i][j];
+      for (int k = 0; k < j; ++k) {
+        tr = tr - (ls.ar[i][k] * ls.ar[j][k] + ls.ai[i][k] * ls.ai[j][k]);
+        ti = ti - (ls.ai[i][k] * ls.ar[j][k] - ls.ar[i][k] * ls.ai[j][k]);
+      }
+      ls.ar[i][j] = tr * inv;
+      ls.ai[i][j] = ti * inv;
+    }
+    __syncwarp();                       // every lane has read ls.ar[j][j]
+    if (lane == 0) {
+      ls.ar[j][j] = d;
+      ls.ai[j][j] = 0.f;
+    }
+    __syncwarp();
+  }
+  float yr[L], yi[L];
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    float tr = ls.br[i], ti = ls.bi[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) {
+      tr = tr - (ls.ar[i][k] * yr[k] - ls.ai[i][k] * yi[k]);
+      ti = ti - (ls.ar[i][k] * yi[k] + ls.ai[i][k] * yr[k]);
+    }
+    const float inv = 1.f / ls.ar[i][i];
+    yr[i] = tr * inv;
+    yi[i] = ti * inv;
+  }
+#pragma unroll
+  for (int i = L - 1; i >= 0; --i) {
+    float tr = yr[i], ti = yi[i];
+#pragma unroll
+    for (int k = i + 1; k < L; ++k) {
+      tr = tr - (ls.ar[k][i] * x.r[k] + ls.ai[k][i] * x.i[k]);
+      ti = ti - (ls.ar[k][i] * x.i[k] - ls.ai[k][i] * x.r[k]);
+    }
+    const float inv = 1.f / ls.ar[i][i];
+    x.r[i] = tr * inv;
+    x.i[i] = ti * inv;
+  }
+  __syncwarp();                         // ls is free for the next fit
+}
+
+// fit with the Gram, the b-vector and the solve in the warp's ls.
+template <bool REAL, bool DIRECT, bool BVMAT>
+__device__ void fit_smem(const float* wr, const float* wi, int count,
+                         const float* pns, const float (&tr_)[MAXJ],
+                         const float (&ti_)[MAXJ], float reg, float offtap,
+                         int lane, LsWarp& ls, Coef& out) {
+  static_assert(REAL || !BVMAT, "the matmul b-vector is the train fit's");
+  if constexpr (DIRECT) {
+#pragma unroll 1
+    for (int i = 0; i < L; ++i) {
+#pragma unroll 1
+      for (int k = 0; k <= i; ++k) {
+        float gr = 0.f, gi = 0.f;
+#pragma unroll
+        for (int j = 0; j < MAXJ; ++j) {
+          const int u = lane + 32 * j;
+          if (u < count) {
+            const float ar = wr[u + i], ai = wi[u + i];
+            const float br = wr[u + k], bi = wi[u + k];
+            gr = gr + (ar * br + ai * bi);
+            if (k < i)        // the diagonal's imaginary part is 0
+              gi = gi + (ar * bi - ai * br);
+          }
+        }
+        gr = warp_sum(gr);
+        gi = k < i ? warp_sum(gi) : 0.f;
+        if (lane == 0) {
+          ls.ar[i][k] = gr;
+          ls.ai[i][k] = gi;
+        }
+      }
+    }
+  } else {
+#pragma unroll 1
+    for (int d = 0; d < L; ++d) {
+      float gr = 0.f, gi = 0.f;
+#pragma unroll
+      for (int j = 0; j < MAXJ; ++j) {
+        const int u = lane + 32 * j;
+        if (u < count) {
+          const float a_r = wr[u], a_i = wi[u];
+          const float b_r = wr[u + d], b_i = wi[u + d];
+          gr = gr + (a_r * b_r + a_i * b_i);
+          gi = gi + (a_r * b_i - a_i * b_r);
+        }
+      }
+      float s_r = warp_sum(gr), s_i = warp_sum(gi);
+      if (lane == 0) {
+        ls.ar[d][0] = s_r;
+        ls.ai[d][0] = -s_i;
+      }
+      for (int j = 1; j < L - d; ++j) {
+        // g_d[u] = conj(w[u]) w[u+d] at u = j-1 (leaving) and count+j-1
+        const int u0 = j - 1, u1 = count + j - 1;
+        const float g0 = wr[u0] * wr[u0 + d] + wi[u0] * wi[u0 + d];
+        const float g1 = wr[u1] * wr[u1 + d] + wi[u1] * wi[u1 + d];
+        s_r = (s_r - g0) + g1;
+        const float h0 = wr[u0] * wi[u0 + d] - wi[u0] * wr[u0 + d];
+        const float h1 = wr[u1] * wi[u1 + d] - wi[u1] * wr[u1 + d];
+        s_i = (s_i - h0) + h1;
+        if (lane == 0) {
+          ls.ar[d + j][j] = s_r;
+          ls.ai[d + j][j] = -s_i;
+        }
+      }
+    }
+  }
+  if constexpr (BVMAT) {
+    float acc = 0.f;
+    if (lane < 2 * L) {
+      const int i = lane < L ? lane : lane - L;
+      const float* w = lane < L ? wr : wi;
+      const float sgn = lane < L ? 1.f : -1.f;
+      for (int k = 0; k < P; ++k) acc = acc + (sgn * w[i + k]) * pns[k];
+      (lane < L ? ls.br[i] : ls.bi[i]) = acc;
+    }
+  } else {
+#pragma unroll 1
+    for (int i = 0; i < L; ++i) {
+      float br = 0.f, bi = 0.f;
+#pragma unroll
+      for (int j = 0; j < MAXJ; ++j) {
+        const int u = lane + 32 * j;
+        if (u < count) {
+          const float s_r = wr[u + i], s_i = wi[u + i];
+          if (REAL) {
+            const float t = pns[u];
+            br = br + s_r * t;
+            bi = bi + (-(s_i * t));
+          } else {
+            br = br + (s_r * tr_[j] + s_i * ti_[j]);
+            bi = bi + (s_r * ti_[j] - s_i * tr_[j]);
+          }
+        }
+      }
+      br = warp_sum(br);
+      bi = warp_sum(bi);
+      if (lane == 0) {
+        ls.br[i] = br;
+        ls.bi[i] = bi;
+      }
+    }
+  }
+  __syncwarp();                         // the Gram and b are whole
+  float tr_mean = ls.ar[0][0];
+  for (int i = 1; i < L; ++i) tr_mean = tr_mean + ls.ar[i][i];
+  const float ridge_c = (reg * tr_mean) / (float)L + 1e-12f;
+  const float ridge_o = (offtap * tr_mean) / (float)L + 1e-12f;
+  __syncwarp();                         // every lane has read the diagonal
+  if (lane < L) {
+    ls.ar[lane][lane] =
+        ls.ar[lane][lane] + (lane == L / 2 ? ridge_c : ridge_o);
+    ls.ai[lane][lane] = 0.f;
+  }
+  __syncwarp();
+  solve_chol_smem(ls, lane, out);
+}
 
 // Tile (group, chunk): table rows KC chunk .. + KC - 1, the group's GB
 // columns of each (one contiguous run where one group is every bin).
@@ -615,8 +818,13 @@ __device__ __forceinline__ void decode_packet(
   const float zero[MAXJ] = {};
   Coef cf;
   constexpr bool DIRECT = (KNOBS & KNOB_DIRECT) != 0;
-  fit<true, DIRECT, (KNOBS & KNOB_BVMAT) != 0>(
-      pr, pi, P, pns, zero, zero, prm.ls_reg, prm.ls_offtap, lane, cf);
+  if constexpr (LS_SMEM)
+    fit_smem<true, DIRECT, (KNOBS & KNOB_BVMAT) != 0>(
+        pr, pi, P, pns, zero, zero, prm.ls_reg, prm.ls_offtap, lane,
+        ls_warp(), cf);
+  else
+    fit<true, DIRECT, (KNOBS & KNOB_BVMAT) != 0>(
+        pr, pi, P, pns, zero, zero, prm.ls_reg, prm.ls_offtap, lane, cf);
   const float matches = matches_of(pr, pi, cf, pns, lane);
   clk.stamp(4);
 
@@ -645,8 +853,13 @@ __device__ __forceinline__ void decode_packet(
       hh[j] = hh[j] * scale;
     }
     Coef c2;
-    fit<false, DIRECT, false>(dr, di, R, pns, hr, hh, 1e-3f,
-                              prm.ls_offtap_refit, lane, c2);
+    if constexpr (LS_SMEM)
+      fit_smem<false, DIRECT, false>(dr, di, R, pns, hr, hh, 1e-3f,
+                                     prm.ls_offtap_refit, lane, ls_warp(),
+                                     c2);
+    else
+      fit<false, DIRECT, false>(dr, di, R, pns, hr, hh, 1e-3f,
+                                prm.ls_offtap_refit, lane, c2);
     const float m2 = matches_of(pr, pi, c2, pns, lane);
     const float keep = m2 >= matches ? 1.f : 0.f;
 #pragma unroll
@@ -926,15 +1139,6 @@ unsigned decode_blocks(int N) {
 const float* f32p(const void* p) { return static_cast<const float*>(p); }
 const int* i32p(const void* p) { return static_cast<const int*>(p); }
 
-// BlockSmem is past the 48 KB a kernel gets unasked: each instantiation
-// asks once
-template <class Kernel>
-cudaError_t allow_block_smem(Kernel kernel) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)sizeof(BlockSmem));
-}
-
 // The KNOBS bits of the entry points' knob arguments.
 int knob_bits(int cfo_bf16, int gram_direct, int bvec_matmul) {
   return (cfo_bf16 ? KNOB_CFO16 : 0) | (gram_direct ? KNOB_DIRECT : 0) |
@@ -966,10 +1170,10 @@ struct ExtractDecode {
   template <int KNOBS>
   cudaError_t run() const {
     static const cudaError_t ready =
-        allow_block_smem(extract_decode_kernel<KNOBS>);
+        allow_smem_bytes(extract_decode_kernel<KNOBS>, (int)DEC_SMEM);
     if (ready != cudaSuccess) return ready;
     extract_decode_kernel<KNOBS>
-        <<<decode_blocks(N), DEC_THREADS, sizeof(BlockSmem), st>>>(
+        <<<decode_blocks(N), DEC_THREADS, DEC_SMEM, st>>>(
             decim, dprev0, in_bf16, i32p(lag), i32p(phase), f32p(peak),
             f32p(dft_r), f32p(dft_i), f32p(pn), f32p(mask),
             static_cast<float*>(out), (long long)N, C, prm);
@@ -986,10 +1190,10 @@ struct DecodeExtract {
   template <int KNOBS>
   cudaError_t run() const {
     static const cudaError_t ready =
-        allow_block_smem(decode_extract_kernel<KNOBS>);
+        allow_smem_bytes(decode_extract_kernel<KNOBS>, (int)DEC_SMEM);
     if (ready != cudaSuccess) return ready;
     decode_extract_kernel<KNOBS>
-        <<<decode_blocks(N), DEC_THREADS, sizeof(BlockSmem), st>>>(
+        <<<decode_blocks(N), DEC_THREADS, DEC_SMEM, st>>>(
             f32p(windows), wp, i32p(lag), i32p(phase), f32p(peak),
             f32p(dft_r), f32p(dft_i), f32p(pn), f32p(mask),
             static_cast<float*>(out), (long long)N, prm);
@@ -1006,10 +1210,10 @@ struct DecodePackets {
   template <int KNOBS>
   cudaError_t run() const {
     static const cudaError_t ready =
-        allow_block_smem(decode_packets_kernel<KNOBS>);
+        allow_smem_bytes(decode_packets_kernel<KNOBS>, (int)DEC_SMEM);
     if (ready != cudaSuccess) return ready;
     decode_packets_kernel<KNOBS>
-        <<<decode_blocks(N), DEC_THREADS, sizeof(BlockSmem), st>>>(
+        <<<decode_blocks(N), DEC_THREADS, DEC_SMEM, st>>>(
             f32p(pkt_r), f32p(pkt_i), f32p(peak), f32p(dft_r), f32p(dft_i),
             f32p(pn), f32p(mask), static_cast<float*>(out), (long long)N,
             prm);
@@ -1097,4 +1301,14 @@ extern "C" int sc_decode_stage_cycles(void* host_out, int reset,
     err = cudaMemcpyToSymbol(sc_stage_cycles, zero, sizeof(zero));
   }
   return (int)err;
+}
+
+// The decode kernels' layout at this geometry, for reports: the block's
+// dynamic shared bytes, rows (warps) a block, and whether the LS solve
+// sits in shared memory (more than 7 taps).
+extern "C" int sc_decode_layout(int* out) {
+  out[0] = (int)DEC_SMEM;
+  out[1] = DEC_ROWS;
+  out[2] = LS_SMEM ? 1 : 0;
+  return 0;
 }

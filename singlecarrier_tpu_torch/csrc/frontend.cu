@@ -141,8 +141,10 @@ __device__ __forceinline__ void downmix(const int16_t* __restrict__ x_row,
 // N_SYM is not whole tasks the last task of a plane is ragged: it sums
 // past the block (u is padded to N_STAGE samples) and stores only the
 // symbols the row has.
-constexpr int WIN_SYMS = 4;
-constexpr int WIN_BLOCKS_SM = 6;       // 56 registers a thread, no spills
+// 4 symbols a task; above 5 cycles, where the cycle count is even, 2, so
+// that the WIN_T accumulators stay near the reference's 20 registers (odd
+// cycle counts above 5 keep 4: WIN_T must be whole 16-byte loads)
+constexpr int WIN_SYMS = CYC > 5 && CYC % 2 == 0 ? 2 : 4;
 constexpr int WIN_T = CYC * WIN_SYMS;
 constexpr int WIN_LEN = WIN_T + HALO;
 constexpr int WIN_VEC = 4;                            // floats a shared load
@@ -150,6 +152,14 @@ constexpr int WIN_TASKS_PLANE = (N_SYM + WIN_SYMS - 1) / WIN_SYMS;
 constexpr int WIN_TASKS = 2 * WIN_TASKS_PLANE;       // of one row
 // a thread a task (at least 96: symbols_per_block is at least P + 1)
 constexpr int WIN_THREADS = (WIN_TASKS + 31) / 32 * 32;
+// blocks an SM (__launch_bounds__, persistent_grid): six at the reference
+// (56 registers a thread, no spills) and wherever the geometry lies in
+// cycles <= 5 and 376 symbols; past that as many as the register file
+// holds at about WIN_T + 36 registers a thread
+constexpr int WIN_BLOCKS_SM =
+    CYC <= 5 && N_SYM <= 376
+        ? 6
+        : imax(1, 65536 / (WIN_THREADS * (WIN_T + 36)));
 constexpr int STAGE_VEC = 8;                          // samples per 16 B of PCM
 // samples of a row staged (the ragged last task reads up to its end)
 constexpr int N_STAGE = roundup(imax(N_SAMP, WIN_T * WIN_TASKS_PLANE),
@@ -168,10 +178,11 @@ constexpr int PCM_BYTES = N_SAMP % 8 == 0   ? 16
                           : N_SAMP % 4 == 0 ? 8
                           : N_SAMP % 2 == 0 ? 4
                                             : 0;
-static_assert(WIN_SYMS == 4 && WIN_T % WIN_VEC == 0 && U_LEN % 4 == 0 &&
-              HALO % STAGE_VEC == 0 && WIN_THREADS >= 2 * HALO &&
-              WIN_THREADS >= 70 && WIN_THREADS >= W_PAD &&
-              WIN_TASKS % 2 == 0,
+static_assert((WIN_SYMS == 4 || WIN_SYMS == 2) && WIN_T % WIN_VEC == 0 &&
+              U_LEN % 4 == 0 && HALO % STAGE_VEC == 0 &&
+              WIN_THREADS >= 2 * HALO && WIN_THREADS >= 70 &&
+              WIN_THREADS >= W_PAD && WIN_TASKS % 2 == 0 &&
+              WIN_THREADS <= 1024,
               "window front-end geometry");
 
 // What a block keeps in shared memory: u of the row in work, and the raw
@@ -197,7 +208,9 @@ __device__ __forceinline__ void load4(const float* p, float* v) {
 __device__ __forceinline__ void store_syms(float* o,
                                            const float (&v)[WIN_SYMS],
                                            int n) {
-  if constexpr (TASKS_WHOLE) {
+  if constexpr (TASKS_WHOLE && WIN_SYMS == 2) {
+    __stcg(reinterpret_cast<float2*>(o), make_float2(v[0], v[1]));
+  } else if constexpr (TASKS_WHOLE) {
     __stcg(reinterpret_cast<float4*>(o), make_float4(v[0], v[1], v[2], v[3]));
   } else {
 #pragma unroll
@@ -208,7 +221,11 @@ __device__ __forceinline__ void store_syms(float* o,
 __device__ __forceinline__ void store_syms(__nv_bfloat16* o,
                                            const float (&v)[WIN_SYMS],
                                            int n) {
-  if constexpr (TASKS_WHOLE) {
+  if constexpr (TASKS_WHOLE && WIN_SYMS == 2) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    __stcg(reinterpret_cast<unsigned*>(o),
+           *reinterpret_cast<const unsigned*>(&lo));
+  } else if constexpr (TASKS_WHOLE) {
     const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
     const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
     __stcg(reinterpret_cast<uint2*>(o),
@@ -403,7 +420,7 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
         const float* __restrict__ tail0_i, const float* __restrict__ adv,
         const float* __restrict__ tab, const float* __restrict__ taps,
         OutT* __restrict__ out, int B, int C, float inv_scale) {
-  __shared__ PremixSmem sm;
+  SC_BLOCK_SMEM(PremixSmem, sm);
   const long long N = (long long)B * C;
   const int tid = threadIdx.x;
   const bool vec = aligned16(pcm, tail0_r, tail0_i, tab);
@@ -469,7 +486,7 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
         const float* __restrict__ tail_i, const float* __restrict__ tab,
         const float* __restrict__ taps, OutT* __restrict__ out, long long N,
         float inv_scale) {
-  __shared__ PremixSmem sm;
+  SC_BLOCK_SMEM(PremixSmem, sm);
   const int tid = threadIdx.x;
   const bool vec = aligned16(pcm, tail_r, tail_i, tab);
   if (tid < W_PAD) sm.w[tid] = tid < NTAPS ? taps[tid] : 0.f;
@@ -617,7 +634,7 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
         const float* __restrict__ tab, const float* __restrict__ ctaps,
         const float* __restrict__ unrot, OutT* __restrict__ out, int B,
         int C, float inv_scale) {
-  __shared__ FoldSmem sm;
+  SC_BLOCK_SMEM(FoldSmem, sm);
   const long long N = (long long)B * C;
   const int tid = threadIdx.x;
   const bool vec = aligned16(pcm, tail0_r, tail0_i, tab);
@@ -676,7 +693,7 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
         const float* __restrict__ tail_i, const float* __restrict__ tab,
         const float* __restrict__ ctaps, const float* __restrict__ unrot,
         OutT* __restrict__ out, long long N, float inv_scale) {
-  __shared__ FoldSmem sm;
+  SC_BLOCK_SMEM(FoldSmem, sm);
   const int tid = threadIdx.x;
   const bool vec = aligned16(pcm, tail_r, tail_i, tab);
   load_fold_tables(sm, ctaps, unrot, tid);
@@ -781,7 +798,7 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
         const float* __restrict__ tail_i, const float* __restrict__ tab,
         const float* __restrict__ taps, float* __restrict__ out,
         long long N, float inv_scale, float gain) {
-  __shared__ FullSmem sm;
+  SC_BLOCK_SMEM(FullSmem, sm);
   PremixSmem& in = sm.in;
   const int tid = threadIdx.x;
   const bool vec = aligned16(pcm, tail_r, tail_i, tab);
@@ -837,82 +854,93 @@ unsigned persistent_grid(long long N) {
   return (unsigned)(N < held ? (N > 0 ? N : 1) : held);
 }
 
-template <bool ROUND>
-void launch_decim(const int16_t* x, const float* p0r, const float* p0i,
-                  const float* tr, const float* ti, const float* av,
-                  const float* tb, const float* tp, void* out, int B, int C,
-                  int out_bf16, float inv_scale, cudaStream_t st) {
-  const dim3 grid(persistent_grid((long long)B * C));
-  if (out_bf16)
-    frontend_decim_kernel<__nv_bfloat16, ROUND><<<grid, WIN_THREADS, 0, st>>>(
-        x, p0r, p0i, tr, ti, av, tb, tp, static_cast<__nv_bfloat16*>(out), B,
-        C, inv_scale);
-  else
-    frontend_decim_kernel<float, ROUND><<<grid, WIN_THREADS, 0, st>>>(
-        x, p0r, p0i, tr, ti, av, tb, tp, static_cast<float*>(out), B, C,
-        inv_scale);
+// Launch a persistent front-end kernel whose block holds an S on N rows
+// (its shared memory dynamic where S is past the static limit).
+template <class S, class K, class... Args>
+cudaError_t launch(K kernel, long long N, cudaStream_t st, Args... args) {
+  const cudaError_t ready = allow_smem<S>(kernel);
+  if (ready != cudaSuccess) return ready;
+  kernel<<<persistent_grid(N), WIN_THREADS, SMEM_LAUNCH_BYTES<S>, st>>>(
+      args...);
+  return cudaGetLastError();
 }
 
 template <bool ROUND>
-void launch_rows(const int16_t* x, const float* pr, const float* pi,
-                 const float* tr, const float* ti, const float* tb,
-                 const float* tp, void* out, int N, int layout,
-                 float inv_scale, cudaStream_t st) {
-  const dim3 grid(persistent_grid(N));
-  if (layout == 1)
-    frontend_rows_kernel<__nv_bfloat16, false, ROUND>
-        <<<grid, WIN_THREADS, 0, st>>>(x, pr, pi, tr, ti, tb, tp,
-                                       static_cast<__nv_bfloat16*>(out),
-                                       (long long)N, inv_scale);
-  else if (layout == 2)
-    frontend_rows_kernel<float, true, ROUND><<<grid, WIN_THREADS, 0, st>>>(
-        x, pr, pi, tr, ti, tb, tp, static_cast<float*>(out), (long long)N,
-        inv_scale);
-  else
-    frontend_rows_kernel<float, false, ROUND><<<grid, WIN_THREADS, 0, st>>>(
-        x, pr, pi, tr, ti, tb, tp, static_cast<float*>(out), (long long)N,
-        inv_scale);
-}
-
-template <bool ROUND>
-void launch_decim_folded(const int16_t* x, const float* p0r,
+cudaError_t launch_decim(const int16_t* x, const float* p0r,
                          const float* p0i, const float* tr, const float* ti,
-                         const float* av, const float* tb, const float* ct,
-                         const float* un, void* out, int B, int C,
-                         int out_bf16, float inv_scale, cudaStream_t st) {
-  const dim3 grid(persistent_grid((long long)B * C));
+                         const float* av, const float* tb, const float* tp,
+                         void* out, int B, int C, int out_bf16,
+                         float inv_scale, cudaStream_t st) {
+  const long long N = (long long)B * C;
   if (out_bf16)
-    frontend_decim_folded_kernel<__nv_bfloat16, ROUND>
-        <<<grid, WIN_THREADS, 0, st>>>(x, p0r, p0i, tr, ti, av, tb, ct, un,
-                                       static_cast<__nv_bfloat16*>(out), B,
-                                       C, inv_scale);
-  else
-    frontend_decim_folded_kernel<float, ROUND><<<grid, WIN_THREADS, 0, st>>>(
-        x, p0r, p0i, tr, ti, av, tb, ct, un, static_cast<float*>(out), B, C,
-        inv_scale);
+    return launch<PremixSmem>(
+        frontend_decim_kernel<__nv_bfloat16, ROUND>, N, st, x, p0r, p0i, tr,
+        ti, av, tb, tp, static_cast<__nv_bfloat16*>(out), B, C, inv_scale);
+  return launch<PremixSmem>(frontend_decim_kernel<float, ROUND>, N, st, x,
+                            p0r, p0i, tr, ti, av, tb, tp,
+                            static_cast<float*>(out), B, C, inv_scale);
 }
 
 template <bool ROUND>
-void launch_rows_folded(const int16_t* x, const float* pr, const float* pi,
+cudaError_t launch_rows(const int16_t* x, const float* pr, const float* pi,
                         const float* tr, const float* ti, const float* tb,
-                        const float* ct, const float* un, void* out, int N,
-                        int layout, float inv_scale, cudaStream_t st) {
-  const dim3 grid(persistent_grid(N));
+                        const float* tp, void* out, int N, int layout,
+                        float inv_scale, cudaStream_t st) {
   if (layout == 1)
-    frontend_rows_folded_kernel<__nv_bfloat16, false, ROUND>
-        <<<grid, WIN_THREADS, 0, st>>>(x, pr, pi, tr, ti, tb, ct, un,
-                                       static_cast<__nv_bfloat16*>(out),
-                                       (long long)N, inv_scale);
-  else if (layout == 2)
-    frontend_rows_folded_kernel<float, true, ROUND>
-        <<<grid, WIN_THREADS, 0, st>>>(x, pr, pi, tr, ti, tb, ct, un,
-                                       static_cast<float*>(out),
-                                       (long long)N, inv_scale);
-  else
-    frontend_rows_folded_kernel<float, false, ROUND>
-        <<<grid, WIN_THREADS, 0, st>>>(x, pr, pi, tr, ti, tb, ct, un,
-                                       static_cast<float*>(out),
-                                       (long long)N, inv_scale);
+    return launch<PremixSmem>(
+        frontend_rows_kernel<__nv_bfloat16, false, ROUND>, N, st, x, pr, pi,
+        tr, ti, tb, tp, static_cast<__nv_bfloat16*>(out), (long long)N,
+        inv_scale);
+  if (layout == 2)
+    return launch<PremixSmem>(frontend_rows_kernel<float, true, ROUND>, N,
+                              st, x, pr, pi, tr, ti, tb, tp,
+                              static_cast<float*>(out), (long long)N,
+                              inv_scale);
+  return launch<PremixSmem>(frontend_rows_kernel<float, false, ROUND>, N, st,
+                            x, pr, pi, tr, ti, tb, tp,
+                            static_cast<float*>(out), (long long)N,
+                            inv_scale);
+}
+
+template <bool ROUND>
+cudaError_t launch_decim_folded(const int16_t* x, const float* p0r,
+                                const float* p0i, const float* tr,
+                                const float* ti, const float* av,
+                                const float* tb, const float* ct,
+                                const float* un, void* out, int B, int C,
+                                int out_bf16, float inv_scale,
+                                cudaStream_t st) {
+  const long long N = (long long)B * C;
+  if (out_bf16)
+    return launch<FoldSmem>(
+        frontend_decim_folded_kernel<__nv_bfloat16, ROUND>, N, st, x, p0r,
+        p0i, tr, ti, av, tb, ct, un, static_cast<__nv_bfloat16*>(out), B, C,
+        inv_scale);
+  return launch<FoldSmem>(frontend_decim_folded_kernel<float, ROUND>, N, st,
+                          x, p0r, p0i, tr, ti, av, tb, ct, un,
+                          static_cast<float*>(out), B, C, inv_scale);
+}
+
+template <bool ROUND>
+cudaError_t launch_rows_folded(const int16_t* x, const float* pr,
+                               const float* pi, const float* tr,
+                               const float* ti, const float* tb,
+                               const float* ct, const float* un, void* out,
+                               int N, int layout, float inv_scale,
+                               cudaStream_t st) {
+  if (layout == 1)
+    return launch<FoldSmem>(
+        frontend_rows_folded_kernel<__nv_bfloat16, false, ROUND>, N, st, x,
+        pr, pi, tr, ti, tb, ct, un, static_cast<__nv_bfloat16*>(out),
+        (long long)N, inv_scale);
+  if (layout == 2)
+    return launch<FoldSmem>(frontend_rows_folded_kernel<float, true, ROUND>,
+                            N, st, x, pr, pi, tr, ti, tb, ct, un,
+                            static_cast<float*>(out), (long long)N,
+                            inv_scale);
+  return launch<FoldSmem>(frontend_rows_folded_kernel<float, false, ROUND>,
+                          N, st, x, pr, pi, tr, ti, tb, ct, un,
+                          static_cast<float*>(out), (long long)N, inv_scale);
 }
 
 const int16_t* i16p(const void* p) { return static_cast<const int16_t*>(p); }
@@ -929,10 +957,9 @@ extern "C" int sc_frontend_decim(const void* pcm, const void* p0r,
                                  int B, int C, int out_bf16, float inv_scale,
                                  int f32_operands, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  (f32_operands ? launch_decim<false> : launch_decim<true>)(
+  return (int)(f32_operands ? launch_decim<false> : launch_decim<true>)(
       i16p(pcm), f32p(p0r), f32p(p0i), f32p(tail0_r), f32p(tail0_i),
       f32p(adv), f32p(tab), f32p(taps), out, B, C, out_bf16, inv_scale, st);
-  return (int)cudaGetLastError();
 }
 
 // layout: 0 = transposed f32, 1 = transposed bf16, 2 = row-major f32.
@@ -943,10 +970,9 @@ extern "C" int sc_frontend_rows(const void* pcm, const void* ph_r,
                                 int layout, float inv_scale, int f32_operands,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  (f32_operands ? launch_rows<false> : launch_rows<true>)(
+  return (int)(f32_operands ? launch_rows<false> : launch_rows<true>)(
       i16p(pcm), f32p(ph_r), f32p(ph_i), f32p(tail_r), f32p(tail_i),
       f32p(tab), f32p(taps), out, N, layout, inv_scale, st);
-  return (int)cudaGetLastError();
 }
 
 extern "C" int sc_frontend_decim_folded(
@@ -955,11 +981,12 @@ extern "C" int sc_frontend_decim_folded(
     const void* unrot, void* out, int B, int C, int out_bf16,
     float inv_scale, int f32_operands, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  (f32_operands ? launch_decim_folded<false> : launch_decim_folded<true>)(
-      i16p(pcm), f32p(p0r), f32p(p0i), f32p(tail0_r), f32p(tail0_i),
-      f32p(adv), f32p(tab), f32p(ctaps), f32p(unrot), out, B, C, out_bf16,
-      inv_scale, st);
-  return (int)cudaGetLastError();
+  const cudaError_t err =
+      (f32_operands ? launch_decim_folded<false> : launch_decim_folded<true>)(
+          i16p(pcm), f32p(p0r), f32p(p0i), f32p(tail0_r), f32p(tail0_i),
+          f32p(adv), f32p(tab), f32p(ctaps), f32p(unrot), out, B, C,
+          out_bf16, inv_scale, st);
+  return (int)err;
 }
 
 // layout as sc_frontend_rows.
@@ -969,10 +996,12 @@ extern "C" int sc_frontend_rows_folded(
     const void* unrot, void* out, int N, int layout, float inv_scale,
     int f32_operands, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  (f32_operands ? launch_rows_folded<false> : launch_rows_folded<true>)(
-      i16p(pcm), f32p(ph_r), f32p(ph_i), f32p(tail_r), f32p(tail_i),
-      f32p(tab), f32p(ctaps), f32p(unrot), out, N, layout, inv_scale, st);
-  return (int)cudaGetLastError();
+  const cudaError_t err =
+      (f32_operands ? launch_rows_folded<false> : launch_rows_folded<true>)(
+          i16p(pcm), f32p(ph_r), f32p(ph_i), f32p(tail_r), f32p(tail_i),
+          f32p(tab), f32p(ctaps), f32p(unrot), out, N, layout, inv_scale,
+          st);
+  return (int)err;
 }
 
 extern "C" int sc_frontend_full(const void* pcm, const void* ph_r,
@@ -980,12 +1009,23 @@ extern "C" int sc_frontend_full(const void* pcm, const void* ph_r,
                                 const void* tail_i, const void* tab,
                                 const void* taps, void* out, int N,
                                 float inv_scale, float gain, void* stream) {
-  frontend_full_kernel<<<persistent_grid(N), WIN_THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  return (int)launch<FullSmem>(
+      frontend_full_kernel, N, static_cast<cudaStream_t>(stream),
       static_cast<const int16_t*>(pcm), static_cast<const float*>(ph_r),
       static_cast<const float*>(ph_i), static_cast<const float*>(tail_r),
       static_cast<const float*>(tail_i), static_cast<const float*>(tab),
       static_cast<const float*>(taps), static_cast<float*>(out),
       (long long)N, inv_scale, gain);
-  return (int)cudaGetLastError();
+}
+
+// The front-ends' layout at this geometry, for reports: the block's
+// shared bytes of the premix pair, the folded pair and the full-rate
+// kernel (dynamic where past 48 KB), threads a block, blocks an SM.
+extern "C" int sc_frontend_layout(int* out) {
+  out[0] = (int)sizeof(PremixSmem);
+  out[1] = (int)sizeof(FoldSmem);
+  out[2] = (int)sizeof(FullSmem);
+  out[3] = WIN_THREADS;
+  out[4] = WIN_BLOCKS_SM;
+  return 0;
 }

@@ -145,6 +145,11 @@ struct alignas(16) MmaWarpSmem {
   uint32_t x[CYC][2][XW];   // int8 operand planes, x[OFF + j] at byte j
   float ssum[XN];           // phase-summed squares, then the espan sums
 };
+// the block's four warps' (28,672 B at the reference; past 48 KB, so
+// dynamic, at 10 cycles or 624 symbols)
+struct MmaSmem {
+  MmaWarpSmem w[MMA_WARPS];
+};
 
 // 8 window values j0..j0+7 (j0 a multiple of 8) of a plane row
 template <bool BF16>
@@ -327,11 +332,11 @@ __global__ void __launch_bounds__(MMA_WARPS * 32) hunt_mma_kernel(
     const float* __restrict__ pn, int* __restrict__ lag_out,
     int* __restrict__ ph_out, float* __restrict__ peak_out, long long N,
     int C, float hunt_scale, float peak_scale) {
-  __shared__ MmaWarpSmem wsm[MMA_WARPS];
+  SC_BLOCK_SMEM(MmaSmem, wsm);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long n = (long long)blockIdx.x * MMA_WARPS + warp;
   if (n >= N) return;        // a warp works alone: no block barrier below
-  MmaWarpSmem& sm = wsm[warp];
+  MmaWarpSmem& sm = wsm.w[warp];
   const int g = lane >> 2, tig = lane & 3;   // mma row group, quad thread
 
   // B fragments: B[k][q] = pn[16 q + k]; this thread holds k = 4 tig..+3
@@ -514,6 +519,17 @@ constexpr int Q_STRIDE = roundup(N_SYM, 4) + 4;    // segment rows 16 B apart
 static_assert(T_ROWS + SEG - 1 <= TOE_THREADS && TOE_THREADS <= 1024,
               "a thread per t");
 
+// the block's shared arrays as one layout (19,136 B at the reference;
+// past 48 KB only at 16 segments and more than about 600 symbols)
+struct ToeSmem {
+  float xs[2][TOE_THREADS];        // the operand, x[OFF + j]
+  float ssum[TOE_THREADS];         // squares (summed over phases)
+  __align__(16) float pns[P];
+  float qs[NSEG][Q_STRIDE];        // re^2 + im^2 by (segment, lag)
+  Best wbest[TOE_WARPS];
+  unsigned wnan[TOE_WARPS];        // phases with a NaN statistic
+};
+
 // x[OFF + j] of row n's window, phase c, plane p, for 0 <= j <
 // TOE_THREADS: the previous block's row, this block's, then zeros
 __device__ __forceinline__ float operand_at(const void* decim,
@@ -537,18 +553,16 @@ __device__ __forceinline__ float hunt_operand(float w) {
   return w;
 }
 
+// The body of hunt_toeplitz_kernel over the block's shared arrays.
 template <bool ROUND, int NORM>
-__global__ void __launch_bounds__(TOE_THREADS) hunt_toeplitz_kernel(
-    const void* __restrict__ decim, const void* __restrict__ dprev0,
-    int in_bf16, const float* __restrict__ pn, int* __restrict__ lag_out,
+__device__ __forceinline__ void toeplitz_row(
+    float (&xs)[2][TOE_THREADS], float (&ssum)[TOE_THREADS],
+    float (&pns)[P], float (&qs)[NSEG][Q_STRIDE], Best (&wbest)[TOE_WARPS],
+    unsigned (&wnan)[TOE_WARPS], const void* __restrict__ decim,
+    const void* __restrict__ dprev0, int in_bf16,
+    const float* __restrict__ pn, int* __restrict__ lag_out,
     int* __restrict__ ph_out, float* __restrict__ peak_out, long long N,
     int C, float peak_scale) {
-  __shared__ float xs[2][TOE_THREADS];     // the operand, x[OFF + j]
-  __shared__ float ssum[TOE_THREADS];      // squares (summed over phases)
-  __shared__ __align__(16) float pns[P];
-  __shared__ float qs[NSEG][Q_STRIDE];     // re^2 + im^2 by (segment, lag)
-  __shared__ Best wbest[TOE_WARPS];
-  __shared__ unsigned wnan[TOE_WARPS];     // phases with a NaN statistic
   const long long n = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -657,30 +671,59 @@ __global__ void __launch_bounds__(TOE_THREADS) hunt_toeplitz_kernel(
   }
 }
 
-template <int NORM>
-void launch_hunt(const void* decim, const void* dprev0, const float* pn,
-                 int* lg, int* ph, float* pk, int N, int C, int in_bf16,
-                 int int8_hunt, int f32_operand, float hunt_scale,
-                 float peak_scale, cudaStream_t st) {
-  if (int8_hunt) {
-    const dim3 grid((unsigned)((N + MMA_WARPS - 1) / MMA_WARPS));
-    if (in_bf16)
-      hunt_mma_kernel<true, NORM><<<grid, MMA_WARPS * 32, 0, st>>>(
-          decim, dprev0, pn, lg, ph, pk, (long long)N, C, hunt_scale,
-          peak_scale);
-    else
-      hunt_mma_kernel<false, NORM><<<grid, MMA_WARPS * 32, 0, st>>>(
-          decim, dprev0, pn, lg, ph, pk, (long long)N, C, hunt_scale,
-          peak_scale);
-  } else if (f32_operand) {
-    hunt_toeplitz_kernel<false, NORM><<<dim3((unsigned)N), TOE_THREADS, 0,
-                                        st>>>(
-        decim, dprev0, in_bf16, pn, lg, ph, pk, (long long)N, C, peak_scale);
+// The arrays are static shared memory where they fit 48 KB (every
+// geometry but 16 segments at more than about 600 symbols), else a
+// ToeSmem in the dynamic shared memory.
+template <bool ROUND, int NORM>
+__global__ void __launch_bounds__(TOE_THREADS) hunt_toeplitz_kernel(
+    const void* __restrict__ decim, const void* __restrict__ dprev0,
+    int in_bf16, const float* __restrict__ pn, int* __restrict__ lag_out,
+    int* __restrict__ ph_out, float* __restrict__ peak_out, long long N,
+    int C, float peak_scale) {
+  if constexpr (!SMEM_DYNAMIC<ToeSmem>) {
+    __shared__ float xs[2][TOE_THREADS];     // the operand, x[OFF + j]
+    __shared__ float ssum[TOE_THREADS];      // squares (summed over phases)
+    __shared__ __align__(16) float pns[P];
+    __shared__ float qs[NSEG][Q_STRIDE];     // re^2 + im^2 by (segment, lag)
+    __shared__ Best wbest[TOE_WARPS];
+    __shared__ unsigned wnan[TOE_WARPS];     // phases with a NaN statistic
+    toeplitz_row<ROUND, NORM>(xs, ssum, pns, qs, wbest, wnan, decim, dprev0,
+                              in_bf16, pn, lag_out, ph_out, peak_out, N, C,
+                              peak_scale);
   } else {
-    hunt_toeplitz_kernel<true, NORM><<<dim3((unsigned)N), TOE_THREADS, 0,
-                                       st>>>(
-        decim, dprev0, in_bf16, pn, lg, ph, pk, (long long)N, C, peak_scale);
+    extern __shared__ __align__(16) unsigned char sc_dyn_smem[];
+    ToeSmem& ts = *reinterpret_cast<ToeSmem*>(sc_dyn_smem);
+    toeplitz_row<ROUND, NORM>(ts.xs, ts.ssum, ts.pns, ts.qs, ts.wbest,
+                              ts.wnan, decim, dprev0, in_bf16, pn, lag_out,
+                              ph_out, peak_out, N, C, peak_scale);
   }
+}
+
+template <int NORM>
+cudaError_t launch_hunt(const void* decim, const void* dprev0,
+                        const float* pn, int* lg, int* ph, float* pk, int N,
+                        int C, int in_bf16, int int8_hunt, int f32_operand,
+                        float hunt_scale, float peak_scale,
+                        cudaStream_t st) {
+  if (int8_hunt) {
+    const auto kernel = in_bf16 ? hunt_mma_kernel<true, NORM>
+                                : hunt_mma_kernel<false, NORM>;
+    const cudaError_t ready = allow_smem<MmaSmem>(kernel);
+    if (ready != cudaSuccess) return ready;
+    const dim3 grid((unsigned)((N + MMA_WARPS - 1) / MMA_WARPS));
+    kernel<<<grid, MMA_WARPS * 32, SMEM_LAUNCH_BYTES<MmaSmem>, st>>>(
+        decim, dprev0, pn, lg, ph, pk, (long long)N, C, hunt_scale,
+        peak_scale);
+  } else {
+    const auto kernel = f32_operand ? hunt_toeplitz_kernel<false, NORM>
+                                    : hunt_toeplitz_kernel<true, NORM>;
+    const cudaError_t ready = allow_smem<ToeSmem>(kernel);
+    if (ready != cudaSuccess) return ready;
+    kernel<<<dim3((unsigned)N), TOE_THREADS, SMEM_LAUNCH_BYTES<ToeSmem>,
+             st>>>(decim, dprev0, in_bf16, pn, lg, ph, pk, (long long)N, C,
+                   peak_scale);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -699,16 +742,24 @@ extern "C" int sc_hunt(const void* decim, const void* dprev0, const void* pn,
   int* ph = static_cast<int*>(phase);
   float* pk = static_cast<float*>(peak);
   if (norm == NORM_ENERGY)
-    launch_hunt<NORM_ENERGY>(decim, dprev0, pnf, lg, ph, pk, N, C, in_bf16,
-                             int8_hunt, f32_operand, hunt_scale, peak_scale,
-                             st);
-  else if (norm == NORM_NONE)
-    launch_hunt<NORM_NONE>(decim, dprev0, pnf, lg, ph, pk, N, C, in_bf16,
-                           int8_hunt, f32_operand, hunt_scale, peak_scale,
-                           st);
-  else
-    launch_hunt<NORM_ESPAN>(decim, dprev0, pnf, lg, ph, pk, N, C, in_bf16,
-                            int8_hunt, f32_operand, hunt_scale, peak_scale,
-                            st);
-  return (int)cudaGetLastError();
+    return (int)launch_hunt<NORM_ENERGY>(decim, dprev0, pnf, lg, ph, pk, N,
+                                         C, in_bf16, int8_hunt, f32_operand,
+                                         hunt_scale, peak_scale, st);
+  if (norm == NORM_NONE)
+    return (int)launch_hunt<NORM_NONE>(decim, dprev0, pnf, lg, ph, pk, N, C,
+                                       in_bf16, int8_hunt, f32_operand,
+                                       hunt_scale, peak_scale, st);
+  return (int)launch_hunt<NORM_ESPAN>(decim, dprev0, pnf, lg, ph, pk, N, C,
+                                      in_bf16, int8_hunt, f32_operand,
+                                      hunt_scale, peak_scale, st);
+}
+
+// The hunt's layout at this geometry, for reports: the block's shared
+// bytes of the int8 body and of the Toeplitz body (dynamic where past 48
+// KB), and the Toeplitz body's threads a block.
+extern "C" int sc_hunt_layout(int* out) {
+  out[0] = (int)sizeof(MmaSmem);
+  out[1] = (int)sizeof(ToeSmem);
+  out[2] = TOE_THREADS;
+  return 0;
 }

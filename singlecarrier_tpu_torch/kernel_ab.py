@@ -4,6 +4,7 @@ Run from the root of a checkout::
 
     python3 -m singlecarrier_tpu_torch.kernel_ab [--other DIR] [--blocks B]
                                                  [--stages] [--config NAME]
+                                                 [--ptxas]
 
 ``--other DIR`` names another ``csrc`` tree, for example a parent
 commit's (``git archive <commit> singlecarrier_tpu_torch/csrc | tar -x
@@ -50,6 +51,10 @@ points and counts the valid rows' dibits that differ, each with its
 plain soft margin (distance to the slicer's boundary over the symbol's
 magnitude): the evidence for ``tools._measure.KNIFE_EDGE``.
 
+``--ptxas`` (with ``--other``) builds both trees with ``ptxas -v`` and
+prints, entry function by entry function, whether the registers, shared
+memory and spills it reports are the same (``_build.ptxas_entries``).
+
 ``--config NAME`` runs all of it at one of the named numerologies
 (``ops/_build.NUMEROLOGIES``) in place of the reference one: both trees
 are built with that geometry's defines (``_build.kernel_geometry``), the
@@ -65,6 +70,7 @@ Every line carries the card's name and power limit.  Needs a GPU.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import ctypes
 import re
 import sys
@@ -273,6 +279,25 @@ def _knife_edges(gen, tx, dev, draws: int, card: str, base,
           f"{card}", flush=True)
 
 
+def _ptxas(other: Path, geo: tuple, card: str) -> None:
+    """Print whether ``ptxas -v`` says the same of every entry function
+    of this tree and of ``other`` at the geometry ``geo``, and what it
+    says of each that moved."""
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        this, theirs = pool.map(lambda csrc: _build.ptxas_entries(
+            _build.build(verbose=True, csrc=csrc, defines=geo)[1]),
+            (_build.CSRC, other))
+    moved = [k for k in list(theirs) + [k for k in this if k not in theirs]
+             if this.get(k) != theirs.get(k)]
+    print(f"[ptxas] {len(this)} entry functions in this tree, "
+          f"{len(theirs)} in {other}: registers, shared memory and spills "
+          f"the same on {len(theirs) - len(moved)}, moved on {len(moved)}; "
+          f"{card}", flush=True)
+    for k in moved:
+        print(f"[ptxas]   {k}: this {this.get(k)}, other {theirs.get(k)}",
+              flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, help="another csrc tree")
@@ -285,6 +310,9 @@ def main(argv=None) -> int:
                     "version's on N draws of the kernel inputs")
     ap.add_argument("--config", choices=sorted(_build.NUMEROLOGIES),
                     help="a named numerology in place of the reference one")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="with --other: ptxas -v of the two trees, entry "
+                    "function by entry function")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -306,6 +334,8 @@ def main(argv=None) -> int:
         return 1
     mine = _build.load(base)
     other = (_bind_tree(args.other, defines=geo) if args.other else None)
+    if args.ptxas and other is not None:
+        _ptxas(args.other, geo, card)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     if args.config:

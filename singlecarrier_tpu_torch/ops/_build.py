@@ -40,12 +40,15 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 
 import numpy as np
+
+from ..config import DEFAULT_CONFIG
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -103,6 +106,10 @@ _SIGNATURES = {
     "sc_extract_gate": [_P] * 6 + [_I] * 3 + [_F, _P],
     # host_out (8 x uint64), reset, stream
     "sc_decode_stage_cycles": [_P, _I, _P],
+    # out (int32 x 5, 3 and 3): each source's layout at its geometry
+    "sc_frontend_layout": [_P],
+    "sc_hunt_layout": [_P],
+    "sc_decode_layout": [_P],
 }
 
 
@@ -193,6 +200,36 @@ def _compile(lib_path: Path, csrc, flags, verbose: bool) -> str:
     return "".join(logs) + res.stdout + res.stderr
 
 
+# the entry functions of the ten kernels (the hunt in two bodies), as
+# their names stand inside ptxas' mangled ones
+KERNEL_ENTRIES = ("frontend_decim_kernel", "frontend_rows_kernel",
+                  "frontend_decim_folded_kernel",
+                  "frontend_rows_folded_kernel", "frontend_full_kernel",
+                  "hunt_mma_kernel", "hunt_toeplitz_kernel",
+                  "extract_decode_kernel", "decode_extract_kernel",
+                  "decode_packets_kernel", "extract_gate_kernel")
+
+
+def ptxas_entries(log: str) -> dict:
+    """{entry function: what ``ptxas -v`` says of its registers, shared
+    memory and spills} of a verbose :func:`build` log, in log order.  An
+    entry is named by its kernel and the rest of its mangled name (its
+    template arguments and parameters), without the anonymous namespace's
+    tag, which differs from one source tree to another."""
+    out, said = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            kern = max((k for k in KERNEL_ENTRIES if k in name), key=len,
+                       default="")
+            said = out.setdefault(name[name.index(kern):] if kern else name,
+                                  [])
+        elif said is not None and ("registers" in line or "spill" in line):
+            said.append(line.split("ptxas info    :")[-1].strip())
+    return out
+
+
 def bind(path: Path):
     """Load a built library and type its entry points (those it has: an
     older source tree may lack the newest)."""
@@ -246,6 +283,22 @@ def using(lib, cfg=None):
             _lib = mine
 
 
+def layout(lib) -> dict:
+    """What a built library's kernels hold a block at its geometry: shared
+    bytes (dynamic where past 48 KB) of each body, threads a block, blocks
+    an SM of the front-ends, whether the decode's LS solve is in shared
+    memory."""
+    fe, hu, de = ((ctypes.c_int * n)() for n in (5, 3, 3))
+    for fn, arr in ((lib.sc_frontend_layout, fe), (lib.sc_hunt_layout, hu),
+                    (lib.sc_decode_layout, de)):
+        check(fn(arr), fn.__name__)
+    return {"premix_smem": fe[0], "folded_smem": fe[1], "full_smem": fe[2],
+            "frontend_threads": fe[3], "frontend_blocks_sm": fe[4],
+            "hunt_int8_smem": hu[0], "hunt_toeplitz_smem": hu[1],
+            "hunt_toeplitz_threads": hu[2], "decode_smem": de[0],
+            "decode_rows": de[1], "ls_in_smem": bool(de[2])}
+
+
 def check(err: int, name: str) -> None:
     """Raise if a kernel launch reported a CUDA error."""
     if err != 0:
@@ -275,7 +328,29 @@ NUMEROLOGIES = {
     "seg4": {"corr_segments": 4},
     "seg16": {"corr_segments": 16},
     "nfft1024": {"cfo_nfft": 1024},
+    # the widest shapes the JAX CLI reaches (--eq-length, --fs / --rs,
+    # --ns), each at or near a limit of kernel_limits
+    "eq9": {"eq_length": 9},
+    "eq16": {"eq_length": 16},
+    "cyc6": {"fs": 9600.0, "rs": 1600.0, "center": 1500.0},
+    "cyc10": {"fs": 16000.0, "rs": 1600.0, "center": 1500.0},
+    "ns9": {"ns": 9},
+    "ns16": {"ns": 16},
+    "wide_corner": {"eq_length": 16, "ns": 16, "fs": 16000.0, "rs": 1600.0,
+                    "center": 1500.0},
 }
+
+
+def is_wide(cfg) -> bool:
+    """Whether ``cfg`` is past 7 equalizer taps, 5 cycles or 376 symbols a
+    block, where the kernels' limits stood before their wide branches."""
+    return (cfg.eq_length > 7 or cfg.cycles > 5
+            or cfg.symbols_per_block > 376)
+
+
+# the named numerologies that are wide
+WIDE_NUMEROLOGIES = tuple(name for name, kw in NUMEROLOGIES.items()
+                          if is_wide(DEFAULT_CONFIG.replace(**kw)))
 
 
 @functools.lru_cache(maxsize=64)
@@ -303,19 +378,26 @@ def kernel_limits(cfg) -> None:
         preamble as 8 chunks of 16 chips;
       * corr_segments 4, 8 or 16 (segments of 32, 16 or 8 chips);
       * ntaps 49: the front-ends' tap loops and halo staging;
-      * cycles 2 to 5 and symbols_per_block at most 376 (so frame_size
-        at most 1880, frame_symbols at most 248): the registers and
-        shared memory the kernels are laid out for;
-      * eq_length 1 to 7 (so pkt_window at most 384);
+      * cycles 2 to 10 and symbols_per_block at most 624 (so frame_size
+        at most 6240, frame_symbols at most 496): the hunt's Toeplitz
+        body takes a thread per operand value, N_SYM + P - 1 of them,
+        and 624 + 127 rounds to 768 threads of the 1024 a block may
+        have; the front-ends' tasks of 4 (2 above cycles 5, where the
+        cycle count is even) symbols keep their WIN_T accumulators in
+        registers; the blocks' shared memory past 48 KB is dynamic;
+      * eq_length 1 to 16 (so pkt_window at most 640): the train fit's
+        matmul b-vector takes a lane a sum, 2 * eq_length of the 32;
+        above 7 taps each warp's Gram and Cholesky factor sit in shared
+        memory, not in registers;
       * cfo_nfft 256, 512 or 1024: the DFT's bin groups.
     """
     limits = (
         ("preamble_length == 128", cfg.preamble_length == 128),
         ("corr_segments in (4, 8, 16)", cfg.corr_segments in (4, 8, 16)),
         ("ntaps == 49", cfg.ntaps == 49),
-        ("2 <= cycles <= 5", 2 <= cfg.cycles <= 5),
-        ("symbols_per_block <= 376", cfg.symbols_per_block <= 376),
-        ("1 <= eq_length <= 7", 1 <= cfg.eq_length <= 7),
+        ("2 <= cycles <= 10", 2 <= cfg.cycles <= 10),
+        ("symbols_per_block <= 624", cfg.symbols_per_block <= 624),
+        ("1 <= eq_length <= 16", 1 <= cfg.eq_length <= 16),
         ("cfo_nfft in (256, 512, 1024)", cfg.cfo_nfft in (256, 512, 1024)),
     )
     for name, ok in limits:

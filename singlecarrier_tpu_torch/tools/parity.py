@@ -25,7 +25,10 @@ Writes ``PARITY_GPU.json`` (``PARITY_TPU.json``'s keys, the card's name
 and power limit, the launches of each path); ``--all-records`` runs the
 seven pinned configs and writes ``PARITY_GPU.json``, ``_BF16``,
 ``_WIDE``, ``_FRAC``, ``_INT8``, ``_R128`` and ``_CFO16`` into
-``--out-dir``.  Exits 1 on any mismatch.  ``--device cpu`` runs the
+``--out-dir``.  ``--config`` also takes a named numerology
+(``ops/_build.NUMEROLOGIES``: ``eq16``, ``wide_corner``, ...) at its bench
+operating point, written to ``PARITY_GPU_<NAME>.json``, which no TPU
+record stands beside.  Exits 1 on any mismatch.  ``--device cpu`` runs the
 plain versions (the tests); the record then says ``"device": "cpu"``.
 """
 
@@ -47,7 +50,7 @@ from ..modem import (ProdRxOut, prod_rx_batch, prod_rx_init, prod_rx_stream,
                      prod_rx_stream_pallas)
 from ..modem.tx import tx_stream
 from ..ops import _build
-from ._measure import KNOB_VALUES, SEED, head, tool_device
+from ._measure import KNOB_VALUES, SEED, bench_point, head, tool_device
 
 PARITY_C, PARITY_PACKETS = 128, 6        # tools/tpu_parity.py's defaults
 PARITY_SNR_DB, PARITY_CFO_HZ = 12.0, 15.0
@@ -72,6 +75,14 @@ def configs(default):
          int8.replace(ls_refit_symbols=128)),
         ("cfo bf16", "PARITY_TPU_CFO16.json", int8.replace(cfo_dtype="bf16")),
     ] + knobs
+
+
+def numerology_configs(default):
+    """(name, None, config) of each named numerology
+    (``ops/_build.NUMEROLOGIES``) at its bench operating point, as
+    ``chip_smoke.py`` (j) runs it; no TPU record stands beside them."""
+    return [(tag, None, bench_point(default.replace(**kw)))
+            for tag, kw in _build.NUMEROLOGIES.items()]
 
 
 def stream(cfg, bits, seed: int, dev, snr_db: float = PARITY_SNR_DB,
@@ -293,8 +304,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=SEED)
     ap.add_argument("--config", default="default",
                     choices=[name for name, rec, _ in
-                             configs(DEFAULT_CONFIG) if rec],
-                    help="one of the pinned records' configs")
+                             configs(DEFAULT_CONFIG) if rec]
+                    + list(_build.NUMEROLOGIES),
+                    help="one of the pinned records' configs, or a named "
+                    "numerology at its bench operating point")
     ap.add_argument("--all-records", action="store_true",
                     help="the seven pinned configs, one record each")
     ap.add_argument("--out", default=None,
@@ -321,6 +334,9 @@ def main(argv=None) -> int:
 
     chosen = [(name, rec, cfg) for name, rec, cfg in configs(DEFAULT_CONFIG)
               if rec and (args.all_records or name == args.config)]
+    if not args.all_records:
+        chosen += [c for c in numerology_configs(DEFAULT_CONFIG)
+                   if c[0] == args.config]
     ok = True
     for name, rec, cfg in chosen:
         kw = {k: getattr(args, k) for k, _ in _OVERRIDES
@@ -328,7 +344,8 @@ def main(argv=None) -> int:
         if args.frac_timing:
             kw["frac_timing"] = True
         cfg = cfg.replace(**kw)
-        out_name = rec.replace("TPU", "GPU")
+        out_name = (rec.replace("TPU", "GPU") if rec
+                    else f"PARITY_GPU_{name.upper()}.json")
         rep = record(name, rec, cfg, args, dev, dev_head)
         path = (args.out if args.out and not args.all_records
                 else os.path.join(args.out_dir, out_name))

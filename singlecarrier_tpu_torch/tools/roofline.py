@@ -4,12 +4,14 @@ Counterpart of ``tools/roofline.py``::
 
     python3 -m singlecarrier_tpu_torch.tools.roofline [--channels 8192]
         [--blocks 128] [--iters 2 6] [--plain-blocks 4]
-        [--out ROOFLINE_GPU.md]
+        [--config NAME] [--out ROOFLINE_GPU.md]
 
-At the bench operating point, on full-scale noise of ``--channels`` x
-``--blocks`` rows (8192 x 128 = 1,048,576 by default: every launch over
-5 ms), each of the ten kernels (``frontend_decim`` and its folded form,
-``frontend_rows`` and its folded form in both output layouts,
+At the bench operating point (of the reference numerology, or with
+``--config`` of a named one, ``ops/_build.NUMEROLOGIES``), on full-scale
+noise of ``--channels`` x ``--blocks`` rows (8192 x 128 = 1,048,576 by
+default: every launch over 5 ms), each of the ten kernels
+(``frontend_decim`` and its folded form, ``frontend_rows`` and its
+folded form in both output layouts,
 ``frontend_full``, ``hunt``, ``extract_decode``, ``extract_gate``,
 ``decode_extract``, ``decode_packets``) and one dispatch of the main path
 ``prod_rx_batch(fuse_frontend=True)`` is timed as the slope over two
@@ -192,7 +194,9 @@ def markdown(rows, main, line: str, cfg, k1: int, k2: int) -> str:
         f"Card: {line} (`nvidia-smi`); torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}.  Written by `python3 -m "
         f"singlecarrier_tpu_torch.tools.roofline`, every number from this "
-        f"one call.  Config: the bench operating point (decim "
+        f"one call.  Config: the bench operating point ({cfg.frame_size} "
+        f"samples, {cfg.cycles} cycles and {cfg.symbols_per_block} symbols "
+        f"a block, {cfg.eq_length} taps; decim "
         f"{cfg.decim_dtype}, hunt {cfg.hunt_dtype} {cfg.hunt_norm}, gram "
         f"{cfg.ls_gram}, refit window {cfg.ls_refit_symbols}) on full-scale "
         f"noise.  Time: the slope over chains of {k1} and {k2} launches, "
@@ -239,10 +243,14 @@ def main(argv=None) -> int:
     ap.add_argument("--plain-blocks", type=int, default=4,
                     help="blocks of the plain versions' shape")
     ap.add_argument("--out", default="ROOFLINE_GPU.md")
+    ap.add_argument("--config", choices=sorted(_build.NUMEROLOGIES),
+                    help="a named numerology's bench operating point in "
+                    "place of the reference one")
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
     dev = tool_device(args.device, "roofline", timing=True)
-    cfg = bench_point(DEFAULT_CONFIG)
+    cfg = bench_point(DEFAULT_CONFIG.replace(
+        **_build.NUMEROLOGIES.get(args.config, {})))
     line = card(dev).line
     k1, k2 = args.iters
     rows, main_row = measure(cfg, args.channels, args.blocks, k1, k2,
@@ -257,7 +265,8 @@ def main(argv=None) -> int:
     with open(args.out, "w") as f:
         f.write(markdown(rows, main_row, line, cfg, k1, k2))
     print(json.dumps({"metric": "kernel_roofline", **head(dev),
-                      "config": "bench operating point", "rows": rows,
+                      "config": f"{args.config or 'reference'} bench "
+                      "operating point", "rows": rows,
                       "main_path": main_row}), flush=True)
     return 0
 

@@ -27,7 +27,9 @@ from singlecarrier_tpu_torch.ops import _build, frontend
 CPU = torch.device("cpu")
 N_SAMP, NTAPS, HALO = 1880, 49, 48
 SRC = (_build.CSRC / "frontend.cu").read_text()
-WIN_SYMS = int(re.search(r"constexpr int WIN_SYMS = (\d+);", SRC).group(1))
+# the symbols of a task at 5 cycles: the base value of WIN_SYMS
+WIN_SYMS = int(re.search(r"constexpr int WIN_SYMS = CYC > 5 && CYC % 2 == 0 "
+                         r"\? \d+ : (\d+);", SRC).group(1))
 WIN_T = 5 * WIN_SYMS
 WIN_LEN = WIN_T + HALO
 TASKS_PLANE = N_SAMP // WIN_T

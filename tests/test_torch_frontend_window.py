@@ -51,14 +51,20 @@ N_SAMP, N_SYM, CYC, NTAPS, HALO = 1880, 376, 5, 49, 48
 SRC = (_build.CSRC / "frontend.cu").read_text()
 
 
-def _kernel_constant(name: str) -> int:
-    return int(re.search(rf"constexpr int {name} = (\d+);", SRC).group(1))
+def _win_syms(cyc: int) -> int:
+    """The symbols of a task as ``csrc/frontend.cu`` states them for
+    ``cyc`` cycles: its wide value above its cycle bound where the count
+    is even, else its base value (2 and 4 above 5 cycles)."""
+    above, wide, base = map(int, re.search(
+        r"constexpr int WIN_SYMS = CYC > (\d+) && CYC % 2 == 0 \? (\d+) : "
+        r"(\d+);", SRC).groups())
+    return wide if cyc > above and cyc % 2 == 0 else base
 
 
 # (symbols a task, blocks of the persistent grid, threads a block): the
 # kernel's task size with a grid that leaves the last round of rows
 # ragged, then others the same loop must serve
-WIN_SYMS = _kernel_constant("WIN_SYMS")
+WIN_SYMS = _win_syms(CYC)
 GEOMETRIES = sorted({(WIN_SYMS, 4, -(-2 * (N_SYM // WIN_SYMS) // 32) * 32),
                      (2, 1, 384), (4, 7, 192), (2, 4, 256)})
 

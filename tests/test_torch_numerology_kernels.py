@@ -17,8 +17,9 @@ exact), ``fused_hunt_decode_decim``, ``fused_decode_extract`` and
 phase; |dcfo| < 0.5 Hz, |deq_error| < 2e-3).
 
 The limits (``ops/_build.kernel_limits``, ``kernel_geometry``): no define
-at the reference numerology, all nine at each named one, and a config
-outside the limits refused with the limit's name.
+at the reference numerology, all nine at each named one (the fifteen of
+``NUMEROLOGIES``), and a config just outside each limit refused with the
+limit's name.
 """
 
 import dataclasses
@@ -232,6 +233,13 @@ GEOMETRY = {
     "seg4": (1880, 5, 248, 384, 5, 4, 512),
     "seg16": (1880, 5, 248, 384, 5, 16, 512),
     "nfft1024": (1880, 5, 248, 384, 5, 8, 1024),
+    "eq9": (1880, 5, 248, 384, 9, 8, 512),
+    "eq16": (1880, 5, 248, 392, 16, 8, 512),
+    "cyc6": (2256, 6, 248, 384, 5, 8, 512),
+    "cyc10": (3760, 10, 248, 384, 5, 8, 512),
+    "ns9": (2035, 5, 279, 416, 5, 8, 512),
+    "ns16": (3120, 5, 496, 632, 5, 8, 512),
+    "wide_corner": (6240, 10, 496, 640, 16, 8, 512),
 }
 
 
@@ -256,9 +264,9 @@ def test_each_numerology_has_its_defines(name):
     ({"preamble_length": 64}, "preamble_length == 128"),
     ({"corr_segments": 32}, "corr_segments in (4, 8, 16)"),
     ({"ntaps": 41}, "ntaps == 49"),
-    ({"fs": 16000.0, "fine_timing_offset": 3}, "2 <= cycles <= 5"),
-    ({"ns": 9}, "symbols_per_block <= 376"),
-    ({"eq_length": 9}, "1 <= eq_length <= 7"),
+    ({"fs": 17600.0, "fine_timing_offset": 3}, "2 <= cycles <= 10"),
+    ({"ns": 17}, "symbols_per_block <= 624"),
+    ({"eq_length": 17}, "1 <= eq_length <= 16"),
     ({"cfo_nfft": 2048}, "cfo_nfft in (256, 512, 1024)"),
 ], ids=["preamble", "segments", "ntaps", "cycles", "symbols", "eq_length",
         "nfft"])
