@@ -10,7 +10,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
   3. kernels  -- each of the ten kernels against its plain PyTorch
                  version on the card (C=256 channels x 4 blocks, golden
                  packets + noise), at the library default and the bench
-                 operating point; the mixer-folded front-ends in all
+                 operating point (the decodes' valid flags and dibits
+                 equal); the mixer-folded front-ends in all
                  three output layouts and the full-rate front-end, equal
                  to the bit; the gate stage
                  against the full decode's gate column; the bench
@@ -82,14 +83,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  the hunt's lag, phase and peak equal, the decode's gated
                  and valid flags equal); (j) the named numerologies
                  (``ops/_build.NUMEROLOGIES``: the eight of at most 7
-                 taps, 5 cycles and 376 symbols a block, and the seven
+                 taps, 5 cycles and 376 symbols a block, the seven
                  wider ones up to 16 taps, 10 cycles and 624 symbols, in
-                 ``WIDE_NUMEROLOGIES``), whose fifteen libraries build at
-                 once from phase 2 on: for each, the build's seconds,
-                 ptxas' registers, static shared memory and spills per
-                 kernel, and each body's block layout (shared bytes,
-                 dynamic past 48 KB; threads; the decode's LS solve in
-                 shared memory above 7 taps);
+                 ``WIDE_NUMEROLOGIES``, and the six of
+                 ``RETUNED_NUMEROLOGIES``: 1 and 2 correlation segments,
+                 128 and 4096 DFT bins, 25 and 45 RRC taps), whose
+                 twenty-one libraries build from phase 2 on, seven at
+                 a time, each numerology run as its library lands:
+                 for each, the build's seconds, ptxas' registers, static
+                 shared memory and spills per kernel, and each body's
+                 block layout (shared bytes, dynamic past 48 KB;
+                 threads; the decode's LS solve in shared memory above
+                 7 taps);
                  (1) phase 3's and (i)'s comparisons of every kernel and
                  knob variant with its plain version at the numerology's
                  default and bench operating point, on its own TX's rows
@@ -98,11 +103,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  every flag combination, both with ``mixer_fold``, the
                  superstep, the gated RX, both streaming bodies, and at
                  ``J_FRAC`` the frac body) on (g)'s kind of stream at the
-                 numerology, each held to the XLA path by the North star's
+                 numerology (at seg1, seg2 and nfft128 at a CFO they
+                 reach), each held to the XLA path by the North star's
                  criterion, and to the truth where the XLA path itself
-                 finds every packet (at ``JAX_PARTS``' two numerologies,
+                 finds every packet (at ``JAX_PARTS``' numerologies,
                  where the JAX package's own Pallas and XLA paths part
-                 alike, by decisions and the truth); (3) the main path
+                 alike, as it lets them part); (3) the main path
                  at 8192 x 128 x 3 chained dispatches of full-scale
                  noise (samples/s, the three kernels beside their bounds,
                  peak memory, launches) and every kernel at 32,768 rows
@@ -177,10 +183,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  every Wilson interval holds its estimate, no share
                  exceeds 100%, parity reports ok;
                  (p) the edge geometries (``EDGE_GEOMETRIES``: 7 and 9
-                 cycles, 624 symbols at 16 segments, 16 taps with 1024
-                 bins at 624 symbols), whose four libraries build from
-                 (j) on: each one's ptxas lines and block layout, then
-                 (j) 1 at it but for its 5 x 3 rows;
+                 cycles, 624 symbols at 16 segments and at 1, 16 taps
+                 with 1024 and with 4096 bins at 624 symbols, 64 and 768
+                 bins, 9 and 43 RRC taps), whose ten libraries are queued
+                 after (j)'s: each one's ptxas lines and block layout,
+                 then (j) 1 at it but for its 5 x 3 rows (at
+                 ``EDGE_NO_PACKETS``,
+                 where no receiver finds a packet, the decode held by
+                 its valid and gated flags alone);
   6. timing   -- chained dispatches of the main path (premix, then
                  ``mixer_fold=True``: (d1)), of the gated RX, of (a) and
                  of (d2), (a) with ``mixer_fold=True`` (8192 x 128
@@ -212,6 +222,12 @@ import os
 import subprocess
 import sys
 import time
+
+_T0 = time.perf_counter()      # the script's start, for its phase stamps
+
+
+def _at() -> str:
+    return f"{time.perf_counter() - _T0:.0f} s of the script"
 
 try:
     from singlecarrier_tpu_torch.tools._measure import (
@@ -304,13 +320,15 @@ def _check_packets(torch, outs, tx_bits, cfg) -> int:
     return int(rep.any(0).sum())
 
 
-def _compare_kernels(torch, cfg, inputs, what: str) -> dict:
-    """Each kernel against its plain version on the same operands; returns
-    {name: {"max_abs_err": x}}."""
+def _compare_kernels(torch, cfg, inputs, what: str,
+                     edges: bool = False) -> dict:
+    """Each kernel against its plain version on the same operands (the
+    decodes' dibits, with ``edges``, but at knife edges); returns {name:
+    {"max_abs_err": x}}."""
     from singlecarrier_tpu_torch.ops.decode import (
-        extract_decode, extract_decode_ref, fused_decode,
-        fused_decode_extract, fused_decode_extract_ref, fused_decode_ref,
-        hunt)
+        _extract_from_planes, extract_decode, extract_decode_ref,
+        fused_decode, fused_decode_extract, fused_decode_extract_ref,
+        fused_decode_ref, hunt)
     from singlecarrier_tpu_torch.ops.frontend import (
         frontend_decim, frontend_decim_ref, frontend_rows, frontend_rows_ref)
     ddt = torch.bfloat16 if cfg.decim_dtype == "bf16" else torch.float32
@@ -334,8 +352,10 @@ def _compare_kernels(torch, cfg, inputs, what: str) -> dict:
     ok_ = extract_decode(cfg, dk, dprev0, lk, pk_, qk)
     or_ = extract_decode_ref(cfg, dk, dprev0, lk, pk_, qk)
     torch.cuda.synchronize()
-    report["extract_decode"] = _compare_decode(torch, cfg, ok_, or_, what,
-                                               "extract_decode")
+    pkt = _extract_from_planes(cfg, dk, dprev0, lk, pk_)
+    report["extract_decode"] = _compare_decode(
+        torch, cfg, ok_, or_, what, "extract_decode",
+        (pkt[:, 0].contiguous(), pkt[:, 1].contiguous(), qk), edges)
 
     # ---- the per-row front-end, both layouts ----
     C = pcm.shape[1]
@@ -374,10 +394,12 @@ def _compare_kernels(torch, cfg, inputs, what: str) -> dict:
     pk = _decode_rows(torch, fused_decode(cfg, pkt_r, pkt_i, peak))
     pr = fused_decode_ref(cfg, pkt_r, pkt_i, peak)
     torch.cuda.synchronize()
-    report["decode_extract"] = _compare_decode(torch, cfg, ek, er, what,
-                                               "decode_extract")
-    report["decode_packets"] = _compare_decode(torch, cfg, pk, pr, what,
-                                               "decode_packets")
+    report["decode_extract"] = _compare_decode(
+        torch, cfg, ek, er, what, "decode_extract", (pkt_r, pkt_i, peak),
+        edges)
+    report["decode_packets"] = _compare_decode(
+        torch, cfg, pk, pr, what, "decode_packets", (pkt_r, pkt_i, peak),
+        edges)
     _require(torch.equal(ek, pk), f"{what}: decode_extract and "
              f"decode_packets disagree on the same packets")
     _compare_new_kernels(torch, cfg, inputs, rows, what, report)
@@ -603,8 +625,8 @@ def _compare_new_kernels(torch, cfg, inputs, rows, what: str, report: dict):
              f"{what}: extract_gate's gated flags differ from its plain "
              f"version's or from extract_decode's")
     n_gated = int(gk[:, D + 3].sum())
-    _require(0 < n_gated < gk.shape[0], f"{what}: extract_gate gated "
-             f"{n_gated} of {gk.shape[0]} rows")
+    _require(0 < n_gated < gk.shape[0] or not _packets_expected,
+             f"{what}: extract_gate gated {n_gated} of {gk.shape[0]} rows")
     _require(torch.equal(gk[:, D + 4:], full[:, D + 4:]),
              f"{what}: extract_gate's energy or hunt slots differ from "
              f"extract_decode's")
@@ -627,26 +649,62 @@ def _compare_new_kernels(torch, cfg, inputs, rows, what: str, report: dict):
         frontend_full_ref(cfg, *rows), torch.float32, why=_FULL_WHY)}
 
 
-def _compare_decode(torch, cfg, out_k, out_r, what: str, name: str) -> dict:
-    """A decode kernel's packed rows against its plain version's: valid
-    and dibits equal, |dcfo| < 0.5 Hz, |deq_error| < 2e-3."""
+def _plain_margins(torch, cfg, packets):
+    """[N, D] the plain decode's soft margin of each symbol of the packets
+    (pkt_r, pkt_i, peak): distance to the slicer's boundary over the
+    symbol's magnitude."""
+    from singlecarrier_tpu_torch.ops import decode
+    pkt_r, pkt_i, peak = packets
+    mask = torch.from_numpy(decode._mask_np(cfg.frame_symbols, True)).to(
+        pkt_r.device)
+    _, ar, ai = decode._decode_core(cfg, pkt_r, pkt_i, peak[:, None], mask,
+                                    soft=True)
+    return (torch.minimum((ar - ai).abs(), (ar + ai).abs())
+            / torch.sqrt(ar * ar + ai * ai).clamp_min(1e-30))
+
+
+def _compare_decode(torch, cfg, out_k, out_r, what: str, name: str,
+                    packets, edges: bool = False) -> dict:
+    """A decode kernel's packed rows against its plain version's on the
+    packets (pkt_r, pkt_i, peak) it decoded: valid equal; dibits equal on
+    valid rows, with ``edges`` but at knife edges (``KNIFE_EDGE``, each
+    printed: the kernel's sums run in other orders than the plain
+    version's); |dcfo| < 0.5 Hz, |deq_error| < 2e-3."""
     D = cfg.frame_symbols
     vk = (out_k[:, D + 3] > 0.5) & (out_k[:, D] > cfg.match_threshold)
     vr = (out_r[:, D + 3] > 0.5) & (out_r[:, D] > cfg.match_threshold)
     _require(torch.equal(vk, vr), f"{what}: {name} valid differs "
              f"on {int((vk != vr).sum())} rows")
-    _require(bool(vk.any()), f"{what}: {name}: no packet decoded")
-    _require(torch.equal(out_k[vk, :D], out_r[vr, :D]),
-             f"{what}: {name} dibits differ on valid rows")
+    _require(bool(vk.any()) or not _packets_expected,
+             f"{what}: {name}: no packet decoded")
+    _require(_packets_expected
+             or torch.equal(out_k[:, D + 3], out_r[:, D + 3]),
+             f"{what}: {name} gated differs on "
+             f"{int((out_k[:, D + 3] != out_r[:, D + 3]).sum())} rows")
+    diff = (out_k[:, :D] != out_r[:, :D]) & vk[:, None]
+    _require(edges or not bool(diff.any()),
+             f"{what}: {name} dibits differ on {int(diff.sum())} symbols "
+             f"of valid rows")
+    margins = (_plain_margins(torch, cfg, packets)[diff] if diff.any()
+              else out_k.new_zeros((0,)))
+    _require(bool((margins < KNIFE_EDGE).all()),
+             f"{what}: {name} dibits differ on valid rows off a knife edge "
+             f"(plain margins {margins.tolist()[:8]})")
     stat_err = (out_k[vk, D:D + 5] - out_r[vr, D:D + 5]).abs()
+    if not vk.any():                       # EDGE_NO_PACKETS
+        stat_err = out_k.new_zeros((1, 5))
     dcfo, deq = float(stat_err[:, 2].max()), float(stat_err[:, 1].max())
     _require(dcfo < 0.5 and deq < 2e-3,
              f"{what}: {name} |dcfo| {dcfo}, |deq| {deq}")
+    rule = (f"but {margins.numel()} on a knife edge (plain margins "
+            f"{[f'{x:.1e}' for x in margins.tolist()]}, allowed under "
+            f"{KNIFE_EDGE:.0e})" if edges else "(tolerance none)")
     print(f"[kernels] {what}: {name} vs plain: valid identical "
           f"({int(vk.sum())}/{vk.numel()} rows valid), descrambled dibits "
-          f"identical, |dcfo| {dcfo:.3e} Hz, |deq_error| {deq:.3e}, max "
-          f"|err| of the valid rows' stats {float(stat_err.max()):.3e} "
-          f"(tolerances 0.5 Hz, 2e-3)", flush=True)
+          f"identical {rule}, |dcfo| {dcfo:.3e} Hz, |deq_error| "
+          f"{deq:.3e}, max |err| of the valid rows' stats "
+          f"{float(stat_err.max()):.3e} (tolerances 0.5 Hz, 2e-3)",
+          flush=True)
     return {"max_abs_err": float(stat_err.max())}
 
 
@@ -664,39 +722,13 @@ def _decode_rows(torch, dec):
 def _compare_decode_soft(torch, cfg, out_k, pkt_r, pkt_i, peak, what: str,
                          name: str) -> dict:
     """A decode kernel variant's packed rows against its plain version on
-    the same packets: valid identical; on valid rows the descrambled
-    dibits identical but at knife edges (``KNIFE_EDGE``; each one
-    printed); |dcfo| < 0.5 Hz, |deq_error| < 2e-3."""
+    the same packets, as ``_compare_decode`` holds them."""
     from singlecarrier_tpu_torch.ops import decode
-    D = cfg.frame_symbols
-    mask = torch.from_numpy(decode._mask_np(D, True)).to(pkt_r.device)
-    out_r, ar, ai = decode._decode_core(cfg, pkt_r, pkt_i, peak[:, None],
-                                        mask, soft=True)
-    torch.cuda.synchronize()
-    vk = (out_k[:, D + 3] > 0.5) & (out_k[:, D] > cfg.match_threshold)
-    vr = (out_r[:, D + 3] > 0.5) & (out_r[:, D] > cfg.match_threshold)
-    _require(torch.equal(vk, vr), f"{what}: {name} valid differs on "
-             f"{int((vk != vr).sum())} rows")
-    _require(bool(vk.any()), f"{what}: {name}: no packet decoded")
-    diff = (out_k[:, :D] != out_r[:, :D]) & vk[:, None]
-    margin = (torch.minimum((ar - ai).abs(), (ar + ai).abs())
-              / torch.sqrt(ar * ar + ai * ai).clamp_min(1e-30))
-    edges = margin[diff]
-    _require(bool((edges < KNIFE_EDGE).all()),
-             f"{what}: {name} dibits differ on valid rows off a knife edge "
-             f"(plain margins {edges.tolist()[:8]})")
-    stat_err = (out_k[vk, D:D + 5] - out_r[vr, D:D + 5]).abs()
-    dcfo, deq = float(stat_err[:, 2].max()), float(stat_err[:, 1].max())
-    _require(dcfo < 0.5 and deq < 2e-3,
-             f"{what}: {name} |dcfo| {dcfo}, |deq| {deq}")
-    print(f"[knobs] {what}: {name} vs plain: valid identical "
-          f"({int(vk.sum())}/{vk.numel()} rows valid), dibits identical on "
-          f"{int(vk.sum()) * D - edges.numel()} of {int(vk.sum()) * D} valid "
-          f"symbols, {edges.numel()} on a knife edge (plain margins "
-          f"{[f'{x:.1e}' for x in edges.tolist()]}, allowed under "
-          f"{KNIFE_EDGE:.0e}), |dcfo| {dcfo:.3e} Hz, |deq_error| {deq:.3e}"
-          f" (tolerances 0.5 Hz, 2e-3)", flush=True)
-    return {"max_abs_err": float(stat_err.max())}
+    mask = torch.from_numpy(decode._mask_np(cfg.frame_symbols, True)).to(
+        pkt_r.device)
+    out_r = decode._decode_core(cfg, pkt_r, pkt_i, peak[:, None], mask)
+    return _compare_decode(torch, cfg, out_k, out_r, what, name,
+                           (pkt_r, pkt_i, peak), edges=True)
 
 
 def _compare_decode_variants(torch, cfg, inputs, what: str) -> dict:
@@ -977,22 +1009,27 @@ def _ber_phase(torch, cfg, drive, dev, seed: int, record: dict) -> None:
 # ---- (j) the numerologies: every kernel path at the named numerologies
 
 J_FRAC = ("alt_9600",)       # numerologies whose (j) 2 runs the frac body
-# Where the kernel paths part from the XLA path at the bench point just as
-# the JAX package's own Pallas and XLA paths part on the same frames
-# (tests/test_torch_wide_parity.py), and how they may part there:
-# {numerology: (the noise blocks (channel, block) of (j) 2's stream whose
-# valid flag may flip, each then a false detect of one path only,
-# |deq_error| < 2e-3 held)}.  At eq16 noise block 9 of channel 70 crosses
-# the gate in the kernel paths only (peak / energy 7.0014 against 6.8544);
-# at ns16 a packet's eq_error differs by up to 2.5e-3, as JAX's does.
-JAX_PARTS = {"eq16": (frozenset({(70, 9)}), True),
-             "ns16": (frozenset(), False)}
+# Geometries whose default-knob decodes may part from their plain versions
+# by a dibit at a knife edge (``KNIFE_EDGE``, each printed with its
+# margin), as the knob variants may everywhere: cyc9, where a draw
+# flipped one, and the retuned numerologies and the edge geometries of
+# their limits, where a draw flipped one at taps45.  Elsewhere the
+# default knobs' dibits are equal.
+KNIFE_EDGE_AT = ("cyc9", "seg1", "seg2", "nfft128", "nfft4096", "taps25",
+                 "taps45", "nfft64", "nfft768", "taps9", "taps43",
+                 "seg1_ns16", "nfft4096_eq16_ns16")
+# Libraries built at once, each running its three nvcc together: enough
+# to keep the card's machine's 8 cores busy (a build's last nvcc, the
+# decode's, runs alone for a while), few enough that the first libraries
+# land early and (j) runs each numerology while the later ones build.
+BUILD_WORKERS = 7
+_build_pool = []                # the one pool, made at the first queueing
 
 
 def _start_builds(configs: dict):
-    """Start building every config's kernel library at once (one thread
-    each; each build runs its three nvcc together).  Returns {name:
-    future of (seconds, ptxas log)}."""
+    """Queue every config's kernel library build, in order, on one pool of
+    BUILD_WORKERS threads.  Returns {name: future of (seconds from its
+    start, ptxas log)}."""
     import concurrent.futures
     from singlecarrier_tpu_torch.ops import _build
 
@@ -1002,10 +1039,11 @@ def _start_builds(configs: dict):
                               defines=_build.kernel_geometry(cfg))
         return time.perf_counter() - t0, log
 
-    pool = concurrent.futures.ThreadPoolExecutor(len(configs))
-    futures = {name: pool.submit(one, cfg) for name, cfg in configs.items()}
-    pool.shutdown(wait=False)
-    return futures
+    if not _build_pool:
+        _build_pool.append(concurrent.futures.ThreadPoolExecutor(
+            BUILD_WORKERS))
+    return {name: _build_pool[0].submit(one, cfg)
+            for name, cfg in configs.items()}
 
 
 def _ptxas_table(log: str) -> dict:
@@ -1047,28 +1085,31 @@ def _gated_as_out(torch, out, B: int, C: int):
     return ProdRxOut(*(scatter(out[f]) for f in ProdRxOut._fields))
 
 
-def _numerology_parity(torch, np, cfg, drive, dev, tag: str,
+def _numerology_parity(torch, cfg, drive, dev, tag: str,
                        frac: bool) -> dict:
     """(j) 2: the records' kind of stream (``tools/parity.PARITY_C``
-    channels x ``PARITY_PACKETS`` packets, 12 dB, 15 Hz) at ``cfg``'s
-    numerology through the XLA path and every kernel path, each held to the
-    XLA path by the North star's criterion (``tools/parity.check``) and to
-    the truth: every packet once with no bit error and no false detect.
-    Where the XLA path itself decodes packets with bit errors (a numerology
-    whose band is impaired at 12 dB), the two receivers, which round in
-    other places, may decide a marginal symbol or a refit guard apart:
-    there a kernel path is held to the XLA path by decisions (valid, lag
-    and phase everywhere, bits on the packets neither decoded wrong, the
-    same detections and false detects, |dcfo| < 0.5 Hz; |deq_error|
-    reported). At the numerologies of ``JAX_PARTS``, where the JAX
-    package's own Pallas and XLA paths part just as the port's do, a
-    kernel path is held as ``JAX_PARTS`` says, and to the truth. Every
-    path held by decisions is held to the main path the same way, with
-    |dcfo| < 0.5 Hz and |deq_error| < 2e-3 besides on the paths that read
-    the main path's own planes (not the unfused ones, which read f32
-    windows, the folded ones, whose front-end rounds elsewhere, or the
-    full-rate front-end with the XLA back end). Both counts against the
-    truth are printed. Returns {kernel: launches}."""
+    channels x ``PARITY_PACKETS`` packets, 12 dB, 15 Hz, or the
+    numerology's own CFO where 15 Hz is out of its reach,
+    ``tools/parity.NUMEROLOGY_CFO_HZ``) at ``cfg``'s numerology through
+    the XLA path and every kernel path, each held to the XLA path by
+    ``tools/parity.hold``: the North star's criterion and the truth, every
+    packet once with no bit error and no false detect.  Where the XLA path
+    itself decodes packets with bit errors (a numerology whose band is
+    impaired at 12 dB), the two receivers, which round in other places,
+    may decide a marginal symbol or a refit guard apart: there a kernel
+    path is held by decisions (valid, lag and phase everywhere, bits on
+    the packets neither decoded wrong, the same detections and false
+    detects, |dcfo| < 0.5 Hz; |deq_error| reported).  At the numerologies
+    of ``tools/parity.JAX_PARTS``, where the JAX package's own Pallas and
+    XLA paths part just as the port's do, a kernel path may part from the
+    XLA path as it says.  Every path is held to the main path by the same
+    decisions, with |dcfo| < 0.5 Hz and |deq_error| < 2e-3 besides on the
+    paths that read the main path's own planes; the others (the unfused
+    ones, which read f32 windows, the folded ones, whose front-end rounds
+    elsewhere, and the full-rate front-end with the XLA back end) may tie
+    a timing with it where ``JAX_PARTS`` lets them tie with the XLA path.
+    Both counts against the truth are printed. Returns {kernel:
+    launches}."""
     from singlecarrier_tpu_torch.modem import (
         ProdRxOut, prod_rx_batch, prod_rx_batch_gated, prod_rx_gated_init,
         prod_rx_init, prod_rx_init_planes, prod_rx_stream,
@@ -1078,7 +1119,8 @@ def _numerology_parity(torch, np, cfg, drive, dev, tag: str,
     bits, ref = parity.payload(cfg, parity.PARITY_C, parity.PARITY_PACKETS,
                                SEED, dev)
     expected = parity.PARITY_C * parity.PARITY_PACKETS
-    frames = parity.stream(cfg, bits, SEED + 1, dev)
+    freq_hz = parity.NUMEROLOGY_CFO_HZ.get(tag, parity.PARITY_CFO_HZ)
+    frames = parity.stream(cfg, bits, SEED + 1, dev, freq_hz=freq_hz)
     B, C = frames.shape[0], frames.shape[1]
     launches = {}
 
@@ -1133,8 +1175,10 @@ def _numerology_parity(torch, np, cfg, drive, dev, tag: str,
             "frac pallas_fe_xla_decode": (lambda: prod_rx_stream_pallas(
                 fcfg, prod_rx_init(fcfg, (C,), dev), frames,
                 fuse_decode=False)[1], ("frontend_full",))}))
+    parts = parity.JAX_PARTS.get(tag, parity.Parts())
     for rcfg, paths in runs:
-        head = {"numerology": tag, "frac_timing": rcfg.frac_timing}
+        head = {"numerology": tag, "frac_timing": rcfg.frac_timing,
+                "freq_hz": freq_hz}
         anchor = None                   # the first path: the main one
         out_x = host(drive(f"{tag} parity: xla", lambda: prod_rx_stream(
             rcfg, prod_rx_init(rcfg, (C,), dev), frames)[1], ()))
@@ -1152,63 +1196,30 @@ def _numerology_parity(torch, np, cfg, drive, dev, tag: str,
             for k, v in _build.LAUNCHES.items():
                 launches[k] = launches.get(k, 0) + v
             truth_p = parity.truth(rcfg, out_p, ref)
-            # where the XLA path itself decodes a packet with bit errors,
-            # the two receivers' roundings may decide a marginal symbol
-            # apart: such packets (in either path) are held by valid, lag
-            # and phase only, and counted
-            rep = parity.check(rcfg, out_p, out_x, truth_p, truth_x,
-                                expected, exclude=(
-                                    frozenset() if xla_full
-                                    else truth_x[4] | truth_p[4]))
+            # where the XLA path itself decodes packets wrong, by
+            # decisions: those packets held by valid, lag and phase only,
+            # |deq_error| reported
+            held, rep = parity.hold(
+                rcfg, out_p, out_x, truth_p, truth_x, expected, parts,
+                "full" if xla_full else "same", eq=xla_full)
             _report("numerology", {**head, "path": path, **rep})
-            parts = JAX_PARTS.get(tag) if xla_full else None
-            if xla_full and parts is None:
-                _require(rep["ok"], f"{tag} parity: {path} against the "
-                         f"XLA path and the truth: {rep}")
-                continue
-            noise, eq_held = parts or (frozenset(), True)
-            if parts is None:
-                decided = (rep["valid_ok"] and rep["bits_identical_on_valid"]
-                           and rep["lag_identical_on_valid"]
-                           and rep["phase_identical_on_valid"]
-                           and rep["max_cfo_delta_hz"] < 0.5
-                           and truth_p[2] == truth_x[2]
-                           and rep["packets_detected"]
-                           == int(out_x.valid.sum()))
-            else:
-                flips = {tuple(cb) for cb in np.argwhere(
-                    out_p.valid != out_x.valid).tolist()}
-                decided = (rep["valid_ok"] and flips <= noise
-                           and rep["bits_identical_on_valid"]
-                           and rep["lag_identical_on_valid"]
-                           and rep["phase_identical_on_valid"]
-                           and rep["max_cfo_delta_hz"] < 0.5
-                           and (not eq_held
-                                or rep["max_eq_error_delta"] < 2e-3)
-                           and truth_p[0] == 0
-                           and truth_p[1] == expected * rcfg.bits_per_frame)
-            _require(decided, f"{tag} parity: {path} against the XLA "
-                     f"path by decisions: {rep}")
+            _require(held, f"{tag} parity: {path} against the XLA path: "
+                     f"{rep}")
             if anchor is None:          # the main path: the first run
                 anchor = (out_p, truth_p)
                 continue
-            # bits of a noise block that JAX_PARTS lets cross the gate are
-            # equalized noise: not compared
-            to_main = parity.check(
-                rcfg, out_p, anchor[0], truth_p, anchor[1], expected,
-                exclude={*truth_p[4], *anchor[1][4], *noise})
-            # the paths that read the main path's own planes
+            # the paths that read the main path's own planes equal it; the
+            # others round elsewhere, as the XLA path does, and may tie
+            # where it may; bits of a noise block that JAX_PARTS lets
+            # cross the gate are equalized noise, not compared
             stats = not any(k in path for k in ("fuse_", "fold", "xla"))
-            held = (to_main["valid_ok"]
-                    and to_main["bits_identical_on_valid"]
-                    and to_main["lag_identical_on_valid"]
-                    and to_main["phase_identical_on_valid"]
-                    and (not stats or (to_main["max_cfo_delta_hz"] < 0.5
-                                       and to_main["max_eq_error_delta"]
-                                       < 2e-3)))
+            held, to_main = parity.hold(
+                rcfg, out_p, anchor[0], truth_p, anchor[1], expected,
+                parity.Parts(phase_ties=parts.phase_ties and not stats), "",
+                cfo=stats, eq=stats, exclude=parts.noise)
             _report("numerology", {**head, "path": path,
                                    "against": "fused_rx, plane state",
-                                   **to_main, "held": held})
+                                   **to_main})
             _require(held, f"{tag} parity: {path} against the main path: "
                      f"{to_main}")
     return launches
@@ -1232,7 +1243,8 @@ def _numerology_kernels(torch, gen, dev, tag: str, default):
     """(j) 1's first part: every kernel against its plain version at
     ``default``'s numerology, at the library default and the bench
     operating point, on rows of the numerology's own TX among noise and
-    on C_MAIN x B_KTIME rows of full-scale noise.  Returns ({kernel:
+    on C_MAIN x B_KTIME rows of full-scale noise (the decodes' dibits
+    equal, at ``KNIFE_EDGE_AT`` but at knife edges).  Returns ({kernel:
     largest max |err|}, the inputs function)."""
     from singlecarrier_tpu_torch.ops.frontend import frontend_decim
     bench = _bench_point(default)
@@ -1244,7 +1256,8 @@ def _numerology_kernels(torch, gen, dev, tag: str, default):
     errs = {}
     for what, cfg in (("default", default), ("bench", bench)):
         w = f"{tag} {what}"
-        rep = _compare_kernels(torch, cfg, inputs(cfg, C_CMP, B_CMP), w)
+        rep = _compare_kernels(torch, cfg, inputs(cfg, C_CMP, B_CMP), w,
+                               tag in KNIFE_EDGE_AT)
         for k, v in rep.items():
             errs[k] = max(errs.get(k, 0.0), v["max_abs_err"])
         noisy = inputs(cfg, C_MAIN, B_KTIME)
@@ -1261,13 +1274,17 @@ def _numerology_kernels(torch, gen, dev, tag: str, default):
     return errs, inputs
 
 
-def _numerology_phase(torch, np, gen, dev, builds, drive, smi_line) -> dict:
+def _numerology_phase(torch, np, dev, builds, drive, smi_line) -> dict:
     """(j): at every named numerology, (1) every kernel and knob variant
     against its plain version, (2) every kernel path against the XLA path
     (``_numerology_parity``), (3) the main path at C_MAIN x B_TIME x
     ITERS chained dispatches on full-scale noise, with the three kernels'
-    ms beside their bounds.  Returns {kernel: {numerology: entry}} for the
-    kernels line's "geometries"."""
+    ms beside their bounds.  The numerologies run in the order their
+    libraries land, each on its own generator seeded from its name.
+    Returns {kernel: {numerology: entry}} for the kernels line's
+    "geometries"."""
+    import concurrent.futures
+    import zlib
     from singlecarrier_tpu_torch import DEFAULT_CONFIG
     from singlecarrier_tpu_torch.modem import (prod_rx_batch,
                                                prod_rx_init_planes)
@@ -1275,22 +1292,27 @@ def _numerology_phase(torch, np, gen, dev, builds, drive, smi_line) -> dict:
     from singlecarrier_tpu_torch.ops.decode import extract_decode, hunt
     from singlecarrier_tpu_torch.ops.frontend import frontend_decim
     geometries = {name: {} for name in KERNELS}
-    for tag, fut in builds.items():
-        _print_build("numerology", tag, DEFAULT_CONFIG.replace(
-            **_build.NUMEROLOGIES[tag]), *fut.result(),
-            f"{len(builds)} geometries at once, started with phase 2")
-    for tag, kw in _build.NUMEROLOGIES.items():
+    tags = {fut: tag for tag, fut in builds.items()}
+    t_wait = time.perf_counter()
+    for fut in concurrent.futures.as_completed(tags):
+        tag = tags[fut]
+        default = DEFAULT_CONFIG.replace(**_build.NUMEROLOGIES[tag])
+        _print_build("numerology", tag, default, *fut.result(),
+                     f"{BUILD_WORKERS} at once, queued at phase 2; waited "
+                     f"{time.perf_counter() - t_wait:.1f} s, at {_at()}")
         t_start = time.perf_counter()
-        default = DEFAULT_CONFIG.replace(**kw)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + zlib.crc32(tag.encode()))
         bench = _bench_point(default)
         # ---- 1. every kernel and knob variant against its plain version
         errs, inputs = _numerology_kernels(torch, gen, dev, tag, default)
         _compare_kernels(torch, bench, inputs(bench, 5, 3),
-                         f"{tag} bench, 5 channels x 3 blocks")
+                         f"{tag} bench, 5 channels x 3 blocks",
+                         tag in KNIFE_EDGE_AT)
         _knob_phase(torch, gen, inputs, default, bench, f"{tag}: ")
         t_1 = time.perf_counter()
         # ---- 2. parity of every kernel path with the XLA path
-        launches = _numerology_parity(torch, np, bench, drive, dev, tag,
+        launches = _numerology_parity(torch, bench, drive, dev, tag,
                                       tag in J_FRAC)
         t_2 = time.perf_counter()
         # ---- 3. the main path at full width on full-scale noise
@@ -1371,6 +1393,7 @@ def _numerology_phase(torch, np, gen, dev, builds, drive, smi_line) -> dict:
             + f" at {C_MAIN} x {B_KTIME} rows; phase seconds: kernels "
             f"{t_1 - t_start:.1f}, parity {t_2 - t_1:.1f}, timing "
             f"{time.perf_counter() - t_2:.1f}; {smi_line}", flush=True)
+        t_wait = time.perf_counter()
     return geometries
 
 
@@ -1381,7 +1404,7 @@ def _numerology_phase(torch, np, gen, dev, builds, drive, smi_line) -> dict:
 # 28 and 36 accumulators, blocks an SM from the register file), the
 # Toeplitz hunt's shared memory past 48 KB (16 segments at 624 symbols)
 # and the decode's largest block (16 taps, 640-sample windows, 1024
-# bins).  They build from (j) on.  (At 2 cycles the receiver finds no
+# bins).  They build after (j)'s libraries.  (At 2 cycles the receiver finds no
 # packet of its own TX, the XLA path neither, so (j) 1 has no decode to
 # hold there.)
 EDGE_GEOMETRIES = {
@@ -1390,24 +1413,49 @@ EDGE_GEOMETRIES = {
     "seg16_ns16": {"corr_segments": 16, "ns": 16},
     "seg4_eq16_ns16_nfft1024": {"corr_segments": 4, "eq_length": 16,
                                 "ns": 16, "cfo_nfft": 1024},
+    # the retuned limits' own branches: fewer bins than the DFT's
+    # threads, a size no power of two, the shortest filter, a halo of
+    # 4k + 2 samples (the front-ends' 8-byte staging), 128-chip
+    # segments in both hunt bodies at 624 symbols, and the decode's
+    # largest block (its powers in a region of their own)
+    "nfft64": {"cfo_nfft": 64},
+    "nfft768": {"cfo_nfft": 768},
+    "taps9": {"ntaps": 9},
+    "taps43": {"ntaps": 43},
+    "seg1_ns16": {"corr_segments": 1, "ns": 16},
+    "nfft4096_eq16_ns16": {"cfo_nfft": 4096, "eq_length": 16, "ns": 16},
 }
+# Edge geometries whose receiver finds no packet of its own TX, the JAX
+# package's neither (9 taps: the filter is too short): their decodes are
+# held to the plain versions by the valid and gated flags alone.
+EDGE_NO_PACKETS = ("taps9",)
+_packets_expected = True     # False while (p) runs an EDGE_NO_PACKETS shape
 
 
 def _edge_phase(torch, gen, dev, builds, smi_line: str) -> None:
     """(p): each of ``EDGE_GEOMETRIES`` as (j) 1 holds a named numerology
     but for its 5 x 3 rows: its build's ptxas lines and block layout, then
-    every kernel and knob variant against its plain version."""
+    every kernel and knob variant against its plain version, on a
+    generator seeded from its name."""
+    import zlib
     from singlecarrier_tpu_torch import DEFAULT_CONFIG
     for tag, fut in builds.items():
         t0 = time.perf_counter()
+        gen.manual_seed(SEED + zlib.crc32(tag.encode()))
         cfg = DEFAULT_CONFIG.replace(**EDGE_GEOMETRIES[tag])
         _print_build("edge", tag, cfg, *fut.result(),
-                     f"{len(builds)} geometries at once, started with (j)")
+                     f"{BUILD_WORKERS} at once, queued at phase 2")
         # not (j)'s 5 x 3 rows, whose row count is the point there: at
         # 16 segments and 624 symbols every one of them may pass the gate,
         # whose check wants rows of both kinds
-        _, inputs = _numerology_kernels(torch, gen, dev, tag, cfg)
-        _knob_phase(torch, gen, inputs, cfg, _bench_point(cfg), f"{tag}: ")
+        global _packets_expected
+        _packets_expected = tag not in EDGE_NO_PACKETS
+        try:
+            _, inputs = _numerology_kernels(torch, gen, dev, tag, cfg)
+            _knob_phase(torch, gen, inputs, cfg, _bench_point(cfg),
+                        f"{tag}: ")
+        finally:
+            _packets_expected = True
         print(f"[edge] {tag}: every kernel and knob variant equal to its "
               f"plain version, {time.perf_counter() - t0:.1f} s; "
               f"{smi_line}", flush=True)
@@ -2437,10 +2485,16 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"[build]   {line.strip()}")
     ptxas_full = _ptxas_of(log, "frontend_full_kernel")
-    # (j)'s libraries, one a named numerology, build while phases 3-5 run
-    builds = _start_builds({tag: DEFAULT_CONFIG.replace(**kw) for tag, kw
-                            in _build.NUMEROLOGIES.items()})
+    # (j)'s libraries, one a named numerology (the wide ones, the slowest
+    # to build, first), then (o)'s and (p)'s, build while phases 3 to (p)
+    # run
+    num_cfgs = {tag: DEFAULT_CONFIG.replace(**kw) for tag, kw
+                in _build.NUMEROLOGIES.items()}
+    builds = _start_builds(dict(sorted(
+        num_cfgs.items(), key=lambda kv: not _build.is_wide(kv[1]))))
     cli_build = _start_builds({"cli": DEFAULT_CONFIG.replace(**CLI_WIDE)})
+    edge_builds = _start_builds({tag: DEFAULT_CONFIG.replace(**kw) for tag,
+                                 kw in EDGE_GEOMETRIES.items()})
 
     # ---- 3. kernels vs plain, on the card ----
     def _inputs(cfg_, C, B):
@@ -2751,7 +2805,8 @@ def main() -> int:
     _ber_phase(torch, cfg, _drive, dev, SEED,
                _ber_record(os.path.join(here, BER_RECORD)))
     print(f"[paths] (g) parity {t_g:.1f} s, (h) BER "
-          f"{time.perf_counter() - t0:.1f} s; {smi_line}", flush=True)
+          f"{time.perf_counter() - t0:.1f} s, at {_at()}; {smi_line}",
+          flush=True)
     # ---- (i) every knob value's kernels against their plain versions ----
     t0 = time.perf_counter()
     knob_errs = _knob_phase(torch, gen, _inputs, default, cfg)
@@ -2761,26 +2816,23 @@ def main() -> int:
 
     # ---- (j) the named numerologies ----
     t0 = time.perf_counter()
-    # (p)'s libraries build once (j)'s are done, while (j) to (n) run
-    for fut in builds.values():
-        fut.result()
-    edge_builds = _start_builds({tag: DEFAULT_CONFIG.replace(**kw) for tag,
-                                 kw in EDGE_GEOMETRIES.items()})
-    geometries = _numerology_phase(torch, np, gen, dev, builds, _drive,
+    geometries = _numerology_phase(torch, np, dev, builds, _drive,
                                    smi_line)
     print(f"[numerology] (j) {len(_build.NUMEROLOGIES)} numerologies: "
-          f"{time.perf_counter() - t0:.1f} s; {smi_line}", flush=True)
+          f"{time.perf_counter() - t0:.1f} s, at {_at()}; {smi_line}",
+          flush=True)
 
     # ---- (o) the CLI at 9 taps and 500 symbols a block ----
     t0 = time.perf_counter()
     _cli_wide_phase(cli_build["cli"], smi_line)
-    print(f"[cli] (o) {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[cli] (o) {time.perf_counter() - t0:.1f} s, at {_at()}",
+          flush=True)
 
     # ---- (k) the faithful receiver ----
     t0 = time.perf_counter()
     _faithful_phase(torch, np, golden, dev, here, smi_line)
-    print(f"[faithful] (k) {time.perf_counter() - t0:.1f} s; {smi_line}",
-          flush=True)
+    print(f"[faithful] (k) {time.perf_counter() - t0:.1f} s, at {_at()}; "
+          f"{smi_line}", flush=True)
 
     # ---- (l) the runtime layer ----
     _runtime_phase(torch, np, cfg, default, frames, main_out, tx_bits,
@@ -2797,7 +2849,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _edge_phase(torch, gen, dev, edge_builds, smi_line)
     print(f"[edge] (p) {len(EDGE_GEOMETRIES)} geometries: "
-          f"{time.perf_counter() - t0:.1f} s; {smi_line}", flush=True)
+          f"{time.perf_counter() - t0:.1f} s, at {_at()}; {smi_line}",
+          flush=True)
     print(f"[runtime] the script so far: "
           f"{time.perf_counter() - t_script:.1f} s", flush=True)
 

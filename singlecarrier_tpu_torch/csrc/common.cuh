@@ -65,6 +65,7 @@ constexpr int N_OUT = D + 8;       // packed output row
 
 constexpr int roundup(int x, int m) { return (x + m - 1) / m * m; }
 constexpr int imax(int a, int b) { return a > b ? a : b; }
+constexpr int imin(int a, int b) { return a < b ? a : b; }
 
 // hunt window width (fused_rx_block's wp: roundup128 of the widest of the
 // packet reach, the [OFF | prev | cur] span and the correlation reach)
@@ -74,8 +75,10 @@ constexpr int WP = roundup(imax(imax(N_SYM - 1 + PKT, OFF + 2 * N_SYM),
 
 static_assert(N_SAMP % CYC == 0, "a block is whole symbols");
 static_assert(P == 128, "preamble_length 128");
-static_assert(NSEG == 4 || NSEG == 8 || NSEG == 16, "corr_segments 4, 8, 16");
-static_assert(NTAPS == 49, "ntaps 49");
+static_assert(NSEG == 1 || NSEG == 2 || NSEG == 4 || NSEG == 8 || NSEG == 16,
+              "corr_segments 1, 2, 4, 8, 16");
+static_assert(NTAPS % 2 == 1 && NTAPS >= 9 && NTAPS <= 49,
+              "ntaps odd, 9 to 49");
 static_assert(CYC >= 2 && CYC <= 10, "cycles 2 to 10");
 static_assert(N_SAMP <= 6240 && N_SYM >= P && N_SYM <= 624,
               "frame_size at most 6240, P <= symbols_per_block <= 624");
@@ -83,8 +86,8 @@ static_assert(D >= 1 && D <= 496, "frame_symbols at most 496");
 static_assert(L >= 1 && L <= 16, "eq_length 1 to 16");
 static_assert(PKT >= P + D + L - 1 && PKT % 8 == 0 && PKT <= 640,
               "pkt_window covers the packet, at most 640");
-static_assert(NFFT == 256 || NFFT == 512 || NFFT == 1024,
-              "cfo_nfft 256, 512, 1024");
+static_assert(NFFT % 32 == 0 && NFFT >= 64 && NFFT <= 4096,
+              "cfo_nfft a multiple of 32 from 64 to 4096");
 
 // A block's shared memory past the 48 KB a kernel has unasked is dynamic:
 // the launch names its size and the kernel is allowed it once

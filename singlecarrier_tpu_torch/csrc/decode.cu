@@ -57,7 +57,9 @@
 // The CFO DFT is the one stage the block runs together (cfo_dft_block):
 // the P x NFFT f32 table (dft_r, dft_i: 512 KB at 128 x 512, more than L1
 // holds) is walked in tiles of KC rows of k and the GB bins of a group
-// (every bin in one group up to 512 bins, two groups at 1024), copied
+// (every bin in one group up to 512 bins, two groups at 1024, eight
+// of 512 at 4096 bins; a ragged last group where 256 or 512 does not
+// divide NFFT), copied
 // into shared memory with cp.async, double-buffered, and each tile
 // element is read from shared memory once for all the rows of the block.
 // A thread keeps the four running sums of BPT bins x DEC_ROWS rows in
@@ -65,7 +67,8 @@
 // memory, read as broadcast 16-byte loads.  Every (row, bin) keeps its arithmetic: s1..s4
 // in ascending k, each product rounded before its sum (-fmad=false), then
 // sr = s1 - s2, si = s3 + s4 and the power, which the row's warp reads
-// back for the first-maximum argmax and the parabola.  So the table
+// back for the first-maximum argmax and the parabola (from the tiles'
+// place, or past 1024 bins from a region of its own).  So the table
 // leaves L2 once per block, not once per row.
 //
 // Bound on the card: operations.  The CFO DFT is 128 x 512 x 4 f32
@@ -95,11 +98,20 @@ constexpr int MSK_LEN = roundup(D, 4);     // the packets stay 16 B aligned
 constexpr int BINS = NFFT / 32;            // DFT bins per lane (argmax)
 // The DFT's bins go in groups of GB, BPT a thread: a group walks the
 // table's tiles (its KC x GB part of them) with its sums in registers,
-// and holds its powers there until the last group is done.
-constexpr int BPT = NFFT / DEC_THREADS < 2 ? NFFT / DEC_THREADS : 2;
+// and holds its powers there until the last group is done.  Where GB
+// does not divide NFFT the last group is ragged: its threads past the
+// last bin sum what the tile holds there and keep nothing.
+constexpr int BPT = NFFT < 512 ? 1 : 2;
 constexpr int GB = DEC_THREADS * BPT;      // bins of a group
-constexpr int GROUPS = NFFT / GB;
-constexpr int KC = 4;                      // table rows of k per tile
+constexpr int GROUPS = (NFFT + GB - 1) / GB;
+constexpr bool GROUPS_RAGGED = NFFT % GB != 0;
+// Past 1024 bins the powers of the block's rows (128 KB at 4096) would
+// not fit the table tiles, nor the registers: each group writes its
+// powers to a region of their own (after the LS warps), and a tile holds
+// 2 rows of k, not 4, so that the block still fits 227 KB with the
+// largest packet and the 16-tap solve.
+constexpr bool PW_SEPARATE = NFFT > 1024;
+constexpr int KC = PW_SEPARATE ? 2 : 4;    // table rows of k per tile
 constexpr int NCHUNK = P / KC;
 constexpr int TILE_F = KC * GB;            // floats of one plane's tile
 constexpr int N_STAGES = 8;                // stage clocks
@@ -111,8 +123,7 @@ constexpr int KNOB_DIRECT = 2;             // ls_gram "direct"
 constexpr int KNOB_BVMAT = 4;              // ls_bvec "matmul"
 constexpr int GRAM_N = L * (L + 1) / 2;    // lower-triangle Gram entries
 
-static_assert(NFFT % DEC_THREADS == 0 && NFFT % GB == 0 && P % KC == 0,
-              "DFT tiling");
+static_assert(NFFT % 32 == 0 && P % KC == 0, "DFT tiling");
 static_assert(DEC_ROWS % 2 == 0, "operand table read two rows a load");
 static_assert(TILE_F % (4 * DEC_THREADS) == 0, "16-byte copies a thread");
 
@@ -438,11 +449,13 @@ struct BlockSmem {
   float msk[MSK_LEN];
   float pkt[DEC_ROWS][2][PKT];     // each row's packet planes
   float2 ttab[P][DEC_ROWS];        // (chip k * pn[k]) of each row, (re, im)
-  float tile[2][2][TILE_F];        // [buffer][dft_r | dft_i][KC][NFFT];
+  float tile[2][2][TILE_F];        // [buffer][dft_r | dft_i][KC][GB];
                                    // after the DFT: the power [row][NFFT]
+                                   // (up to 1024 bins, dft_powers)
 };
 static_assert(sizeof(float) * (P + MSK_LEN) % 16 == 0, "pkt stays aligned");
-static_assert(2 * 2 * TILE_F >= DEC_ROWS * NFFT, "the power fits the tiles");
+static_assert(PW_SEPARATE || 2 * 2 * TILE_F >= DEC_ROWS * NFFT,
+              "the power fits the tiles");
 static_assert(L <= 16, "the matmul b-vector takes a lane a sum, 2 L of 32");
 
 // ---- the LS solve above 7 taps, in shared memory ----
@@ -464,9 +477,23 @@ struct LsWarp {
 };
 
 // the block's dynamic shared memory: BlockSmem, then (LS_SMEM) a LsWarp
-// a warp
-constexpr unsigned DEC_SMEM =
+// a warp, then (PW_SEPARATE) the DFT powers [DEC_ROWS][NFFT]
+constexpr unsigned PW_OFFSET =
     sizeof(BlockSmem) + (LS_SMEM ? DEC_ROWS * sizeof(LsWarp) : 0);
+constexpr unsigned DEC_SMEM =
+    PW_OFFSET + (PW_SEPARATE ? DEC_ROWS * NFFT * sizeof(float) : 0);
+static_assert(DEC_SMEM <= 232448, "a block's 227 KB of shared memory");
+
+// the DFT powers of the block's rows, [DEC_ROWS][NFFT]: in the table
+// tiles once they are done, or past 1024 bins in their own region
+__device__ __forceinline__ float* dft_powers(BlockSmem& sm) {
+  if constexpr (PW_SEPARATE) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    return reinterpret_cast<float*>(smem_raw + PW_OFFSET);
+  } else {
+    return &sm.tile[0][0][0];
+  }
+}
 
 __device__ __forceinline__ LsWarp& ls_warp() {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -655,6 +682,8 @@ __device__ __forceinline__ void load_tile(BlockSmem& sm, int buf, int group,
                                           const float* __restrict__ dft_i) {
   for (int i = 4 * threadIdx.x; i < TILE_F; i += 4 * DEC_THREADS) {
     const int k = i / GB, col = i - k * GB;
+    if constexpr (GROUPS_RAGGED)
+      if (group * GB + col >= NFFT) continue;    // past the last bin
     const int src = (chunk * KC + k) * NFFT + group * GB + col;
     __pipeline_memcpy_async(&sm.tile[buf][0][i], dft_r + src, 16);
     __pipeline_memcpy_async(&sm.tile[buf][1][i], dft_i + src, 16);
@@ -663,7 +692,7 @@ __device__ __forceinline__ void load_tile(BlockSmem& sm, int buf, int group,
 }
 
 // The CFO DFT of the block's rows, run by all its threads: the power
-// |(chips * pn) x DFT|^2 of every (row, bin) into sm.tile (as
+// |(chips * pn) x DFT|^2 of every (row, bin) into dft_powers (as
 // [DEC_ROWS][NFFT]).  Every warp has filled its packet (zeros for a row
 // past the last); on return the power is visible to the whole block.
 // CFO16: the operands chips * pn are rounded to bf16 (the table arrives
@@ -684,7 +713,9 @@ __device__ __forceinline__ void cfo_dft_block(
     }
     sm.ttab[k][warp] = make_float2(tr, ti);
   }
-  float pwk[GROUPS][DEC_ROWS][BPT];        // each group's powers
+  // each group's powers (PW_SEPARATE: written as each group ends)
+  float pwk[PW_SEPARATE ? 1 : GROUPS][DEC_ROWS][BPT];
+  float* pw = dft_powers(sm);
 #pragma unroll
   for (int g = 0; g < GROUPS; ++g) {
     float s1[DEC_ROWS][BPT], s2[DEC_ROWS][BPT], s3[DEC_ROWS][BPT],
@@ -739,17 +770,26 @@ __device__ __forceinline__ void cfo_dft_block(
 #pragma unroll
       for (int b = 0; b < BPT; ++b) {
         const float sr = s1[r][b] - s2[r][b], si = s3[r][b] + s4[r][b];
-        pwk[g][r][b] = sr * sr + si * si;
+        const float p = sr * sr + si * si;
+        if constexpr (PW_SEPARATE) {
+          const int bin = g * GB + tid + DEC_THREADS * b;
+          if (!GROUPS_RAGGED || bin < NFFT) pw[r * NFFT + bin] = p;
+        } else {
+          pwk[g][r][b] = p;
+        }
       }
   }
-  float* pw = &sm.tile[0][0][0];
+  if constexpr (!PW_SEPARATE) {
 #pragma unroll
-  for (int g = 0; g < GROUPS; ++g)
+    for (int g = 0; g < GROUPS; ++g)
 #pragma unroll
-    for (int r = 0; r < DEC_ROWS; ++r)
+      for (int r = 0; r < DEC_ROWS; ++r)
 #pragma unroll
-      for (int b = 0; b < BPT; ++b)
-        pw[r * NFFT + g * GB + tid + DEC_THREADS * b] = pwk[g][r][b];
+        for (int b = 0; b < BPT; ++b) {
+          const int bin = g * GB + tid + DEC_THREADS * b;
+          if (!GROUPS_RAGGED || bin < NFFT) pw[r * NFFT + bin] = pwk[g][r][b];
+        }
+  }
   __syncthreads();
 }
 
@@ -1009,7 +1049,7 @@ __device__ __forceinline__ void decode_packet(
   clk.stamp(1);                                                           \
   if (!live) return;                                                      \
   float* o = out + n * N_OUT;                                             \
-  decode_packet<KNOBS>(pr, pi, &sm.tile[0][0][0] + warp * NFFT, sm.pns,   \
+  decode_packet<KNOBS>(pr, pi, dft_powers(sm) + warp * NFFT, sm.pns,     \
                        sm.msk, peak, prm, lane, o, clk)
 
 __device__ __forceinline__ void write_tail(float* o, int lane, float lag,

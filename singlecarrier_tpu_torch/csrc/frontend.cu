@@ -164,7 +164,8 @@ constexpr int STAGE_VEC = 8;                          // samples per 16 B of PCM
 // samples of a row staged (the ragged last task reads up to its end)
 constexpr int N_STAGE = roundup(imax(N_SAMP, WIN_T * WIN_TASKS_PLANE),
                                 STAGE_VEC);
-constexpr int U_LEN = HALO + N_STAGE;
+// u[p] 16-byte aligned (a halo of 4k + 2 samples pads it by two)
+constexpr int U_LEN = roundup(HALO + N_STAGE, 4);
 constexpr int W_PAD = (NTAPS + 3) / 4 * 4;
 // What the geometry allows of the 16-byte paths, at compile time: the
 // staging loop whole (N_STAGE == N_SAMP, whole 8-sample steps), the
@@ -178,8 +179,19 @@ constexpr int PCM_BYTES = N_SAMP % 8 == 0   ? 16
                           : N_SAMP % 4 == 0 ? 8
                           : N_SAMP % 2 == 0 ? 4
                                             : 0;
+// The halo of ntaps - 1 samples (48 at the reference; 8 to 48, even):
+// the bytes a cp.async of a row's raw PCM tail moves (its start, N_SAMP -
+// HALO samples into the row, and its length must both be whole copies),
+// and of a downmixed f32 tail ([., HALO] rows, 16-byte copies where HALO
+// is whole float4s, else 8), and the samples a block keeps of the raw
+// tail (whole 16-byte units, so that the tails after it stay aligned).
+constexpr int XH_BYTES = HALO % 8 == 0   ? PCM_BYTES
+                         : HALO % 4 == 0 ? imin(PCM_BYTES, 8)
+                                         : imin(PCM_BYTES, 4);
+constexpr int TAIL_BYTES = HALO % 4 == 0 ? 16 : 8;
+constexpr int XH_LEN = roundup(HALO, 8);
 static_assert((WIN_SYMS == 4 || WIN_SYMS == 2) && WIN_T % WIN_VEC == 0 &&
-              U_LEN % 4 == 0 && HALO % STAGE_VEC == 0 &&
+              U_LEN % 4 == 0 && HALO % 2 == 0 &&
               WIN_THREADS >= 2 * HALO && WIN_THREADS >= 70 &&
               WIN_THREADS >= W_PAD && WIN_TASKS % 2 == 0 &&
               WIN_THREADS <= 1024,
@@ -191,7 +203,7 @@ struct __align__(16) PremixSmem {
   float u[2][U_LEN];        // [halo | z], bf16 values (or f32: ROUND false)
   float w[W_PAD];           // taps (frontend_full: times the gain)
   int16_t x[N_STAGE];       // PCM of the next row
-  int16_t xh[HALO];         // batch form: raw tail of row n - C
+  int16_t xh[XH_LEN];       // batch form: raw tail of row n - C
   float tail[2][HALO];      // downmixed halo as given (rows; block 0)
   float ph[8];              // rows: phase; batch: p0, adv^b, adv^(b-1)
 };
@@ -263,6 +275,13 @@ __device__ __forceinline__ void fetch(T* dst, const T* __restrict__ src,
   for (int i = tid; i < n; i += WIN_THREADS) dst[i] = src[i];
 }
 
+// A downmixed f32 tail of HALO samples, as fetch moves it.
+__device__ __forceinline__ void fetch_tail(float* dst,
+                                           const float* __restrict__ src,
+                                           bool vec, int tid, int first) {
+  fetch<float, TAIL_BYTES>(dst, src, HALO, vec, tid, first);
+}
+
 // sm.u[.][HALO + t] = downmixed block of the row whose PCM is in sm.x,
 // entered with mixer phase (pr, pi), rounded to bf16 (ROUND: the premix
 // pair with bf16 operands) or left in f32 (frontend_full, and the premix
@@ -303,12 +322,22 @@ __device__ __forceinline__ void stage_block(PremixSmem& sm,
         zi[e] = bf16_round(zi[e]);
       }
     }
+    if constexpr (HALO % 4 == 0) {
 #pragma unroll
-    for (int e = 0; e < STAGE_VEC; e += 4) {
-      *reinterpret_cast<float4*>(&sm.u[0][HALO + t + e]) =
-          make_float4(zr[e], zr[e + 1], zr[e + 2], zr[e + 3]);
-      *reinterpret_cast<float4*>(&sm.u[1][HALO + t + e]) =
-          make_float4(zi[e], zi[e + 1], zi[e + 2], zi[e + 3]);
+      for (int e = 0; e < STAGE_VEC; e += 4) {
+        *reinterpret_cast<float4*>(&sm.u[0][HALO + t + e]) =
+            make_float4(zr[e], zr[e + 1], zr[e + 2], zr[e + 3]);
+        *reinterpret_cast<float4*>(&sm.u[1][HALO + t + e]) =
+            make_float4(zi[e], zi[e + 1], zi[e + 2], zi[e + 3]);
+      }
+    } else {                 // a halo of 4k + 2 samples: 8-byte stores
+#pragma unroll
+      for (int e = 0; e < STAGE_VEC; e += 2) {
+        *reinterpret_cast<float2*>(&sm.u[0][HALO + t + e]) =
+            make_float2(zr[e], zr[e + 1]);
+        *reinterpret_cast<float2*>(&sm.u[1][HALO + t + e]) =
+            make_float2(zi[e], zi[e + 1]);
+      }
     }
   }
 }
@@ -332,8 +361,9 @@ __device__ __forceinline__ void stage_block(PremixSmem& sm,
 // premix taps of alpha = 0.35 (smallest 5.4e-4) for every |u| > 2.35e-38,
 // and a u made from int16 PCM by the downmix, or a tail carried from one,
 // is zero or some twenty orders of magnitude above that; for the folded
-// taps (one is 1.5e-16) for |u| >= 2^-80, and a raw sample, or a carried
-// tail un-rotated, is zero or at least 2^-15
+// taps (one is 1.5e-16 at 49 taps, 3.7e-18 at 25) for |u| >= 2^-80
+// (2^-60 at the other RRC lengths), and a raw sample, or a carried tail
+// un-rotated, is zero or at least 2^-15
 // (tests/test_torch_frontend_window.py holds each statement).  It does
 // NOT hold for f32 taps or f32 samples: not in the downmix, the halo's
 // un-rotation, the fold's rotation, in frontend_full or in the decimating
@@ -433,11 +463,11 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
     const int ch = (int)(row - (long long)b * C);
     fetch<int16_t, PCM_BYTES>(sm.x, pcm + row * N_SAMP, N_SAMP, vec, tid, 0);
     if (b == 0) {
-      fetch(sm.tail[0], tail0_r + ch * HALO, HALO, vec, tid, 0);
-      fetch(sm.tail[1], tail0_i + ch * HALO, HALO, vec, tid, 32);
+      fetch_tail(sm.tail[0], tail0_r + ch * HALO, vec, tid, 0);
+      fetch_tail(sm.tail[1], tail0_i + ch * HALO, vec, tid, 32);
     } else {
-      fetch<int16_t, PCM_BYTES>(sm.xh, pcm + (row - C) * N_SAMP + N_SAMP - HALO,
-                                HALO, vec, tid, 32);
+      fetch<int16_t, XH_BYTES>(sm.xh, pcm + (row - C) * N_SAMP + N_SAMP - HALO,
+                               HALO, vec, tid, 32);
     }
     if (tid >= 64 && tid < 70) {
       const int i = tid - 64, bm = b > 0 ? b - 1 : 0;
@@ -493,8 +523,8 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
 
   auto fetch_row = [&](long long row) {
     fetch<int16_t, PCM_BYTES>(sm.x, pcm + row * N_SAMP, N_SAMP, vec, tid, 0);
-    fetch(sm.tail[0], tail_r + row * HALO, HALO, vec, tid, 0);
-    fetch(sm.tail[1], tail_i + row * HALO, HALO, vec, tid, 32);
+    fetch_tail(sm.tail[0], tail_r + row * HALO, vec, tid, 0);
+    fetch_tail(sm.tail[1], tail_i + row * HALO, vec, tid, 32);
     if (tid >= 64 && tid < 66)
       __pipeline_memcpy_async(&sm.ph[tid - 64],
                               (tid == 64 ? ph_r : ph_i) + row, 4);
@@ -528,7 +558,7 @@ struct __align__(16) FoldSmem {
   float w[2][W_PAD];        // real, imaginary parts of the folded taps
   float eu[2][HALO];        // halo un-rotation: cos, sin of w(m - HALO + 1)
   int16_t x[N_STAGE];       // PCM of the next row
-  int16_t xh[HALO];         // batch form: raw tail of row n - C
+  int16_t xh[XH_LEN];       // batch form: raw tail of row n - C
   float tail[2][HALO];      // downmixed halo as given (rows; block 0)
   float ph[4];              // rows: phase; batch: p0, adv^b
 };
@@ -559,10 +589,17 @@ __device__ __forceinline__ void stage_raw(FoldSmem& sm, float inv_scale,
                        (float)(short)(word[e >> 1] >> (16 * (e & 1))) *
                        inv_scale)
                  : 0.f;
+    if constexpr (HALO % 4 == 0) {
 #pragma unroll
-    for (int e = 0; e < STAGE_VEC; e += 4)
-      *reinterpret_cast<float4*>(&sm.u[HALO + t + e]) =
-          make_float4(z[e], z[e + 1], z[e + 2], z[e + 3]);
+      for (int e = 0; e < STAGE_VEC; e += 4)
+        *reinterpret_cast<float4*>(&sm.u[HALO + t + e]) =
+            make_float4(z[e], z[e + 1], z[e + 2], z[e + 3]);
+    } else {                 // a halo of 4k + 2 samples: 8-byte stores
+#pragma unroll
+      for (int e = 0; e < STAGE_VEC; e += 2)
+        *reinterpret_cast<float2*>(&sm.u[HALO + t + e]) =
+            make_float2(z[e], z[e + 1]);
+    }
   }
 }
 
@@ -647,11 +684,11 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
     const int ch = (int)(row - (long long)b * C);
     fetch<int16_t, PCM_BYTES>(sm.x, pcm + row * N_SAMP, N_SAMP, vec, tid, 0);
     if (b == 0) {
-      fetch(sm.tail[0], tail0_r + ch * HALO, HALO, vec, tid, 0);
-      fetch(sm.tail[1], tail0_i + ch * HALO, HALO, vec, tid, 32);
+      fetch_tail(sm.tail[0], tail0_r + ch * HALO, vec, tid, 0);
+      fetch_tail(sm.tail[1], tail0_i + ch * HALO, vec, tid, 32);
     } else {
-      fetch<int16_t, PCM_BYTES>(sm.xh, pcm + (row - C) * N_SAMP + N_SAMP - HALO,
-                                HALO, vec, tid, 32);
+      fetch<int16_t, XH_BYTES>(sm.xh, pcm + (row - C) * N_SAMP + N_SAMP - HALO,
+                               HALO, vec, tid, 32);
     }
     if (tid >= 64 && tid < 68) {
       const int i = tid - 64;
@@ -700,8 +737,8 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
 
   auto fetch_row = [&](long long row) {
     fetch<int16_t, PCM_BYTES>(sm.x, pcm + row * N_SAMP, N_SAMP, vec, tid, 0);
-    fetch(sm.tail[0], tail_r + row * HALO, HALO, vec, tid, 0);
-    fetch(sm.tail[1], tail_i + row * HALO, HALO, vec, tid, 32);
+    fetch_tail(sm.tail[0], tail_r + row * HALO, vec, tid, 0);
+    fetch_tail(sm.tail[1], tail_i + row * HALO, vec, tid, 32);
     if (tid >= 64 && tid < 66)
       __pipeline_memcpy_async(&sm.ph[tid - 64],
                               (tid == 64 ? ph_r : ph_i) + row, 4);
@@ -806,8 +843,8 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
 
   auto fetch_row = [&](long long row) {
     fetch<int16_t, PCM_BYTES>(in.x, pcm + row * N_SAMP, N_SAMP, vec, tid, 0);
-    fetch(in.tail[0], tail_r + row * HALO, HALO, vec, tid, 0);
-    fetch(in.tail[1], tail_i + row * HALO, HALO, vec, tid, 32);
+    fetch_tail(in.tail[0], tail_r + row * HALO, vec, tid, 0);
+    fetch_tail(in.tail[1], tail_i + row * HALO, vec, tid, 32);
     if (tid >= 64 && tid < 66)
       __pipeline_memcpy_async(&in.ph[tid - 64],
                               (tid == 64 ? ph_r : ph_i) + row, 4);

@@ -5,11 +5,13 @@
 // kernel ops/fused_rx.py::_fused_rx_kernel_premix.  Per decimation phase
 // c the window is turned into the hunt operand x (int8 mode:
 // clip(rint(16 w), +/-127), round half to even as fused_rx.py:89-91;
-// bf16 mode: bf16(w); f32 mode: w as it is); the 8 segment correlations
-// of lag l are sum_k x[2 + l + 16s + k] * pn[16s + k] (exact for int8,
-// ascending k otherwise) and pw[c][l] = sum_s (re^2 + im^2), added in f32
-// in ascending s.  The statistic is chosen by cfg.hunt_norm, a template
-// parameter of both bodies (decode_pallas.py:818-878):
+// bf16 mode: bf16(w); f32 mode: w as it is); the NSEG segment
+// correlations of lag l (8 of 16 chips at the reference; 1 to 16 of 128
+// to 8 chips) are sum_k x[2 + l + SEG s + k] * pn[SEG s + k] (exact for
+// int8, ascending k otherwise) and pw[c][l] = sum_s (re^2 + im^2), each
+// square rounded to f32, added in f32 in ascending s.  The statistic is
+// chosen by cfg.hunt_norm, a template parameter of both bodies
+// (decode_pallas.py:818-878):
 //
 //   * espan (the default): the denominator is the direct 128-term sum of
 //     the phase-summed squared planes (ascending phases, decode_pallas.py:
@@ -61,8 +63,10 @@
 //     of both planes in registers and forms the 8 segment sums from them
 //     in ascending k, as the plain version rounds (a bf16 tensor-core
 //     product would not); the square-sums go through shared memory by
-//     (segment, lag), and thread l adds its lag's 8 in ascending s.  The
-//     espan or energy sum is the direct 128-term sum, one thread a lag.
+//     (segment, lag), and thread l adds its lag's 8 in ascending s.
+//     Segments of 64 and 128 chips walk their values in slices of 16.
+//     The espan or energy sum is the direct 128-term sum, one thread a
+//     lag.
 //
 // Bound on the card: operations (the int8 multiply-adds at the tensor
 // cores' rate) by a little over the bytes of the planes.  What the int8
@@ -114,6 +118,9 @@ __device__ __forceinline__ Best warp_best(Best x) {
 // chunk q - 1.  A segment of 16 chips is a chunk (the reference
 // numerology); one of 32 chips is two (GRP 2: the quad thread that holds
 // columns 2 tig and 2 tig + 1 adds the two int32 sums, then squares);
+// one of 64 or 128 chips is four or eight (GRP 4, 8: it spans two quad
+// threads or the whole quad, and its int32 sums travel along the quad
+// with the running power until the segment's last thread squares them);
 // one of 8 chips is half a chunk (SUB 2: each half has its own B
 // fragment, zero on the other half's chips, so every tile takes SUB mma a
 // plane, and the zero chips add exact zeros).
@@ -122,6 +129,7 @@ constexpr int CHUNK = 8;                   // values per 16-byte bf16 load
 constexpr int NCH = P / 16;                // 16-chip chunks: the mma's N
 constexpr int SUB = SEG < 16 ? 16 / SEG : 1;   // segments a chunk holds
 constexpr int GRP = SEG > 16 ? SEG / 16 : 1;   // chunks a segment spans
+constexpr int SEG_THREADS = GRP > 2 ? GRP / 2 : 1;  // quad threads it spans
 // 16-lag tiles, an even count (the quad shares out two at a time)
 constexpr int LAG_TILES = roundup((N_SYM + 15) / 16, 2);
 constexpr int TILES = LAG_TILES + NCH - 1; // 16-row tiles of t = l + 16 q
@@ -132,8 +140,8 @@ constexpr int PREV_CHUNKS = N_SYM / CHUNK; // chunks of the prev block
 constexpr int EN_W = 16 * LAG_TILES;       // espan sums kept (lags padded)
 constexpr int NL = EN_W / 32 + 1;          // adjacent lags a lane sums
 
-static_assert(NCH == 8 && SUB * NCH == NSEG * GRP && SUB <= 2 && GRP <= 2,
-              "8 chunks; segments of 8, 16 or 32 chips");
+static_assert(NCH == 8 && SUB * NCH == NSEG * GRP && SUB <= 2 && GRP <= 8,
+              "8 chunks; segments of 8 to 128 chips");
 // the highest word a lane's funnel shift reads: 4 (TILES - 1) + 3 + wbase
 static_assert(4 * (TILES - 1) + 7 < XW, "tiles stay in x");
 static_assert(N_SYM - 1 + P - 1 < XN, "espan sums stay in x");
@@ -414,10 +422,12 @@ __global__ void __launch_bounds__(MMA_WARPS * 32) hunt_mma_kernel(
     const uint32_t* xr = sm.x[c][0] + wbase;
     const uint32_t* xi = sm.x[c][1] + wbase;
     // rows g (A) and g + 8 (B) of the tile: the even column's square-sums
-    // of the previous tile (GRP 2: its int32 sums), the running sums of
-    // the last two tiles
+    // of the previous tile (GRP 2 and more: its int32 sums), the running
+    // sums of the last two tiles (GRP 4 and 8: with the int32 sums of the
+    // segment in progress)
     float qeA[SUB], qeB[SUB];
     int erA = 0, eiA = 0, erB = 0, eiB = 0;
+    int j1[4] = {0, 0, 0, 0}, j2[4] = {0, 0, 0, 0};   // GRP 4, 8 only
 #pragma unroll
     for (int u = 0; u < SUB; ++u) qeA[u] = qeB[u] = 0.f;
     float p1A = 0.f, p1B = 0.f, p2A = 0.f, p2B = 0.f;
@@ -462,7 +472,7 @@ __global__ void __launch_bounds__(MMA_WARPS * 32) hunt_mma_kernel(
           qeB[u] = static_cast<float>(dr[u][2] * dr[u][2] +
                                       di[u][2] * di[u][2]);
         }
-      } else {
+      } else if constexpr (GRP == 2) {
         // one segment of two chunks: the int32 sums added, then squared
         // (< 2^31 in int32, rounded once to f32 as the plain version's
         // re^2 + im^2 of exact squares is)
@@ -470,6 +480,36 @@ __global__ void __launch_bounds__(MMA_WARPS * 32) hunt_mma_kernel(
         const int sBr = erB + dr[0][3], sBi = eiB + di[0][3];
         accA = rA + static_cast<float>(sAr * sAr + sAi * sAi);
         accB = rB + static_cast<float>(sBr * sBr + sBi * sBi);
+        erA = dr[0][0], eiA = di[0][0];
+        erB = dr[0][2], eiB = di[0][2];
+      } else {
+        // one segment of GRP chunks over GRP / 2 quad threads: each adds
+        // its two chunks' int32 sums to those its left neighbour left two
+        // tiles ago (none at the segment's first thread); the last squares
+        // them.  |re| reaches 127 x 128 and re^2 2^28, so each square is
+        // rounded to f32, then their sum, as the plain version's
+        // corr * corr of each plane and p2 re + p2 im round them
+        int j[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) j[e] = __shfl_up_sync(FULL, j2[e], 1);
+        const bool first = tig % SEG_THREADS == 0;
+        const bool last = tig % SEG_THREADS == SEG_THREADS - 1;
+        const int sAr = (first ? 0 : j[0]) + erA + dr[0][1];
+        const int sAi = (first ? 0 : j[1]) + eiA + di[0][1];
+        const int sBr = (first ? 0 : j[2]) + erB + dr[0][3];
+        const int sBi = (first ? 0 : j[3]) + eiB + di[0][3];
+        if (last) {
+          accA = rA + (static_cast<float>(sAr * sAr) +
+                       static_cast<float>(sAi * sAi));
+          accB = rB + (static_cast<float>(sBr * sBr) +
+                       static_cast<float>(sBi * sBi));
+        } else {
+          accA = rA;
+          accB = rB;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) j2[e] = j1[e];
+        j1[0] = sAr, j1[1] = sAi, j1[2] = sBr, j1[3] = sBi;
         erA = dr[0][0], eiA = di[0][0];
         erB = dr[0][2], eiB = di[0][2];
       }
@@ -515,6 +555,7 @@ constexpr int TOE_THREADS = roundup(N_SYM + P - 1, 32);
 constexpr int TOE_WARPS = TOE_THREADS / 32;
 constexpr int T_ROWS = N_SYM + SEG * (NSEG - 1);   // values of t = l + SEG s
 constexpr int Q_STRIDE = roundup(N_SYM, 4) + 4;    // segment rows 16 B apart
+constexpr int TOE_SLICE = 16;    // values a thread holds of a longer segment
 
 static_assert(T_ROWS + SEG - 1 <= TOE_THREADS && TOE_THREADS <= 1024,
               "a thread per t");
@@ -584,7 +625,45 @@ __device__ __forceinline__ void toeplitz_row(
       vi = operand_at(decim, dprev0, in_bf16, N, C, n, c + 1, 1, tid);
     }
     __syncthreads();
-    if (tid < T_ROWS) {
+    if constexpr (SEG > 32) {
+      // segments of 64 or 128 chips: the SEG values walked in slices of
+      // TOE_SLICE (a register window of SEG would spill), each segment's
+      // sums still in ascending k
+      if (tid < T_ROWS) {
+        float re[NSEG], im[NSEG];
+#pragma unroll
+        for (int s = 0; s < NSEG; ++s) re[s] = im[s] = 0.f;
+#pragma unroll 1
+        for (int k0 = 0; k0 < SEG; k0 += TOE_SLICE) {
+          float xr[TOE_SLICE], xi[TOE_SLICE];
+#pragma unroll
+          for (int k = 0; k < TOE_SLICE; ++k) {
+            xr[k] = xs[0][tid + k0 + k];
+            xi[k] = xs[1][tid + k0 + k];
+          }
+#pragma unroll
+          for (int s = 0; s < NSEG; ++s) {
+            const float4* v4 =
+                reinterpret_cast<const float4*>(pns + s * SEG + k0);
+#pragma unroll
+            for (int k4 = 0; k4 < TOE_SLICE / 4; ++k4) {
+              const float4 v = v4[k4];
+              const float vk[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                re[s] = re[s] + xr[4 * k4 + e] * vk[e];
+                im[s] = im[s] + xi[4 * k4 + e] * vk[e];
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < NSEG; ++s) {
+          const int l = tid - SEG * s;     // segment s of lag l is y[t][s]
+          if (l >= 0 && l < N_SYM) qs[s][l] = re[s] * re[s] + im[s] * im[s];
+        }
+      }
+    } else if (tid < T_ROWS) {
       // one pass over t serves the 8 segments from the same 16 values
       float xr[SEG], xi[SEG];
 #pragma unroll

@@ -4,7 +4,7 @@ Run from the root of a checkout::
 
     python3 -m singlecarrier_tpu_torch.kernel_ab [--other DIR] [--blocks B]
                                                  [--stages] [--config NAME]
-                                                 [--ptxas]
+                                                 [--configs NAMES] [--ptxas]
 
 ``--other DIR`` names another ``csrc`` tree, for example a parent
 commit's (``git archive <commit> singlecarrier_tpu_torch/csrc | tar -x
@@ -62,7 +62,10 @@ operands come from the port's TX at that numerology in place of the
 golden stream, and the bench operating point takes ``ls_refit_symbols =
 min(128, D)``.  The other tree must compile the geometry from the same
 defines (a tree older than them builds the reference shapes and is
-refused).
+refused).  ``--configs NAME,NAME,...`` (``ref`` the reference one, or
+``all``) runs the rest at each in turn, after building every geometry's
+library of both trees at once, and ends with the count of comparisons
+equal to the bit over them all.
 
 Every line carries the card's name and power limit.  Needs a GPU.
 """
@@ -310,6 +313,10 @@ def main(argv=None) -> int:
                     "version's on N draws of the kernel inputs")
     ap.add_argument("--config", choices=sorted(_build.NUMEROLOGIES),
                     help="a named numerology in place of the reference one")
+    ap.add_argument("--configs", metavar="NAMES",
+                    help="comma-separated named numerologies (\"ref\" the "
+                    "reference one), or \"all\": the rest at each in turn, "
+                    "every geometry of both trees built at once first")
     ap.add_argument("--ptxas", action="store_true",
                     help="with --other: ptxas -v of the two trees, entry "
                     "function by entry function")
@@ -322,7 +329,43 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     card = _card(dev).line
     print(f"[device] {card}; torch {torch.__version__}", flush=True)
+    if not args.configs:
+        return _run(args, root, dev, card)[0]
+    names = (["ref", *_build.NUMEROLOGIES] if args.configs == "all"
+             else args.configs.split(","))
+    unknown = set(names) - {"ref", *_build.NUMEROLOGIES}
+    if unknown:
+        print(f"kernel_ab: no numerology {sorted(unknown)}", file=sys.stderr)
+        return 1
+    _prebuild([_build.kernel_geometry(DEFAULT_CONFIG.replace(
+        **_build.NUMEROLOGIES.get(name, {}))) for name in names], args.other)
+    rc, equal, total = 0, 0, 0
+    for name in names:
+        args.config = None if name == "ref" else name
+        code, e, t = _run(args, root, dev, card)
+        rc, equal, total = rc or code, equal + e, total + t
+    if args.other:
+        print(f"[equal] over {len(names)} numerologies: {equal} of {total} "
+              f"comparisons equal to the bit; {card}", flush=True)
+    return rc
 
+
+def _prebuild(geometries: list, other) -> None:
+    """Build this tree's (and ``other``'s) library at every geometry at
+    once, a thread each (each build runs its three nvcc together)."""
+    jobs = [dict(defines=geo) for geo in geometries] + (
+        [dict(csrc=other, defines=geo) for geo in geometries]
+        if other else [])
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        for fut in [pool.submit(lambda kw: _build.build(**kw), kw)
+                    for kw in jobs]:
+            fut.result()
+
+
+def _run(args, root: Path, dev, card: str) -> tuple:
+    """Everything at one numerology (``args.config``, or the reference):
+    (exit code, comparisons equal to the bit, comparisons)."""
+    n_equal = n_compared = 0
     base = DEFAULT_CONFIG.replace(**_build.NUMEROLOGIES.get(args.config, {}))
     geo = _build.kernel_geometry(base)
     bench = bench_point(base)
@@ -331,7 +374,7 @@ def main(argv=None) -> int:
         print(f"kernel_ab: {args.other} compiles the reference shapes "
               f"only; --config needs a tree that takes the geometry's "
               f"defines", file=sys.stderr)
-        return 1
+        return 1, 0, 0
     mine = _build.load(base)
     other = (_bind_tree(args.other, defines=geo) if args.other else None)
     if args.ptxas and other is not None:
@@ -357,6 +400,8 @@ def main(argv=None) -> int:
                 with _build.using(other, base):
                     b = _run_all(cfg, op)
                 for name in a:
+                    n_equal += bool(torch.equal(a[name], b[name]))
+                    n_compared += 1
                     print(f"[equal] {what} ({cfg.decim_dtype} planes), "
                           f"{C} x {B}: {name} of this tree "
                           f"and of {args.other}: "
@@ -479,7 +524,7 @@ def main(argv=None) -> int:
               f"and that share of the time: " + ", ".join(
                   f"{s} {t / total:.1%} = {k3 * t / total:.2f} ms"
                   for s, t in zip(STAGES, ticks)) + f"; {card}", flush=True)
-    return 0
+    return 0, n_equal, n_compared
 
 
 if __name__ == "__main__":

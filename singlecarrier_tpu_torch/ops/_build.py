@@ -338,6 +338,15 @@ NUMEROLOGIES = {
     "ns16": {"ns": 16},
     "wide_corner": {"eq_length": 16, "ns": 16, "fs": 16000.0, "rs": 1600.0,
                     "center": 1500.0},
+    # the correlator's segmentation, the CFO DFT's size and the RRC length
+    # the JAX package's Pallas paths run, none a CLI flag: 1 segment is the
+    # reference's coherent correlator
+    "seg1": {"corr_segments": 1},
+    "seg2": {"corr_segments": 2},
+    "nfft128": {"cfo_nfft": 128},
+    "nfft4096": {"cfo_nfft": 4096},
+    "taps25": {"ntaps": 25},
+    "taps45": {"ntaps": 45},
 }
 
 
@@ -351,6 +360,19 @@ def is_wide(cfg) -> bool:
 # the named numerologies that are wide
 WIDE_NUMEROLOGIES = tuple(name for name, kw in NUMEROLOGIES.items()
                           if is_wide(DEFAULT_CONFIG.replace(**kw)))
+
+
+def is_retuned(cfg) -> bool:
+    """Whether ``cfg`` sets the correlator's segments, the CFO DFT's size
+    or the RRC's length outside 4-16 segments, 256-1024 bins and 49 taps,
+    where the kernels' limits stood before their branches for the rest."""
+    return (cfg.corr_segments not in (4, 8, 16)
+            or cfg.cfo_nfft not in (256, 512, 1024) or cfg.ntaps != 49)
+
+
+# the named numerologies that are retuned
+RETUNED_NUMEROLOGIES = tuple(name for name, kw in NUMEROLOGIES.items()
+                             if is_retuned(DEFAULT_CONFIG.replace(**kw)))
 
 
 @functools.lru_cache(maxsize=64)
@@ -376,8 +398,15 @@ def kernel_limits(cfg) -> None:
 
       * preamble_length 128: the hunt's tensor-core tile takes the
         preamble as 8 chunks of 16 chips;
-      * corr_segments 4, 8 or 16 (segments of 32, 16 or 8 chips);
-      * ntaps 49: the front-ends' tap loops and halo staging;
+      * corr_segments 1, 2, 4, 8 or 16 (segments of 128, 64, 32, 16 or
+        8 chips): a segment is half a chunk, a chunk or whole chunks of
+        the tile; 32 segments of 4 chips, which the JAX package's own
+        detection sweep leaves out, are not written;
+      * ntaps odd from 9 to 49: the front-ends' halo of ntaps - 1
+        samples is staged in 8-, 4- or 2-sample steps and each task's
+        window of WIN_T + ntaps - 1 inputs sits in registers; at 51 taps
+        and more the JAX package's Pallas paths themselves fail, and
+        below 9 its receiver finds no packet;
       * cycles 2 to 10 and symbols_per_block at most 624 (so frame_size
         at most 6240, frame_symbols at most 496): the hunt's Toeplitz
         body takes a thread per operand value, N_SYM + P - 1 of them,
@@ -389,16 +418,23 @@ def kernel_limits(cfg) -> None:
         matmul b-vector takes a lane a sum, 2 * eq_length of the 32;
         above 7 taps each warp's Gram and Cholesky factor sit in shared
         memory, not in registers;
-      * cfo_nfft 256, 512 or 1024: the DFT's bin groups.
+      * cfo_nfft a multiple of 32 from 64 to 4096: the DFT's argmax takes
+        NFFT / 32 bins a lane; its bin groups of 256 or 512 may be
+        ragged; past 1024 bins the powers of the block's 8 rows (128 KB
+        at 4096) leave the table tiles for a region of their own, which
+        with the largest packet and the 16-tap solve still fits the 227
+        KB a block may hold.
     """
     limits = (
         ("preamble_length == 128", cfg.preamble_length == 128),
-        ("corr_segments in (4, 8, 16)", cfg.corr_segments in (4, 8, 16)),
-        ("ntaps == 49", cfg.ntaps == 49),
+        ("corr_segments in (1, 2, 4, 8, 16)",
+         cfg.corr_segments in (1, 2, 4, 8, 16)),
+        ("9 <= ntaps <= 49", 9 <= cfg.ntaps <= 49),
         ("2 <= cycles <= 10", 2 <= cfg.cycles <= 10),
         ("symbols_per_block <= 624", cfg.symbols_per_block <= 624),
         ("1 <= eq_length <= 16", 1 <= cfg.eq_length <= 16),
-        ("cfo_nfft in (256, 512, 1024)", cfg.cfo_nfft in (256, 512, 1024)),
+        ("cfo_nfft a multiple of 32 from 64 to 4096",
+         64 <= cfg.cfo_nfft <= 4096 and cfg.cfo_nfft % 32 == 0),
     )
     for name, ok in limits:
         if not ok:

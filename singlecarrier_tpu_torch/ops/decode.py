@@ -411,6 +411,27 @@ def _slice_hard(ar, ai):
     return dib, hr, hh
 
 
+def _dft_ascending(tr, ti, wr, wi):
+    """(re, im) [N, nfft] of the CFO DFT of operands ``tr``, ``ti`` [N, P]
+    against the table ``wr``, ``wi`` [P, nfft], its four sums run in
+    ascending k, each product rounded before its sum, as the decode
+    kernels run them: the kernel's powers to the bit.  On the card the
+    plain decode sums so (a matmul's own order would reach the CFO through
+    the parabola's step, the ratio of two small power differences: at 4096
+    bins 1e-4 Hz, and the derotated packet's last symbols move by 1e-4 of
+    their magnitude); on the CPU, where it is held to the JAX package by
+    decisions, it takes the matmul, some 30 times faster."""
+    s1 = s2 = s3 = s4 = torch.zeros((tr.shape[0], wr.shape[1]), dtype=_F32,
+                                    device=tr.device)
+    for k in range(tr.shape[1]):
+        a, b = tr[:, k:k + 1], ti[:, k:k + 1]
+        s1 = s1 + a * wr[k]
+        s2 = s2 + b * wi[k]
+        s3 = s3 + a * wi[k]
+        s4 = s4 + b * wr[k]
+    return s1 - s2, s3 + s4
+
+
 def _decode_core(cfg: ModemConfig, pr0, pi0, peak, mask, *,
                  soft: bool = False):
     """``decode_pallas._decode_core`` on aligned packet planes.
@@ -435,15 +456,18 @@ def _decode_core(cfg: ModemConfig, pr0, pi0, peak, mask, *,
     energy = _sum(chips_r * chips_r + chips_i * chips_i)
     gated = peak > energy * cfg.effective_peak_gate
 
-    # ---- CFO search: DFT matmul + parabolic peak ----
+    # ---- CFO search: DFT + parabolic peak ----
     wr, wi = (t.to(dev) for t in _dft_table(cfg))
     tr = chips_r * pn
     ti = chips_i * pn
     if cfg.cfo_dtype == "bf16":           # exact products, f32 sums
         tr = tr.to(torch.bfloat16).float()
         ti = ti.to(torch.bfloat16).float()
-    sr = tr @ wr - ti @ wi
-    si = tr @ wi + ti @ wr
+    if tr.is_cuda:           # the kernel's reference: its sum order
+        sr, si = _dft_ascending(tr, ti, wr, wi)
+    else:                    # held to JAX by decisions: a matmul
+        sr = tr @ wr - ti @ wi
+        si = tr @ wi + ti @ wr
     pw = sr * sr + si * si                                  # [N, nfft]
     kbin_i = torch.argmax(pw, dim=-1, keepdim=True)
     p0 = torch.gather(pw, 1, kbin_i)
@@ -577,7 +601,14 @@ def _hunt_tail(lag, phase, peak):
 
 def extract_decode_ref(cfg: ModemConfig, decim, dprev0, lag, phase, peak,
                        *, descramble: bool = True):
-    """Plain PyTorch version of :func:`extract_decode`."""
+    """Plain PyTorch version of :func:`extract_decode`.
+
+    Its CFO DFT depends on the device (``_decode_core``): on CUDA tensors
+    it sums in ascending k (``_dft_ascending``, the kernels' order and
+    their powers to the bit, 128 small steps), on the CPU it is a matmul
+    (the code the CPU tests hold to the JAX package).  Timed on the card
+    (``tools/_measure.kernel_calls``' plain_ms) it is the loop.
+    """
     pkt = _extract_from_planes(cfg, decim, dprev0, lag, phase)
     mask = torch.from_numpy(_mask_np(cfg.frame_symbols, descramble))
     head = _decode_core(cfg, pkt[:, 0], pkt[:, 1], peak[:, None],
@@ -758,7 +789,9 @@ def _check_row_stats(N: int, lag, phase, peak):
 def fused_decode_extract_ref(cfg: ModemConfig, windows, lag, phase_idx,
                              peak, *, descramble: bool = True):
     """Plain PyTorch version of :func:`fused_decode_extract` (the packed
-    [N, D + 8] rows)."""
+    [N, D + 8] rows).  Its CFO DFT depends on the device, as
+    :func:`extract_decode_ref`'s does.
+    """
     N, pkt_len = windows.shape[0], cfg.pkt_window
     rows = torch.arange(N, device=windows.device)
     sel = windows[rows, phase_idx.long()]                   # [N, 2, wp]
@@ -814,7 +847,9 @@ def fused_decode_extract(cfg: ModemConfig, windows, lag, phase_idx, peak,
 def fused_decode_ref(cfg: ModemConfig, pkt_r, pkt_i, peak, *,
                      descramble: bool = True):
     """Plain PyTorch version of :func:`fused_decode` (the packed
-    [N, D + 8] rows)."""
+    [N, D + 8] rows).  Its CFO DFT depends on the device, as
+    :func:`extract_decode_ref`'s does.
+    """
     mask = torch.from_numpy(_mask_np(cfg.frame_symbols, descramble))
     return _pad_tail(_decode_core(cfg, pkt_r, pkt_i, peak[:, None],
                                   mask.to(pkt_r.device)))

@@ -238,7 +238,7 @@ def kernel_bounds(cfg, N: int, C: int) -> dict:
         "frontend_decim_folded": bound(k1_bytes, fir),
         "frontend_rows": bound(rows_in + N * planes * plane_b, fir),
         "frontend_rows_folded": bound(rows_in + N * planes * plane_b, fir),
-        # all f32: 3.76 KB in and 15 KB out per row, 49 x 3760
+        # all f32: 3.76 KB in and 15 KB out per row, ntaps x 3760
         # multiply-adds outside the tensor cores and 9 operations a
         # sample for the scale (1), p * table (6) and x * (.) (2)
         "frontend_full": bound(
@@ -268,10 +268,11 @@ def kernel_bounds(cfg, N: int, C: int) -> dict:
 
 
 def fp32_floor(cfg, name: str, rows: int, mhz: float, sms: int):
-    """(the least ms a front-end's 2 x 1880 x 49 multiply-adds a row take
-    for ``rows`` rows at ``mhz`` on ``sms`` SMs of 128 FP32 lanes, what it
-    counts): one FFMA a multiply-add, or for ``frontend_full``, whose f32
-    products are not exact, an FMUL and an FADD."""
+    """(the least ms a front-end's 2 x frame_size x ntaps multiply-adds a
+    row take for ``rows`` rows at ``mhz`` on ``sms`` SMs of 128 FP32
+    lanes, what it counts): one FFMA a multiply-add, or for
+    ``frontend_full``, whose f32 products are not exact, an FMUL and an
+    FADD."""
     per = 2 if name.startswith("frontend_full") else 1
     ms = (rows * 2 * cfg.frame_size * cfg.ntaps * per
           / (sms * 128 * mhz * 1e6) * 1e3)

@@ -24,8 +24,8 @@ dtype) evaluates every gate on the host with the in-kernel criterion
 ``valid = (peak > energy * gate) & (matches > match_threshold)``; at
 ``cfg.effective_peak_gate`` it must reproduce the path's own ``valid``
 on every row.  ``--segments`` adds a ``corr_segments`` sweep at high CFO
-(within ``ops/_build.kernel_limits``: 4, 8 or 16; 32 is refused, as the
-kernel wrappers refuse it).  ``--save-false-detects PATH`` keeps up to 16
+(within ``ops/_build.kernel_limits``: 1, 2, 4, 8 or 16; 32 is refused,
+as the kernel wrappers refuse it).  ``--save-false-detects PATH`` keeps up to 16
 false detects of the int8 run at the configured gate, each with what a
 replay needs (the pair's plane state, as ``gated`` phase 2 rebuilds it,
 and the two raw blocks the hunt window reads) and its rows on the card.

@@ -4,7 +4,7 @@ Counterpart of ``tools/tpu_parity.py``::
 
     python3 -m singlecarrier_tpu_torch.tools.parity [--all-records]
         [--config NAME] [--channels 128] [--packets 6] [--snr-db 12]
-        [--freq-hz 15] [knob overrides] [--device cpu] [--out PATH]
+        [--freq-hz HZ] [knob overrides] [--device cpu] [--out PATH]
 
 The records' stream (scrambled packets with the flushed gap, each
 channel through the port's ``channel`` at ``--snr-db`` and ``--freq-hz``,
@@ -27,8 +27,9 @@ seven pinned configs and writes ``PARITY_GPU.json``, ``_BF16``,
 ``_WIDE``, ``_FRAC``, ``_INT8``, ``_R128`` and ``_CFO16`` into
 ``--out-dir``.  ``--config`` also takes a named numerology
 (``ops/_build.NUMEROLOGIES``: ``eq16``, ``wide_corner``, ...) at its bench
-operating point, written to ``PARITY_GPU_<NAME>.json``, which no TPU
-record stands beside.  Exits 1 on any mismatch.  ``--device cpu`` runs the
+operating point (at its own CFO where 15 Hz is out of its reach,
+``NUMEROLOGY_CFO_HZ``), written to ``PARITY_GPU_<NAME>.json``, which no
+TPU record stands beside.  Exits 1 on any mismatch.  ``--device cpu`` runs the
 plain versions (the tests); the record then says ``"device": "cpu"``.
 """
 
@@ -38,6 +39,7 @@ import argparse
 import json
 import os
 import sys
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -54,6 +56,42 @@ from ._measure import KNOB_VALUES, SEED, bench_point, head, tool_device
 
 PARITY_C, PARITY_PACKETS = 128, 6        # tools/tpu_parity.py's defaults
 PARITY_SNR_DB, PARITY_CFO_HZ = 12.0, 15.0
+# The stream's CFO at the numerologies that cannot take 15 Hz.  At 1600
+# baud a 128-chip correlator segment spans 80 ms, which 15 Hz turns 1.2
+# times round: the coherent sum vanishes (seg1 finds no packet, seg2
+# half of them).  A 128-bin DFT of the 128 chips has 12.5 Hz bins and no
+# zero padding, so off a bin the parabolic step misses by Hertz (nfft128
+# decodes two thirds of the bits wrong at 15 Hz, some at 1 Hz).  4 Hz
+# turns a 128-chip segment a third of the way round; 12.5 Hz is a bin.
+NUMEROLOGY_CFO_HZ = {"seg1": 4.0, "seg2": 4.0, "nfft128": 12.5}
+
+
+class Parts(NamedTuple):
+    """How a kernel path may part from the XLA path at a numerology of
+    ``JAX_PARTS`` (by default it may not)."""
+    noise: frozenset = frozenset()  # noise blocks (channel, block) whose
+                                    # valid flag alone may flip: a false
+                                    # detect of one path only
+    eq_held: bool = True            # |deq_error| < 2e-3 held
+    phase_ties: bool = False        # on a block valid in both the timing
+                                    # (lag x cycles + phase) may be the
+                                    # next sample's (its bits then not
+                                    # compared)
+
+
+# Where the kernel paths part from the XLA path at the bench point just as
+# the JAX package's own Pallas and XLA paths part on the same frames
+# (tests/test_torch_wide_parity.py), and how they may part there.  At eq16
+# noise block 9 of channel 70 crosses the gate in the kernel paths only
+# (peak / energy 7.0014 against 6.8544); at ns16 and nfft4096 a packet's
+# eq_error differs by up to 2.5e-3 and 3.0e-3, as JAX's does.  At taps25
+# the short filter leaves two neighbouring sample timings (phases, or
+# phase cycles - 1 and phase 0 of the next lag) all but tied, and the
+# paths may pick either.
+JAX_PARTS = {"eq16": Parts(noise=frozenset({(70, 9)})),
+             "ns16": Parts(eq_held=False),
+             "nfft4096": Parts(eq_held=False),
+             "taps25": Parts(phase_ties=True)}
 
 
 def configs(default):
@@ -180,6 +218,53 @@ def check(cfg, out_p, out_x, truth_p, truth_x, expected: int,
     return rep
 
 
+def hold(cfg, out_p, out_o, truth_p, truth_o, expected: int,
+         parts: Parts = Parts(), rule: str = "full", cfo: bool = True,
+         eq: bool = True, exclude=frozenset()):
+    """``out_p`` against ``out_o`` (the XLA path, or the main path) by the
+    North star's criterion as ``parts`` lets them part: ``check``'s valid
+    rule, and where ``parts.noise`` names blocks, flips on those alone;
+    lag and timing phase equal on blocks valid in both but the ties;
+    bits equal there but on the ties, ``exclude`` and,
+    unless ``rule`` is "full", the blocks either path decodes wrong; with
+    ``cfo`` |dcfo| < 0.5 Hz, with ``eq`` (and ``parts.eq_held``)
+    |deq_error| < 2e-3.  ``rule`` against the truth: "full", every packet
+    once without a bit error and false detects only on ``parts.noise``;
+    "same", the detections and false detects of ``out_o``; "", none.
+    With the default ``Parts()`` and "full" this is ``check``'s "ok".
+    Returns (held, report)."""
+    both = out_p.valid & out_o.valid
+
+    def timing(o):        # the preamble's sample: lag x cycles + phase
+        return o.lag.astype(np.int64) * cfg.cycles + o.timing_phase
+    tie = (both & (np.abs(timing(out_p) - timing(out_o)) == 1)
+           if parts.phase_ties else np.zeros_like(both))
+    ties = {tuple(cb) for cb in np.argwhere(tie).tolist()}
+    errored = set() if rule == "full" else {*truth_p[4], *truth_o[4]}
+    rep = check(cfg, out_p, out_o, truth_p, truth_o, expected,
+                exclude=ties | errored | set(exclude))
+    flips = {tuple(cb) for cb in
+             np.argwhere(out_p.valid != out_o.valid).tolist()}
+    keep = both & ~tie
+    held = (rep["valid_ok"] and (not parts.noise or flips <= parts.noise)
+            and rep["bits_identical_on_valid"]
+            and np.array_equal(out_p.lag[keep], out_o.lag[keep])
+            and np.array_equal(out_p.timing_phase[keep],
+                               out_o.timing_phase[keep])
+            and (not cfo or rep["max_cfo_delta_hz"] < 0.5)
+            and (not eq or not parts.eq_held
+                 or rep["max_eq_error_delta"] < 2e-3))
+    if rule == "full":
+        held = (held and truth_p[0] == 0 and truth_p[2] <= len(parts.noise)
+                and truth_p[1] == expected * cfg.bits_per_frame)
+    elif rule == "same":
+        held = (held and truth_p[2] == truth_o[2]
+                and rep["packets_detected"] == int(out_o.valid.sum()))
+    rep["phase_ties"] = sorted(ties)[:16]
+    rep["held"] = bool(held)
+    return bool(held), rep
+
+
 def paths(cfg, frames, dev) -> dict:
     """{path: (run, kernels it launches)} of every kernel path ``cfg``
     allows, each from a fresh state."""
@@ -262,7 +347,9 @@ def payload(cfg, C: int, packets: int, seed: int, dev):
 def record(name, rec, cfg, args, dev, dev_head) -> dict:
     """One config's record in ``PARITY_TPU.json``'s layout."""
     bits, ref = payload(cfg, args.channels, args.packets, args.seed, dev)
-    frames = stream(cfg, bits, args.seed + 1, dev, args.snr_db, args.freq_hz)
+    freq_hz = (args.freq_hz if args.freq_hz is not None
+               else NUMEROLOGY_CFO_HZ.get(name, PARITY_CFO_HZ))
+    frames = stream(cfg, bits, args.seed + 1, dev, args.snr_db, freq_hz)
     xla, reps, launches = run_config(cfg, frames, ref, dev, tag=name,
                                      allow_marginal=args.allow_marginal_flips)
     for path, rep in reps.items():
@@ -272,7 +359,7 @@ def record(name, rec, cfg, args, dev, dev_head) -> dict:
         "counterpart_of": rec,
         "seed": args.seed, "channels": args.channels,
         "packets": args.packets, "blocks": xla["blocks"],
-        "snr_db": args.snr_db, "freq_hz": args.freq_hz,
+        "snr_db": args.snr_db, "freq_hz": freq_hz,
         "alpha": cfg.alpha, "frac_timing": cfg.frac_timing,
         "frontend_dtype": cfg.frontend_dtype,
         "decim_dtype": cfg.decim_dtype, "hunt_dtype": cfg.hunt_dtype,
@@ -300,7 +387,9 @@ def main(argv=None) -> int:
     ap.add_argument("--channels", type=int, default=PARITY_C)
     ap.add_argument("--packets", type=int, default=PARITY_PACKETS)
     ap.add_argument("--snr-db", type=float, default=PARITY_SNR_DB)
-    ap.add_argument("--freq-hz", type=float, default=PARITY_CFO_HZ)
+    ap.add_argument("--freq-hz", type=float, default=None,
+                    help=f"default {PARITY_CFO_HZ}, or the numerology's "
+                    f"own (NUMEROLOGY_CFO_HZ)")
     ap.add_argument("--seed", type=int, default=SEED)
     ap.add_argument("--config", default="default",
                     choices=[name for name, rec, _ in

@@ -111,6 +111,28 @@ def test_tap_times_bf16_sample_is_exact_in_f32(alpha, kind):
     assert not _inexact(w, u).any()
 
 
+@pytest.mark.parametrize("kind", ["premix", "folded real", "folded imag"])
+@pytest.mark.parametrize("ntaps", [9, 25, 43, 45])
+def test_tap_times_bf16_sample_is_exact_at_other_tap_counts(ntaps, kind):
+    """The fused tap loops hold at other RRC lengths the kernels take (43:
+    a halo of 4k + 2 samples): the taps of 9, 25, 43 and 45 are bf16
+    values too, and their products with
+    every bf16 sample of 0 or |u| >= 2^-60 are exact in f32 (the
+    smallest folded tap, 3.7e-18 at 25 taps, is smaller than at 49, so
+    the bound is 2^-60, not 2^-80: still far under the 2^-15 that a
+    sample of int16 PCM or an un-rotated carried halo reaches)."""
+    cfg = DEFAULT_CONFIG.replace(ntaps=ntaps)
+    w = (frontend.decim_taps(cfg) if kind == "premix" else
+         frontend._fold_tables(cfg, CPU)[0][0 if kind == "folded real"
+                                            else 1]).numpy()
+    assert w.shape == (ntaps,) and w.dtype == np.float32
+    assert np.array_equal(
+        w, torch.from_numpy(w).to(torch.bfloat16).float().numpy())
+    u = _all_bf16()
+    u = u[(u == 0) | (np.abs(u) >= 2.0 ** -60)]
+    assert not _inexact(w, u).any()
+
+
 @pytest.mark.parametrize("alpha", [0.35, 0.50])
 def test_exactness_ends_where_the_product_underflows(alpha):
     w = _taps(alpha, "premix")

@@ -15,6 +15,9 @@ versions (``ops/decode._hunt_core``) and in numpy:
     layout of ``mma.m16n8k16.s8``, the funnel-shifted A words, the
     running sum handed along each quad, the sliding espan sums, the
     tie rules), equal to ``_hunt_core`` to the bit on lag, phase and peak;
+    also at 4, 2 and 1 segments, whose 32-, 64- and 128-chip segments
+    add their int32 chunk sums inside a quad thread or, past 32 chips,
+    hand them along the quad to the thread that squares them;
   * the CFO DFT accumulated in chunks of k in the kernel's order, equal
     to the unchunked loop bit for bit (and not to per-chunk partial sums);
   * the ``extern "C"`` entry points of ``csrc/*.cu`` against
@@ -162,8 +165,14 @@ def _mma_m16n8k16_s8(a0, a1, b):
 
 def _model_hunt_mma(cfg, win):
     """(lag, phase, peak) of one row's [cyc, 2, wp] f32 windows, computed
-    as a warp of ``hunt_mma_kernel`` computes them."""
+    as a warp of ``hunt_mma_kernel`` computes them: segments of 16 chips
+    (a chunk), or of 32, 64 or 128 (GRP = 2, 4, 8 chunks: the int32 sums
+    of a segment added inside a quad thread, then for GRP 4 and 8 handed
+    along the quad with the running sum until the segment's last thread
+    squares them)."""
     f32 = np.float32
+    grp = P // cfg.corr_segments // 16
+    span = grp // 2 if grp > 2 else 1      # quad threads a segment spans
     lanes = np.arange(32)
     g, tig = lanes >> 2, lanes & 3
     w = win[:, :, OFF:OFF + 512].astype(f32)
@@ -193,9 +202,12 @@ def _model_hunt_mma(cfg, win):
     wbase, sh = tig + (g >> 2), 8 * (g & 3)
     lag0 = 16 * (tig >> 1) + g + 8 * (tig & 1)
     up = np.maximum(lanes - 1, 0)
+    first, last = tig % span == 0, tig % span == span - 1
     for c in range(CYC):
         qe = np.zeros((2, 32), f32)
         p1, p2, fin = qe.copy(), qe.copy(), qe.copy()
+        e = np.zeros((2, 2, 32), np.int64)   # even columns: [plane, row]
+        j1, j2 = e.copy(), e.copy()          # the segment's int32 sums
         for T in range(31):
             d = []
             for pl in range(2):
@@ -204,11 +216,27 @@ def _model_hunt_mma(cfg, win):
                 d.append(_mma_m16n8k16_s8(
                     _funnel_r(xw[idx], xw[idx + 1], sh),
                     _funnel_r(xw[idx + 2], xw[idx + 3], sh), bfrag))
-            q = (d[0] ** 2 + d[1] ** 2).astype(f32)        # [4, 32]
-            assert int((d[0] ** 2 + d[1] ** 2).max()) < 2 ** 24
             r = np.where(tig == 0, f32(0), p2[:, up])
-            acc = (r + qe) + q[[1, 3]]
-            p2, p1, qe = p1, acc, q[[0, 2]]
+            if grp == 1:
+                q = (d[0] ** 2 + d[1] ** 2).astype(f32)    # [4, 32]
+                assert int((d[0] ** 2 + d[1] ** 2).max()) < 2 ** 24
+                acc = (r + qe) + q[[1, 3]]
+                qe = q[[0, 2]]
+            else:
+                odd = np.stack([d[0][[1, 3]], d[1][[1, 3]]])   # [2, 2, 32]
+                got = np.where(first, 0, j2[:, :, up]) if grp > 2 else 0
+                seg = got + e + odd
+                sq = seg.astype(np.int64) ** 2
+                assert int(np.abs(seg).max()) <= 127 * 16 * grp
+                if grp == 2:       # squares < 2^24: one rounding of their sum
+                    pw_s = (sq[0] + sq[1]).astype(f32)
+                    acc = r + pw_s
+                else:              # each square rounded, then their sum
+                    pw_s = sq[0].astype(f32) + sq[1].astype(f32)
+                    acc = np.where(last, r + pw_s, r)
+                j2, j1 = j1, seg
+                e = np.stack([d[0][[0, 2]], d[1][[0, 2]]])
+            p2, p1 = p1, acc
             if T >= 7:
                 if (T - 7) % 2 == 0:
                     fin = acc
@@ -247,6 +275,45 @@ def test_lane_model_of_the_mma_hunt_equals_the_plain_hunt(case):
         assert float(got[2]) == float(peak[n]), (case, n)
 
 
+def _long_segment_window(n_seg):
+    """One row whose lag-0 segments of P / n_seg chips correlate to (127
+    seg - 1, 127 seg): at 64 and 128 chips every square passes 2^24, and
+    the odd one is rounded to f32."""
+    seg = P // n_seg
+    pn = PREAMBLE_VALUES.astype(np.float32)
+    wins = np.zeros((CYC, 2, 1, 768), np.float32)
+    re = 127.0 * pn
+    re[::seg] = 126.0 * pn[::seg]              # one chip a segment
+    wins[0, 0, 0, OFF:OFF + P] = re / 16.0
+    wins[0, 1, 0, OFF:OFF + P] = 127.0 * pn / 16.0
+    return torch.from_numpy(wins)
+
+
+@pytest.mark.parametrize("case", ["noise", "clipped", "full_scale"])
+@pytest.mark.parametrize("n_seg", [4, 2, 1])
+def test_lane_model_of_the_mma_hunt_at_long_segments(n_seg, case):
+    """Segments of 32, 64 and 128 chips: the model of the int8 body's
+    quad epilogue equals the plain hunt to the bit, on noise, on clipped
+    windows, and on a full-scale preamble whose segment squares pass
+    2^24 at 64 and 128 chips."""
+    cfg = BENCH.replace(corr_segments=n_seg)
+    if case == "full_scale":
+        wins = _long_segment_window(n_seg)
+    else:
+        wins = _windows(cfg, 23, scale=30.0 if case == "clipped" else 1.0)
+    lag, ph, peak = decode._hunt_core(cfg, wins)
+    for n in range(wins.shape[2]):
+        got = _model_hunt_mma(cfg, wins[:, :, n].numpy())
+        assert got[:2] == (int(lag[n]), int(ph[n])), (n_seg, case, n)
+        assert float(got[2]) == float(peak[n]), (n_seg, case, n)
+    if case == "full_scale":
+        assert (int(lag[0]), int(ph[0])) == (0, 0)
+        seg = P // n_seg
+        assert (float(peak[0]) * cfg.hunt_int8_scale ** 2 / 2
+                > n_seg * 2 * (127 * seg - 1) ** 2 * 0.999)
+        assert n_seg > 2 or (127 * seg - 1) ** 2 > 2 ** 24
+
+
 # ------------------------------------------------- the decode's CFO DFT
 
 def _dft_sums(tr, ti, wr, wi, chunk):
@@ -265,7 +332,7 @@ def _dft_sums(tr, ti, wr, wi, chunk):
     return s1 - s2, s3 + s4
 
 
-@pytest.mark.parametrize("chunk", [4, 8, 32])
+@pytest.mark.parametrize("chunk", [2, 4, 8, 32])   # 2: past 1024 bins
 def test_chunked_cfo_dft_equals_the_unchunked_sum_bit_for_bit(chunk):
     rng = np.random.default_rng(chunk)
     tr = torch.from_numpy(rng.normal(0, 1, (6, P)).astype(np.float32))
@@ -277,6 +344,10 @@ def test_chunked_cfo_dft_equals_the_unchunked_sum_bit_for_bit(chunk):
     parts = _dft_sums(tr, ti, wr, wi, chunk)
     assert torch.equal(parts[0], whole[0])
     assert torch.equal(parts[1], whole[1])
+    # the plain decode's DFT on the card sums in this order
+    plain = decode._dft_ascending(tr, ti, wr, wi)
+    assert torch.equal(plain[0], parts[0])
+    assert torch.equal(plain[1], parts[1])
     # summing each chunk alone and adding the partial sums is another sum
     sr = sum(_dft_sums(tr[:, k:k + chunk], ti[:, k:k + chunk],
                        wr[k:k + chunk], wi[k:k + chunk], chunk)[0]

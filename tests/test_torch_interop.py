@@ -503,7 +503,7 @@ def test_wrappers_refuse_on_the_cpu_what_the_card_refuses(wrapper, refused):
     call, _ = _wrapper_calls(TCFG)[wrapper]
     call(TCFG)                                   # the operands are right
     with pytest.raises(NotImplementedError,
-                       match=re.escape("corr_segments in (4, 8, 16)")):
+                       match=re.escape("corr_segments in (1, 2, 4, 8, 16)")):
         call(cfg)
 
 

@@ -37,13 +37,17 @@ from singlecarrier_tpu_torch.modem import (prod_rx_batch, prod_rx_init,
                                            prod_rx_init_planes,
                                            prod_rx_stream)
 from singlecarrier_tpu_torch.ops._build import (NUMEROLOGIES,
+                                                RETUNED_NUMEROLOGIES,
                                                 WIDE_NUMEROLOGIES)
 
 C = 2
 N_PACKETS = 2
 # the eight numerologies of at most 7 equalizer taps, 5 cycles and 376
-# symbols a block; the seven wider ones are test_torch_numerology_wide.py's
-NAMES = sorted(set(NUMEROLOGIES) - set(WIDE_NUMEROLOGIES))
+# symbols a block at 4-16 segments, 256-1024 bins and 49 taps; the seven
+# wider ones are test_torch_numerology_wide.py's, the six retuned ones
+# test_torch_numerology_limits.py's
+NAMES = sorted(set(NUMEROLOGIES) - set(WIDE_NUMEROLOGIES)
+               - set(RETUNED_NUMEROLOGIES))
 
 
 def _bench(name):

@@ -17,9 +17,9 @@ exact), ``fused_hunt_decode_decim``, ``fused_decode_extract`` and
 phase; |dcfo| < 0.5 Hz, |deq_error| < 2e-3).
 
 The limits (``ops/_build.kernel_limits``, ``kernel_geometry``): no define
-at the reference numerology, all nine at each named one (the fifteen of
-``NUMEROLOGIES``), and a config just outside each limit refused with the
-limit's name.
+at the reference numerology, all nine at each named one (the twenty-one
+of ``NUMEROLOGIES``), and a config just outside each limit refused with
+the limit's name.
 """
 
 import dataclasses
@@ -56,11 +56,22 @@ def _tcfg(cfg):
     return config_from_dict(dataclasses.asdict(cfg))
 
 
-@functools.lru_cache(maxsize=None)
-def _rows(name, seed=9):
+def _frontend_cfg(name):
+    """The config of ``name``'s TX and front-end: the hunt's segments and
+    the CFO DFT's size change neither, so the numerologies that differ
+    only there share one front-end run."""
+    return _bench(name).replace(corr_segments=CFG.corr_segments,
+                                cfo_nfft=CFG.cfo_nfft)
+
+
+def _rows(name):
     """(pcm [N, n], phase_r, phase_i, tail_r, tail_i) numpy rows in
     (block, channel) order, N = blocks x C."""
-    cfg = _bench(name)
+    return _rows_of(_frontend_cfg(name))
+
+
+@functools.lru_cache(maxsize=None)
+def _rows_of(cfg, seed=9):
     rng = np.random.default_rng(seed)
     bits = rng.integers(0, 2, (2, cfg.ns, cfg.data_symbols * 2),
                         dtype=np.uint8)
@@ -81,12 +92,16 @@ def _rows(name, seed=9):
             (rng.normal(size=(N, halo)) * 0.3).astype(np.float32))
 
 
-@functools.lru_cache(maxsize=None)
 def _jax_frontend(name):
     """The JAX kernel's row-major f32 planes [N, cyc, 2, n_sym] and
     state out, numpy."""
+    return _jax_frontend_of(_frontend_cfg(name))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_frontend_of(cfg):
     out = jfe.fused_frontend_decim(
-        _bench(name), *(jnp.asarray(a) for a in _rows(name)),
+        cfg, *(jnp.asarray(a) for a in _rows_of(cfg)),
         block_channels=C, transposed=False, interpret=True)
     return tuple(np.asarray(a) for a in out)
 
@@ -222,24 +237,31 @@ def test_decode_launchers_match_jax(name):
 
 # ------------------------------------------------------------ the limits
 
-# (frame_size, cycles, D, pkt_window, eq_length, corr_segments, cfo_nfft)
-# of each named numerology, from the configs the JAX package runs
+# (frame_size, cycles, ntaps, D, pkt_window, eq_length, corr_segments,
+# cfo_nfft) of each named numerology, from the configs the JAX package
+# runs
 GEOMETRY = {
-    "alt_9600": (1504, 4, 248, 384, 5, 8, 512),
-    "tiny_payload": (650, 5, 2, 136, 5, 8, 512),
-    "mid_payload": (1000, 5, 72, 208, 5, 8, 512),
-    "ns4": (1260, 5, 124, 256, 5, 8, 512),
-    "eq7": (1880, 5, 248, 384, 7, 8, 512),
-    "seg4": (1880, 5, 248, 384, 5, 4, 512),
-    "seg16": (1880, 5, 248, 384, 5, 16, 512),
-    "nfft1024": (1880, 5, 248, 384, 5, 8, 1024),
-    "eq9": (1880, 5, 248, 384, 9, 8, 512),
-    "eq16": (1880, 5, 248, 392, 16, 8, 512),
-    "cyc6": (2256, 6, 248, 384, 5, 8, 512),
-    "cyc10": (3760, 10, 248, 384, 5, 8, 512),
-    "ns9": (2035, 5, 279, 416, 5, 8, 512),
-    "ns16": (3120, 5, 496, 632, 5, 8, 512),
-    "wide_corner": (6240, 10, 496, 640, 16, 8, 512),
+    "alt_9600": (1504, 4, 49, 248, 384, 5, 8, 512),
+    "tiny_payload": (650, 5, 49, 2, 136, 5, 8, 512),
+    "mid_payload": (1000, 5, 49, 72, 208, 5, 8, 512),
+    "ns4": (1260, 5, 49, 124, 256, 5, 8, 512),
+    "eq7": (1880, 5, 49, 248, 384, 7, 8, 512),
+    "seg4": (1880, 5, 49, 248, 384, 5, 4, 512),
+    "seg16": (1880, 5, 49, 248, 384, 5, 16, 512),
+    "nfft1024": (1880, 5, 49, 248, 384, 5, 8, 1024),
+    "eq9": (1880, 5, 49, 248, 384, 9, 8, 512),
+    "eq16": (1880, 5, 49, 248, 392, 16, 8, 512),
+    "cyc6": (2256, 6, 49, 248, 384, 5, 8, 512),
+    "cyc10": (3760, 10, 49, 248, 384, 5, 8, 512),
+    "ns9": (2035, 5, 49, 279, 416, 5, 8, 512),
+    "ns16": (3120, 5, 49, 496, 632, 5, 8, 512),
+    "wide_corner": (6240, 10, 49, 496, 640, 16, 8, 512),
+    "seg1": (1880, 5, 49, 248, 384, 5, 1, 512),
+    "seg2": (1880, 5, 49, 248, 384, 5, 2, 512),
+    "nfft128": (1880, 5, 49, 248, 384, 5, 8, 128),
+    "nfft4096": (1880, 5, 49, 248, 384, 5, 8, 4096),
+    "taps25": (1880, 5, 25, 248, 384, 5, 8, 512),
+    "taps45": (1880, 5, 45, 248, 384, 5, 8, 512),
 }
 
 
@@ -252,24 +274,30 @@ def test_the_reference_geometry_takes_no_define():
 @pytest.mark.parametrize("name", sorted(GEOMETRY))
 def test_each_numerology_has_its_defines(name):
     cfg = TCFG.replace(**_build.NUMEROLOGIES[name])
-    n, cyc, D, pkt, L, nseg, nfft = GEOMETRY[name]
+    n, cyc, ntaps, D, pkt, L, nseg, nfft = GEOMETRY[name]
     assert _build.kernel_geometry(cfg) == (
-        f"SC_N_SAMP={n}", f"SC_CYC={cyc}", "SC_NTAPS=49", "SC_P=128",
+        f"SC_N_SAMP={n}", f"SC_CYC={cyc}", f"SC_NTAPS={ntaps}", "SC_P=128",
         f"SC_NSEG={nseg}", f"SC_D={D}", f"SC_L={L}", f"SC_NFFT={nfft}",
         f"SC_PKT={pkt}")
     _build.kernel_limits(cfg)
 
 
+NFFT_LIMIT = "cfo_nfft a multiple of 32 from 64 to 4096"
+
+
 @pytest.mark.parametrize("kw,limit", [
     ({"preamble_length": 64}, "preamble_length == 128"),
-    ({"corr_segments": 32}, "corr_segments in (4, 8, 16)"),
-    ({"ntaps": 41}, "ntaps == 49"),
+    ({"corr_segments": 32}, "corr_segments in (1, 2, 4, 8, 16)"),
+    ({"ntaps": 51}, "9 <= ntaps <= 49"),
+    ({"ntaps": 7}, "9 <= ntaps <= 49"),
     ({"fs": 17600.0, "fine_timing_offset": 3}, "2 <= cycles <= 10"),
     ({"ns": 17}, "symbols_per_block <= 624"),
     ({"eq_length": 17}, "1 <= eq_length <= 16"),
-    ({"cfo_nfft": 2048}, "cfo_nfft in (256, 512, 1024)"),
-], ids=["preamble", "segments", "ntaps", "cycles", "symbols", "eq_length",
-        "nfft"])
+    ({"cfo_nfft": 8192}, NFFT_LIMIT),
+    ({"cfo_nfft": 32}, NFFT_LIMIT),
+    ({"cfo_nfft": 1000}, NFFT_LIMIT),
+], ids=["preamble", "segments", "ntaps", "ntaps_short", "cycles", "symbols",
+        "eq_length", "nfft", "nfft_short", "nfft_ragged"])
 def test_a_config_outside_the_limits_is_refused_by_name(kw, limit):
     cfg = TCFG.replace(**kw)
     for fn in (_build.kernel_limits, _build.kernel_geometry):

@@ -18,7 +18,10 @@ and at two wide numerologies the two parted on the card:
   * ``ns16`` and ``wide_corner``: eq_error of the same packet differs
     between the two paths by up to 2.5e-3 (ns16) on the card.  On a CPU
     draw of the same stream the worst packet's difference is the JAX
-    package's own Pallas-vs-XLA difference, to 1e-5.
+    package's own Pallas-vs-XLA difference, to 1e-5; so at ``nfft4096``.
+  * ``taps25``: two neighbouring decimation phases all but tie.  The JAX
+    package's two paths part on the same blocks, within what
+    ``tools/parity.JAX_PARTS`` allows.
 """
 
 import dataclasses
@@ -97,7 +100,7 @@ def test_the_eq16_noise_flip_is_the_jax_packages():
                           out["jax xla"]["valid"][keep])
 
 
-@pytest.mark.parametrize("name", ["ns16", "wide_corner"])
+@pytest.mark.parametrize("name", ["ns16", "wide_corner", "nfft4096"])
 def test_the_eq_error_gap_is_the_jax_packages(name):
     """The packet whose eq_error differs most between the port's kernel
     path (plain versions) and its XLA path, on a CPU draw of the parity
@@ -118,3 +121,44 @@ def test_the_eq_error_gap_is_the_jax_packages(name):
                   - out["jax xla"]["eq_error"][b])
     assert gap[b, c] > 1e-3
     assert abs(gap[b, c] - jax_gap) < 1e-5
+
+
+def _ties(o_p, o_x):
+    """[.., B] bool: the blocks valid in both paths' outputs whose timing
+    (lag and phase) parts."""
+    both = o_p["valid"] & o_x["valid"]
+    return both & ((o_p["timing_phase"] != o_x["timing_phase"])
+                   | (o_p["lag"] != o_x["lag"]))
+
+
+def test_where_the_paths_part_the_jax_packages_part():
+    """At taps25 two neighbouring decimation phases all but tie (two
+    phases, or the last phase of a lag and the first of the next).  On a
+    CPU draw of the parity stream, on the first channel where the port's
+    kernel path (plain versions) and its XLA path part so, the JAX
+    package's Pallas and XLA paths part on the same blocks, the port
+    equals JAX path by path, and every parting lies where
+    ``tools/parity.JAX_PARTS`` lets it: a timing (lag x cycles + phase)
+    one sample apart."""
+    assert parity.JAX_PARTS["taps25"].phase_ties
+    _, tcfg = _configs("taps25")
+    bits, _ = parity.payload(tcfg, 32, parity.PARITY_PACKETS, SEED, "cpu")
+    frames = parity.stream(tcfg, bits, SEED + 1, "cpu").numpy()
+    C = frames.shape[1]
+    _, tp = prod_rx_batch(tcfg, prod_rx_init_planes(tcfg, C, "cpu"),
+                          torch.from_numpy(frames), fuse_frontend=True)
+    _, tx = prod_rx_stream(tcfg, prod_rx_init(tcfg, (C,), "cpu"),
+                           torch.from_numpy(frames))
+    port = _ties(*({f: getattr(o, f).numpy().T for f in o._fields}
+                   for o in (tp, tx)))
+    c = int(np.flatnonzero(port.any(1))[0])
+    out = _four_paths("taps25", frames[:, c:c + 1].copy())
+    _same_decisions(out["port pallas"], out["jax pallas"])
+    _same_decisions(out["port xla"], out["jax xla"])
+    jax = _ties(out["jax pallas"], out["jax xla"])
+    assert jax.any() and np.array_equal(jax, port[c])
+    a, x = out["jax pallas"], out["jax xla"]
+    for b in np.flatnonzero(jax):
+        pos = [int(o["lag"][b]) * tcfg.cycles + int(o["timing_phase"][b])
+               for o in (a, x)]
+        assert abs(pos[0] - pos[1]) == 1
