@@ -80,12 +80,12 @@ static_assert(NSEG == 1 || NSEG == 2 || NSEG == 4 || NSEG == 8 || NSEG == 16,
 static_assert(NTAPS % 2 == 1 && NTAPS >= 9 && NTAPS <= 49,
               "ntaps odd, 9 to 49");
 static_assert(CYC >= 2 && CYC <= 10, "cycles 2 to 10");
-static_assert(N_SAMP <= 6240 && N_SYM >= P && N_SYM <= 624,
-              "frame_size at most 6240, P <= symbols_per_block <= 624");
-static_assert(D >= 1 && D <= 496, "frame_symbols at most 496");
-static_assert(L >= 1 && L <= 16, "eq_length 1 to 16");
-static_assert(PKT >= P + D + L - 1 && PKT % 8 == 0 && PKT <= 640,
-              "pkt_window covers the packet, at most 640");
+static_assert(N_SAMP <= 16160 && N_SYM >= P && N_SYM <= 1616,
+              "frame_size at most 16160, P <= symbols_per_block <= 1616");
+static_assert(D >= 1 && D <= 1488, "frame_symbols at most 1488");
+static_assert(L >= 1 && L <= 32, "eq_length 1 to 32");
+static_assert(PKT >= P + D + L - 1 && PKT % 8 == 0 && PKT <= 1648,
+              "pkt_window covers the packet, at most 1648");
 static_assert(NFFT % 32 == 0 && NFFT >= 64 && NFFT <= 4096,
               "cfo_nfft a multiple of 32 from 64 to 4096");
 

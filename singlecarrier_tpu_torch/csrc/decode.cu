@@ -48,9 +48,10 @@
 // planes into registers, then the row zeroed except gated (D+3), energy
 // (D+4) and the hunt's slots.  It takes no table and runs no decode.
 //
-// A block owns DEC_ROWS rows, a warp each: the 384-symbol packet planes
-// sit in shared memory, per-symbol decode arrays in registers (symbol
-// t = lane + 32 j), and every reduction is a butterfly whose result all
+// A block owns DEC_ROWS rows (8; 4 where 8 would not fit), a warp each:
+// the 384-symbol packet planes sit in shared memory, per-symbol decode
+// arrays in registers (symbol t = lane + 32 j; past 16 symbols a lane or
+// 16 taps in local memory), and every reduction is a butterfly whose result all
 // lanes hold bit-equal, so the small solves run redundantly on every lane
 // with no broadcast.
 //
@@ -59,7 +60,7 @@
 // holds) is walked in tiles of KC rows of k and the GB bins of a group
 // (every bin in one group up to 512 bins, two groups at 1024, eight
 // of 512 at 4096 bins; a ragged last group where 256 or 512 does not
-// divide NFFT), copied
+// divide NFFT; groups of half as many bins in a block of 4 rows), copied
 // into shared memory with cp.async, double-buffered, and each tile
 // element is read from shared memory once for all the rows of the block.
 // A thread keeps the four running sums of BPT bins x DEC_ROWS rows in
@@ -88,12 +89,16 @@ using namespace sc;
 
 namespace {
 
-constexpr int DEC_ROWS = 8;                // rows (warps) per block
-constexpr int DEC_THREADS = DEC_ROWS * 32;
 constexpr int GATE_WARPS = 4;              // rows per block of the gate stage
 // symbols per lane: the data symbols, and at least the P chips the
 // train fit runs over
 constexpr int MAXJ = imax((D + 31) / 32, P / 32);
+// The loops over a lane's symbols (t = lane + 32 j) unroll whole up to
+// 16 symbols a lane (496 data symbols) and 16 taps.  Past that their
+// arrays would not fit the registers anyway, and unrolled copies (47 of
+// them, or 8 of a 32-tap inner loop) only lengthen the build: there they
+// loop, their arrays in local memory.
+constexpr int UJ = MAXJ <= 16 && L <= 16 ? MAXJ : 1;
 constexpr int MSK_LEN = roundup(D, 4);     // the packets stay 16 B aligned
 constexpr int BINS = NFFT / 32;            // DFT bins per lane (argmax)
 // The DFT's bins go in groups of GB, BPT a thread: a group walks the
@@ -102,16 +107,31 @@ constexpr int BINS = NFFT / 32;            // DFT bins per lane (argmax)
 // does not divide NFFT the last group is ragged: its threads past the
 // last bin sum what the tile holds there and keep nothing.
 constexpr int BPT = NFFT < 512 ? 1 : 2;
+// Past 1024 bins the powers of the block's rows (128 KB at 4096 and 8
+// rows) would not fit the table tiles, nor the registers: each group
+// writes its powers to a region of their own (after the LS warps), and a
+// tile holds 2 rows of k, not 4.
+constexpr bool PW_SEPARATE = NFFT > 1024;
+constexpr int KC = PW_SEPARATE ? 2 : 4;    // table rows of k per tile
+constexpr bool LS_SMEM = L > 7;            // the LS solve in shared memory
+// The block's dynamic shared bytes at `rows` rows (warps): BlockSmem's
+// constants, packets, operand table and tiles, then the LS warps and the
+// separate powers (the layout below; static_assert'ed against it).
+constexpr unsigned dec_smem_at(int rows) {
+  return 4u * (P + MSK_LEN + rows * 2 * PKT) + 8u * P * rows +
+         16u * KC * rows * 32 * BPT +
+         (LS_SMEM ? rows * 4u * (2 * L * L + 2 * L) : 0u) +
+         (PW_SEPARATE ? rows * 4u * NFFT : 0u);
+}
+// A block owns 8 rows, or 4 where 8 rows' packets, LS warps and
+// separate powers would pass the 227 KB a block may hold (long packets
+// past 1024 bins): each (row, bin) and each row's decode keeps its
+// arithmetic, only the table is read once for 4 rows and not 8.
+constexpr int DEC_ROWS = dec_smem_at(8) <= 232448 ? 8 : 4;
+constexpr int DEC_THREADS = DEC_ROWS * 32;
 constexpr int GB = DEC_THREADS * BPT;      // bins of a group
 constexpr int GROUPS = (NFFT + GB - 1) / GB;
 constexpr bool GROUPS_RAGGED = NFFT % GB != 0;
-// Past 1024 bins the powers of the block's rows (128 KB at 4096) would
-// not fit the table tiles, nor the registers: each group writes its
-// powers to a region of their own (after the LS warps), and a tile holds
-// 2 rows of k, not 4, so that the block still fits 227 KB with the
-// largest packet and the 16-tap solve.
-constexpr bool PW_SEPARATE = NFFT > 1024;
-constexpr int KC = PW_SEPARATE ? 2 : 4;    // table rows of k per tile
 constexpr int NCHUNK = P / KC;
 constexpr int TILE_F = KC * GB;            // floats of one plane's tile
 constexpr int N_STAGES = 8;                // stage clocks
@@ -152,6 +172,19 @@ struct StageClock {
   __device__ __forceinline__ void stamp(int) {}
 #endif
 };
+
+// Past 16 taps the LS solve and fits, and the decode around them, are
+// compiled once each (a knob set) and called, not inlined into each of the
+// 24 entry points (3 kernels x 8 knob sets): inlined, their unrolled L x L
+// loops took a library's build to ten minutes at 32 taps.  Up to 16 taps
+// they inline as before.
+#if SC_L > 16
+#define SC_LS_CALL __noinline__
+#define SC_DECODE_CALL __noinline__
+#else
+#define SC_LS_CALL
+#define SC_DECODE_CALL __forceinline__
+#endif
 
 struct Params {
   int refit_sym, refit_iters, refine_iters;
@@ -246,7 +279,7 @@ __device__ void fit(const float* wr, const float* wi, int count,
 #pragma unroll
     for (int e = 0; e < GRAM_N; ++e) gd_r[e] = gd_i[e] = 0.f;
   }
-#pragma unroll
+#pragma unroll (UJ)
   for (int j = 0; j < MAXJ; ++j) {
     const int u = lane + 32 * j;
     if (u < count) {
@@ -373,7 +406,7 @@ __device__ float matches_of(const float* wr, const float* wi, const Coef& c,
 __device__ __forceinline__ void apply(const float* wr, const float* wi,
                                       const Coef& c, int count, int lane,
                                       float (&ar)[MAXJ], float (&ai)[MAXJ]) {
-#pragma unroll
+#pragma unroll (UJ)
   for (int j = 0; j < MAXJ; ++j) {
     const int t = lane + 32 * j;
     float r = 0.f, m = 0.f;
@@ -413,14 +446,14 @@ __device__ float derr(const float (&xr)[MAXJ], const float (&xi)[MAXJ],
                       float (&dib)[MAXJ], float (&hr)[MAXJ],
                       float (&hh)[MAXJ], int lane) {
   float mg = 0.f;
-#pragma unroll
+#pragma unroll (UJ)
   for (int j = 0; j < MAXJ; ++j) {
     slice_hard(xr[j], xi[j], dib[j], hr[j], hh[j]);
     if (lane + 32 * j < D) mg = mg + sqrtf(xr[j] * xr[j] + xi[j] * xi[j]);
   }
   mg = warp_sum(mg) / (float)D + 1e-9f;
   float e = 0.f;
-#pragma unroll
+#pragma unroll (UJ)
   for (int j = 0; j < MAXJ; ++j) {
     if (lane + 32 * j < D) {
       const float er = xr[j] / mg - hr[j];
@@ -456,7 +489,7 @@ struct BlockSmem {
 static_assert(sizeof(float) * (P + MSK_LEN) % 16 == 0, "pkt stays aligned");
 static_assert(PW_SEPARATE || 2 * 2 * TILE_F >= DEC_ROWS * NFFT,
               "the power fits the tiles");
-static_assert(L <= 16, "the matmul b-vector takes a lane a sum, 2 L of 32");
+static_assert(L <= 32, "solve_chol_smem gives lane i row i of the factor");
 
 // ---- the LS solve above 7 taps, in shared memory ----
 //
@@ -469,7 +502,6 @@ static_assert(L <= 16, "the matmul b-vector takes a lane a sum, 2 L of 32");
 // column at a time, lane i forming row i's entry in solve_chol's order.
 // So every element has the bits fit and solve_chol give it, and up to 7
 // taps they run as they are.
-constexpr bool LS_SMEM = L > 7;
 
 struct LsWarp {
   float ar[L][L], ai[L][L];   // the Gram's lower triangle, then its factor
@@ -482,7 +514,8 @@ constexpr unsigned PW_OFFSET =
     sizeof(BlockSmem) + (LS_SMEM ? DEC_ROWS * sizeof(LsWarp) : 0);
 constexpr unsigned DEC_SMEM =
     PW_OFFSET + (PW_SEPARATE ? DEC_ROWS * NFFT * sizeof(float) : 0);
-static_assert(DEC_SMEM <= 232448, "a block's 227 KB of shared memory");
+static_assert(DEC_SMEM == dec_smem_at(DEC_ROWS) && DEC_SMEM <= 232448,
+              "a block's 227 KB of shared memory");
 
 // the DFT powers of the block's rows, [DEC_ROWS][NFFT]: in the table
 // tiles once they are done, or past 1024 bins in their own region
@@ -503,7 +536,7 @@ __device__ __forceinline__ LsWarp& ls_warp() {
 
 // solve_chol on the warp's ls: the factor over the Gram's lower triangle
 // in place, then both substitutions on every lane, into x.
-__device__ void solve_chol_smem(LsWarp& ls, int lane, Coef& x) {
+__device__ SC_LS_CALL void solve_chol_smem(LsWarp& ls, int lane, Coef& x) {
 #pragma unroll 1
   for (int j = 0; j < L; ++j) {
     float s = ls.ar[j][j];
@@ -558,10 +591,12 @@ __device__ void solve_chol_smem(LsWarp& ls, int lane, Coef& x) {
 
 // fit with the Gram, the b-vector and the solve in the warp's ls.
 template <bool REAL, bool DIRECT, bool BVMAT>
-__device__ void fit_smem(const float* wr, const float* wi, int count,
-                         const float* pns, const float (&tr_)[MAXJ],
-                         const float (&ti_)[MAXJ], float reg, float offtap,
-                         int lane, LsWarp& ls, Coef& out) {
+__device__ SC_LS_CALL void fit_smem(const float* wr, const float* wi,
+                                    int count, const float* pns,
+                                    const float (&tr_)[MAXJ],
+                                    const float (&ti_)[MAXJ], float reg,
+                                    float offtap, int lane, LsWarp& ls,
+                                    Coef& out) {
   static_assert(REAL || !BVMAT, "the matmul b-vector is the train fit's");
   if constexpr (DIRECT) {
 #pragma unroll 1
@@ -569,7 +604,7 @@ __device__ void fit_smem(const float* wr, const float* wi, int count,
 #pragma unroll 1
       for (int k = 0; k <= i; ++k) {
         float gr = 0.f, gi = 0.f;
-#pragma unroll
+#pragma unroll (UJ)
         for (int j = 0; j < MAXJ; ++j) {
           const int u = lane + 32 * j;
           if (u < count) {
@@ -592,7 +627,7 @@ __device__ void fit_smem(const float* wr, const float* wi, int count,
 #pragma unroll 1
     for (int d = 0; d < L; ++d) {
       float gr = 0.f, gi = 0.f;
-#pragma unroll
+#pragma unroll (UJ)
       for (int j = 0; j < MAXJ; ++j) {
         const int u = lane + 32 * j;
         if (u < count) {
@@ -624,19 +659,25 @@ __device__ void fit_smem(const float* wr, const float* wi, int count,
     }
   }
   if constexpr (BVMAT) {
-    float acc = 0.f;
-    if (lane < 2 * L) {
-      const int i = lane < L ? lane : lane - L;
-      const float* w = lane < L ? wr : wi;
-      const float sgn = lane < L ? 1.f : -1.f;
-      for (int k = 0; k < P; ++k) acc = acc + (sgn * w[i + k]) * pns[k];
-      (lane < L ? ls.br[i] : ls.bi[i]) = acc;
+    // sum s = lane + 32 h of the 2 L (b_r[s], or past L b_i[s - L]): a
+    // lane forms one up to 16 taps, two past
+#pragma unroll
+    for (int h = 0; h < (2 * L + 31) / 32; ++h) {
+      const int s = lane + 32 * h;
+      float acc = 0.f;
+      if (s < 2 * L) {
+        const int i = s < L ? s : s - L;
+        const float* w = s < L ? wr : wi;
+        const float sgn = s < L ? 1.f : -1.f;
+        for (int k = 0; k < P; ++k) acc = acc + (sgn * w[i + k]) * pns[k];
+        (s < L ? ls.br[i] : ls.bi[i]) = acc;
+      }
     }
   } else {
 #pragma unroll 1
     for (int i = 0; i < L; ++i) {
       float br = 0.f, bi = 0.f;
-#pragma unroll
+#pragma unroll (UJ)
       for (int j = 0; j < MAXJ; ++j) {
         const int u = lane + 32 * j;
         if (u < count) {
@@ -797,7 +838,7 @@ __device__ __forceinline__ void cfo_dft_block(
 // PKT f32 each in shared memory, first chip at OFF; pwf: the row's NFFT
 // DFT powers).  Writes slots 0..D+4 of the output row o.
 template <int KNOBS>
-__device__ __forceinline__ void decode_packet(
+__device__ SC_DECODE_CALL void decode_packet(
     float* pr, float* pi, const float* pwf, const float* pns,
     const float* msk, float peak, const Params& prm, int lane, float* o,
     StageClock& clk) {
@@ -876,7 +917,7 @@ __device__ __forceinline__ void decode_packet(
   for (int it = 0; it < prm.refit_iters; ++it) {
     apply(dr, di, cf, R, lane, ar, ai);
     float mr = 0.f, mh = 0.f;
-#pragma unroll
+#pragma unroll (UJ)
     for (int j = 0; j < MAXJ; ++j) {
       slice_hard(ar[j], ai[j], dib[j], hr[j], hh[j]);
       if (lane + 32 * j < R) {
@@ -887,7 +928,7 @@ __device__ __forceinline__ void decode_packet(
     const float mag_raw = warp_sum(mr) / (float)R;
     const float mag_h = warp_sum(mh) / (float)R + 1e-12f;
     const float scale = mag_raw / mag_h;
-#pragma unroll
+#pragma unroll (UJ)
     for (int j = 0; j < MAXJ; ++j) {
       hr[j] = hr[j] * scale;
       hh[j] = hh[j] * scale;
@@ -919,13 +960,13 @@ __device__ __forceinline__ void decode_packet(
   if (prm.refine_iters) cur_err = derr(ar, ai, dib, hr, hh, lane);
   for (int it = 0; it < prm.refine_iters; ++it) {
     float zr[MAXJ], zi[MAXJ];
-#pragma unroll
+#pragma unroll (UJ)
     for (int j = 0; j < MAXJ; ++j) {
       zr[j] = ar[j] * hr[j] + ai[j] * hh[j];
       zi[j] = ai[j] * hr[j] - ar[j] * hh[j];
     }
     float incr = 0.f, inci = 0.f;
-#pragma unroll
+#pragma unroll (UJ)
     for (int j = 0; j < MAXJ; ++j) {
       // symbol t - 1 of t = lane + 32 j: lane - 1, or lane 31 of j - 1
       const float up_r = __shfl_up_sync(FULL, zr[j], 1);
@@ -944,7 +985,7 @@ __device__ __forceinline__ void decode_packet(
     const float b = fminf(fmaxf(inci / (fabsf(incr) + 1e-20f), -b_max),
                           b_max);
     float z0r = 0.f, z0i = 0.f;
-#pragma unroll
+#pragma unroll (UJ)
     for (int j = 0; j < MAXJ; ++j) {
       const int t = lane + 32 * j;
       float dc, dsn;
@@ -958,7 +999,7 @@ __device__ __forceinline__ void decode_packet(
     z0i = warp_sum(z0i);
     const float a = fminf(fmaxf(z0i / (fabsf(z0r) + 1e-20f), -a_max), a_max);
     float ar2[MAXJ], ai2[MAXJ], dib2[MAXJ], hr2[MAXJ], hh2[MAXJ];
-#pragma unroll
+#pragma unroll (UJ)
     for (int j = 0; j < MAXJ; ++j) {
       float c2, s2;
       cossin_small(-a - b * (float)(lane + 32 * j), c2, s2);
@@ -968,7 +1009,7 @@ __device__ __forceinline__ void decode_packet(
     const float new_err = derr(ar2, ai2, dib2, hr2, hh2, lane);
     const float keep = new_err <= cur_err ? 1.f : 0.f;
     cur_err = keep * new_err + (1.f - keep) * cur_err;
-#pragma unroll
+#pragma unroll (UJ)
     for (int j = 0; j < MAXJ; ++j) {
       ar[j] = keep * ar2[j] + (1.f - keep) * ar[j];
       ai[j] = keep * ai2[j] + (1.f - keep) * ai[j];
@@ -982,14 +1023,14 @@ __device__ __forceinline__ void decode_packet(
     eq_err = cur_err * (float)(1.0 / D);
   } else {
     float mg = 0.f;
-#pragma unroll
+#pragma unroll (UJ)
     for (int j = 0; j < MAXJ; ++j) {
       slice_hard(ar[j], ai[j], dib[j], hr[j], hh[j]);
       if (lane + 32 * j < D) mg = mg + sqrtf(ar[j] * ar[j] + ai[j] * ai[j]);
     }
     mg = warp_sum(mg) / (float)D + 1e-9f;
     float s = 0.f;
-#pragma unroll
+#pragma unroll (UJ)
     for (int j = 0; j < MAXJ; ++j) {
       if (lane + 32 * j < D) {
         const float er = ar[j] / mg - hr[j], ei = ai[j] / mg - hh[j];
@@ -1002,7 +1043,7 @@ __device__ __forceinline__ void decode_packet(
   clk.stamp(6);
 
   // ---- descramble (XOR of {0..3} dibits) + packed output row ----
-#pragma unroll
+#pragma unroll (UJ)
   for (int j = 0; j < MAXJ; ++j) {
     const int t = lane + 32 * j;
     if (t < D) {

@@ -150,8 +150,12 @@ constexpr int WIN_LEN = WIN_T + HALO;
 constexpr int WIN_VEC = 4;                            // floats a shared load
 constexpr int WIN_TASKS_PLANE = (N_SYM + WIN_SYMS - 1) / WIN_SYMS;
 constexpr int WIN_TASKS = 2 * WIN_TASKS_PLANE;       // of one row
-// a thread a task (at least 96: symbols_per_block is at least P + 1)
-constexpr int WIN_THREADS = (WIN_TASKS + 31) / 32 * 32;
+// a thread a task (at least 96: symbols_per_block is at least P + 1), or
+// where that would pass the 1024 threads a block may hold (2-symbol
+// tasks past 1024 symbols) WIN_REP a thread: tasks tid + WIN_THREADS r
+constexpr int WIN_REP = (WIN_TASKS + 1023) / 1024;
+constexpr int WIN_THREADS =
+    ((WIN_TASKS + WIN_REP - 1) / WIN_REP + 31) / 32 * 32;
 // blocks an SM (__launch_bounds__, persistent_grid): six at the reference
 // (56 registers a thread, no spills) and wherever the geometry lies in
 // cycles <= 5 and 376 symbols; past that as many as the register file
@@ -423,18 +427,23 @@ __device__ __forceinline__ void store_task(OutT* __restrict__ out,
 }
 
 // The premix sums of the row in sm.u, a task (plane p, symbols 4j ..
-// 4j + 3) a thread, fused where the operands are bf16 values (ROUND).
+// 4j + 3) a thread (WIN_REP), fused where the operands are bf16 values
+// (ROUND).
 template <typename OutT, bool ROW_MAJOR, bool ROUND>
 __device__ __forceinline__ void window_sums(const PremixSmem& sm,
                                             OutT* __restrict__ out,
                                             long long N, long long row,
                                             int tid) {
-  if (tid >= WIN_TASKS) return;
-  const int p = tid / WIN_TASKS_PLANE;
-  const int j = tid - p * WIN_TASKS_PLANE;
-  float acc[WIN_T];
-  tap_sums<ROUND>(sm.w, &sm.u[p][WIN_T * j], acc);
-  store_task<OutT, ROW_MAJOR>(out, acc, p, j, N, row);
+#pragma unroll
+  for (int r = 0; r < WIN_REP; ++r) {
+    const int task = tid + WIN_THREADS * r;
+    if (task >= WIN_TASKS) return;
+    const int p = task / WIN_TASKS_PLANE;
+    const int j = task - p * WIN_TASKS_PLANE;
+    float acc[WIN_T];
+    tap_sums<ROUND>(sm.w, &sm.u[p][WIN_T * j], acc);
+    store_task<OutT, ROW_MAJOR>(out, acc, p, j, N, row);
+  }
 }
 
 // Both kernels are persistent: block i takes rows i, i + gridDim.x, ..
@@ -623,40 +632,48 @@ __device__ __forceinline__ float unrotate(float t_r, float t_i, float pr,
 // mr A - mi B, the odd lane yi = mr B + mi A, each product and sum
 // rounded on its own as the plain version rounds them (written as
 // mr own + (-/+ mi) other: a - b is a + (-b) in IEEE arithmetic).  Each
-// lane then stores its phase planes (p = q).
+// lane then stores its phase planes (p = q).  Thread tid takes tasks
+// tid + WIN_THREADS r, r < WIN_REP, every lane of the warp in every
+// ballot; WIN_THREADS is whole warps, so a pair stays lanes 2j, 2j + 1.
 template <typename OutT, bool ROW_MAJOR, bool ROUND>
 __device__ __forceinline__ void folded_window_sums(
     const FoldSmem& sm, const float* __restrict__ tab, bool vec, float pr,
     float pi, OutT* __restrict__ out, long long N, long long row, int tid) {
-  const unsigned pairs = __ballot_sync(0xffffffffu, tid < WIN_TASKS);
-  if (tid >= WIN_TASKS) return;
-  const int j = tid >> 1, q = tid & 1;
-  float acc[WIN_T];
-  tap_sums<ROUND>(sm.w[q], &sm.u[WIN_T * j], acc);
-  const float* ta = tab + WIN_T * j;
 #pragma unroll
-  for (int i0 = 0; i0 < WIN_T; i0 += 4) {
-    float tr[4], ti[4];
-    if (vec && TAB_VEC && (TASKS_WHOLE || WIN_T * j + i0 + 4 <= N_SAMP)) {
-      load4(ta + i0, tr);
-      load4(ta + N_SAMP + i0, ti);
-    } else {                 // past the block: outputs that are not stored
+  for (int r = 0; r < WIN_REP; ++r) {
+    const int task = tid + WIN_THREADS * r;
+    const unsigned pairs = __ballot_sync(0xffffffffu, task < WIN_TASKS);
+    if (task < WIN_TASKS) {
+      const int j = task >> 1, q = task & 1;
+      float acc[WIN_T];
+      tap_sums<ROUND>(sm.w[q], &sm.u[WIN_T * j], acc);
+      const float* ta = tab + WIN_T * j;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool in = TASKS_WHOLE || WIN_T * j + i0 + e < N_SAMP;
-        tr[e] = in ? ta[i0 + e] : 0.f;
-        ti[e] = in ? ta[N_SAMP + i0 + e] : 0.f;
+      for (int i0 = 0; i0 < WIN_T; i0 += 4) {
+        float tr[4], ti[4];
+        if (vec && TAB_VEC &&
+            (TASKS_WHOLE || WIN_T * j + i0 + 4 <= N_SAMP)) {
+          load4(ta + i0, tr);
+          load4(ta + N_SAMP + i0, ti);
+        } else {         // past the block: outputs that are not stored
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool in = TASKS_WHOLE || WIN_T * j + i0 + e < N_SAMP;
+            tr[e] = in ? ta[i0 + e] : 0.f;
+            ti[e] = in ? ta[N_SAMP + i0 + e] : 0.f;
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float other = __shfl_xor_sync(pairs, acc[i0 + e], 1);
+          const float mr = pr * tr[e] - pi * ti[e];
+          const float mi = pr * ti[e] + pi * tr[e];
+          acc[i0 + e] = mr * acc[i0 + e] + (q ? mi : -mi) * other;
+        }
       }
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float other = __shfl_xor_sync(pairs, acc[i0 + e], 1);
-      const float mr = pr * tr[e] - pi * ti[e];
-      const float mi = pr * ti[e] + pi * tr[e];
-      acc[i0 + e] = mr * acc[i0 + e] + (q ? mi : -mi) * other;
+      store_task<OutT, ROW_MAJOR>(out, acc, q, j, N, row);
     }
   }
-  store_task<OutT, ROW_MAJOR>(out, acc, q, j, N, row);
 }
 
 // Both kernels are persistent, as the premix pair: the next row's
@@ -798,7 +815,11 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
 //     (plain stores took the row-major f32 planes of frontend_rows twice
 //     the time).  Five float4 stores straight from the registers, 80
 //     bytes apart across a warp, doubled the staging-and-stores time of
-//     kernel_ab --stages and cost the whole kernel some 2%.
+//     kernel_ab --stages and cost the whole kernel some 2%.  Where the
+//     row buffer and the operands would pass the 227 KB a block may hold
+//     (FULL_ROW_BUFFER false: about 12,900 samples a block and more, 8
+//     cycles at 1616 symbols) a task stores its outputs straight from
+//     the registers, a value a store.
 //   * Six blocks an SM: 53 registers a thread and 34,944 bytes of shared
 //     memory a block (ptxas -v), under the 56 and the 227 KB / 6 that
 //     allows; no spill.
@@ -806,26 +827,42 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
 // What a full-rate block keeps in shared memory: the premix pair's
 // operands, and the row's outputs on their way to device memory.
 constexpr int Y_PLANE = WIN_T * WIN_TASKS_PLANE;   // N_SAMP, or past it
+constexpr bool FULL_ROW_BUFFER =
+    sizeof(PremixSmem) + 2 * Y_PLANE * sizeof(float) <= 232448;
 struct __align__(16) FullSmem {
   PremixSmem in;
-  float y[2 * Y_PLANE];     // [p][t] of the row in work
+  float y[FULL_ROW_BUFFER ? 2 * Y_PLANE : 4];   // [p][t] of the row in work
 };
 
 // The sums of the row in sm.in.u, a task (plane p, outputs WIN_T j ..
-// WIN_T j + WIN_T - 1) a thread, into sm.y: task tid's outputs are
-// floats WIN_T tid .. of the row, 20 floats apart a thread, so the
-// float4 writes of a quarter warp take every bank once.
-__device__ __forceinline__ void full_window_sums(FullSmem& sm, int tid) {
-  if (tid >= WIN_TASKS) return;
-  const int p = tid / WIN_TASKS_PLANE;
-  const int j = tid - p * WIN_TASKS_PLANE;
-  float acc[WIN_T];
-  tap_sums<false>(sm.in.w, &sm.in.u[p][WIN_T * j], acc);
-  float* y = sm.y + WIN_T * tid;
+// WIN_T j + WIN_T - 1) a thread (WIN_REP), into sm.y: task tid's outputs
+// are floats WIN_T tid .. of the row, 20 floats apart a thread, so the
+// float4 writes of a quarter warp take every bank once.  Without the row
+// buffer, into row `row` of out (those of the row's N_SAMP outputs).
+__device__ __forceinline__ void full_window_sums(FullSmem& sm, int tid,
+                                                 float* __restrict__ out,
+                                                 long long row) {
 #pragma unroll
-  for (int i = 0; i < WIN_T; i += 4)
-    *reinterpret_cast<float4*>(y + i) =
-        make_float4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]);
+  for (int r = 0; r < WIN_REP; ++r) {
+    const int task = tid + WIN_THREADS * r;
+    if (task >= WIN_TASKS) return;
+    const int p = task / WIN_TASKS_PLANE;
+    const int j = task - p * WIN_TASKS_PLANE;
+    float acc[WIN_T];
+    tap_sums<false>(sm.in.w, &sm.in.u[p][WIN_T * j], acc);
+    if constexpr (FULL_ROW_BUFFER) {
+      float* y = sm.y + WIN_T * task;
+#pragma unroll
+      for (int i = 0; i < WIN_T; i += 4)
+        *reinterpret_cast<float4*>(y + i) =
+            make_float4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]);
+    } else {
+      float* o = out + row * (2 * N_SAMP) + p * N_SAMP + WIN_T * j;
+#pragma unroll
+      for (int i = 0; i < WIN_T; ++i)
+        if (TASKS_WHOLE || WIN_T * j + i < N_SAMP) __stcg(o + i, acc[i]);
+    }
+  }
 }
 
 __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
@@ -864,18 +901,20 @@ __global__ void __launch_bounds__(WIN_THREADS, WIN_BLOCKS_SM)
     }
     __syncthreads();        // u is whole; the raw operands are used up
     if (row + gridDim.x < N) fetch_row(row + gridDim.x);
-    full_window_sums(sm, tid);
-    __syncthreads();        // y is whole
-    if constexpr (Y_PLANE == N_SAMP && N_SAMP % 2 == 0) {
-      float4* o = reinterpret_cast<float4*>(out + row * (2 * N_SAMP));
-      const float4* y = reinterpret_cast<const float4*>(sm.y);
-      for (int q = tid; q < 2 * N_SAMP / 4; q += WIN_THREADS)
-        __stcg(o + q, y[q]);
-    } else {                 // a ragged last task: planes Y_PLANE apart
-      float* o = out + row * (2 * N_SAMP);
-      for (int i = tid; i < 2 * N_SAMP; i += WIN_THREADS) {
-        const int p = i >= N_SAMP;
-        __stcg(o + i, sm.y[p * Y_PLANE + i - p * N_SAMP]);
+    full_window_sums(sm, tid, out, row);
+    if constexpr (FULL_ROW_BUFFER) {
+      __syncthreads();      // y is whole
+      if constexpr (Y_PLANE == N_SAMP && N_SAMP % 2 == 0) {
+        float4* o = reinterpret_cast<float4*>(out + row * (2 * N_SAMP));
+        const float4* y = reinterpret_cast<const float4*>(sm.y);
+        for (int q = tid; q < 2 * N_SAMP / 4; q += WIN_THREADS)
+          __stcg(o + q, y[q]);
+      } else {               // a ragged last task: planes Y_PLANE apart
+        float* o = out + row * (2 * N_SAMP);
+        for (int i = tid; i < 2 * N_SAMP; i += WIN_THREADS) {
+          const int p = i >= N_SAMP;
+          __stcg(o + i, sm.y[p * Y_PLANE + i - p * N_SAMP]);
+        }
       }
     }
   }

@@ -139,19 +139,24 @@ constexpr int XW = XN / 4;                 // words of an int8 plane
 constexpr int PREV_CHUNKS = N_SYM / CHUNK; // chunks of the prev block
 constexpr int EN_W = 16 * LAG_TILES;       // espan sums kept (lags padded)
 constexpr int NL = EN_W / 32 + 1;          // adjacent lags a lane sums
+// squares the espan pass reads: x's XN, or where the lane that holds lag
+// N_SYM - 1 reads past them for its lags past N_SYM - 1, which no
+// statistic uses (378-384, 631-640, 871-896, 1148-1152 and 1396-1408
+// symbols), up to its last read, the rest zeros
+constexpr int XS = imax(XN, (N_SYM - 1) / NL * NL + P + NL - 1);
 
 static_assert(NCH == 8 && SUB * NCH == NSEG * GRP && SUB <= 2 && GRP <= 8,
               "8 chunks; segments of 8 to 128 chips");
 // the highest word a lane's funnel shift reads: 4 (TILES - 1) + 3 + wbase
 static_assert(4 * (TILES - 1) + 7 < XW, "tiles stay in x");
 static_assert(N_SYM - 1 + P - 1 < XN, "espan sums stay in x");
-static_assert(32 * NL >= EN_W && EN_W >= N_SYM &&
-                  (N_SYM - 1) / NL * NL + P + NL - 1 <= XN,
+static_assert(32 * NL >= EN_W && EN_W >= N_SYM && EN_W <= XN &&
+                  (N_SYM - 1) / NL * NL + P + NL - 1 <= XS,
               "espan lanes");
 
 struct alignas(16) MmaWarpSmem {
   uint32_t x[CYC][2][XW];   // int8 operand planes, x[OFF + j] at byte j
-  float ssum[XN];           // phase-summed squares, then the espan sums
+  float ssum[XS];           // phase-summed squares, then the espan sums
 };
 // the block's four warps' (28,672 B at the reference; past 48 KB, so
 // dynamic, at 10 cycles or 624 symbols)
@@ -291,6 +296,8 @@ __device__ __forceinline__ bool window_energy(MmaWarpSmem& sm,
     dst[0] = make_float4(sq[h][0], sq[h][1], sq[h][2], sq[h][3]);
     dst[1] = make_float4(sq[h][4], sq[h][5], sq[h][6], sq[h][7]);
   }
+  if constexpr (XS > XN)
+    for (int i = XN + lane; i < XS; i += 32) sm.ssum[i] = 0.f;
   __syncwarp();
 
   float en[NL];
@@ -550,21 +557,27 @@ __global__ void __launch_bounds__(MMA_WARPS * 32) hunt_mma_kernel(
 
 // ---------------------------------------------------- bf16 / f32 operands
 
-// one thread per operand value, x[OFF + 0 .. N_SYM + P - 2]
-constexpr int TOE_THREADS = roundup(N_SYM + P - 1, 32);
+// the operand values x[OFF + 0 .. N_SYM + P - 2]: one a thread, or
+// where that would pass the 1024 threads a block may hold (past 897
+// symbols), TOE_REP a thread, value (and t and lag) tid + TOE_THREADS r
+constexpr int TOE_VALUES = N_SYM + P - 1;
+constexpr int TOE_REP = (TOE_VALUES + 1023) / 1024;
+constexpr int TOE_THREADS = roundup((TOE_VALUES + TOE_REP - 1) / TOE_REP, 32);
+constexpr int TOE_LEN = TOE_REP * TOE_THREADS;     // values held
 constexpr int TOE_WARPS = TOE_THREADS / 32;
 constexpr int T_ROWS = N_SYM + SEG * (NSEG - 1);   // values of t = l + SEG s
 constexpr int Q_STRIDE = roundup(N_SYM, 4) + 4;    // segment rows 16 B apart
 constexpr int TOE_SLICE = 16;    // values a thread holds of a longer segment
 
-static_assert(T_ROWS + SEG - 1 <= TOE_THREADS && TOE_THREADS <= 1024,
-              "a thread per t");
+static_assert(T_ROWS + SEG - 1 <= TOE_LEN && TOE_THREADS <= 1024,
+              "a thread per t, or TOE_REP");
 
 // the block's shared arrays as one layout (19,136 B at the reference;
-// past 48 KB only at 16 segments and more than about 600 symbols)
+// past 48 KB at 16 segments and more than about 600 symbols, and at 8
+// from about 1000)
 struct ToeSmem {
-  float xs[2][TOE_THREADS];        // the operand, x[OFF + j]
-  float ssum[TOE_THREADS];         // squares (summed over phases)
+  float xs[2][TOE_LEN];            // the operand, x[OFF + j]
+  float ssum[TOE_LEN];             // squares (summed over phases)
   __align__(16) float pns[P];
   float qs[NSEG][Q_STRIDE];        // re^2 + im^2 by (segment, lag)
   Best wbest[TOE_WARPS];
@@ -572,12 +585,12 @@ struct ToeSmem {
 };
 
 // x[OFF + j] of row n's window, phase c, plane p, for 0 <= j <
-// TOE_THREADS: the previous block's row, this block's, then zeros
+// TOE_LEN: the previous block's row, this block's, then zeros
 __device__ __forceinline__ float operand_at(const void* decim,
                                             const void* dprev0, int bf16,
                                             long long N, int C, long long n,
                                             int c, int p, int j) {
-  if constexpr (2 * N_SYM < TOE_THREADS)
+  if constexpr (2 * N_SYM < TOE_LEN)
     if (j >= 2 * N_SYM) return 0.f;
   const long long cp = c * 2 + p;
   if (j >= N_SYM) return load_plane(decim, (cp * N + n) * N_SYM + j - N_SYM,
@@ -595,10 +608,12 @@ __device__ __forceinline__ float hunt_operand(float w) {
 }
 
 // The body of hunt_toeplitz_kernel over the block's shared arrays.
+// Thread tid takes operand value, t and lag tid + TOE_THREADS r for each
+// r < TOE_REP (one of each up to 897 symbols).
 template <bool ROUND, int NORM>
 __device__ __forceinline__ void toeplitz_row(
-    float (&xs)[2][TOE_THREADS], float (&ssum)[TOE_THREADS],
-    float (&pns)[P], float (&qs)[NSEG][Q_STRIDE], Best (&wbest)[TOE_WARPS],
+    float (&xs)[2][TOE_LEN], float (&ssum)[TOE_LEN], float (&pns)[P],
+    float (&qs)[NSEG][Q_STRIDE], Best (&wbest)[TOE_WARPS],
     unsigned (&wnan)[TOE_WARPS], const void* __restrict__ decim,
     const void* __restrict__ dprev0, int in_bf16,
     const float* __restrict__ pn, int* __restrict__ lag_out,
@@ -608,120 +623,148 @@ __device__ __forceinline__ void toeplitz_row(
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   if (tid < P) pns[tid] = pn[tid];
-  float sq = 0.f;                          // ssum[tid], summed over phases
-
-  float pw[CYC], en[CYC];                  // en: energy only
-  float vr = operand_at(decim, dprev0, in_bf16, N, C, n, 0, 0, tid);
-  float vi = operand_at(decim, dprev0, in_bf16, N, C, n, 0, 1, tid);
+  float sq[TOE_REP];                       // ssum[j], summed over phases
+  float pw[TOE_REP][CYC], en[TOE_REP][CYC];   // en: energy only
+  float vr[TOE_REP], vi[TOE_REP];
+#pragma unroll
+  for (int r = 0; r < TOE_REP; ++r) {
+    const int j = tid + TOE_THREADS * r;
+    sq[r] = 0.f;
+    vr[r] = operand_at(decim, dprev0, in_bf16, N, C, n, 0, 0, j);
+    vi[r] = operand_at(decim, dprev0, in_bf16, N, C, n, 0, 1, j);
+  }
 #pragma unroll
   for (int c = 0; c < CYC; ++c) {
     __syncthreads();   // the previous phase's operand and sums fully read
-    if constexpr (NORM == NORM_ESPAN) sq = sq + (vr * vr + vi * vi);
-    if constexpr (NORM == NORM_ENERGY) ssum[tid] = vr * vr + vi * vi;
-    xs[0][tid] = hunt_operand<ROUND>(vr);
-    xs[1][tid] = hunt_operand<ROUND>(vi);
-    if (c + 1 < CYC) {   // the next phase's loads fly under this one's sums
-      vr = operand_at(decim, dprev0, in_bf16, N, C, n, c + 1, 0, tid);
-      vi = operand_at(decim, dprev0, in_bf16, N, C, n, c + 1, 1, tid);
+#pragma unroll
+    for (int r = 0; r < TOE_REP; ++r) {
+      const int j = tid + TOE_THREADS * r;
+      if constexpr (NORM == NORM_ESPAN)
+        sq[r] = sq[r] + (vr[r] * vr[r] + vi[r] * vi[r]);
+      if constexpr (NORM == NORM_ENERGY)
+        ssum[j] = vr[r] * vr[r] + vi[r] * vi[r];
+      xs[0][j] = hunt_operand<ROUND>(vr[r]);
+      xs[1][j] = hunt_operand<ROUND>(vi[r]);
+      if (c + 1 < CYC) { // the next phase's loads fly under this one's sums
+        vr[r] = operand_at(decim, dprev0, in_bf16, N, C, n, c + 1, 0, j);
+        vi[r] = operand_at(decim, dprev0, in_bf16, N, C, n, c + 1, 1, j);
+      }
     }
     __syncthreads();
-    if constexpr (SEG > 32) {
-      // segments of 64 or 128 chips: the SEG values walked in slices of
-      // TOE_SLICE (a register window of SEG would spill), each segment's
-      // sums still in ascending k
-      if (tid < T_ROWS) {
-        float re[NSEG], im[NSEG];
 #pragma unroll
-        for (int s = 0; s < NSEG; ++s) re[s] = im[s] = 0.f;
+    for (int r = 0; r < TOE_REP; ++r) {
+      const int t = tid + TOE_THREADS * r;
+      if constexpr (SEG > 32) {
+        // segments of 64 or 128 chips: the SEG values walked in slices of
+        // TOE_SLICE (a register window of SEG would spill), each
+        // segment's sums still in ascending k
+        if (t < T_ROWS) {
+          float re[NSEG], im[NSEG];
+#pragma unroll
+          for (int s = 0; s < NSEG; ++s) re[s] = im[s] = 0.f;
 #pragma unroll 1
-        for (int k0 = 0; k0 < SEG; k0 += TOE_SLICE) {
-          float xr[TOE_SLICE], xi[TOE_SLICE];
+          for (int k0 = 0; k0 < SEG; k0 += TOE_SLICE) {
+            float xr[TOE_SLICE], xi[TOE_SLICE];
 #pragma unroll
-          for (int k = 0; k < TOE_SLICE; ++k) {
-            xr[k] = xs[0][tid + k0 + k];
-            xi[k] = xs[1][tid + k0 + k];
-          }
+            for (int k = 0; k < TOE_SLICE; ++k) {
+              xr[k] = xs[0][t + k0 + k];
+              xi[k] = xs[1][t + k0 + k];
+            }
 #pragma unroll
-          for (int s = 0; s < NSEG; ++s) {
-            const float4* v4 =
-                reinterpret_cast<const float4*>(pns + s * SEG + k0);
+            for (int s = 0; s < NSEG; ++s) {
+              const float4* v4 =
+                  reinterpret_cast<const float4*>(pns + s * SEG + k0);
 #pragma unroll
-            for (int k4 = 0; k4 < TOE_SLICE / 4; ++k4) {
-              const float4 v = v4[k4];
-              const float vk[4] = {v.x, v.y, v.z, v.w};
+              for (int k4 = 0; k4 < TOE_SLICE / 4; ++k4) {
+                const float4 v = v4[k4];
+                const float vk[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                re[s] = re[s] + xr[4 * k4 + e] * vk[e];
-                im[s] = im[s] + xi[4 * k4 + e] * vk[e];
+                for (int e = 0; e < 4; ++e) {
+                  re[s] = re[s] + xr[4 * k4 + e] * vk[e];
+                  im[s] = im[s] + xi[4 * k4 + e] * vk[e];
+                }
               }
             }
           }
+#pragma unroll
+          for (int s = 0; s < NSEG; ++s) {
+            const int l = t - SEG * s;     // segment s of lag l is y[t][s]
+            if (l >= 0 && l < N_SYM) qs[s][l] = re[s] * re[s] + im[s] * im[s];
+          }
+        }
+      } else if (t < T_ROWS) {
+        // one pass over t serves the 8 segments from the same 16 values
+        float xr[SEG], xi[SEG];
+#pragma unroll
+        for (int k = 0; k < SEG; ++k) {
+          xr[k] = xs[0][t + k];
+          xi[k] = xs[1][t + k];
         }
 #pragma unroll
         for (int s = 0; s < NSEG; ++s) {
-          const int l = tid - SEG * s;     // segment s of lag l is y[t][s]
-          if (l >= 0 && l < N_SYM) qs[s][l] = re[s] * re[s] + im[s] * im[s];
-        }
-      }
-    } else if (tid < T_ROWS) {
-      // one pass over t serves the 8 segments from the same 16 values
-      float xr[SEG], xi[SEG];
+          const float4* v4 = reinterpret_cast<const float4*>(pns + s * SEG);
+          float re = 0.f, im = 0.f;
 #pragma unroll
-      for (int k = 0; k < SEG; ++k) {
-        xr[k] = xs[0][tid + k];
-        xi[k] = xs[1][tid + k];
-      }
+          for (int k4 = 0; k4 < SEG / 4; ++k4) {
+            const float4 v = v4[k4];
+            const float vk[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-      for (int s = 0; s < NSEG; ++s) {
-        const float4* v4 = reinterpret_cast<const float4*>(pns + s * SEG);
-        float re = 0.f, im = 0.f;
-#pragma unroll
-        for (int k4 = 0; k4 < SEG / 4; ++k4) {
-          const float4 v = v4[k4];
-          const float vk[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            re = re + xr[4 * k4 + e] * vk[e];
-            im = im + xi[4 * k4 + e] * vk[e];
+            for (int e = 0; e < 4; ++e) {
+              re = re + xr[4 * k4 + e] * vk[e];
+              im = im + xi[4 * k4 + e] * vk[e];
+            }
           }
+          const int l = t - SEG * s;       // segment s of lag l is y[t][s]
+          if (l >= 0 && l < N_SYM) qs[s][l] = re * re + im * im;
         }
-        const int l = tid - SEG * s;       // segment s of lag l is y[t][s]
-        if (l >= 0 && l < N_SYM) qs[s][l] = re * re + im * im;
       }
-    }
-    if constexpr (NORM == NORM_ENERGY) {
-      float e = 0.f;
-      if (tid < N_SYM) {
-        for (int k = 0; k < P; ++k) e = e + ssum[tid + k];
+      if constexpr (NORM == NORM_ENERGY) {
+        float e = 0.f;
+        if (t < N_SYM) {
+          for (int k = 0; k < P; ++k) e = e + ssum[t + k];
+        }
+        en[r][c] = e;
       }
-      en[c] = e;
     }
     __syncthreads();
-    float acc = 0.f;
-    if (tid < N_SYM) {
 #pragma unroll
-      for (int s = 0; s < NSEG; ++s) acc = acc + qs[s][tid];
+    for (int r = 0; r < TOE_REP; ++r) {
+      const int l = tid + TOE_THREADS * r;
+      float acc = 0.f;
+      if (l < N_SYM) {
+#pragma unroll
+        for (int s = 0; s < NSEG; ++s) acc = acc + qs[s][l];
+      }
+      pw[r][c] = acc;
     }
-    pw[c] = acc;
   }
   if constexpr (NORM == NORM_ESPAN) {
-    ssum[tid] = sq;
+#pragma unroll
+    for (int r = 0; r < TOE_REP; ++r) ssum[tid + TOE_THREADS * r] = sq[r];
     __syncthreads();
-    float e = 0.f;
-    if (tid < N_SYM) {
-      for (int k = 0; k < P; ++k) e = e + ssum[tid + k];
+#pragma unroll
+    for (int r = 0; r < TOE_REP; ++r) {
+      const int l = tid + TOE_THREADS * r;
+      float e = 0.f;
+      if (l < N_SYM) {
+        for (int k = 0; k < P; ++k) e = e + ssum[l + k];
+      }
+#pragma unroll
+      for (int c = 0; c < CYC; ++c) en[r][c] = e;
     }
-#pragma unroll
-    for (int c = 0; c < CYC; ++c) en[c] = e;
   }
-  float v[CYC];
+  float v[TOE_REP][CYC];
   unsigned nan_ph = 0;                     // bit c: phase c holds a NaN
-  if (tid < N_SYM) {
 #pragma unroll
-    for (int c = 0; c < CYC; ++c) {
-      v[c] = pw[c];
-      if constexpr (NORM != NORM_NONE) v[c] = pw[c] / (en[c] + 1e-12f);
-      if (isnan(v[c])) nan_ph |= 1u << c;
+  for (int r = 0; r < TOE_REP; ++r) {
+    if (tid + TOE_THREADS * r < N_SYM) {
+#pragma unroll
+      for (int c = 0; c < CYC; ++c) {
+        v[r][c] = pw[r][c];
+        if constexpr (NORM != NORM_NONE)
+          v[r][c] = pw[r][c] / (en[r][c] + 1e-12f);
+        if (isnan(v[r][c])) nan_ph |= 1u << c;
+      }
     }
   }
   // a phase whose statistic holds a NaN does not win: the JAX kernel
@@ -731,12 +774,21 @@ __device__ __forceinline__ void toeplitz_row(
   __syncthreads();
   nan_ph = __reduce_or_sync(FULL, lane < TOE_WARPS ? wnan[lane] : 0u);
   // a row whose every phase is skipped: lag 0, phase 0, the peak 2 (-1)
-  // of the JAX kernel's initial best
+  // of the JAX kernel's initial best.  The thread's first lag takes its
+  // phases' first maximum by a strict >; a later lag (TOE_REP) is ranked
+  // as lags of two threads are, by beats.
   Best x{-1.f, -1.f, tid, 0};
-  if (tid < N_SYM) {
 #pragma unroll
-    for (int c = 0; c < CYC; ++c)
-      if (!((nan_ph >> c) & 1u) && v[c] > x.v) x = Best{v[c], pw[c], tid, c};
+  for (int r = 0; r < TOE_REP; ++r) {
+    const int l = tid + TOE_THREADS * r;
+    if (l < N_SYM) {
+#pragma unroll
+      for (int c = 0; c < CYC; ++c) {
+        const Best y{v[r][c], pw[r][c], l, c};
+        if (!((nan_ph >> c) & 1u) && (r == 0 ? v[r][c] > x.v : beats(y, x)))
+          x = y;
+      }
+    }
   }
   x = warp_best(x);
   if (lane == 0) wbest[warp] = x;
@@ -760,8 +812,8 @@ __global__ void __launch_bounds__(TOE_THREADS) hunt_toeplitz_kernel(
     int* __restrict__ ph_out, float* __restrict__ peak_out, long long N,
     int C, float peak_scale) {
   if constexpr (!SMEM_DYNAMIC<ToeSmem>) {
-    __shared__ float xs[2][TOE_THREADS];     // the operand, x[OFF + j]
-    __shared__ float ssum[TOE_THREADS];      // squares (summed over phases)
+    __shared__ float xs[2][TOE_LEN];         // the operand, x[OFF + j]
+    __shared__ float ssum[TOE_LEN];          // squares (summed over phases)
     __shared__ __align__(16) float pns[P];
     __shared__ float qs[NSEG][Q_STRIDE];     // re^2 + im^2 by (segment, lag)
     __shared__ Best wbest[TOE_WARPS];

@@ -347,7 +347,28 @@ NUMEROLOGIES = {
     "nfft4096": {"cfo_nfft": 4096},
     "taps25": {"ntaps": 25},
     "taps45": {"ntaps": 45},
+    # the longest equalizers and packets the JAX CLI decodes (--eq-length,
+    # --ns): 24 and 32 taps, and 872, 1120 and 1616 symbols a block (the
+    # last the limit, the first two either side of the Toeplitz hunt's
+    # 1024 threads)
+    "eq24": {"eq_length": 24},
+    "eq32": {"eq_length": 32},
+    "ns24": {"ns": 24},
+    "ns32": {"ns": 32},
+    "ns48": {"ns": 48},
 }
+
+
+def is_long(cfg) -> bool:
+    """Whether ``cfg`` is past 16 equalizer taps or 624 symbols a block,
+    where the kernels' limits stood before their branches for longer
+    equalizers and packets."""
+    return cfg.eq_length > 16 or cfg.symbols_per_block > 624
+
+
+# the named numerologies that are long
+LONG_NUMEROLOGIES = tuple(name for name, kw in NUMEROLOGIES.items()
+                          if is_long(DEFAULT_CONFIG.replace(**kw)))
 
 
 def is_wide(cfg) -> bool:
@@ -357,9 +378,10 @@ def is_wide(cfg) -> bool:
             or cfg.symbols_per_block > 376)
 
 
-# the named numerologies that are wide
+# the named numerologies that are wide and not long
 WIDE_NUMEROLOGIES = tuple(name for name, kw in NUMEROLOGIES.items()
-                          if is_wide(DEFAULT_CONFIG.replace(**kw)))
+                          if is_wide(DEFAULT_CONFIG.replace(**kw))
+                          and name not in LONG_NUMEROLOGIES)
 
 
 def is_retuned(cfg) -> bool:
@@ -407,23 +429,32 @@ def kernel_limits(cfg) -> None:
         window of WIN_T + ntaps - 1 inputs sits in registers; at 51 taps
         and more the JAX package's Pallas paths themselves fail, and
         below 9 its receiver finds no packet;
-      * cycles 2 to 10 and symbols_per_block at most 624 (so frame_size
-        at most 6240, frame_symbols at most 496): the hunt's Toeplitz
-        body takes a thread per operand value, N_SYM + P - 1 of them,
-        and 624 + 127 rounds to 768 threads of the 1024 a block may
-        have; the front-ends' tasks of 4 (2 above cycles 5, where the
-        cycle count is even) symbols keep their WIN_T accumulators in
-        registers; the blocks' shared memory past 48 KB is dynamic;
-      * eq_length 1 to 16 (so pkt_window at most 640): the train fit's
-        matmul b-vector takes a lane a sum, 2 * eq_length of the 32;
-        above 7 taps each warp's Gram and Cholesky factor sit in shared
-        memory, not in registers;
+      * cycles 2 to 10 and symbols_per_block at most 1616 (ns 48 at 31
+        data symbols; so frame_size at most 16,160 and frame_symbols at
+        most 1488): the blocks that hold a row's whole window in shared
+        memory reach the 227 KB a block may hold there (the int8 hunt's
+        four warps 172 KB at 10 cycles, the premix front-end 163 KB;
+        the full-rate front-end stores past 12,900 samples from its
+        registers, its row buffer no longer fitting beside them).  The
+        Toeplitz hunt takes an operand value a thread, N_SYM + P - 1 of
+        them, and two past 897 symbols, where one would pass the 1024
+        threads a block may have; the front-ends take a task (4, or 2
+        above cycles 5 where the cycle count is even, symbols of one
+        plane) a thread, and two where that would pass 1024 (2-symbol
+        tasks past 1024 symbols).  Past 496 data symbols the decode's
+        per-symbol arrays (47 a lane at 1488) sit in local memory;
+      * eq_length 1 to 32 (so pkt_window at most 1648): the LS solve
+        gives lane i row i of the Cholesky factor, which stops at the
+        warp's 32 lanes, and its matmul b-vector takes a lane one of the
+        2 * eq_length sums, two past 16 taps; above 7 taps each warp's
+        Gram and factor sit in shared memory (8.4 KB a warp at 32);
       * cfo_nfft a multiple of 32 from 64 to 4096: the DFT's argmax takes
-        NFFT / 32 bins a lane; its bin groups of 256 or 512 may be
-        ragged; past 1024 bins the powers of the block's 8 rows (128 KB
-        at 4096) leave the table tiles for a region of their own, which
-        with the largest packet and the 16-tap solve still fits the 227
-        KB a block may hold.
+        NFFT / 32 bins a lane; its bin groups may be ragged; past 1024
+        bins the powers of the block's rows (16 KB a row at 4096) leave
+        the table tiles for a region of their own.  Where a block of 8
+        rows would then pass 227 KB (a long packet past 1024 bins) it
+        takes 4.  So every combination inside these limits fits; none
+        is refused for shared memory.
     """
     limits = (
         ("preamble_length == 128", cfg.preamble_length == 128),
@@ -431,8 +462,8 @@ def kernel_limits(cfg) -> None:
          cfg.corr_segments in (1, 2, 4, 8, 16)),
         ("9 <= ntaps <= 49", 9 <= cfg.ntaps <= 49),
         ("2 <= cycles <= 10", 2 <= cfg.cycles <= 10),
-        ("symbols_per_block <= 624", cfg.symbols_per_block <= 624),
-        ("1 <= eq_length <= 16", 1 <= cfg.eq_length <= 16),
+        ("symbols_per_block <= 1616", cfg.symbols_per_block <= 1616),
+        ("1 <= eq_length <= 32", 1 <= cfg.eq_length <= 32),
         ("cfo_nfft a multiple of 32 from 64 to 4096",
          64 <= cfg.cfo_nfft <= 4096 and cfg.cfo_nfft % 32 == 0),
     )

@@ -178,6 +178,10 @@ def test_window_geometry_covers_a_row():
     task = np.arange(2 * TASKS_PLANE)
     p, j = task // TASKS_PLANE, task % TASKS_PLANE
     assert np.array_equal(p * N_SAMP + WIN_T * j, WIN_T * task)
-    assert "float* y = sm.y + WIN_T * tid;" in SRC
-    assert re.search(r"constexpr int WIN_THREADS = \(WIN_TASKS \+ 31\) / 32 "
-                     r"\* 32;", SRC)
+    assert "float* y = sm.y + WIN_T * task;" in SRC
+    # a thread a task (WIN_REP 1: 188 tasks, under 1024), task = tid
+    assert re.search(r"constexpr int WIN_REP = \(WIN_TASKS \+ 1023\) / 1024;",
+                     SRC)
+    assert re.search(r"constexpr int WIN_THREADS =\s*\(\(WIN_TASKS \+ WIN_REP "
+                     r"- 1\) / WIN_REP \+ 31\) / 32 \* 32;", SRC)
+    assert "const int task = tid + WIN_THREADS * r;" in SRC

@@ -609,7 +609,7 @@ def test_only_the_premix_tap_loop_fuses():
                 code.index("unsigned persistent_grid(")]
     assert "tap_sums<false>(sm.in.w, &sm.in.u[p][WIN_T * j], acc);" in full
     assert "frontend_full_kernel(" in full
-    assert "full_window_sums(sm, tid);" in full
+    assert "full_window_sums(sm, tid, out, row);" in full
     assert "fma" not in full and "tap_sums<ROUND>" not in full
     assert "window_sums<" not in full.replace("full_window_sums", "")
     for other in ("hunt.cu", "common.cuh"):

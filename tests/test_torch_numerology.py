@@ -36,7 +36,8 @@ from singlecarrier_tpu_torch.interop import config_from_dict
 from singlecarrier_tpu_torch.modem import (prod_rx_batch, prod_rx_init,
                                            prod_rx_init_planes,
                                            prod_rx_stream)
-from singlecarrier_tpu_torch.ops._build import (NUMEROLOGIES,
+from singlecarrier_tpu_torch.ops._build import (LONG_NUMEROLOGIES,
+                                                NUMEROLOGIES,
                                                 RETUNED_NUMEROLOGIES,
                                                 WIDE_NUMEROLOGIES)
 
@@ -45,9 +46,10 @@ N_PACKETS = 2
 # the eight numerologies of at most 7 equalizer taps, 5 cycles and 376
 # symbols a block at 4-16 segments, 256-1024 bins and 49 taps; the seven
 # wider ones are test_torch_numerology_wide.py's, the six retuned ones
-# test_torch_numerology_limits.py's
+# test_torch_numerology_limits.py's, the five long ones
+# test_torch_numerology_long.py's
 NAMES = sorted(set(NUMEROLOGIES) - set(WIDE_NUMEROLOGIES)
-               - set(RETUNED_NUMEROLOGIES))
+               - set(RETUNED_NUMEROLOGIES) - set(LONG_NUMEROLOGIES))
 
 
 def _bench(name):
@@ -93,17 +95,25 @@ def _cat(parts):
     return type(parts[0])(*(torch.cat(v).numpy() for v in zip(*parts)))
 
 
-@pytest.mark.parametrize("name", NAMES)
-def test_one_kernel_batch_path_matches_jax(name):
-    cfg = _bench(name)
-    tcfg = config_from_dict(dataclasses.asdict(cfg))
-    bits, x = _stream(cfg)
-    n = cfg.frame_size
-    frames = x.reshape(C, -1, n).transpose(1, 0, 2).copy()  # [B, C, n]
-    _, want = jrx.prod_rx_batch(
+def _frames(cfg, x):
+    """The [B, C, n] blocks of a [C, samples] stream."""
+    return x.reshape(C, -1, cfg.frame_size).transpose(1, 0, 2).copy()
+
+
+def _jax_batch(cfg, frames):
+    """The JAX package's one-kernel batch path (interpret mode), one call,
+    numpy."""
+    _, out = jrx.prod_rx_batch(
         cfg, jrx.prod_rx_init_planes(cfg, C), jnp.asarray(frames),
         descramble=False, block_channels=C, decode_block_channels=C,
         fuse_frontend=True, interpret=True)
+    return _np(out)
+
+
+def _port_batch(cfg, frames):
+    """The port's ``prod_rx_batch(fuse_frontend=True)`` on CPU tensors,
+    the state carried across two calls, numpy."""
+    tcfg = config_from_dict(dataclasses.asdict(cfg))
     state = prod_rx_init_planes(tcfg, C, "cpu")
     half = frames.shape[0] // 2
     parts = []
@@ -114,17 +124,36 @@ def test_one_kernel_batch_path_matches_jax(name):
     assert state[4].dtype == torch.bfloat16
     assert tuple(state[4].shape) == (cfg.cycles, 2, C,
                                      cfg.symbols_per_block)
-    _agree(_cat(parts), _np(want), bits)
+    return _cat(parts)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_one_kernel_batch_path_matches_jax(name):
+    cfg = _bench(name)
+    bits, x = _stream(cfg)
+    frames = _frames(cfg, x)
+    _agree(_port_batch(cfg, frames), _jax_batch(cfg, frames), bits)
 
 
 @pytest.mark.parametrize("name", NAMES)
 def test_xla_path_matches_jax(name):
     cfg = _bench(name)
-    tcfg = config_from_dict(dataclasses.asdict(cfg))
     bits, x = _stream(cfg)
     frames = x[1].reshape(-1, cfg.frame_size)
-    _, want = jrx.prod_rx_stream(cfg, jrx.prod_rx_init(cfg),
-                                 jnp.asarray(frames), descramble=False)
+    _agree(_port_stream(cfg, frames), _jax_stream(cfg, frames), bits)
+
+
+def _jax_stream(cfg, frames):
+    """The JAX package's XLA path on one channel's [B, n] blocks, numpy."""
+    _, out = jrx.prod_rx_stream(cfg, jrx.prod_rx_init(cfg),
+                                jnp.asarray(frames), descramble=False)
+    return _np(out)
+
+
+def _port_stream(cfg, frames):
+    """The port's XLA path on one channel's [B, n] blocks, the state
+    carried across two calls, numpy."""
+    tcfg = config_from_dict(dataclasses.asdict(cfg))
     state = prod_rx_init(tcfg, device="cpu")
     half = frames.shape[0] // 2
     parts = []
@@ -132,4 +161,4 @@ def test_xla_path_matches_jax(name):
         state, out = prod_rx_stream(tcfg, state, torch.from_numpy(part),
                                     descramble=False)
         parts.append(out)
-    _agree(_cat(parts), _np(want), bits)
+    return _cat(parts)

@@ -17,7 +17,7 @@ exact), ``fused_hunt_decode_decim``, ``fused_decode_extract`` and
 phase; |dcfo| < 0.5 Hz, |deq_error| < 2e-3).
 
 The limits (``ops/_build.kernel_limits``, ``kernel_geometry``): no define
-at the reference numerology, all nine at each named one (the twenty-one
+at the reference numerology, all nine at each named one (the twenty-six
 of ``NUMEROLOGIES``), and a config just outside each limit refused with
 the limit's name.
 """
@@ -262,6 +262,11 @@ GEOMETRY = {
     "nfft4096": (1880, 5, 49, 248, 384, 5, 8, 4096),
     "taps25": (1880, 5, 25, 248, 384, 5, 8, 512),
     "taps45": (1880, 5, 45, 248, 384, 5, 8, 512),
+    "eq24": (1880, 5, 49, 248, 400, 24, 8, 512),
+    "eq32": (1880, 5, 49, 248, 408, 32, 8, 512),
+    "ns24": (4360, 5, 49, 744, 880, 5, 8, 512),
+    "ns32": (5600, 5, 49, 992, 1128, 5, 8, 512),
+    "ns48": (8080, 5, 49, 1488, 1624, 5, 8, 512),
 }
 
 
@@ -291,8 +296,8 @@ NFFT_LIMIT = "cfo_nfft a multiple of 32 from 64 to 4096"
     ({"ntaps": 51}, "9 <= ntaps <= 49"),
     ({"ntaps": 7}, "9 <= ntaps <= 49"),
     ({"fs": 17600.0, "fine_timing_offset": 3}, "2 <= cycles <= 10"),
-    ({"ns": 17}, "symbols_per_block <= 624"),
-    ({"eq_length": 17}, "1 <= eq_length <= 16"),
+    ({"ns": 49}, "symbols_per_block <= 1616"),
+    ({"eq_length": 33}, "1 <= eq_length <= 32"),
     ({"cfo_nfft": 8192}, NFFT_LIMIT),
     ({"cfo_nfft": 32}, NFFT_LIMIT),
     ({"cfo_nfft": 1000}, NFFT_LIMIT),

@@ -13,7 +13,9 @@ step at 8 channels.
 
 import json
 import os
+import types
 
+import numpy as np
 import pytest
 import torch
 
@@ -119,6 +121,58 @@ def test_parity_flags_one_flipped_bit(tmp_path, monkeypatch):
         rep = rec["paths"][path]
         assert not rep["ok"] and rep["bit_diffs_vs_xla"] == 1, path
     assert rec["paths"]["fused_rx"]["ok"]
+
+
+def _held(p, o, parts=parity.Parts(), rule="full"):
+    """``parity.hold`` of two synthetic [2, 4] outputs: a sent packet at
+    block 1 of each channel, decoded by both paths, one bit wrong on
+    channel 0 in ``p``'s copy only where ``p`` flips it."""
+    def truth(out):
+        hits = {(c, 1) for c in range(2) if out.valid[c, 1]}
+        wrong = {(c, 1): int(out.bits[c, 1].sum()) for c in range(2)
+                 if out.bits[c, 1].any()}
+        false = int(out.valid.sum()) - len(hits)
+        return (sum(wrong.values()), 2 * DEFAULT_CONFIG.bits_per_frame,
+                false, hits, wrong)
+    return parity.hold(DEFAULT_CONFIG, p, o, truth(p), truth(o), 2, parts,
+                       rule)[0]
+
+
+def _out():
+    valid = np.zeros((2, 4), bool)
+    valid[:, 1] = True
+    z = np.zeros((2, 4), np.float32)
+    return types.SimpleNamespace(
+        valid=valid, bits=np.zeros((2, 4, 8), np.uint8),
+        lag=z.astype(np.int32), timing_phase=z.astype(np.int32),
+        cfo_hz=z.copy(), eq_error=z.copy())
+
+
+def test_parity_hold_compares_wrong_packets_only_on_the_same_planes():
+    """A bit the two paths decode apart on a packet that one of them
+    decodes wrong: "" and "same" leave it out, "planes" (two paths on the
+    same planes) does not, "full" holds the truth."""
+    p, o = _out(), _out()
+    p.bits[0, 1, 3] = 1
+    assert _held(p, o, rule="") and _held(p, o, rule="same")
+    assert not _held(p, o, rule="planes")
+    assert not _held(p, o, rule="full")
+    assert _held(o, o, rule="planes") and _held(o, o, rule="full")
+
+
+@pytest.mark.parametrize("flips", [1, 2])
+def test_parity_hold_bounds_the_noise_detects(flips):
+    """Noise blocks that cross the gate in one path only: ``Parts()``
+    refuses each one, ``Parts(noise_detects=n)`` takes at most n, and
+    against the truth at most the other path's false detects and the
+    flips."""
+    p, o = _out(), _out()
+    p.valid[:flips, 3] = True
+    p.bits[:flips, 3] = 1            # equalized noise: not compared
+    assert not _held(p, o)
+    assert _held(p, o, parity.Parts(noise_detects=flips))
+    assert not _held(p, o, parity.Parts(noise_detects=flips - 1))
+    assert _held(p, o, parity.Parts(noise_detects=flips), "")
 
 
 def test_wilson_interval_is_the_jax_packages():

@@ -18,7 +18,8 @@ and at two wide numerologies the two parted on the card:
   * ``ns16`` and ``wide_corner``: eq_error of the same packet differs
     between the two paths by up to 2.5e-3 (ns16) on the card.  On a CPU
     draw of the same stream the worst packet's difference is the JAX
-    package's own Pallas-vs-XLA difference, to 1e-5; so at ``nfft4096``.
+    package's own Pallas-vs-XLA difference, to 1e-5; so at ``nfft4096``,
+    and at ``ns48`` on its stream at 24 dB (3.2e-3 on the card).
   * ``taps25``: two neighbouring decimation phases all but tie.  The JAX
     package's two paths part on the same blocks, within what
     ``tools/parity.JAX_PARTS`` allows.
@@ -100,14 +101,17 @@ def test_the_eq16_noise_flip_is_the_jax_packages():
                           out["jax xla"]["valid"][keep])
 
 
-@pytest.mark.parametrize("name", ["ns16", "wide_corner", "nfft4096"])
+@pytest.mark.parametrize("name", ["ns16", "wide_corner", "nfft4096", "ns48"])
 def test_the_eq_error_gap_is_the_jax_packages(name):
     """The packet whose eq_error differs most between the port's kernel
     path (plain versions) and its XLA path, on a CPU draw of the parity
-    stream, differs by as much between the JAX package's two paths."""
+    stream (at the numerology's own SNR, ``tools/parity.
+    NUMEROLOGY_SNR_DB``), differs by as much between the JAX package's two
+    paths."""
     _, tcfg = _configs(name)
     bits, _ = parity.payload(tcfg, 32, parity.PARITY_PACKETS, SEED, "cpu")
-    frames = parity.stream(tcfg, bits, SEED + 1, "cpu").numpy()
+    snr_db = parity.NUMEROLOGY_SNR_DB.get(name, parity.PARITY_SNR_DB)
+    frames = parity.stream(tcfg, bits, SEED + 1, "cpu", snr_db).numpy()
     C = frames.shape[1]
     _, tp = prod_rx_batch(tcfg, prod_rx_init_planes(tcfg, C, "cpu"),
                           torch.from_numpy(frames), fuse_frontend=True)
