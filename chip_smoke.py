@@ -85,13 +85,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  (``ops/_build.NUMEROLOGIES``: the eight of at most 7
                  taps, 5 cycles and 376 symbols a block, the seven
                  wider ones up to 16 taps, 10 cycles and 624 symbols, in
-                 ``WIDE_NUMEROLOGIES``, the six of
+                 ``WIDE_NUMEROLOGIES``, the ten of
                  ``RETUNED_NUMEROLOGIES``: 1 and 2 correlation segments,
-                 128 and 4096 DFT bins, 25 and 45 RRC taps, and the five
-                 of ``LONG_NUMEROLOGIES``: 24 and 32 taps, 872, 1120 and
-                 1616 symbols), whose
-                 twenty-six libraries build from phase 2 on, seven at
-                 a time, each numerology run as its library lands:
+                 16, 128, 1001, 4096, 8192 and 32768 DFT bins, 25 and 45
+                 RRC taps, and the five of ``LONG_NUMEROLOGIES``: 24 and
+                 32 taps, 872, 1120 and 1616 symbols), whose thirty
+                 libraries build from phase 2 on, seven at a time, each
+                 a link of objects shared where a source's preprocessed
+                 text is the same (the compiled and reused objects are
+                 counted), each numerology run as its library lands:
                  for each, the build's seconds, ptxas' registers, static
                  shared memory and spills per kernel, and each body's
                  block layout (shared bytes, dynamic past 48 KB;
@@ -105,8 +107,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  every flag combination, both with ``mixer_fold``, the
                  superstep, the gated RX, both streaming bodies, and at
                  ``J_FRAC`` the frac body) on (g)'s kind of stream at the
-                 numerology (at seg1, seg2 and nfft128 at a CFO they
-                 reach, at ns24, ns32 and ns48 at 24 dB, where the XLA
+                 numerology (at seg1, seg2, nfft128 and nfft16 at a CFO
+                 they reach, at ns24, ns32 and ns48 at 24 dB, where the XLA
                  path must decode every packet), each held to the XLA
                  path by the North star's
                  criterion, and to the truth where the XLA path itself
@@ -116,6 +118,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  at 8192 x 128 x 3 chained dispatches of full-scale
                  noise (half the channels where a row's PCM and planes
                  pass wide_corner's: ``J_ROW_BYTES``, ns48 at 4096;
+                 a quarter past 8192 DFT bins, nfft32768 at 2048;
                  samples/s, the three kernels beside their bounds,
                  peak memory, launches) and every kernel at 32,768 rows
                  beside its bound;
@@ -196,10 +199,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  Phases:
                  cycles, 64 and 768 bins, 9 and 43 RRC taps; 903
                  symbols at 1 segment, 2-symbol tasks at 1120, 17 taps
                  with 4096 bins at 624 symbols, 32 taps with 1616
-                 symbols at 10 cycles and at 4096 bins), whose eleven
-                 libraries are queued with (j)'s, the slowest first, and
-                 which runs after (o), before (k), so that every library
-                 is built before the host-bound phases: each one's
+                 symbols at 10 cycles and at 32768 bins), whose eleven
+                 libraries are queued with (j)'s, the slowest first, each
+                 run in (j)'s loop as its library lands (the card works
+                 while the later libraries build), all before (o) and
+                 the host-bound phases: each one's
                  ptxas lines and block layout, then (j) 1 at it but for
                  its 5 x 3 rows (at ``EDGE_NO_PACKETS``,
                  where no receiver finds a packet, the decode held by
@@ -1029,11 +1033,12 @@ J_FRAC = ("alt_9600",)       # numerologies whose (j) 2 runs the frac body
 # limits, where a draw flipped one at taps45, and the long ones and
 # theirs (up to six times the symbols a packet).  Elsewhere the default
 # knobs' dibits are equal.
-KNIFE_EDGE_AT = ("cyc9", "seg1", "seg2", "nfft128", "nfft4096", "taps25",
-                 "taps45", "nfft64", "nfft768", "taps9", "taps43", "eq24",
-                 "eq32", "ns24", "ns32", "ns48", "seg1_ns25", "cyc6_ns32",
+KNIFE_EDGE_AT = ("cyc9", "seg1", "seg2", "nfft128", "nfft4096", "nfft16",
+                 "nfft1001", "nfft8192", "nfft32768", "taps25", "taps45",
+                 "nfft64", "nfft768", "taps9", "taps43", "eq24", "eq32",
+                 "ns24", "ns32", "ns48", "seg1_ns25", "cyc6_ns32",
                  "eq17_ns16_nfft4096", "eq32_ns48_cyc10",
-                 "eq32_ns48_nfft4096")
+                 "eq32_ns48_nfft32768")
 # Libraries built at once, each running its three nvcc together: enough
 # to keep the card's machine's 8 cores busy (a build's last nvcc, the
 # decode's, runs alone for a while), few enough that the first libraries
@@ -1045,13 +1050,17 @@ _build_pool = []                # the one pool, made at the first queueing
 # its split held two dispatches' planes beside the noise, 48.8 GiB of
 # the card's 80 GB
 J_ROW_BYTES = 37_440
+# and a quarter of the channels past 8192 DFT bins, where a full
+# dispatch's decode takes 1.5 s
+J_NFFT_QUARTER = 8192
 
 
 def _timed_channels(cfg) -> int:
     """(j) 3's channels at ``cfg``: C_MAIN, halved while a dispatch's
-    rows would pass C_MAIN rows of J_ROW_BYTES."""
+    rows would pass C_MAIN rows of J_ROW_BYTES, a quarter of them past
+    J_NFFT_QUARTER bins."""
     row = cfg.frame_size * 2 + cfg.cycles * 2 * cfg.symbols_per_block * 2
-    c = C_MAIN
+    c = C_MAIN if cfg.cfo_nfft <= J_NFFT_QUARTER else C_MAIN // 4
     while row * c > J_ROW_BYTES * C_MAIN:
         c //= 2
     return c
@@ -1322,15 +1331,18 @@ def _numerology_kernels(torch, gen, dev, tag: str, default):
     return errs, inputs
 
 
-def _numerology_phase(torch, np, dev, builds, drive, smi_line) -> dict:
+def _numerology_phase(torch, np, dev, builds, edge_builds, drive,
+                      smi_line) -> tuple:
     """(j): at every named numerology, (1) every kernel and knob variant
     against its plain version, (2) every kernel path against the XLA path
     (``_numerology_parity``), (3) the main path at C_MAIN x B_TIME x
     ITERS chained dispatches on full-scale noise, with the three kernels'
-    ms beside their bounds.  The numerologies run in the order their
-    libraries land, each on its own generator seeded from its name.
-    Returns {kernel: {numerology: entry}} for the kernels line's
-    "geometries"."""
+    ms beside their bounds; and (p) at every edge geometry
+    (``_edge_one``).  The numerologies and edges run in the order their
+    libraries land, each on its own generator seeded from its name, so
+    that the card works while the later libraries build.  Returns
+    ({kernel: {numerology: entry}} for the kernels line's "geometries",
+    the seconds the edges took)."""
     import concurrent.futures
     import zlib
     from singlecarrier_tpu_torch import DEFAULT_CONFIG
@@ -1340,10 +1352,16 @@ def _numerology_phase(torch, np, dev, builds, drive, smi_line) -> dict:
     from singlecarrier_tpu_torch.ops.decode import extract_decode, hunt
     from singlecarrier_tpu_torch.ops.frontend import frontend_decim
     geometries = {name: {} for name in KERNELS}
-    tags = {fut: tag for tag, fut in builds.items()}
-    t_wait = time.perf_counter()
+    tags = {fut: tag for tag, fut in {**builds, **edge_builds}.items()}
+    t_wait, t_edges = time.perf_counter(), 0.0
     for fut in concurrent.futures.as_completed(tags):
         tag = tags[fut]
+        if tag in edge_builds:
+            t_edge = time.perf_counter()
+            _edge_one(torch, dev, tag, fut.result(), smi_line)
+            t_edges += time.perf_counter() - t_edge
+            t_wait = time.perf_counter()
+            continue
         default = DEFAULT_CONFIG.replace(**_build.NUMEROLOGIES[tag])
         _print_build("numerology", tag, default, *fut.result(),
                      f"{BUILD_WORKERS} at once, queued at phase 2; waited "
@@ -1442,7 +1460,7 @@ def _numerology_phase(torch, np, dev, builds, drive, smi_line) -> dict:
             f"{t_1 - t_start:.1f}, parity {t_2 - t_1:.1f}, timing "
             f"{time.perf_counter() - t_2:.1f}; {smi_line}", flush=True)
         t_wait = time.perf_counter()
-    return geometries
+    return geometries, t_edges
 
 
 # ---- (p) the edge geometries: builds no named numerology makes
@@ -1468,16 +1486,16 @@ EDGE_GEOMETRIES = {
     # segments (the Toeplitz body's 16-value slices, the int8 body's
     # sums over eight chunks), 2-symbol front-end tasks past 1024 threads
     # (two tasks a thread), the first b-vector of two sums a lane in an
-    # 8-row decode block with its LS warps and separate powers (219,712
-    # B), the widest front-end, hunt and decode blocks together (the
-    # full-rate front-end's stores from its registers), and the decode's
-    # largest block (4 rows of it)
+    # 8-row decode block with its LS warps and a running-maximum DFT, the
+    # widest front-end, hunt and decode blocks together (the full-rate
+    # front-end's stores from its registers), and the decode's largest
+    # block with the largest DFT
     "seg1_ns25": {"corr_segments": 1, "ns": 25},
     "cyc6_ns32": {"fs": 9600.0, "rs": 1600.0, "center": 1500.0, "ns": 32},
     "eq17_ns16_nfft4096": {"eq_length": 17, "ns": 16, "cfo_nfft": 4096},
     "eq32_ns48_cyc10": {"eq_length": 32, "ns": 48, "fs": 16000.0,
                         "rs": 1600.0, "center": 1500.0},
-    "eq32_ns48_nfft4096": {"eq_length": 32, "ns": 48, "cfo_nfft": 4096},
+    "eq32_ns48_nfft32768": {"eq_length": 32, "ns": 48, "cfo_nfft": 32768},
 }
 # Edge geometries whose receiver finds no packet of its own TX, the JAX
 # package's neither (9 taps: the filter is too short): their decodes are
@@ -1486,33 +1504,37 @@ EDGE_NO_PACKETS = ("taps9",)
 _packets_expected = True     # False while (p) runs an EDGE_NO_PACKETS shape
 
 
-def _edge_phase(torch, gen, dev, builds, smi_line: str) -> None:
-    """(p): each of ``EDGE_GEOMETRIES`` as (j) 1 holds a named numerology
+def _edge_one(torch, dev, tag: str, built: tuple, smi_line: str) -> None:
+    """(p): one of ``EDGE_GEOMETRIES`` as (j) 1 holds a named numerology
     but for its 5 x 3 rows: its build's ptxas lines and block layout, then
     every kernel and knob variant against its plain version, on a
-    generator seeded from its name."""
+    generator seeded from its name.  ``built``: its build's (seconds,
+    ptxas log)."""
     import zlib
     from singlecarrier_tpu_torch import DEFAULT_CONFIG
-    for tag, fut in builds.items():
-        t0 = time.perf_counter()
-        gen.manual_seed(SEED + zlib.crc32(tag.encode()))
-        cfg = DEFAULT_CONFIG.replace(**EDGE_GEOMETRIES[tag])
-        _print_build("edge", tag, cfg, *fut.result(),
-                     f"{BUILD_WORKERS} at once, queued at phase 2")
-        # not (j)'s 5 x 3 rows, whose row count is the point there: at
-        # 16 segments and 624 symbols every one of them may pass the gate,
-        # whose check wants rows of both kinds
-        global _packets_expected
-        _packets_expected = tag not in EDGE_NO_PACKETS
-        try:
-            _, inputs = _numerology_kernels(torch, gen, dev, tag, cfg)
-            _knob_phase(torch, gen, inputs, cfg, _bench_point(cfg),
-                        f"{tag}: ")
-        finally:
-            _packets_expected = True
-        print(f"[edge] {tag}: every kernel and knob variant equal to its "
-              f"plain version, {time.perf_counter() - t0:.1f} s; "
-              f"{smi_line}", flush=True)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + zlib.crc32(tag.encode()))
+    cfg = DEFAULT_CONFIG.replace(**EDGE_GEOMETRIES[tag])
+    _print_build("edge", tag, cfg, *built,
+                 f"{BUILD_WORKERS} at once, queued at phase 2; at {_at()}")
+    # not (j)'s 5 x 3 rows, whose row count is the point there: at
+    # 16 segments and 624 symbols every one of them may pass the gate,
+    # whose check wants rows of both kinds
+    global _packets_expected
+    _packets_expected = tag not in EDGE_NO_PACKETS
+    try:
+        _, inputs = _numerology_kernels(torch, gen, dev, tag, cfg)
+        _knob_phase(torch, gen, inputs, cfg, _bench_point(cfg),
+                    f"{tag}: ")
+    finally:
+        _packets_expected = True
+    # the plain decodes of up to 1616 symbols on 32,768 rows leave tens
+    # of GiB cached: (j) 3's dispatches and the later phases need them
+    torch.cuda.empty_cache()
+    print(f"[edge] {tag}: every kernel and knob variant equal to its "
+          f"plain version, {time.perf_counter() - t0:.1f} s; "
+          f"{smi_line}", flush=True)
 
 
 # ---- (o) the CLI at a long geometry: ``ber`` through the one-kernel path
@@ -2901,33 +2923,23 @@ def main() -> int:
           f"points: {time.perf_counter() - t0:.1f} s; {smi_line}",
           flush=True)
 
-    # ---- (j) the named numerologies ----
+    # ---- (j) the named numerologies and (p) the edge geometries ----
     t0 = time.perf_counter()
-    geometries = _numerology_phase(torch, np, dev, builds, _drive,
-                                   smi_line)
-    print(f"[numerology] (j) {len(_build.NUMEROLOGIES)} numerologies: "
-          f"{time.perf_counter() - t0:.1f} s, at {_at()}; {smi_line}",
-          flush=True)
+    geometries, t_edges = _numerology_phase(torch, np, dev, builds,
+                                            edge_builds, _drive, smi_line)
+    print(f"[numerology] (j) {len(_build.NUMEROLOGIES)} numerologies and "
+          f"(p) {len(EDGE_GEOMETRIES)} edge geometries as their libraries "
+          f"landed: {time.perf_counter() - t0:.1f} s (the edges "
+          f"{t_edges:.1f} s), at {_at()}; {smi_line}", flush=True)
 
     # ---- (o) the CLI at 24 taps and 872 symbols a block ----
     t0 = time.perf_counter()
     _cli_phase(queued["cli"], smi_line)
     print(f"[cli] (o) {time.perf_counter() - t0:.1f} s, at {_at()}",
           flush=True)
-
-    # ---- (p) the edge geometries, the last libraries to land ----
-    t0 = time.perf_counter()
-    _edge_phase(torch, gen, dev, edge_builds, smi_line)
-    print(f"[edge] (p) {len(EDGE_GEOMETRIES)} geometries: "
-          f"{time.perf_counter() - t0:.1f} s, at {_at()}; {smi_line}",
-          flush=True)
     # every library is built: the phases below, host-bound and timed,
     # share the CPU with no nvcc, and (l) sees no build
     _build_pool[0].shutdown(wait=True)
-    # (p)'s plain decodes of 1616 symbols on 32,768 rows leave most of
-    # the card cached in this process: (m)'s and (n)'s gloo ranks,
-    # spawned on the same card, need it back
-    torch.cuda.empty_cache()
 
     # ---- (k) the faithful receiver ----
     t0 = time.perf_counter()
@@ -3240,6 +3252,9 @@ def main() -> int:
                 "geometries": geometries[name]}
                for name, (src, rep, note) in KERNELS.items()]
     print(f"[script] {time.perf_counter() - t_script:.1f} s", flush=True)
+    print(f"[build] objects over the run: {_build.OBJECTS['compiled']} "
+          f"compiled, {_build.OBJECTS['reused']} reused "
+          f"(ops/_build.OBJECTS)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,10 @@
 // defaults), so the default library is built with no define at all.
 // ops/_build.py kernel_limits states the numerologies the kernels are
 // written for; the static_asserts here and in each source hold them.
+// Here stand the shapes every source compiles in; a source names the
+// others it uses itself (the hunt its segments and OFF, the decode its
+// packet, equalizer and DFT), so that its preprocessed text, which keys
+// its object (ops/_build.py), changes only with the shapes it reads.
 // Decim planes are laid out [cyc][2][N][N_SYM] (phase, real/imag plane,
 // row, symbol) with row n = b*C + ch, f32 or bf16; the hunt window of row
 // n is [OFF zeros | prev block | this block | zeros], prev being row n - C
@@ -54,40 +58,18 @@ constexpr int N_SYM = N_SAMP / CYC;  // symbols_per_block
 constexpr int NTAPS = SC_NTAPS;
 constexpr int HALO = NTAPS - 1;
 constexpr int P = SC_P;            // preamble chips
-constexpr int NSEG = SC_NSEG;      // corr_segments
-constexpr int SEG = P / NSEG;
-constexpr int D = SC_D;            // frame_symbols
-constexpr int L = SC_L;            // eq_length
-constexpr int OFF = L / 2;
-constexpr int NFFT = SC_NFFT;      // cfo_nfft
-constexpr int PKT = SC_PKT;        // pkt_window
-constexpr int N_OUT = D + 8;       // packed output row
 
 constexpr int roundup(int x, int m) { return (x + m - 1) / m * m; }
 constexpr int imax(int a, int b) { return a > b ? a : b; }
 constexpr int imin(int a, int b) { return a < b ? a : b; }
 
-// hunt window width (fused_rx_block's wp: roundup128 of the widest of the
-// packet reach, the [OFF | prev | cur] span and the correlation reach)
-constexpr int WP = roundup(imax(imax(N_SYM - 1 + PKT, OFF + 2 * N_SYM),
-                                roundup(OFF + N_SYM + P - 1, 128)),
-                           128);
-
 static_assert(N_SAMP % CYC == 0, "a block is whole symbols");
 static_assert(P == 128, "preamble_length 128");
-static_assert(NSEG == 1 || NSEG == 2 || NSEG == 4 || NSEG == 8 || NSEG == 16,
-              "corr_segments 1, 2, 4, 8, 16");
 static_assert(NTAPS % 2 == 1 && NTAPS >= 9 && NTAPS <= 49,
               "ntaps odd, 9 to 49");
 static_assert(CYC >= 2 && CYC <= 10, "cycles 2 to 10");
 static_assert(N_SAMP <= 16160 && N_SYM >= P && N_SYM <= 1616,
               "frame_size at most 16160, P <= symbols_per_block <= 1616");
-static_assert(D >= 1 && D <= 1488, "frame_symbols at most 1488");
-static_assert(L >= 1 && L <= 32, "eq_length 1 to 32");
-static_assert(PKT >= P + D + L - 1 && PKT % 8 == 0 && PKT <= 1648,
-              "pkt_window covers the packet, at most 1648");
-static_assert(NFFT % 32 == 0 && NFFT >= 64 && NFFT <= 4096,
-              "cfo_nfft a multiple of 32 from 64 to 4096");
 
 // A block's shared memory past the 48 KB a kernel has unasked is dynamic:
 // the launch names its size and the kernel is allowed it once
@@ -137,23 +119,6 @@ __device__ __forceinline__ float load_plane(const void* p, long long i,
                                             int bf16) {
   return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
               : static_cast<const float*>(p)[i];
-}
-
-// Value j (0 <= j < WP) of the hunt window of row n, phase c, plane p.
-__device__ __forceinline__ float window_at(const void* decim,
-                                           const void* dprev0, int bf16,
-                                           long long N, int C, long long n,
-                                           int c, int p, int j) {
-  j -= OFF;
-  if (j < 0) return 0.f;
-  const long long cp = c * 2 + p;
-  if (j < N_SYM) {
-    return n < C ? load_plane(dprev0, (cp * C + n) * N_SYM + j, bf16)
-                 : load_plane(decim, (cp * N + n - C) * N_SYM + j, bf16);
-  }
-  j -= N_SYM;
-  if (j < N_SYM) return load_plane(decim, (cp * N + n) * N_SYM + j, bf16);
-  return 0.f;
 }
 
 }  // namespace sc

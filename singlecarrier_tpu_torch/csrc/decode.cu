@@ -67,10 +67,15 @@
 // registers; the rows' (chip * pn) operands are a small table in shared
 // memory, read as broadcast 16-byte loads.  Every (row, bin) keeps its arithmetic: s1..s4
 // in ascending k, each product rounded before its sum (-fmad=false), then
-// sr = s1 - s2, si = s3 + s4 and the power, which the row's warp reads
-// back for the first-maximum argmax and the parabola (from the tiles'
-// place, or past 1024 bins from a region of its own).  So the table
-// leaves L2 once per block, not once per row.
+// sr = s1 - s2, si = s3 + s4 and the power.  Up to 1024 bins the powers
+// go to the tiles' place, where the row's warp reads them back for the
+// first-maximum argmax and the parabola.  Past 1024 bins (up to 32768)
+// none is stored: each thread keeps a running first maximum per row and
+// bin slot, the block reduces them per row, and the row's warp sums the
+// peak's two neighbours again (cfo_peak), the same bits.  Any size from
+// 2 bins is taken: the table's rows are padded to a multiple of 4 floats
+// (NFFT_LD) and lanes or threads past the last bin keep nothing.  So the
+// table leaves L2 once per block, not once per row.
 //
 // Bound on the card: operations.  The CFO DFT is 128 x 512 x 4 f32
 // multiply-adds per row, two instructions each without contraction; the
@@ -84,6 +89,39 @@
 #include <cuda_pipeline_primitives.h>
 
 #include "common.cuh"
+
+namespace sc {
+constexpr int D = SC_D;            // frame_symbols
+constexpr int L = SC_L;            // eq_length
+constexpr int OFF = L / 2;
+constexpr int NFFT = SC_NFFT;      // cfo_nfft
+constexpr int PKT = SC_PKT;        // pkt_window
+constexpr int N_OUT = D + 8;       // packed output row
+
+static_assert(D >= 1 && D <= 1488, "frame_symbols at most 1488");
+static_assert(L >= 1 && L <= 32, "eq_length 1 to 32");
+static_assert(PKT >= P + D + L - 1 && PKT % 8 == 0 && PKT <= 1648,
+              "pkt_window covers the packet, at most 1648");
+static_assert(NFFT >= 2 && NFFT <= 32768, "cfo_nfft from 2 to 32768");
+
+// Value j (0 <= j < OFF + 2 N_SYM, zero past) of the hunt window of row n,
+// phase c, plane p.
+__device__ __forceinline__ float window_at(const void* decim,
+                                           const void* dprev0, int bf16,
+                                           long long N, int C, long long n,
+                                           int c, int p, int j) {
+  j -= OFF;
+  if (j < 0) return 0.f;
+  const long long cp = c * 2 + p;
+  if (j < N_SYM) {
+    return n < C ? load_plane(dprev0, (cp * C + n) * N_SYM + j, bf16)
+                 : load_plane(decim, (cp * N + n - C) * N_SYM + j, bf16);
+  }
+  j -= N_SYM;
+  if (j < N_SYM) return load_plane(decim, (cp * N + n) * N_SYM + j, bf16);
+  return 0.f;
+}
+}  // namespace sc
 
 using namespace sc;
 
@@ -100,7 +138,14 @@ constexpr int MAXJ = imax((D + 31) / 32, P / 32);
 // loop, their arrays in local memory.
 constexpr int UJ = MAXJ <= 16 && L <= 16 ? MAXJ : 1;
 constexpr int MSK_LEN = roundup(D, 4);     // the packets stay 16 B aligned
-constexpr int BINS = NFFT / 32;            // DFT bins per lane (argmax)
+// DFT bins per lane of the argmax over stored powers: lane + 32 q, the
+// lanes past the last bin of a ragged size (not a multiple of 32, or
+// fewer bins than lanes) holding none
+constexpr int BINS = (NFFT + 31) / 32;
+constexpr bool BINS_RAGGED = NFFT % 32 != 0;
+// the table's row stride in floats: a multiple of 4, so that its 16-byte
+// copies stay aligned at any size (the wrapper pads each row with zeros)
+constexpr int NFFT_LD = roundup(NFFT, 4);
 // The DFT's bins go in groups of GB, BPT a thread: a group walks the
 // table's tiles (its KC x GB part of them) with its sums in registers,
 // and holds its powers there until the last group is done.  Where GB
@@ -108,24 +153,25 @@ constexpr int BINS = NFFT / 32;            // DFT bins per lane (argmax)
 // last bin sum what the tile holds there and keep nothing.
 constexpr int BPT = NFFT < 512 ? 1 : 2;
 // Past 1024 bins the powers of the block's rows (128 KB at 4096 and 8
-// rows) would not fit the table tiles, nor the registers: each group
-// writes its powers to a region of their own (after the LS warps), and a
-// tile holds 2 rows of k, not 4.
-constexpr bool PW_SEPARATE = NFFT > 1024;
-constexpr int KC = PW_SEPARATE ? 2 : 4;    // table rows of k per tile
+// rows, 1 MB at 32768) would fit neither the table tiles nor the
+// registers.  There no power is stored: each thread keeps a running
+// first maximum (power, bin) per row and bin slot as each group's sums
+// end, the block reduces them per row, and the two neighbours of the
+// peak are summed again from the table (cfo_peak).
+constexpr bool PW_RUNNING = NFFT > 1024;
+constexpr int KC = 4;                      // table rows of k per tile
 constexpr bool LS_SMEM = L > 7;            // the LS solve in shared memory
 // The block's dynamic shared bytes at `rows` rows (warps): BlockSmem's
-// constants, packets, operand table and tiles, then the LS warps and the
-// separate powers (the layout below; static_assert'ed against it).
+// constants, packets, operand table and tiles, then the LS warps (the
+// layout below; static_assert'ed against it).
 constexpr unsigned dec_smem_at(int rows) {
   return 4u * (P + MSK_LEN + rows * 2 * PKT) + 8u * P * rows +
          16u * KC * rows * 32 * BPT +
-         (LS_SMEM ? rows * 4u * (2 * L * L + 2 * L) : 0u) +
-         (PW_SEPARATE ? rows * 4u * NFFT : 0u);
+         (LS_SMEM ? rows * 4u * (2 * L * L + 2 * L) : 0u);
 }
-// A block owns 8 rows, or 4 where 8 rows' packets, LS warps and
-// separate powers would pass the 227 KB a block may hold (long packets
-// past 1024 bins): each (row, bin) and each row's decode keeps its
+// A block owns 8 rows, or 4 where 8 rows' packets and LS warps would
+// pass the 227 KB a block may hold (the longest packets with the widest
+// equalizers): each (row, bin) and each row's decode keeps its
 // arithmetic, only the table is read once for 4 rows and not 8.
 constexpr int DEC_ROWS = dec_smem_at(8) <= 232448 ? 8 : 4;
 constexpr int DEC_THREADS = DEC_ROWS * 32;
@@ -143,7 +189,7 @@ constexpr int KNOB_DIRECT = 2;             // ls_gram "direct"
 constexpr int KNOB_BVMAT = 4;              // ls_bvec "matmul"
 constexpr int GRAM_N = L * (L + 1) / 2;    // lower-triangle Gram entries
 
-static_assert(NFFT % 32 == 0 && P % KC == 0, "DFT tiling");
+static_assert(P % KC == 0, "DFT tiling");
 static_assert(DEC_ROWS % 2 == 0, "operand table read two rows a load");
 static_assert(TILE_F % (4 * DEC_THREADS) == 0, "16-byte copies a thread");
 
@@ -484,10 +530,12 @@ struct BlockSmem {
   float2 ttab[P][DEC_ROWS];        // (chip k * pn[k]) of each row, (re, im)
   float tile[2][2][TILE_F];        // [buffer][dft_r | dft_i][KC][GB];
                                    // after the DFT: the power [row][NFFT]
-                                   // (up to 1024 bins, dft_powers)
+                                   // (up to 1024 bins, dft_powers), or
+                                   // past 1024 the warps' running maxima
+                                   // (PeakParts)
 };
 static_assert(sizeof(float) * (P + MSK_LEN) % 16 == 0, "pkt stays aligned");
-static_assert(PW_SEPARATE || 2 * 2 * TILE_F >= DEC_ROWS * NFFT,
+static_assert(PW_RUNNING || 2 * 2 * TILE_F >= DEC_ROWS * NFFT,
               "the power fits the tiles");
 static_assert(L <= 32, "solve_chol_smem gives lane i row i of the factor");
 
@@ -509,22 +557,41 @@ struct LsWarp {
 };
 
 // the block's dynamic shared memory: BlockSmem, then (LS_SMEM) a LsWarp
-// a warp, then (PW_SEPARATE) the DFT powers [DEC_ROWS][NFFT]
-constexpr unsigned PW_OFFSET =
-    sizeof(BlockSmem) + (LS_SMEM ? DEC_ROWS * sizeof(LsWarp) : 0);
+// a warp
 constexpr unsigned DEC_SMEM =
-    PW_OFFSET + (PW_SEPARATE ? DEC_ROWS * NFFT * sizeof(float) : 0);
+    sizeof(BlockSmem) + (LS_SMEM ? DEC_ROWS * sizeof(LsWarp) : 0);
 static_assert(DEC_SMEM == dec_smem_at(DEC_ROWS) && DEC_SMEM <= 232448,
               "a block's 227 KB of shared memory");
 
-// the DFT powers of the block's rows, [DEC_ROWS][NFFT]: in the table
-// tiles once they are done, or past 1024 bins in their own region
+// the DFT powers of the block's rows, [DEC_ROWS][NFFT], in the table
+// tiles once they are done (up to 1024 bins)
 __device__ __forceinline__ float* dft_powers(BlockSmem& sm) {
-  if constexpr (PW_SEPARATE) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    return reinterpret_cast<float*>(smem_raw + PW_OFFSET);
-  } else {
-    return &sm.tile[0][0][0];
+  return &sm.tile[0][0][0];
+}
+
+// Past 1024 bins: each warp's first maximum of each row over its threads'
+// bins, in the table tiles once they are done (warp, row).
+struct PeakParts {
+  float v[DEC_ROWS][DEC_ROWS];
+  int bin[DEC_ROWS][DEC_ROWS];
+};
+static_assert(sizeof(PeakParts) <= sizeof(float) * 2 * 2 * TILE_F,
+              "the running maxima fit the tiles");
+
+// The CFO peak of a row: its first maximum bin, the power there and at
+// the two bins either side (mod NFFT).
+struct CfoPeak {
+  int bi;
+  float p0, pm, pp;
+};
+
+// (v, i) takes (w, j) where w is larger, or equal at a lower bin: the
+// first maximum.  A NaN never wins, as under strict >.
+__device__ __forceinline__ void take_first_max(float& v, int& i, float w,
+                                               int j) {
+  if (w > v || (w == v && j < i)) {
+    v = w;
+    i = j;
   }
 }
 
@@ -725,7 +792,7 @@ __device__ __forceinline__ void load_tile(BlockSmem& sm, int buf, int group,
     const int k = i / GB, col = i - k * GB;
     if constexpr (GROUPS_RAGGED)
       if (group * GB + col >= NFFT) continue;    // past the last bin
-    const int src = (chunk * KC + k) * NFFT + group * GB + col;
+    const int src = (chunk * KC + k) * NFFT_LD + group * GB + col;
     __pipeline_memcpy_async(&sm.tile[buf][0][i], dft_r + src, 16);
     __pipeline_memcpy_async(&sm.tile[buf][1][i], dft_i + src, 16);
   }
@@ -754,10 +821,28 @@ __device__ __forceinline__ void cfo_dft_block(
     }
     sm.ttab[k][warp] = make_float2(tr, ti);
   }
-  // each group's powers (PW_SEPARATE: written as each group ends)
-  float pwk[PW_SEPARATE ? 1 : GROUPS][DEC_ROWS][BPT];
-  float* pw = dft_powers(sm);
+  // each group's powers (up to 1024 bins), or past 1024 the running first
+  // maximum (power, bin) of each row and bin slot over the groups so far
+  float pwk[PW_RUNNING ? 1 : GROUPS][DEC_ROWS][BPT];
+  float bv[PW_RUNNING ? DEC_ROWS : 1][BPT];
+  int bb[PW_RUNNING ? DEC_ROWS : 1][BPT];
+  if constexpr (PW_RUNNING) {
 #pragma unroll
+    for (int r = 0; r < DEC_ROWS; ++r)
+#pragma unroll
+      for (int b = 0; b < BPT; ++b) {
+        bv[r][b] = -1.f;
+        bb[r][b] = 0;
+      }
+  }
+  float* pw = dft_powers(sm);
+  // up to 1024 bins every group unrolls (at most 4); past it the groups
+  // (64 of 512 bins at 32768) loop
+#if SC_NFFT > 1024
+#pragma unroll 1
+#else
+#pragma unroll
+#endif
   for (int g = 0; g < GROUPS; ++g) {
     float s1[DEC_ROWS][BPT], s2[DEC_ROWS][BPT], s3[DEC_ROWS][BPT],
         s4[DEC_ROWS][BPT];
@@ -812,15 +897,39 @@ __device__ __forceinline__ void cfo_dft_block(
       for (int b = 0; b < BPT; ++b) {
         const float sr = s1[r][b] - s2[r][b], si = s3[r][b] + s4[r][b];
         const float p = sr * sr + si * si;
-        if constexpr (PW_SEPARATE) {
+        if constexpr (PW_RUNNING) {
+          // this slot's bins come in ascending order: strict > keeps
+          // the first maximum
           const int bin = g * GB + tid + DEC_THREADS * b;
-          if (!GROUPS_RAGGED || bin < NFFT) pw[r * NFFT + bin] = p;
+          if ((!GROUPS_RAGGED || bin < NFFT) && p > bv[r][b]) {
+            bv[r][b] = p;
+            bb[r][b] = bin;
+          }
         } else {
           pwk[g][r][b] = p;
         }
       }
   }
-  if constexpr (!PW_SEPARATE) {
+  if constexpr (PW_RUNNING) {
+    // each row's first maximum over the thread's slots, then the warp's
+    // lanes, into the warp's part
+    PeakParts& parts = *reinterpret_cast<PeakParts*>(pw);
+#pragma unroll
+    for (int r = 0; r < DEC_ROWS; ++r) {
+      float v = bv[r][0];
+      int i = bb[r][0];
+#pragma unroll
+      for (int b = 1; b < BPT; ++b) take_first_max(v, i, bv[r][b], bb[r][b]);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        take_first_max(v, i, __shfl_xor_sync(FULL, v, o),
+                       __shfl_xor_sync(FULL, i, o));
+      if (lane == 0) {
+        parts.v[warp][r] = v;
+        parts.bin[warp][r] = i;
+      }
+    }
+  } else {
 #pragma unroll
     for (int g = 0; g < GROUPS; ++g)
 #pragma unroll
@@ -834,12 +943,65 @@ __device__ __forceinline__ void cfo_dft_block(
   __syncthreads();
 }
 
+// Past 1024 bins, after cfo_dft_block: the CFO peak of the warp's row on
+// every lane.  The row's first maximum over the warps' parts, then the
+// powers at its two neighbours summed again, lane 4 m + s forming sum s
+// (s1..s4) of neighbour m from the table and the row's operands as the
+// block's DFT does (ascending k, mac<CFO16>): the powers that DFT gave
+// there, to the bit.  Up to 1024 bins: nothing (decode_packet reads the
+// stored powers).
+template <bool CFO16>
+__device__ __forceinline__ CfoPeak cfo_peak(
+    BlockSmem& sm, const float* __restrict__ dft_r,
+    const float* __restrict__ dft_i, int lane) {
+  CfoPeak pk{};
+  if constexpr (PW_RUNNING) {
+    const int warp = threadIdx.x >> 5;
+    const PeakParts& parts =
+        *reinterpret_cast<const PeakParts*>(dft_powers(sm));
+    float v = -1.f;
+    int i = 0;
+    if (lane < DEC_ROWS) {
+      v = parts.v[lane][warp];
+      i = parts.bin[lane][warp];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      take_first_max(v, i, __shfl_xor_sync(FULL, v, o),
+                     __shfl_xor_sync(FULL, i, o));
+    const int bin = (lane & 4) ? (i + 1) % NFFT : (i + NFFT - 1) % NFFT;
+    const int s = lane & 3;             // s1, s2, s3, s4
+    const float* w = (s == 0 || s == 3) ? dft_r : dft_i;
+    float acc = 0.f;
+    if (lane < 8) {
+#pragma unroll 8
+      for (int k = 0; k < P; ++k) {
+        const float2 t = sm.ttab[k][warp];
+        acc = mac<CFO16>(acc, (s & 1) ? t.y : t.x, w[k * NFFT_LD + bin]);
+      }
+    }
+    float pw[2];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const float s1 = __shfl_sync(FULL, acc, 4 * m),
+                  s2 = __shfl_sync(FULL, acc, 4 * m + 1),
+                  s3 = __shfl_sync(FULL, acc, 4 * m + 2),
+                  s4 = __shfl_sync(FULL, acc, 4 * m + 3);
+      const float sr = s1 - s2, si = s3 + s4;
+      pw[m] = sr * sr + si * si;
+    }
+    pk = CfoPeak{i, v, pw[0], pw[1]};
+  }
+  return pk;
+}
+
 // _decode_core on the warp's packet after the block's CFO DFT (pr, pi:
 // PKT f32 each in shared memory, first chip at OFF; pwf: the row's NFFT
-// DFT powers).  Writes slots 0..D+4 of the output row o.
+// DFT powers up to 1024 bins, or past 1024 run: its peak, cfo_peak).
+// Writes slots 0..D+4 of the output row o.
 template <int KNOBS>
 __device__ SC_DECODE_CALL void decode_packet(
-    float* pr, float* pi, const float* pwf, const float* pns,
+    float* pr, float* pi, const float* pwf, CfoPeak run, const float* pns,
     const float* msk, float peak, const Params& prm, int lane, float* o,
     StageClock& clk) {
   // ---- energy gate ----
@@ -853,28 +1015,38 @@ __device__ SC_DECODE_CALL void decode_packet(
   const bool gated = peak > energy * prm.peak_gate;
 
   // ---- CFO: first-max argmax of the DFT power, parabolic peak ----
-  float bv = -1.f;
-  int bi = 0;
+  int bi;
+  float p0, pm, pp;
+  if constexpr (PW_RUNNING) {
+    bi = run.bi;
+    p0 = run.p0;
+    pm = run.pm;
+    pp = run.pp;
+  } else {
+    float bv = -1.f;
+    bi = 0;
 #pragma unroll
-  for (int q = 0; q < BINS; ++q) {
-    const float p = pwf[lane + 32 * q];
-    if (p > bv) {
-      bv = p;
-      bi = lane + 32 * q;
+    for (int q = 0; q < BINS; ++q) {
+      if (BINS_RAGGED && lane + 32 * q >= NFFT) continue;   // no bin
+      const float p = pwf[lane + 32 * q];
+      if (p > bv) {
+        bv = p;
+        bi = lane + 32 * q;
+      }
     }
-  }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float v = __shfl_xor_sync(FULL, bv, o);
-    const int i = __shfl_xor_sync(FULL, bi, o);
-    if (v > bv || (v == bv && i < bi)) {
-      bv = v;
-      bi = i;
+    for (int o = 16; o > 0; o >>= 1) {
+      const float v = __shfl_xor_sync(FULL, bv, o);
+      const int i = __shfl_xor_sync(FULL, bi, o);
+      if (v > bv || (v == bv && i < bi)) {
+        bv = v;
+        bi = i;
+      }
     }
+    p0 = bv;
+    pm = pwf[(bi + NFFT - 1) % NFFT];
+    pp = pwf[(bi + 1) % NFFT];
   }
-  const float p0 = bv;
-  const float pm = pwf[(bi + NFFT - 1) % NFFT];
-  const float pp = pwf[(bi + 1) % NFFT];
   const float denom = (pm - 2.f * p0) + pp;
   const float delta = fabsf(denom) > 1e-20f ? (0.5f * (pm - pp)) / denom
                                             : 0.f;
@@ -1090,8 +1262,10 @@ __device__ SC_DECODE_CALL void decode_packet(
   clk.stamp(1);                                                           \
   if (!live) return;                                                      \
   float* o = out + n * N_OUT;                                             \
-  decode_packet<KNOBS>(pr, pi, dft_powers(sm) + warp * NFFT, sm.pns,     \
-                       sm.msk, peak, prm, lane, o, clk)
+  decode_packet<KNOBS>(                                                   \
+      pr, pi, dft_powers(sm) + warp * NFFT,                               \
+      cfo_peak<(KNOBS & KNOB_CFO16) != 0>(sm, dft_r, dft_i, lane), sm.pns, \
+      sm.msk, peak, prm, lane, o, clk)
 
 __device__ __forceinline__ void write_tail(float* o, int lane, float lag,
                                            float ph, float peak) {

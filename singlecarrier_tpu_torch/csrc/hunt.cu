@@ -75,6 +75,14 @@
 // row.
 #include "common.cuh"
 
+namespace sc {
+constexpr int NSEG = SC_NSEG;      // corr_segments
+constexpr int SEG = P / NSEG;
+constexpr int OFF = SC_L / 2;      // the window's left pad, eq_length // 2
+static_assert(NSEG == 1 || NSEG == 2 || NSEG == 4 || NSEG == 8 || NSEG == 16,
+              "corr_segments 1, 2, 4, 8, 16");
+}  // namespace sc
+
 using namespace sc;
 
 namespace {

@@ -351,12 +351,13 @@ def main(argv=None) -> int:
 
 
 def _prebuild(geometries: list, other) -> None:
-    """Build this tree's (and ``other``'s) library at every geometry at
-    once, a thread each (each build runs its three nvcc together)."""
+    """Build this tree's (and ``other``'s) library at every geometry,
+    eight at a time (each build runs its three nvcc together: more at once
+    only adds to the compilers' memory on the card's machine)."""
     jobs = [dict(defines=geo) for geo in geometries] + (
         [dict(csrc=other, defines=geo) for geo in geometries]
         if other else [])
-    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(min(len(jobs), 8)) as pool:
         for fut in [pool.submit(lambda kw: _build.build(**kw), kw)
                     for kw in jobs]:
             fut.result()

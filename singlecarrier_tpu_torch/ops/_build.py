@@ -1,16 +1,28 @@
 """Build and bind the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` (one ``nvcc`` per
-source, all started together, then one link) into one shared library
-with a plain C interface under ``build/torch_kernels/`` of the
-checkout, at first use, and loaded with ``ctypes``.  The kernels
-compile the modem's shapes in: :func:`kernel_geometry` gives a config's
-shapes as ``-D`` defines (none at the reference numerology, whose
-library is the default one), :func:`load` builds and keeps one library
-per geometry, and :func:`kernel_limits` states, in one place, the
-numerologies the kernels are written for.  Each C entry point
-launches on the stream it is given and returns ``cudaGetLastError()``;
-:func:`check` raises on anything but 0.
+The sources are compiled by ``nvcc`` for ``sm_90a`` into objects,
+linked into one shared library with a plain C interface under
+``build/torch_kernels/`` of the checkout, at first use, and loaded with
+``ctypes``.  The kernels compile the modem's shapes in:
+:func:`kernel_geometry` gives a config's shapes as ``-D`` defines (none
+at the reference numerology, whose library is the default one),
+:func:`load` builds and keeps one library per geometry, and
+:func:`kernel_limits` states, in one place, the numerologies the kernels
+are written for.  Each C entry point launches on the stream it is given
+and returns ``cudaGetLastError()``; :func:`check` raises on anything but
+0.
+
+The objects are shared across geometries.  Each source is compiled once
+per distinct preprocessed text (``nvcc -E`` under the geometry's
+defines), keyed by a hash of that text, :data:`NVCC_FLAGS` and the nvcc
+version, into ``build/torch_kernels/obj/`` with its ``ptxas -v`` log
+beside it (one ``nvcc`` per source, the three started together); a
+geometry's library is a link of its three objects.  A source reads only
+the shapes it compiles in (``csrc/common.cuh``), so a geometry that
+changes only the DFT's size reuses the reference's front-end and hunt
+objects, one that changes only the equalizer or the segments its
+front-end.  :data:`OBJECTS` counts the objects compiled and reused.
+``rm -rf build/torch_kernels`` clears every library and object.
 
 ``-fmad=false`` keeps nvcc from contracting ``a*b - c*d`` into fused
 multiply-adds: every product and sum is rounded where the plain PyTorch
@@ -26,15 +38,17 @@ it in the wrappers' hands for a ``with`` block.  ``kernel_ab.py`` uses
 them to hold two builds against each other on the card.
 
 Module state: the library handles (the reference geometry's, and the
-others' by their defines), a lock per library (threads that build or
-load one geometry at once wait for one build) and :data:`LAUNCHES`, the
-per-kernel launch counters (each wrapper adds one where it launches its
-kernel), and :data:`COMPILE_LISTENERS`, called with a line for each
-library built and each geometry's first load (``runtime.log_compiles``).
+others' by their defines), a lock per library and per object (threads
+that build or load one geometry at once wait for one build),
+:data:`LAUNCHES`, the per-kernel launch counters (each wrapper adds one
+where it launches its kernel), :data:`OBJECTS`, and
+:data:`COMPILE_LISTENERS`, called with a line for each library built and
+each geometry's first load (``runtime.log_compiles``).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import ctypes
 import functools
@@ -63,6 +77,7 @@ LAUNCHES = {"frontend_decim": 0, "frontend_rows": 0, "hunt": 0,
             "extract_gate": 0, "frontend_full": 0}
 
 COMPILE_LISTENERS = []   # callables taking one line per build or first load
+OBJECTS = {"compiled": 0, "reused": 0}   # the objects of the libraries built
 
 _lib = None          # the reference geometry's library
 _libs = {}           # every other geometry's, by its defines
@@ -149,55 +164,106 @@ def _digest(csrc: Path, flags) -> str:
 
 def build(verbose: bool = False, *, csrc: Path = CSRC,
           defines: tuple = ()) -> tuple[Path, str]:
-    """Compile the kernels if the library for these sources is missing.
+    """Link the kernels if the library for these sources is missing.
 
-    Returns ``(library path, compiler output)``; ``verbose`` adds
-    ``-Xptxas -v`` (registers, shared memory and spills per kernel).
-    ``csrc`` is the source tree (this package's by default), ``defines``
-    preprocessor names to set; each combination has its own library.
+    Returns ``(library path, compiler output)``; ``verbose`` returns the
+    ``-Xptxas -v`` lines (registers, shared memory and spills per kernel)
+    of its objects, kept beside the library, else "".  ``csrc`` is the
+    source tree (this package's by default), ``defines`` preprocessor
+    names to set; each combination has its own library.
     """
     flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     lib_path = BUILD_DIR / f"libsc_kernels_{_digest(Path(csrc), flags)}.so"
-    if lib_path.exists() and not verbose:
-        return lib_path, ""
+    kept = _kept(lib_path, verbose)
+    if kept is not None:
+        return lib_path, kept
     with _lock(lib_path):               # one build of a library at a time
-        if lib_path.exists() and not verbose:
-            return lib_path, ""
-        log = _compile(lib_path, csrc, flags, verbose)
+        kept = _kept(lib_path, verbose)
+        if kept is not None:
+            return lib_path, kept
+        log = _compile(lib_path, csrc, flags)
     _notify(f"built {lib_path.name} (defines {list(defines)})")
-    return lib_path, log
+    return lib_path, log if verbose else ""
 
 
-def _compile(lib_path: Path, csrc, flags, verbose: bool) -> str:
-    """Compile the sources into ``lib_path``; return the compiler output.
-    The temporary files are named by process and thread."""
+def _kept(lib_path: Path, verbose: bool):
+    """A built library's answer to :func:`build` ("", or its kept log where
+    ``verbose``), or None where it must be linked."""
+    log = lib_path.with_suffix(".log")
+    if lib_path.exists() and not verbose:
+        return ""
+    if lib_path.exists() and log.exists():
+        return log.read_text()
+    return None
+
+
+@functools.lru_cache(maxsize=4)
+def _nvcc_version(nvcc: str) -> str:
+    return subprocess.run([nvcc, "--version"], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def _object(nvcc: str, src: Path, flags) -> tuple[Path, str]:
+    """The object of ``src`` under ``flags``, compiled unless one of the
+    same preprocessed text is kept; returns (its path, its compiler
+    output, the ``ptxas -v`` lines included)."""
+    pre = subprocess.run([nvcc, *flags, "-E", str(src)],
+                         capture_output=True, text=True)
+    if pre.returncode != 0:
+        raise RuntimeError(f"nvcc -E failed on {src.name} "
+                           f"({pre.returncode}):\n{pre.stderr}")
+    key = hashlib.sha256("\0".join(
+        [" ".join(NVCC_FLAGS), _nvcc_version(nvcc), src.name, pre.stdout])
+        .encode()).hexdigest()[:16]
+    obj = BUILD_DIR / "obj" / f"{src.stem}_{key}.o"
+    log = obj.with_suffix(".log")
+    with _lock(obj):                    # one build of an object at a time
+        reused = obj.exists() and log.exists()
+        if not reused:
+            obj.parent.mkdir(parents=True, exist_ok=True)
+            tag = f"{os.getpid()}.{threading.get_ident()}"
+            tmp = obj.with_name(f"{obj.stem}.{tag}.o")
+            res = subprocess.run(
+                [nvcc, *flags, "-Xptxas", "-v", "-c", "-o", str(tmp),
+                 str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)
+            if res.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"nvcc failed on {src.name} "
+                                   f"({res.returncode}):\n{res.stdout}")
+            tmp_log = log.with_name(f"{log.stem}.{tag}.log")
+            tmp_log.write_text(res.stdout)
+            os.replace(tmp_log, log)    # the log first: a kept object has one
+            os.replace(tmp, obj)
+    with _locks_guard:
+        OBJECTS["reused" if reused else "compiled"] += 1
+    return obj, log.read_text()
+
+
+def _compile(lib_path: Path, csrc, flags) -> str:
+    """Link ``lib_path`` from the sources' objects (each compiled unless
+    kept); keep their logs beside it and return them.  The temporary files
+    are named by process and thread."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = list(pool.map(
+            lambda src: _object(nvcc, Path(csrc) / src, flags), SOURCES))
     tag = f"{lib_path.stem}.{os.getpid()}.{threading.get_ident()}"
-    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
-    procs = [subprocess.Popen(
-        [nvcc, *flags, *(["-Xptxas", "-v"] if verbose else []), "-c",
-         "-o", str(obj), str(Path(csrc) / src)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for src, obj in zip(SOURCES, objs)]
-    logs = [proc.communicate()[0] for proc in procs]
     tmp = BUILD_DIR / f"{tag}.tmp"
-    try:
-        for src, proc, log in zip(SOURCES, procs, logs):
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src} "
-                                   f"({proc.returncode}):\n{log}")
-        res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
-                              *map(str, objs)],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-    finally:
-        for obj in objs:
-            obj.unlink(missing_ok=True)
+    res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                          *(str(obj) for obj, _ in built)],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stdout}\n{res.stderr}")
+    log = "".join(text for _, text in built) + res.stdout + res.stderr
+    tmp_log = BUILD_DIR / f"{tag}.log"
+    tmp_log.write_text(log)
+    os.replace(tmp_log, lib_path.with_suffix(".log"))
     os.replace(tmp, lib_path)
-    return "".join(logs) + res.stdout + res.stderr
+    return log
 
 
 # the entry functions of the ten kernels (the hunt in two bodies), as
@@ -345,6 +411,13 @@ NUMEROLOGIES = {
     "seg2": {"corr_segments": 2},
     "nfft128": {"cfo_nfft": 128},
     "nfft4096": {"cfo_nfft": 4096},
+    # the CFO DFT's sizes past a warp's lanes and a 1024-bin block: fewer
+    # bins than lanes, a size no multiple of 4, and past 1024 bins, where
+    # the DFT keeps a running first maximum, up to the limit
+    "nfft16": {"cfo_nfft": 16},
+    "nfft1001": {"cfo_nfft": 1001},
+    "nfft8192": {"cfo_nfft": 8192},
+    "nfft32768": {"cfo_nfft": 32768},
     "taps25": {"ntaps": 25},
     "taps45": {"ntaps": 45},
     # the longest equalizers and packets the JAX CLI decodes (--eq-length,
@@ -448,13 +521,19 @@ def kernel_limits(cfg) -> None:
         warp's 32 lanes, and its matmul b-vector takes a lane one of the
         2 * eq_length sums, two past 16 taps; above 7 taps each warp's
         Gram and factor sit in shared memory (8.4 KB a warp at 32);
-      * cfo_nfft a multiple of 32 from 64 to 4096: the DFT's argmax takes
-        NFFT / 32 bins a lane; its bin groups may be ragged; past 1024
-        bins the powers of the block's rows (16 KB a row at 4096) leave
-        the table tiles for a region of their own.  Where a block of 8
-        rows would then pass 227 KB (a long packet past 1024 bins) it
-        takes 4.  So every combination inside these limits fits; none
-        is refused for shared memory.
+      * cfo_nfft any integer from 2 to 32768: the table's rows are
+        uploaded padded to a multiple of 4 floats, the DFT's bin groups
+        and the argmax's lanes may be ragged (lanes past the last bin, at
+        fewer than 32, hold none); up to 1024 bins the powers of the
+        block's rows sit in the table tiles, past 1024 none is stored:
+        each thread keeps a running first maximum, the block reduces it
+        per row and the peak's two neighbours are summed again, so no
+        region grows with the size (its groups loop, 64 of 512 bins at
+        32768).  Past 32768 bins the JAX package's own decode was not
+        tried.  A block takes 8 rows, or 4 where 8 would pass 227 KB (the
+        longest packets with the widest equalizers).  So every
+        combination inside these limits fits; none is refused for shared
+        memory.
     """
     limits = (
         ("preamble_length == 128", cfg.preamble_length == 128),
@@ -464,8 +543,7 @@ def kernel_limits(cfg) -> None:
         ("2 <= cycles <= 10", 2 <= cfg.cycles <= 10),
         ("symbols_per_block <= 1616", cfg.symbols_per_block <= 1616),
         ("1 <= eq_length <= 32", 1 <= cfg.eq_length <= 32),
-        ("cfo_nfft a multiple of 32 from 64 to 4096",
-         64 <= cfg.cfo_nfft <= 4096 and cfg.cfo_nfft % 32 == 0),
+        ("2 <= cfo_nfft <= 32768", 2 <= cfg.cfo_nfft <= 32768),
     )
     for name, ok in limits:
         if not ok:

@@ -432,6 +432,41 @@ def _dft_ascending(tr, ti, wr, wi):
     return s1 - s2, s3 + s4
 
 
+# (row, bin) elements of one chunk of rows of the plain DFT on the card:
+# its sums and temporaries stay a few GiB at 32768 bins
+_DFT_CHUNK = 1 << 26
+
+
+def _peak_of(pw):
+    """(first maximum's bin [N, 1], the power there, and at the bins
+    either side mod nfft) of the powers ``pw`` [N, nfft]."""
+    nfft = pw.shape[1]
+    kbin_i = torch.argmax(pw, dim=-1, keepdim=True)
+    return (kbin_i, torch.gather(pw, 1, kbin_i),
+            torch.gather(pw, 1, (kbin_i - 1) % nfft),
+            torch.gather(pw, 1, (kbin_i + 1) % nfft))
+
+
+def _peak_ascending(tr, ti, wr, wi, keep):
+    """:func:`_peak_of` the powers of :func:`_dft_ascending` on the rows
+    ``keep`` [N, 1] selects, zeros on the others (the decode's CFO is 0 on
+    a row the energy gate does not pass, whatever its peak: on noise
+    that is nearly every row), over the rows in chunks of at most
+    ``_DFT_CHUNK`` (row, bin) elements: each row's sums keep their
+    order."""
+    idx = torch.nonzero(keep[:, 0]).squeeze(1)
+    out = (torch.zeros((tr.shape[0], 1), dtype=torch.int64, device=tr.device),
+           *(torch.zeros((tr.shape[0], 1), dtype=_F32, device=tr.device)
+             for _ in range(3)))
+    rows = max(1, _DFT_CHUNK // wr.shape[1])
+    for i in range(0, idx.shape[0], rows):
+        at = idx[i:i + rows]
+        sr, si = _dft_ascending(tr[at], ti[at], wr, wi)
+        for o, part in zip(out, _peak_of(sr * sr + si * si)):
+            o[at] = part
+    return out
+
+
 def _decode_core(cfg: ModemConfig, pr0, pi0, peak, mask, *,
                  soft: bool = False):
     """``decode_pallas._decode_core`` on aligned packet planes.
@@ -464,15 +499,11 @@ def _decode_core(cfg: ModemConfig, pr0, pi0, peak, mask, *,
         tr = tr.to(torch.bfloat16).float()
         ti = ti.to(torch.bfloat16).float()
     if tr.is_cuda:           # the kernel's reference: its sum order
-        sr, si = _dft_ascending(tr, ti, wr, wi)
+        kbin_i, p0, pm, pp = _peak_ascending(tr, ti, wr, wi, gated)
     else:                    # held to JAX by decisions: a matmul
         sr = tr @ wr - ti @ wi
         si = tr @ wi + ti @ wr
-    pw = sr * sr + si * si                                  # [N, nfft]
-    kbin_i = torch.argmax(pw, dim=-1, keepdim=True)
-    p0 = torch.gather(pw, 1, kbin_i)
-    pm = torch.gather(pw, 1, (kbin_i - 1) % nfft)
-    pp = torch.gather(pw, 1, (kbin_i + 1) % nfft)
+        kbin_i, p0, pm, pp = _peak_of(sr * sr + si * si)
     denom = pm - 2.0 * p0 + pp
     delta = torch.where(torch.abs(denom) > 1e-20,
                         0.5 * (pm - pp) / denom, 0.0)
@@ -706,8 +737,12 @@ def _dft_table(cfg: ModemConfig):
 @functools.lru_cache(maxsize=8)
 def _decode_tables(cfg: ModemConfig, descramble: bool, dev):
     """(dft_r, dft_i, pn, mask) operands of the decode kernels, uploaded
-    once per (config, device)."""
-    return (*(t.to(dev) for t in _dft_table(cfg)), _pn(dev),
+    once per (config, device); the table's rows padded with zeros to a
+    multiple of 4 floats (``csrc/decode.cu`` ``NFFT_LD``: its 16-byte
+    copies stay aligned at any size)."""
+    pad = -cfg.cfo_nfft % 4
+    return (*(torch.nn.functional.pad(t, (0, pad)).to(dev)
+              for t in _dft_table(cfg)), _pn(dev),
             torch.from_numpy(_mask_np(cfg.frame_symbols, descramble)).to(dev))
 
 

@@ -64,7 +64,13 @@ PARITY_SNR_DB, PARITY_CFO_HZ = 12.0, 15.0
 # zero padding, so off a bin the parabolic step misses by Hertz (nfft128
 # decodes two thirds of the bits wrong at 15 Hz, some at 1 Hz).  4 Hz
 # turns a 128-chip segment a third of the way round; 12.5 Hz is a bin.
-NUMEROLOGY_CFO_HZ = {"seg1": 4.0, "seg2": 4.0, "nfft128": 12.5}
+# A 16-bin DFT's bins are 100 Hz apart, so its parabola cannot place a
+# CFO between them (the XLA path decodes 0.4% of the bits wrong at 1 Hz
+# on a CPU draw, half at 2 Hz), and at 100 Hz, a bin, a 16-chip
+# correlator segment turns once round and no packet is found: its stream
+# has no CFO.
+NUMEROLOGY_CFO_HZ = {"seg1": 4.0, "seg2": 4.0, "nfft128": 12.5,
+                     "nfft16": 0.0}
 # The stream's SNR at the numerologies that cannot take 12 dB.  The
 # preamble's 128 chips estimate the CFO to about 0.1 Hz at 12 dB, which
 # turns the last symbol of an 872- to 1616-symbol packet (0.5 to 1 s) by
@@ -100,7 +106,10 @@ class Parts(NamedTuple):
 # noise block 9 of channel 70 crosses the gate in the kernel paths only
 # (peak / energy 7.0014 against 6.8544); at ns16, nfft4096 and ns48 a
 # packet's eq_error differs by up to 2.5e-3, 3.0e-3 and 3.2e-3, as JAX's
-# does (at ns48 a 0.004 Hz CFO gap turns 1488 symbols apart).  At taps25
+# does (at ns48 a 0.004 Hz CFO gap turns 1488 symbols apart), at
+# nfft8192 and nfft32768 by up to 6.6e-3 and 1.0e-2 on a CPU draw (a CFO
+# gap of up to 0.1 Hz: bf16 and f32 planes peak apart on bins 0.2 and
+# 0.05 Hz wide).  At taps25
 # the short filter leaves two neighbouring sample timings (phases, or
 # phase cycles - 1 and phase 0 of the next lag) all but tied, and the
 # paths may pick either.  At eq24 and eq32 the fit's 24 or 32 taps match
@@ -113,6 +122,8 @@ class Parts(NamedTuple):
 JAX_PARTS = {"eq16": Parts(noise=frozenset({(70, 9)})),
              "ns16": Parts(eq_held=False),
              "nfft4096": Parts(eq_held=False),
+             "nfft8192": Parts(eq_held=False),
+             "nfft32768": Parts(eq_held=False),
              "ns48": Parts(eq_held=False),
              "taps25": Parts(phase_ties=True),
              "eq24": Parts(noise_detects=2),

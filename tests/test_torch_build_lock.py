@@ -5,10 +5,12 @@ A stand-in ``nvcc`` (a script first on ``PATH``) writes its ``-o``
 target after a short sleep, logs each call, and fails a link whose
 object files are missing: so two builds that share temporary files, or
 two builds of one library where one should wait for the other, show.
-Numpy and torch only; no card, no compiler.
+Its ``-E`` prints its arguments (the object's key) and ``--version`` a
+line.  Numpy and torch only; no card, no compiler.
 """
 
 import os
+import re
 import sys
 import threading
 
@@ -20,8 +22,12 @@ from singlecarrier_tpu_torch.ops import _build
 FAKE_NVCC = """#!{python}
 import pathlib, sys, time
 args = sys.argv[1:]
+if args == ["--version"]:
+    sys.exit(print("stand-in nvcc"))
 with open({log!r}, "a") as f:
     f.write(" ".join(args) + "\\n")
+if "-E" in args:
+    sys.exit(print(" ".join(args)))
 out = pathlib.Path(args[args.index("-o") + 1])
 if "-shared" in args:
     missing = [a for a in args if a.endswith(".o")
@@ -51,6 +57,11 @@ def fake_nvcc(tmp_path, monkeypatch):
 
 def _calls(log):
     return log.read_text().splitlines() if log.exists() else []
+
+
+def _compiles(log):
+    """The compile and link calls of the log (not the preprocessing)."""
+    return [c for c in _calls(log) if "-E" not in c.split()]
 
 
 def _in_threads(fn, n=2):
@@ -83,11 +94,16 @@ def test_two_threads_build_one_geometry_once(fake_nvcc):
     paths = [p for p, _ in _in_threads(
         lambda: _build.build(defines=defines))]
     assert paths[0] == paths[1] and paths[0].exists()
-    calls = _calls(fake_nvcc)
+    calls = _compiles(fake_nvcc)
     assert len(calls) == len(_build.SOURCES) + 1
     assert sum("-shared" in c for c in calls) == 1
+    # no temporary file left: the library, its log and the objects
     assert sorted(p.name for p in paths[0].parent.iterdir()) \
-        == [paths[0].name]                  # no temporary file left
+        == sorted([paths[0].name, paths[0].with_suffix(".log").name, "obj"])
+    objs = sorted(p.name for p in (paths[0].parent / "obj").iterdir())
+    assert len(objs) == 2 * len(_build.SOURCES)
+    assert all(re.fullmatch(r"(frontend|hunt|decode)_[0-9a-f]{16}\.(o|log)",
+                            name) for name in objs), objs
 
 
 def test_two_threads_load_one_geometry_once(fake_nvcc, monkeypatch):
@@ -103,6 +119,6 @@ def test_two_threads_load_one_geometry_once(fake_nvcc, monkeypatch):
     cfg = DEFAULT_CONFIG.replace(**_build.NUMEROLOGIES["eq7"])
     libs = _in_threads(lambda: _build.load(cfg), n=4)
     assert all(lib == libs[0] for lib in libs) and len(bound) == 1
-    assert len(_calls(fake_nvcc)) == len(_build.SOURCES) + 1
+    assert len(_compiles(fake_nvcc)) == len(_build.SOURCES) + 1
     assert _build.load(cfg) is libs[0]      # cached, no new build
-    assert len(_calls(fake_nvcc)) == len(_build.SOURCES) + 1
+    assert len(_compiles(fake_nvcc)) == len(_build.SOURCES) + 1

@@ -565,7 +565,9 @@ def test_only_the_premix_tap_loop_fuses():
     branch, each product and sum rounded on its own by ``__fmul_rn`` and
     ``__fadd_rn``, and its code names no fma.  Of the other sources only
     the decode's CFO DFT fuses, in ``mac<EXACT>``, which only its bf16
-    instantiation takes (bf16 operands: exact products)."""
+    instantiation takes (bf16 operands: exact products): its eight sums
+    in ``cfo_dft_block`` and, past 1024 bins, the peak's neighbours summed
+    again in ``cfo_peak``."""
     assert "-fmad=false" in _build.NVCC_FLAGS
     code = _code(SRC)
     assert code.count("__fmaf_rn(") == 1 and code.count("fma") == 1
@@ -621,9 +623,10 @@ def test_only_the_premix_tap_loop_fuses():
     assert re.search(r"float mac\(float s, float a, float b\) \{\s*"
                      r"if constexpr \(EXACT\) return __fmaf_rn\(a, b, s\);"
                      r"\s*return s \+ a \* b;", dec)
-    assert len(re.findall(r"\bmac<", dec)) == 8
-    assert len(re.findall(r"\bmac<CFO16>\(", dec)) == 8
+    assert len(re.findall(r"\bmac<", dec)) == 9
+    assert len(re.findall(r"\bmac<CFO16>\(", dec)) == 9
     assert "cfo_dft_block<(KNOBS & KNOB_CFO16) != 0>" in dec
+    assert "cfo_peak<(KNOBS & KNOB_CFO16) != 0>" in dec
     assert re.search(r"if constexpr \(CFO16\) \{\s*tr = bf16_round\(tr\);"
                      r"\s*ti = bf16_round\(ti\);", dec)
 

@@ -17,7 +17,7 @@ exact), ``fused_hunt_decode_decim``, ``fused_decode_extract`` and
 phase; |dcfo| < 0.5 Hz, |deq_error| < 2e-3).
 
 The limits (``ops/_build.kernel_limits``, ``kernel_geometry``): no define
-at the reference numerology, all nine at each named one (the twenty-six
+at the reference numerology, all nine at each named one (the thirty
 of ``NUMEROLOGIES``), and a config just outside each limit refused with
 the limit's name.
 """
@@ -260,6 +260,10 @@ GEOMETRY = {
     "seg2": (1880, 5, 49, 248, 384, 5, 2, 512),
     "nfft128": (1880, 5, 49, 248, 384, 5, 8, 128),
     "nfft4096": (1880, 5, 49, 248, 384, 5, 8, 4096),
+    "nfft16": (1880, 5, 49, 248, 384, 5, 8, 16),
+    "nfft1001": (1880, 5, 49, 248, 384, 5, 8, 1001),
+    "nfft8192": (1880, 5, 49, 248, 384, 5, 8, 8192),
+    "nfft32768": (1880, 5, 49, 248, 384, 5, 8, 32768),
     "taps25": (1880, 5, 25, 248, 384, 5, 8, 512),
     "taps45": (1880, 5, 45, 248, 384, 5, 8, 512),
     "eq24": (1880, 5, 49, 248, 400, 24, 8, 512),
@@ -287,7 +291,7 @@ def test_each_numerology_has_its_defines(name):
     _build.kernel_limits(cfg)
 
 
-NFFT_LIMIT = "cfo_nfft a multiple of 32 from 64 to 4096"
+NFFT_LIMIT = "2 <= cfo_nfft <= 32768"
 
 
 @pytest.mark.parametrize("kw,limit", [
@@ -298,13 +302,23 @@ NFFT_LIMIT = "cfo_nfft a multiple of 32 from 64 to 4096"
     ({"fs": 17600.0, "fine_timing_offset": 3}, "2 <= cycles <= 10"),
     ({"ns": 49}, "symbols_per_block <= 1616"),
     ({"eq_length": 33}, "1 <= eq_length <= 32"),
-    ({"cfo_nfft": 8192}, NFFT_LIMIT),
-    ({"cfo_nfft": 32}, NFFT_LIMIT),
-    ({"cfo_nfft": 1000}, NFFT_LIMIT),
+    ({"cfo_nfft": 65536}, NFFT_LIMIT),
+    ({"cfo_nfft": 1}, NFFT_LIMIT),
 ], ids=["preamble", "segments", "ntaps", "ntaps_short", "cycles", "symbols",
-        "eq_length", "nfft", "nfft_short", "nfft_ragged"])
+        "eq_length", "nfft", "nfft_short"])
 def test_a_config_outside_the_limits_is_refused_by_name(kw, limit):
     cfg = TCFG.replace(**kw)
     for fn in (_build.kernel_limits, _build.kernel_geometry):
         with pytest.raises(NotImplementedError, match=re.escape(limit)):
             fn(cfg)
+
+
+@pytest.mark.parametrize("nfft", [2, 3, 16, 31, 33, 1001, 1025, 4097,
+                                  32767, 32768])
+def test_every_cfo_nfft_from_2_to_32768_is_accepted(nfft):
+    """Any integer size: fewer bins than a warp's lanes, sizes no multiple
+    of 4 or 32, either side of the 1024 bins past which the DFT keeps a
+    running first maximum, and the limit."""
+    cfg = TCFG.replace(cfo_nfft=nfft)
+    _build.kernel_limits(cfg)
+    assert f"SC_NFFT={nfft}" in _build.kernel_geometry(cfg)

@@ -1,7 +1,8 @@
-"""PyTorch port at the six retuned numerologies the JAX package's Pallas
+"""PyTorch port at the ten retuned numerologies the JAX package's Pallas
 paths run (``ops/_build.RETUNED_NUMEROLOGIES``): one and two correlation
 segments (``corr_segments=1`` is the reference's coherent correlator),
-a 128- and a 4096-bin CFO search, and 25- and 45-tap RRC filters.
+a 16-, 128-, 1001-, 4096-, 8192- and 32768-bin CFO search, and 25- and
+45-tap RRC filters.
 
 For each, ``tests/test_torch_numerology.py``'s cases: its seeded TX stream
 (two packets) on C = 2 channels, the second delayed by a third of a
@@ -24,9 +25,12 @@ And one case per launcher that each limit reaches, as in
 tolerances: at ``seg1`` the hunt with the extraction and decode (the int8
 peak of 128-chip segments); at ``nfft4096`` the two decode launchers on
 the padded windows and on the packets; at ``taps45`` (a 44-sample halo)
-the per-row front-end in both layouts and the full-rate front-end.
-``seg1`` and ``nfft4096`` share the reference's front-end, so one JAX run
-of it serves both.
+the per-row front-end in both layouts and the full-rate front-end; at
+``nfft1001`` (rows of the DFT table no multiple of 4 floats, ragged bin
+groups and lanes) and ``nfft32768`` (the limit, past 1024 bins the
+running first maximum) the two decode launchers again.  ``seg1`` and the
+DFT sizes share the reference's front-end, so one JAX run of it serves
+them all.
 """
 
 import pytest
@@ -55,6 +59,11 @@ def test_hunt_and_extract_decode_match_jax_at_one_segment():
 
 def test_decode_launchers_match_jax_at_4096_bins():
     launchers.test_decode_launchers_match_jax("nfft4096")
+
+
+@pytest.mark.parametrize("name", ["nfft1001", "nfft32768"])
+def test_decode_launchers_match_jax_at_other_dft_sizes(name):
+    launchers.test_decode_launchers_match_jax(name)
 
 
 def test_frontend_rows_match_jax_at_45_taps():

@@ -251,7 +251,7 @@ def test_log_compiles_logs_builds_not_cached_calls(tmp_path, monkeypatch,
     once the library exists, and a CPU step, log nothing."""
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
 
-    def fake_compile(lib_path, csrc, flags, verbose):
+    def fake_compile(lib_path, csrc, flags):
         lib_path.write_bytes(b"fake library")
         return ""
 
